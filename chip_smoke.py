@@ -1,0 +1,416 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
+
+  python3 chip_smoke.py
+
+Phases; each raises (exit code 1) on failure, nothing is caught:
+
+1. print the card (nvidia-smi name, power limit); build the CUDA kernels
+   from ``src/repro_torch/kernels/csrc`` with nvcc and print the seconds;
+2. hold each kernel against its plain PyTorch version on the card at the
+   serving path's shapes, in fp32 (atol = rtol = 2e-5) and bf16 (3e-2),
+   and time kernel, plain version and the one PyTorch library call that
+   computes the same function, beside the card's bound;
+3. full-width glm4_9b cut to 2 layers, same weights on the card
+   (kernels) and on the CPU (plain versions): a 128-token prefill and 8
+   greedy decode steps must give logits within 1e-3 of max |logit| and
+   the same tokens;
+4. serve full glm4_9b (40 layers, fp32, random weights from a seed) with
+   the continuous-batching engine: 4 slots, cache 1024, 8 requests of 32
+   new tokens; every request must finish and every kernel must have run,
+   with the launch counts the model's structure implies; the same
+   requests are served three times, each on a fresh engine, so the
+   decode-step time is read over repeats; then 16 decode ticks of a full
+   pool on the host clock and 8 more under torch.profiler say how busy
+   the card is and which kernels take its time.
+
+Then a ``{"kernels": [...]}`` line and, last, the device line.  Exits
+nonzero without a CUDA device or without the repository around it.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of one call, by CUDA events around ``iters`` calls.
+
+    A sleep kernel first holds the stream while the host queues every
+    call, so the events time the card's work back to back and not the
+    host's launch rate (which ``host_ms`` gives).
+    """
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)          # ~50 ms at the H100's clock
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def host_ms(fn, iters: int = 20) -> float:
+    """Mean wall time of one call issued back to back, synchronised."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def bound(nbytes: float, flops: float, dtype) -> tuple:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def compare(name, got, want, dtype) -> float:
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    ok = torch.allclose(got.float(), want.float(), atol=TOL[dtype],
+                        rtol=TOL[dtype])
+    check(ok, f"{name}: kernel disagrees with its plain version, max abs "
+              f"err {err} at tolerance {TOL[dtype]}")
+    return err
+
+
+def phase_kernels(gen):
+    """Phase 2: every kernel against its plain version, timed."""
+    from repro_torch.kernels import ops, ref
+
+    def rnd(*shape, dtype):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).replace("torch.", "")
+        # flash attention: prefill of one prompt, glm4_9b heads; 9, 67 and
+        # 110 are served prompt lengths, causal in a ragged 64-row tile
+        for s in (9, 64, 67, 110, 512):
+            b, h, hkv, d = 1, 32, 2, 128
+            q = rnd(b, s, h, d, dtype=dtype)
+            k, v = rnd(b, s, hkv, d, dtype=dtype), rnd(b, s, hkv, d,
+                                                      dtype=dtype)
+            qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), \
+                v.transpose(1, 2)
+            kern = lambda: ops.flash_attention(q, k, v, causal=True)
+            plain = lambda: ref.attention_ref(qt, kt, vt, causal=True)
+            lib = lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)
+            err = compare(f"flash_attention S={s} {tag}", kern(),
+                          plain().transpose(1, 2), dtype)
+            pairs = b * h * s * (s + 1) // 2
+            nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+            rows[("flash_attention", tag, s)] = dict(
+                err=err, ms=cuda_ms(kern), host_ms=host_ms(kern),
+                plain_ms=cuda_ms(plain), library_ms=cuda_ms(lib),
+                bound=bound(nbytes, 4 * d * pairs, dtype))
+        # flash decode: 4 slots of a 1024-row cache, ragged fill
+        b, h, hkv, t, d = 4, 32, 2, 1024, 128
+        q = rnd(b, 1, h, d, dtype=dtype)
+        k, v = rnd(b, t, hkv, d, dtype=dtype), rnd(b, t, hkv, d, dtype=dtype)
+        kv_len = torch.tensor([1024, 700, 129, 1], dtype=torch.int32,
+                              device="cuda")
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        mask = (torch.arange(t, device="cuda")[None, :]
+                < kv_len[:, None])[:, None, None, :]
+        kern = lambda: ops.flash_decode(q, k, v, kv_len)
+        plain = lambda: ref.decode_ref(q[:, 0], kt, vt, kv_len)
+        lib = lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)
+        err = compare(f"flash_decode {tag}", kern()[:, 0], plain(), dtype)
+        n_kv = int(kv_len.sum())
+        nbytes = (2 * q.numel() + 2 * hkv * d * n_kv) * q.element_size() \
+            + 4 * b
+        rows[("flash_decode", tag, t)] = dict(
+            err=err, ms=cuda_ms(kern), host_ms=host_ms(kern),
+            plain_ms=cuda_ms(plain), library_ms=cuda_ms(lib),
+            bound=bound(nbytes, 4 * d * h * n_kv, dtype))
+        # RMSNorm: the decode step's 4 rows and a 512-token prefill
+        for n in (4, 512):
+            dm = 4096
+            x, s_ = rnd(n, dm, dtype=dtype), rnd(dm, dtype=torch.float32)
+            kern = lambda: ops.fused_rmsnorm(x, s_, eps=1e-5)
+            plain = lambda: ref.rmsnorm_ref(x, s_, 1e-5)
+            lib = lambda: F.rms_norm(x, (dm,), s_.to(dtype), eps=1e-5)
+            err = compare(f"rmsnorm N={n} {tag}", kern(), plain(), dtype)
+            nbytes = 2 * x.numel() * x.element_size() + 4 * dm
+            rows[("rmsnorm", tag, n)] = dict(
+                err=err, ms=cuda_ms(kern), host_ms=host_ms(kern),
+                plain_ms=cuda_ms(plain), library_ms=cuda_ms(lib),
+                bound=bound(nbytes, 4 * n * dm, dtype))
+    for (name, tag, size), r in rows.items():
+        print(f"  {name:16s} {tag:9s} size {size:5d}  max_abs_err "
+              f"{r['err']:.3e}  kernel {r['ms']:.4f} ms (host-issued "
+              f"{r['host_ms']:.4f} ms)  plain "
+              f"{r['plain_ms']:.4f} ms  library {r['library_ms']:.4f} ms  "
+              f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")
+    return rows
+
+
+def run_greedy(cfg, params, prompt, cache_len, steps):
+    from repro_torch.models import transformer as tf
+    dev = params["embed"]["embedding"].device
+    tokens = torch.as_tensor(prompt[None, :], dtype=torch.long, device=dev)
+    logits, cache = tf.lm_prefill(cfg, params, tokens, cache_len)
+    out_logits, out_tokens = [logits.cpu()], []
+    kv_len = torch.tensor([prompt.shape[0]], dtype=torch.int32, device=dev)
+    for _ in range(steps):
+        tok = logits.argmax(dim=-1, keepdim=True)
+        out_tokens.append(int(tok))
+        logits, cache = tf.lm_decode(cfg, params, tok, cache, kv_len)
+        kv_len += 1
+        out_logits.append(logits.cpu())
+    return out_logits, out_tokens
+
+
+def phase_two_layers(seed):
+    """Phase 3: full-width glm4_9b at 2 layers, card against CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.models.common import init_params
+    cfg = get_config("glm4_9b").replace(n_layers=2, dtype="float32",
+                                        attn_impl="kernel")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    p_gpu = init_params(api.param_spec(cfg), gen, "cuda")
+
+    def to_cpu(t):
+        return t.cpu() if isinstance(t, torch.Tensor) else \
+            {k: to_cpu(v) for k, v in t.items()}
+    p_cpu = to_cpu(p_gpu)
+    prompt = np.random.default_rng(seed).integers(0, cfg.vocab, 128)
+    t0 = time.perf_counter()
+    gl, gt = run_greedy(cfg, p_gpu, prompt, 256, 8)
+    t1 = time.perf_counter()
+    cl, ct = run_greedy(cfg, p_cpu, prompt, 256, 8)
+    t2 = time.perf_counter()
+    worst = 0.0
+    for i, (g, c) in enumerate(zip(gl, cl)):
+        check(bool(torch.isfinite(g).all()), f"step {i}: non-finite logits")
+        rel = ((g - c).abs().max() / c.abs().max()).item()
+        worst = max(worst, rel)
+        check(rel <= 1e-3, f"step {i}: card logits off the CPU's by {rel} of "
+                           f"max |logit|")
+    check(gt == ct, f"greedy tokens differ: card {gt} cpu {ct}")
+    print(f"  2-layer full-width glm4_9b: prefill 128 + 8 decode steps, "
+          f"worst |card - cpu| / max|logit| = {worst:.3e}, tokens equal "
+          f"({gt}); card {t1 - t0:.2f} s, cpu {t2 - t1:.2f} s")
+    del p_gpu, p_cpu
+    torch.cuda.empty_cache()
+
+
+def serve_once(cfg, params, prompts, new_tokens):
+    """Drive the engine over ``prompts`` from launch counts of 0; check
+    that every request finished and every kernel ran as often as the
+    model's structure implies."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import Request, ServeConfig, ServingEngine
+    engine = ServingEngine(cfg, params, ServeConfig(n_slots=4,
+                                                    cache_len=1024))
+    ops.reset_launch_counts()
+    t0 = time.time()
+    for uid, prompt in enumerate(prompts):
+        engine.submit(Request(uid=uid, prompt=prompt,
+                              max_new_tokens=new_tokens))
+    finished = engine.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = ops.launch_counts()
+    check(len(finished) == len(prompts),
+          f"{len(finished)} of {len(prompts)} requests finished")
+    for r in finished:
+        check(len(r.output) == new_tokens
+              and all(0 <= t < cfg.vocab for t in r.output),
+              f"request {r.uid}: bad output {r.output}")
+    n_prefill, n_steps, n_layers = len(prompts), engine.steps, cfg.n_layers
+    want = {"flash_attention": n_layers * n_prefill,
+            "flash_decode": n_layers * n_steps,
+            "rmsnorm": (2 * n_layers + 1) * (n_prefill + n_steps)}
+    check(launches == want, f"launch counts {launches}, the model's "
+                            f"structure implies {want}")
+    return finished, engine, wall, launches
+
+
+def phase_serve(seed, repeats: int = 3):
+    """Phase 4: full glm4_9b through the serving engine, the same 8
+    requests ``repeats`` times, each on a fresh engine."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.models.common import count_params, init_params
+    cfg = get_config("glm4_9b").replace(dtype="float32", attn_impl="kernel")
+    spec = api.param_spec(cfg)
+    n_params = count_params(spec)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(spec, torch.Generator(device="cuda").manual_seed(
+        seed), "cuda")
+    torch.cuda.synchronize()
+    print(f"  glm4_9b: {n_params / 1e9:.3f} B params fp32 "
+          f"({4 * n_params / 1e9:.1f} GB), init {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(seed)
+    lens = [int(x) for x in rng.integers(4, 129, 6)] + [256, 512]
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in lens]
+    new_tokens = 32
+    step_bound = 4 * n_params / HBM_BYTES_PER_S * 1e3
+    print(f"  prompts {lens}, {new_tokens} new tokens each, 4 slots, cache "
+          f"1024; decode-step bound {step_bound:.2f} ms (fp32 weights over "
+          f"HBM)")
+    first, all_steps = None, []
+    for run in range(repeats):
+        finished, engine, wall, launches = serve_once(cfg, params, prompts,
+                                                      new_tokens)
+        first = first or launches
+        toks = sum(len(r.output) for r in finished)
+        ttft = sorted(r.t_first - r.t_submit for r in finished)
+        step_ms = sorted(1e3 * s for s in engine.decode_s)
+        all_steps += step_ms
+        print(f"  run {run}: {toks} tokens in {wall:.2f} s = "
+              f"{toks / wall:.1f} tok/s, {engine.steps} decode ticks; step "
+              f"p50 {step_ms[len(step_ms) // 2]:.2f} ms, min "
+              f"{step_ms[0]:.2f} ms, max {step_ms[-1]:.2f} ms; TTFT p50 "
+              f"{ttft[len(ttft) // 2] * 1e3:.1f} ms, max "
+              f"{ttft[-1] * 1e3:.1f} ms")
+        print(f"    TTFT per request (ms, queueing included): "
+              f"{[round((r.t_first - r.t_submit) * 1e3, 1) for r in finished]}")
+    all_steps.sort()
+    print(f"  decode step over all {repeats} runs: p50 "
+          f"{all_steps[len(all_steps) // 2]:.2f} ms of {len(all_steps)} ticks")
+    print(f"  launches {first}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    phase_profile(cfg, params, seed)
+    return first
+
+
+def phase_profile(cfg, params, seed, plain_ticks: int = 16,
+                  ticks: int = 8):
+    """Where a decode tick's time goes, on a full 4-slot pool after its
+    admissions: ``plain_ticks`` ticks timed on the host clock alone, then
+    ``ticks`` more under torch.profiler.  The device's busy time comes
+    from the profile; its share is taken of the unprofiled tick, since
+    the profiler's own host cost lengthens the ticks it traces."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving import Request, ServeConfig, ServingEngine
+    engine = ServingEngine(cfg, params, ServeConfig(n_slots=4,
+                                                    cache_len=1024))
+    rng = np.random.default_rng(seed + 1)
+    for uid in range(4):
+        engine.submit(Request(uid=uid, prompt=rng.integers(
+            0, cfg.vocab, 64).astype(np.int32),
+            max_new_tokens=plain_ticks + ticks + 4))
+    engine.step()
+    torch.cuda.synchronize()
+    for _ in range(plain_ticks):
+        engine.step()
+    plain = sorted(1e3 * s for s in engine.decode_s[1:])
+    plain_mean = sum(plain) / len(plain)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(ticks):
+            engine.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    check(all(r is not None for r in engine.active), "the profiled pool "
+                                                     "was not full")
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n, us = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, us + e.device_time_total)
+    busy_ms = sum(us for _, us in by_name.values()) / 1e3 / ticks
+    n_kernels = sum(n for n, _ in by_name.values())
+    print(f"  {plain_ticks} unprofiled ticks of a full pool: mean "
+          f"{plain_mean:.2f} ms, p50 {plain[len(plain) // 2]:.2f} ms, min "
+          f"{plain[0]:.2f} ms, max {plain[-1]:.2f} ms")
+    print(f"  {ticks} profiled ticks: wall {wall / ticks * 1e3:.2f} ms/tick "
+          f"(profiler included), device busy {busy_ms:.2f} ms/tick = "
+          f"{100 * busy_ms / plain_mean:.1f}% of the unprofiled mean tick, "
+          f"{n_kernels / ticks:.0f} device kernels/tick")
+    for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]:
+        print(f"    {us / ticks / 1e3:8.3f} ms/tick  {n // ticks:4d}/tick  "
+              f"{name[:90]}")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.kernels import _build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    seed = 0
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(f"[1] card: {smi}; torch {torch.__version__} CUDA "
+          f"{torch.version.cuda}")
+    t0 = time.perf_counter()
+    _build.library()
+    print(f"[1] kernels built in {time.perf_counter() - t0:.1f} s (nvcc "
+          f"{_build.BUILD_SECONDS:.1f} s)")
+
+    print("[2] kernels against their plain versions")
+    rows = phase_kernels(torch.Generator(device="cuda").manual_seed(seed))
+    print("[3] full-width 2-layer model, card against CPU")
+    phase_two_layers(seed)
+    print("[4] serving full glm4_9b")
+    launches = phase_serve(seed)
+
+    timed = {"flash_attention": ("float32", 512),
+             "flash_decode": ("float32", 1024), "rmsnorm": ("float32", 4)}
+    sources = {
+        "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:75"),
+        "flash_decode": ("src/repro_torch/kernels/csrc/flash_decode.cu",
+                         "src/repro/kernels/flash_decode.py:62"),
+        "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
+                    "src/repro/kernels/rmsnorm.py:27"),
+    }
+    kernels = []
+    for name, (tag, size) in timed.items():
+        r = rows[(name, tag, size)]
+        kernels.append({
+            "name": name, "route": "cuda", "source": sources[name][0],
+            "replaces": sources[name][1], "launches": launches[name],
+            "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+            "library_ms": r["library_ms"]})
+    print(smi)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

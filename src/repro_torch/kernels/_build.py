@@ -1,0 +1,94 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``csrc/*.cu`` goes into one shared library with a plain C
+interface, compiled by a single ``nvcc`` call for ``sm_90a`` (Hopper)
+and loaded with ``ctypes``.  The library is named after a hash of the
+sources and flags, built at first use into ``build/torch_kernels/`` at
+the root of the checkout, and reused while the sources are unchanged.
+
+Every C entry point returns ``cudaGetLastError()`` after its launch;
+:func:`check` raises when that is not 0, so a refused launch is never
+mistaken for a result.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+import time
+from typing import Optional, Sequence
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
+    "torch_kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+_functions = {}
+BUILD_SECONDS = 0.0     # time of the nvcc call; 0 when the library is reused
+
+
+def _sources() -> Sequence[pathlib.Path]:
+    return sorted(list(CSRC.glob("*.cu")) + list(CSRC.glob("*.cuh")))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
+        return os.path.join(CUDA_HOME, "bin", "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, building it on first use."""
+    global _lib, BUILD_SECONDS
+    with _lock:
+        if _lib is not None:
+            return _lib
+        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for src in _sources():
+            h.update(src.name.encode())
+            h.update(src.read_bytes())
+        out = BUILD_DIR / f"libreprotorch_{h.hexdigest()[:16]}.so"
+        if not out.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cu = [str(s) for s in _sources() if s.suffix == ".cu"]
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cu],
+                capture_output=True, text=True)
+            BUILD_SECONDS = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{proc.stdout}{proc.stderr}")
+            os.replace(tmp, out)
+        _lib = ctypes.CDLL(str(out))
+        return _lib
+
+
+def function(name: str, argtypes) -> ctypes._CFuncPtr:
+    """A C entry point of the library with its argument types declared
+    (``c_void_p`` for pointers and the stream, so none is cut to 32 bits)."""
+    fn = _functions.get(name)
+    if fn is None:
+        fn = getattr(library(), name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _functions[name] = fn
+    return fn
+
+
+def check(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"cudaError {err}")

@@ -1,0 +1,97 @@
+"""Public wrappers over the port's kernels, mirroring ``repro/kernels/ops.py``.
+
+Each op takes the model zoo's (B,S,H,D) layout and hands the kernel the
+(B,H,S,D) view of it (a stride change, no copy).  The device of the
+inputs picks the implementation, and nothing else does:
+
+* CUDA tensors go to the hand-written kernel; a failed build or launch
+  raises, it never falls back;
+* CPU tensors go to the plain PyTorch version in ``ref`` (the CPU tests'
+  path);
+* any other device raises.
+
+Both paths check the same shape contract as the TPU kernels, so the two
+packages accept the same shapes.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from . import flash_attention as _fa
+from . import flash_decode as _fd
+from . import ref
+from . import rmsnorm as _rms
+
+_KERNELS = {"flash_attention": _fa, "flash_decode": _fd, "rmsnorm": _rms}
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel launches per kernel since the last reset."""
+    return {name: mod.launches for name, mod in _KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for mod in _KERNELS.values():
+        mod.launches = 0
+
+
+def _on_card(*tensors: torch.Tensor) -> bool:
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return False
+    if kinds == {"cuda"}:
+        return True
+    raise ValueError(f"tensors on {sorted(kinds)}: the kernels run on CUDA "
+                     f"and their plain versions on the CPU")
+
+
+def flash_attention(q, k, v, *, causal: bool = True, scale=None):
+    """q:(B,S,H,D) k/v:(B,T,Hkv,D) -> (B,S,H,Dv).
+
+    Block contract of ``flash_attention_fwd``: S a multiple of min(128, S)
+    and T of min(128, T).  Causal attention needs S == T, where the
+    kernel's top-left and the oracle's bottom-right alignment agree.
+    """
+    s, t = q.shape[1], k.shape[1]
+    if s % min(128, s) or t % min(128, t):
+        raise ValueError(f"flash attention takes S, T that are multiples of "
+                         f"their 128-row block, got S={s}, T={t}")
+    if causal and s != t:
+        raise ValueError(f"causal flash attention needs S == T, got "
+                         f"S={s}, T={t}")
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    if _on_card(q, k, v):
+        out = _fa.flash_attention_fwd(qt, kt, vt, causal=causal, scale=scale)
+    else:
+        out = ref.attention_ref(qt, kt, vt, causal=causal, scale=scale)
+    return out.transpose(1, 2)
+
+
+def flash_decode(q, k, v, kv_len, *, scale=None):
+    """q:(B,1,H,D) k/v:(B,T,Hkv,D) kv_len:(B,) int32 -> (B,1,H,Dv).
+
+    Block contract of the TPU ``flash_decode``: T a multiple of min(256, T).
+    """
+    t = k.shape[1]
+    if t % min(256, t):
+        raise ValueError(f"flash decode takes a cache length that is a "
+                         f"multiple of its 256-key block, got T={t}")
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    if _on_card(q, k, v, kv_len):
+        out = _fd.flash_decode(q[:, 0], kt, vt, kv_len, scale=scale)
+    else:
+        out = ref.decode_ref(q[:, 0], kt, vt, kv_len, scale=scale)
+    return out[:, None]
+
+
+def fused_rmsnorm(x, scale, *, eps: float = 1e-5):
+    """RMSNorm over the last axis of any (..., D) tensor, fp32 math."""
+    shape = x.shape
+    x2 = x.reshape(-1, shape[-1])
+    if _on_card(x, scale):
+        out = _rms.rmsnorm(x2.contiguous(), scale, eps)
+    else:
+        out = ref.rmsnorm_ref(x2, scale, eps)
+    return out.reshape(shape)

@@ -1,0 +1,64 @@
+"""Plain PyTorch versions of the port's kernels (the allclose targets).
+
+Ported from ``repro/kernels/ref.py``: quadratic attention, masked softmax
+decode and fp32 RMSNorm, independent of the model code so a kernel bug
+cannot hide behind a shared helper.  On the CPU the kernel wrappers in
+``ops`` run these; on the card ``chip_smoke.py`` holds each kernel
+against them.
+"""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+
+
+def _repeat_kv(k, h):
+    hkv = k.shape[1]
+    return k if hkv == h else k.repeat_interleave(h // hkv, dim=1)
+
+
+def attention_ref(q, k, v, *, causal: bool = True, scale=None):
+    """q:(B,H,S,D) k/v:(B,Hkv,T,D) -> (B,H,S,Dv); GQA by head repeat.
+
+    Causal masking aligns bottom-right (``tril(., t - s)``), as the JAX
+    oracle does; the kernel aligns top-left, so the two agree at S == T.
+    """
+    b, h, s, d = q.shape
+    t = k.shape[2]
+    scale = d ** -0.5 if scale is None else scale
+    k = _repeat_kv(k, h).float()
+    v = _repeat_kv(v, h).float()
+    logits = torch.einsum("bhsd,bhtd->bhst", q.float(), k) * scale
+    if causal:
+        mask = torch.ones(s, t, dtype=torch.bool, device=q.device).tril(t - s)
+        logits = logits.masked_fill(~mask, NEG_INF)
+    w = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhst,bhtd->bhsd", w, v).to(q.dtype)
+
+
+def decode_ref(q, k, v, kv_len=None, scale=None):
+    """q:(B,H,D) k/v:(B,Hkv,T,D) kv_len:(B,) -> (B,H,Dv).
+
+    With kv_len = 0 this gives the mean of V (softmax over all-masked
+    logits); the kernel gives 0.  The serving path never asks for 0.
+    """
+    b, h, d = q.shape
+    t = k.shape[2]
+    scale = d ** -0.5 if scale is None else scale
+    k = _repeat_kv(k, h).float()
+    v = _repeat_kv(v, h).float()
+    logits = torch.einsum("bhd,bhtd->bht", q.float(), k) * scale
+    if kv_len is not None:
+        mask = torch.arange(t, device=q.device)[None, None, :] < \
+            kv_len.to(q.device)[:, None, None]
+        logits = logits.masked_fill(~mask, NEG_INF)
+    w = torch.softmax(logits, dim=-1)
+    return torch.einsum("bht,bhtd->bhd", w, v).to(q.dtype)
+
+
+def rmsnorm_ref(x, scale, eps: float = 1e-5):
+    """(N,D),(D,) -> (N,D), fp32 math."""
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)

@@ -1,0 +1,176 @@
+"""Grouped-query attention, after ``repro/models/attention.py``.
+
+Plain paths kept as references: ``attend_full`` (materialises the score
+matrix), ``attend_chunked`` (online softmax over KV chunks) and
+``attend_decode`` (one query token against a cache).  The model's own
+path goes through the kernels: ``gqa_layer(impl="kernel")`` through
+flash attention and ``gqa_decode_layer`` always through flash decode.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from ..kernels import ops
+from .common import ParamSpec, apply_rope
+
+NEG_INF = -1e30
+
+
+def gqa_spec(d_model: int, n_heads: int, n_kv: int, head_dim: int,
+             qk_head_dim: Optional[int] = None) -> Dict[str, ParamSpec]:
+    qk = qk_head_dim or head_dim
+    return {
+        "wq": ParamSpec((d_model, n_heads, qk), ("embed", "heads", None)),
+        "wk": ParamSpec((d_model, n_kv, qk), ("embed", "kv", None)),
+        "wv": ParamSpec((d_model, n_kv, head_dim), ("embed", "kv", None)),
+        "wo": ParamSpec((n_heads, head_dim, d_model),
+                        ("heads", None, "embed")),
+    }
+
+
+def _repeat_kv(k, n_heads):
+    """(B,T,Hkv,D) -> (B,T,H,D) by repeating each KV head G times."""
+    n_kv = k.shape[2]
+    return k if n_kv == n_heads else k.repeat_interleave(n_heads // n_kv,
+                                                         dim=2)
+
+
+def attend_full(q, k, v, *, causal: bool = True, q_offset: int = 0,
+                scale: Optional[float] = None):
+    """Reference attention. q:(B,Sq,H,Dq) k:(B,Sk,Hkv,Dq) v:(B,Sk,Hkv,Dv)."""
+    sq, h, dq = q.shape[1], q.shape[2], q.shape[3]
+    scale = scale if scale is not None else dq ** -0.5
+    k = _repeat_kv(k, h)
+    v = _repeat_kv(v, h)
+    logits = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) * scale
+    if causal:
+        qpos = q_offset + torch.arange(sq, device=q.device)
+        kpos = torch.arange(k.shape[1], device=q.device)
+        logits = logits.masked_fill(~(qpos[:, None] >= kpos[None, :]),
+                                    NEG_INF)
+    w = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhst,bthd->bshd", w.to(v.dtype).float(), v.float())
+    return out.to(q.dtype)
+
+
+def attend_chunked(q, k, v, *, causal: bool = True, chunk: int = 1024,
+                   q_offset: int = 0, scale: Optional[float] = None):
+    """Online-softmax attention, scanning KV in chunks (flash dataflow)."""
+    b, sq, h, dq = q.shape
+    sk, dv = k.shape[1], v.shape[-1]
+    scale = scale if scale is not None else dq ** -0.5
+    k = _repeat_kv(k, h)
+    v = _repeat_kv(v, h)
+    qpos = q_offset + torch.arange(sq, device=q.device)
+    m = torch.full((b, h, sq), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, h, sq, dv), dtype=torch.float32, device=q.device)
+    for c0 in range(0, sk, chunk):
+        kb, vb = k[:, c0:c0 + chunk], v[:, c0:c0 + chunk]
+        kpos = c0 + torch.arange(kb.shape[1], device=q.device)
+        logits = torch.einsum("bshd,bthd->bhst", q.float(),
+                              kb.float()) * scale
+        if causal:
+            logits = logits.masked_fill(~(qpos[:, None] >= kpos[None, :]),
+                                        NEG_INF)
+        m_new = torch.maximum(m, logits.amax(dim=-1))
+        p = torch.exp(logits - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bhst,bthd->bhsd", p.to(vb.dtype).float(), vb.float())
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.transpose(1, 2).to(q.dtype)
+
+
+def attend_decode(q, k_cache, v_cache, kv_len=None,
+                  scale: Optional[float] = None):
+    """One-step decode: q (B,1,H,Dq) vs cache (B,T,Hkv,D*)."""
+    b, _, h, dq = q.shape
+    t, n_kv = k_cache.shape[1], k_cache.shape[2]
+    scale = scale if scale is not None else dq ** -0.5
+    qg = q[:, 0].reshape(b, n_kv, h // n_kv, dq)       # (B,N,G,D)
+    logits = torch.einsum("bngd,btnd->bngt", qg.float(),
+                          k_cache.float()) * scale
+    if kv_len is not None:
+        mask = torch.arange(t, device=q.device)[None] < kv_len[:, None]
+        logits = logits.masked_fill(~mask[:, None, None, :], NEG_INF)
+    w = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bngt,btnd->bngd", w.to(v_cache.dtype).float(),
+                       v_cache.float())
+    return out.reshape(b, 1, h, v_cache.shape[-1]).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Full GQA layer (projections + rope + attention + output)
+# ---------------------------------------------------------------------------
+
+
+def gqa_project_qkv(params, x, positions, rope_theta: float = 10000.0):
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+    k = torch.einsum("bsd,dnk->bsnk", x, params["wk"])
+    v = torch.einsum("bsd,dnk->bsnk", x, params["wv"])
+    return (apply_rope(q, positions, rope_theta),
+            apply_rope(k, positions, rope_theta), v)
+
+
+def gqa_output(params, attn_out):
+    return torch.einsum("bshd,hdm->bsm", attn_out, params["wo"])
+
+
+def gqa_layer(params, x, positions, *, impl: str = "chunked",
+              rope_theta: float = 10000.0, chunk: int = 1024):
+    """Attention over the whole sequence; returns ``(out, k, v)``.
+
+    ``k`` and ``v`` are the rotated keys and values (B,S,Hkv,D), which the
+    prefill writes to the cache, so it computes them once per layer.
+    """
+    q, k, v = gqa_project_qkv(params, x, positions, rope_theta)
+    if impl == "full":
+        o = attend_full(q, k, v)
+    elif impl == "chunked":
+        o = attend_chunked(q, k, v, chunk=chunk)
+    elif impl == "kernel":
+        o = ops.flash_attention(q, k, v, causal=True)
+    else:
+        raise ValueError(f"unknown attention impl {impl!r}")
+    return gqa_output(params, o), k, v
+
+
+def gqa_decode_layer(params, x, cache_k, cache_v, position, kv_len,
+                     rope_theta: float = 10000.0):
+    """Single-token decode through the flash-decode kernel.
+
+    Writes the new K/V row into ``cache_k``/``cache_v`` **in place** (the
+    JAX package returns new caches) and returns ``(out, cache_k,
+    cache_v)`` with the same tensors.
+    """
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+    k = torch.einsum("bsd,dnk->bsnk", x, params["wk"])
+    v = torch.einsum("bsd,dnk->bsnk", x, params["wv"])
+    pos = position[:, None] if position.dim() == 1 else position
+    q = apply_rope(q, pos, rope_theta)
+    k = apply_rope(k, pos, rope_theta)
+    _scatter_kv(cache_k, k, kv_len)
+    _scatter_kv(cache_v, v, kv_len)
+    o = ops.flash_decode(q, cache_k, cache_v, kv_len + 1)
+    return gqa_output(params, o), cache_k, cache_v
+
+
+def _scatter_kv(cache, new, kv_len):
+    """Write (B,1,N,D) ``new`` at row ``kv_len[b]`` of (B,T,N,D) ``cache``,
+    in place.
+
+    A row with ``kv_len >= T`` is not written (``mode="drop"`` in the JAX
+    package): its index is clamped and the old value written back, so the
+    update needs no host sync.
+    """
+    b, t = cache.shape[0], cache.shape[1]
+    rows = torch.arange(b, device=cache.device)
+    idx = kv_len.long().clamp(max=t - 1)
+    keep = (kv_len >= t)[:, None, None]
+    cache[rows, idx] = torch.where(keep, cache[rows, idx],
+                                   new[:, 0].to(cache.dtype))

@@ -1,0 +1,168 @@
+"""Foundation of the port's model zoo, after ``repro/models/common.py``.
+
+Parameters are plain nested dicts of tensors with the JAX package's names
+and layouts, so a JAX parameter tree converts key for key
+(``repro_torch.convert``).  Every model defines a *spec tree* of
+:class:`ParamSpec` leaves (shape, dtype, logical axes, init), from which
+:func:`init_params` makes random weights on a device.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels import ops
+
+PyTree = Any
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    """Shape + dtype + logical axes of one parameter tensor."""
+
+    shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]
+    dtype: torch.dtype = torch.float32
+    init: str = "normal"     # "normal" | "zeros" | "ones" | "embed"
+    scale: Optional[float] = None  # override fan-in scale
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} vs axes {self.axes}")
+
+
+def spec_map(fn: Callable[[ParamSpec], Any], tree: PyTree) -> PyTree:
+    if isinstance(tree, ParamSpec):
+        return fn(tree)
+    return {k: spec_map(fn, v) for k, v in tree.items()}
+
+
+def spec_leaves(tree: PyTree):
+    if isinstance(tree, ParamSpec):
+        yield tree
+    else:
+        for k in sorted(tree):
+            yield from spec_leaves(tree[k])
+
+
+def count_params(spec_tree: PyTree) -> int:
+    return sum(math.prod(s.shape) for s in spec_leaves(spec_tree))
+
+
+def _fan_in(shape: Tuple[int, ...]) -> int:
+    # Last axis is the output axis by convention; everything else is fan-in.
+    if len(shape) <= 1:
+        return max(shape[0] if shape else 1, 1)
+    return max(math.prod(shape[:-1]), 1)
+
+
+def init_params(spec_tree: PyTree, generator: Optional[torch.Generator],
+                device) -> PyTree:
+    """Materialise a spec tree on ``device``: truncated normal in [-2, 2]
+    times the fan-in scale (0.02 for embeddings), zeros, or ones.
+
+    ``generator`` must live on ``device``; the draws differ from the JAX
+    package's (another generator), so tests convert JAX's weights instead.
+    """
+    def one(s: ParamSpec):
+        if s.init == "zeros":
+            return torch.zeros(s.shape, dtype=s.dtype, device=device)
+        if s.init == "ones":
+            return torch.ones(s.shape, dtype=s.dtype, device=device)
+        scale = s.scale
+        if scale is None:
+            scale = 1.0 if s.init == "embed" else 1.0 / math.sqrt(
+                _fan_in(s.shape))
+        w = torch.empty(s.shape, dtype=torch.float32, device=device)
+        torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0,
+                                    generator=generator)
+        return w.mul_(scale).to(s.dtype)
+    return spec_map(one, spec_tree)
+
+
+# ---------------------------------------------------------------------------
+# Common neural pieces (functions over param dicts)
+# ---------------------------------------------------------------------------
+
+
+def rmsnorm_spec(dim: int) -> Dict[str, ParamSpec]:
+    return {"scale": ParamSpec((dim,), ("embed",), init="ones")}
+
+
+def rmsnorm(params, x, eps: float = 1e-5):
+    """fp32-math RMSNorm through the RMSNorm kernel (plain on the CPU)."""
+    return ops.fused_rmsnorm(x, params["scale"], eps=eps)
+
+
+def embed_spec(vocab: int, dim: int) -> Dict[str, ParamSpec]:
+    return {"embedding": ParamSpec((vocab, dim), ("vocab", "embed"),
+                                   init="embed", scale=0.02)}
+
+
+def embed(params, tokens):
+    return params["embedding"][tokens]
+
+
+def unembed(params, x):
+    """Logits via the tied output table: (..., D) -> (..., V)."""
+    return x @ params["embedding"].T
+
+
+def dense_spec(d_in: int, d_out: int,
+               axes: Tuple[Optional[str], Optional[str]],
+               init: str = "normal") -> ParamSpec:
+    return ParamSpec((d_in, d_out), axes, init=init)
+
+
+def swiglu_spec(d_model: int, d_ff: int) -> Dict[str, ParamSpec]:
+    return {
+        "w_gate": dense_spec(d_model, d_ff, ("embed", "mlp")),
+        "w_up": dense_spec(d_model, d_ff, ("embed", "mlp")),
+        "w_down": dense_spec(d_ff, d_model, ("mlp", "embed")),
+    }
+
+
+def swiglu(params, x):
+    h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
+    return h @ params["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embedding
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float = 10000.0,
+               device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x, positions, theta: float = 10000.0):
+    """x: (..., S, H, Dh) or (..., S, Dh); positions: (..., S).
+
+    Split-halves rotation (first half with the second), as
+    ``repro/models/common.py::apply_rope``.
+    """
+    dh = x.shape[-1]
+    freqs = rope_freqs(dh, theta, device=x.device)
+    ang = positions[..., None].float() * freqs
+    if x.dim() == ang.dim() + 1:                       # has a heads axis
+        ang = ang[..., None, :]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def mask_padded_vocab(logits, vocab: int):
+    """-1e30 on the padded tail of the vocab axis."""
+    if logits.shape[-1] == vocab:
+        return logits
+    valid = torch.arange(logits.shape[-1], device=logits.device) < vocab
+    return logits.masked_fill(~valid, -1e30)

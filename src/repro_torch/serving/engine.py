@@ -1,0 +1,153 @@
+"""Slot-based continuous-batching serving engine, after
+``repro/serving/engine.py`` and with the same scheduling:
+
+* a fixed pool of ``n_slots`` sequence slots shares one decode KV cache
+  (slot = batch row; a row is reused after its sequence finishes);
+* arriving requests are prefilled one at a time and their KV is written
+  into the slot's row; every tick decodes the whole pool, so new
+  sequences join mid-flight;
+* finished sequences (EOS, ``max_new_tokens`` or a full cache) free their
+  slot.
+
+The fill levels live on the device as an int32 tensor, which the decode
+kernel reads, with a host mirror for the scheduling decisions; a tick's
+one device-to-host copy is the argmax of its logits.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from collections import deque
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from ..configs.base import ArchConfig, InputShape
+from ..models import api
+from ..models.common import init_params
+
+
+@dataclasses.dataclass
+class Request:
+    uid: int
+    prompt: np.ndarray              # (prompt_len,) int32
+    max_new_tokens: int = 32
+    eos_id: int = -1                # -1: never stops early
+    # filled by the engine:
+    output: List[int] = dataclasses.field(default_factory=list)
+    t_submit: float = 0.0
+    t_first: float = 0.0
+    t_done: float = 0.0
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    n_slots: int = 8
+    cache_len: int = 512
+
+
+# Every leaf of a decode cache is (layers, batch, ...): the slot axis is 1.
+_SLOT_AXIS = 1
+
+
+def _put_row(pool, one, slot: int) -> None:
+    if isinstance(pool, dict):
+        for k in pool:
+            _put_row(pool[k], one[k], slot)
+    else:
+        pool.select(_SLOT_AXIS, slot).copy_(one.select(_SLOT_AXIS, 0))
+
+
+class ServingEngine:
+    """Serves decoder-only LMs on the device that ``params`` live on."""
+
+    def __init__(self, cfg: ArchConfig, params, serve_cfg: ServeConfig):
+        self.cfg = cfg
+        self.params = params
+        self.sc = serve_cfg
+        self.device = params["embed"]["embedding"].device
+        shape = InputShape("engine", serve_cfg.cache_len,
+                           serve_cfg.n_slots, "decode")
+        self.cache = init_params(api.cache_spec(cfg, shape), None,
+                                 self.device)
+        n = serve_cfg.n_slots
+        self.kv_len = torch.zeros(n, dtype=torch.int32, device=self.device)
+        self.kv_len_host = np.zeros(n, np.int64)
+        self._active_rows = torch.zeros(n, dtype=torch.int32,
+                                        device=self.device)
+        self.tokens = torch.zeros((n, 1), dtype=torch.long,
+                                  device=self.device)
+        self.active: List[Optional[Request]] = [None] * n
+        self.queue: deque = deque()
+        self._decode = api.decode_fn(cfg)
+        self._prefill = api.prefill_fn(cfg, serve_cfg.cache_len)
+        self.steps = 0
+        self.finished: List[Request] = []
+        self.decode_s: List[float] = []   # wall time of each decode tick
+
+    # -- admission ---------------------------------------------------------
+
+    def submit(self, req: Request):
+        req.t_submit = time.time()
+        self.queue.append(req)
+
+    def _free_slots(self) -> List[int]:
+        return [i for i, r in enumerate(self.active) if r is None]
+
+    def _splice(self, slot: int, req: Request):
+        """Prefill one request and write its KV into ``slot``."""
+        plen = int(req.prompt.shape[0])
+        tokens = torch.as_tensor(np.asarray(req.prompt)[None, :],
+                                 dtype=torch.long, device=self.device)
+        logits, cache1 = self._prefill(self.params, {"tokens": tokens})
+        _put_row(self.cache, cache1, slot)
+        next_tok = int(logits[0].argmax())
+        req.output.append(next_tok)
+        req.t_first = time.time()
+        self.active[slot] = req
+        self.kv_len[slot] = plen
+        self.kv_len_host[slot] = plen
+        self._active_rows[slot] = 1
+        self.tokens[slot, 0] = next_tok
+
+    # -- main loop ---------------------------------------------------------
+
+    def step(self) -> int:
+        """Admit + one decode tick for the whole pool. Returns #active."""
+        for slot in self._free_slots():
+            if not self.queue:
+                break
+            self._splice(slot, self.queue.popleft())
+        if not any(r is not None for r in self.active):
+            return 0
+        t0 = time.perf_counter()
+        logits, self.cache = self._decode(self.params, self.tokens,
+                                          self.cache, self.kv_len)
+        self.kv_len += self._active_rows
+        nxt_dev = logits.argmax(dim=-1)
+        self.tokens.copy_(nxt_dev[:, None])    # finished rows: ignored
+        nxt = nxt_dev.cpu().numpy()            # the tick's one sync
+        self.decode_s.append(time.perf_counter() - t0)
+        self.steps += 1
+        for i, r in enumerate(self.active):
+            if r is None:
+                continue
+            self.kv_len_host[i] += 1
+            tok = int(nxt[i])
+            r.output.append(tok)
+            done = (len(r.output) >= r.max_new_tokens
+                    or tok == r.eos_id
+                    or self.kv_len_host[i] >= self.sc.cache_len - 1)
+            if done:
+                r.t_done = time.time()
+                self.finished.append(r)
+                self.active[i] = None
+                self._active_rows[i] = 0
+        return sum(r is not None for r in self.active)
+
+    def run_until_drained(self, max_steps: int = 10_000) -> List[Request]:
+        while (self.queue or any(r is not None for r in self.active)) \
+                and self.steps < max_steps:
+            self.step()
+        return self.finished

@@ -1,0 +1,151 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
+one.  The file imports no JAX, so it runs on a machine that has only
+PyTorch:
+
+  PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+import pytest
+import torch
+
+from repro_torch.kernels import ops, ref
+
+TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+ATTN_CASES = [  # (b, h, hkv, s, t, d), causal; causal only at S == T
+    ((1, 2, 2, 64, 64, 32), True), ((1, 2, 2, 64, 64, 32), False),
+    ((2, 4, 2, 128, 128, 32), True), ((2, 4, 2, 128, 128, 32), False),
+    ((1, 8, 2, 64, 128, 64), False), ((2, 2, 1, 256, 256, 16), True),
+    ((1, 32, 2, 64, 64, 128), True), ((1, 32, 2, 512, 512, 128), True),
+    ((1, 4, 2, 100, 100, 32), False),    # ragged tiles inside the kernel
+    # served prompt lengths: causal inside a ragged tile
+    ((1, 32, 2, 9, 9, 128), True), ((1, 32, 2, 67, 67, 128), True),
+    ((1, 32, 2, 110, 110, 128), True),
+]
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _rnd(gen, dtype, *shape):
+    return torch.randn(*shape, generator=gen, device=gen.device).to(dtype)
+
+
+def _close(got, want, dtype):
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,causal", ATTN_CASES)
+def test_flash_attention_kernel(cuda_device, shape, causal, dtype):
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    b, h, hkv, s, t, d = shape
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    q, k, v = (_rnd(g, dtype, b, n, hh, d) for n, hh in
+               ((s, h), (t, hkv), (t, hkv)))
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    want = ref.attention_ref(qt, kt, vt, causal=causal)
+    _close(flash_attention_fwd(qt, kt, vt, causal=causal), want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,hkv,t,d", [
+    (2, 4, 2, 128, 32), (1, 8, 8, 256, 64), (3, 4, 1, 512, 16),
+    (4, 32, 2, 1024, 128), (2, 4, 2, 256, 256),
+])
+def test_flash_decode_kernel(cuda_device, b, h, hkv, t, d, dtype):
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    q = _rnd(g, dtype, b, 1, h, d)
+    k, v = _rnd(g, dtype, b, t, hkv, d), _rnd(g, dtype, b, t, hkv, d)
+    kv_len = torch.randint(1, t + 1, (b,), generator=g, device=cuda_device,
+                           dtype=torch.int32)
+    want = ref.decode_ref(q[:, 0], k.transpose(1, 2), v.transpose(1, 2),
+                          kv_len)
+    _close(ops.flash_decode(q, k, v, kv_len)[:, 0], want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d", [(1, 32), (100, 256), (4, 4096),
+                                 (512, 4096), (3, 12288)])
+def test_rmsnorm_kernel(cuda_device, n, d, dtype):
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    x, s = _rnd(g, dtype, n, d), _rnd(g, torch.float32, d)
+    _close(ops.fused_rmsnorm(x, s), ref.rmsnorm_ref(x, s), dtype)
+
+
+@pytest.mark.cuda
+def test_decode_with_empty_cache_gives_zero(cuda_device):
+    """kv_len = 0 gives 0, as the TPU kernel does."""
+    q = torch.ones(2, 1, 4, 32, device=cuda_device)
+    kv = torch.ones(2, 128, 2, 32, device=cuda_device)
+    out = ops.flash_decode(q, kv, kv, torch.zeros(2, dtype=torch.int32,
+                                                  device=cuda_device))
+    assert out.abs().max().item() == 0.0
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_what_they_do_not_take(cuda_device):
+    q = torch.zeros(1, 64, 2, 16, device=cuda_device, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        ops.flash_attention(q, q, q)
+    x = torch.zeros(4, 64, device=cuda_device)
+    with pytest.raises(ValueError):
+        ops.fused_rmsnorm(x, torch.ones(32, device=cuda_device))
+
+
+@pytest.mark.cuda
+def test_model_path_counts_launches(cuda_device):
+    """A prefill and a decode step of a small dense model launch each
+    kernel as often as the model's structure says."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import api, transformer as tf
+    from repro_torch.models.common import init_params
+    cfg = get_config("glm4_9b").reduced().replace(attn_impl="kernel")
+    params = init_params(api.param_spec(cfg), torch.Generator(
+        device=cuda_device).manual_seed(0), cuda_device)
+    ops.reset_launch_counts()
+    tokens = torch.arange(16, device=cuda_device)[None]
+    logits, cache = tf.lm_prefill(cfg, params, tokens, 64)
+    tf.lm_decode(cfg, params, logits.argmax(-1, keepdim=True), cache,
+                 torch.tensor([16], dtype=torch.int32, device=cuda_device))
+    n = cfg.n_layers
+    assert ops.launch_counts() == {"flash_attention": n, "flash_decode": n,
+                                   "rmsnorm": 2 * (2 * n + 1)}
+
+
+@pytest.mark.cuda
+def test_serving_on_card_matches_cpu(cuda_device):
+    """The engine on the card gives the CPU engine's tokens."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.models.common import init_params
+    from repro_torch.serving import Request, ServeConfig, ServingEngine
+    cfg = get_config("glm4_9b").reduced().replace(dtype="float32",
+                                                  attn_impl="kernel")
+    cpu = init_params(api.param_spec(cfg), torch.Generator().manual_seed(0),
+                      "cpu")
+
+    def to(tree, dev):
+        return tree.to(dev) if isinstance(tree, torch.Tensor) else \
+            {k: to(v, dev) for k, v in tree.items()}
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for n in (5, 16, 9, 32)]
+    outs = []
+    for params in (cpu, to(cpu, cuda_device)):
+        eng = ServingEngine(cfg, params, ServeConfig(n_slots=2, cache_len=64))
+        for i, p in enumerate(prompts):
+            eng.submit(Request(uid=i, prompt=p, max_new_tokens=6))
+        outs.append([r.output for r in sorted(eng.run_until_drained(),
+                                              key=lambda r: r.uid)])
+    assert outs[0] == outs[1]
