@@ -3,14 +3,17 @@
 
   python3 chip_smoke.py
 
-Phases; each raises (exit code 1) on failure, nothing is caught:
+Phases; each raises (exit code 1) on failure, nothing is caught, and each
+prints its seconds:
 
 1. print the card (nvidia-smi name, power limit); build the CUDA kernels
    from ``src/repro_torch/kernels/csrc`` with nvcc and print the seconds;
 2. hold each kernel against its plain PyTorch version on the card at the
-   serving path's shapes, in fp32 (atol = rtol = 2e-5) and bf16 (3e-2),
-   and time kernel, plain version and the one PyTorch library call that
-   computes the same function, beside the card's bound;
+   serving paths' shapes, in fp32 (atol = rtol = 2e-5; 2e-4 for the SSD
+   scan, whose chunked and sequential sums differ in order) and bf16
+   (3e-2), and time kernel, plain version and the one PyTorch library call
+   that computes the same function (none for the SSD scan), beside the
+   card's bound;
 3. full-width glm4_9b cut to 2 layers, same weights on the card
    (kernels) and on the CPU (plain versions): a 128-token prefill and 8
    greedy decode steps must give logits within 1e-3 of max |logit| and
@@ -22,13 +25,22 @@ Phases; each raises (exit code 1) on failure, nothing is caught:
    requests are served three times, each on a fresh engine, so the
    decode-step time is read over repeats; then 16 decode ticks of a full
    pool on the host clock and 8 more under torch.profiler say how busy
-   the card is and which kernels take its time.
+   the card is and which kernels take its time;
+5. full-width zamba2_7b cut to 13 layers (two groups of 6 Mamba2 layers,
+   so both shared attention weight sets, and one rest layer), card
+   against CPU as in phase 3: the 128-token prefill is two SSD chunks, so
+   the state carries across a chunk boundary;
+6. serve full zamba2_7b (81 Mamba2 layers and 13 shared attention blocks,
+   fp32, random weights from a seed) as in phase 4, glm4_9b's weights
+   freed first; prompts are within one SSD chunk of 64 or a multiple of
+   it (256, 512), as the reference's prefill takes them.
 
 Then a ``{"kernels": [...]}`` line and, last, the device line.  Exits
 nonzero without a CUDA device or without the repository around it.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -45,6 +57,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+SSD_TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -89,49 +102,47 @@ def bound(nbytes: float, flops: float, dtype) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def compare(name, got, want, dtype) -> float:
+def compare(name, got, want, dtype, tol=None) -> float:
     torch.cuda.synchronize()
+    tol = TOL[dtype] if tol is None else tol
     err = (got.float() - want.float()).abs().max().item()
-    ok = torch.allclose(got.float(), want.float(), atol=TOL[dtype],
-                        rtol=TOL[dtype])
+    ok = torch.allclose(got.float(), want.float(), atol=tol, rtol=tol)
     check(ok, f"{name}: kernel disagrees with its plain version, max abs "
-              f"err {err} at tolerance {TOL[dtype]}")
+              f"err {err} at tolerance {tol}")
     return err
 
 
 def phase_kernels(gen):
-    """Phase 2: every kernel against its plain version, timed."""
+    """Phase 2: every kernel against its plain version, timed.  Rows are
+    keyed (kernel, dtype, shape label)."""
     from repro_torch.kernels import ops, ref
 
     def rnd(*shape, dtype):
         return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
 
-    rows = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        tag = str(dtype).replace("torch.", "")
-        # flash attention: prefill of one prompt, glm4_9b heads; 9, 67 and
-        # 110 are served prompt lengths, causal in a ragged 64-row tile
-        for s in (9, 64, 67, 110, 512):
-            b, h, hkv, d = 1, 32, 2, 128
-            q = rnd(b, s, h, d, dtype=dtype)
-            k, v = rnd(b, s, hkv, d, dtype=dtype), rnd(b, s, hkv, d,
-                                                      dtype=dtype)
-            qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), \
-                v.transpose(1, 2)
-            kern = lambda: ops.flash_attention(q, k, v, causal=True)
-            plain = lambda: ref.attention_ref(qt, kt, vt, causal=True)
-            lib = lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True)
-            err = compare(f"flash_attention S={s} {tag}", kern(),
-                          plain().transpose(1, 2), dtype)
-            pairs = b * h * s * (s + 1) // 2
-            nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-            rows[("flash_attention", tag, s)] = dict(
-                err=err, ms=cuda_ms(kern), host_ms=host_ms(kern),
-                plain_ms=cuda_ms(plain), library_ms=cuda_ms(lib),
-                bound=bound(nbytes, 4 * d * pairs, dtype))
-        # flash decode: 4 slots of a 1024-row cache, ragged fill
-        b, h, hkv, t, d = 4, 32, 2, 1024, 128
+    def timed(kern, plain, lib, err, nbytes, flops, dtype):
+        return dict(err=err, ms=cuda_ms(kern), host_ms=host_ms(kern),
+                    plain_ms=cuda_ms(plain),
+                    library_ms=None if lib is None else cuda_ms(lib),
+                    bound=bound(nbytes, flops, dtype))
+
+    def attention(s, h, hkv, d, dtype, tag):
+        q = rnd(1, s, h, d, dtype=dtype)
+        k, v = rnd(1, s, hkv, d, dtype=dtype), rnd(1, s, hkv, d, dtype=dtype)
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        kern = lambda: ops.flash_attention(q, k, v, causal=True)
+        plain = lambda: ref.attention_ref(qt, kt, vt, causal=True)
+        lib = lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+        err = compare(f"flash_attention S={s} D={d} {tag}", kern(),
+                      plain().transpose(1, 2), dtype)
+        pairs = h * s * (s + 1) // 2
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        return timed(kern, plain, lib, err, nbytes, 4 * d * pairs, dtype)
+
+    def decode(h, hkv, d, dtype, tag):
+        """4 slots of a 1024-row cache, ragged fill."""
+        b, t = 4, 1024
         q = rnd(b, 1, h, d, dtype=dtype)
         k, v = rnd(b, t, hkv, d, dtype=dtype), rnd(b, t, hkv, d, dtype=dtype)
         kv_len = torch.tensor([1024, 700, 129, 1], dtype=torch.int32,
@@ -143,33 +154,84 @@ def phase_kernels(gen):
         plain = lambda: ref.decode_ref(q[:, 0], kt, vt, kv_len)
         lib = lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, enable_gqa=True)
-        err = compare(f"flash_decode {tag}", kern()[:, 0], plain(), dtype)
+        err = compare(f"flash_decode D={d} {tag}", kern()[:, 0], plain(),
+                      dtype)
         n_kv = int(kv_len.sum())
         nbytes = (2 * q.numel() + 2 * hkv * d * n_kv) * q.element_size() \
             + 4 * b
-        rows[("flash_decode", tag, t)] = dict(
-            err=err, ms=cuda_ms(kern), host_ms=host_ms(kern),
-            plain_ms=cuda_ms(plain), library_ms=cuda_ms(lib),
-            bound=bound(nbytes, 4 * d * h * n_kv, dtype))
-        # RMSNorm: the decode step's 4 rows and a 512-token prefill
+        return timed(kern, plain, lib, err, nbytes, 4 * d * h * n_kv, dtype)
+
+    def rmsnorm(n, dm, dtype, tag):
+        x, s_ = rnd(n, dm, dtype=dtype), rnd(dm, dtype=torch.float32)
+        kern = lambda: ops.fused_rmsnorm(x, s_, eps=1e-5)
+        plain = lambda: ref.rmsnorm_ref(x, s_, 1e-5)
+        lib = lambda: F.rms_norm(x, (dm,), s_.to(dtype), eps=1e-5)
+        err = compare(f"rmsnorm N={n} D={dm} {tag}", kern(), plain(), dtype)
+        nbytes = 2 * x.numel() * x.element_size() + 4 * dm
+        return timed(kern, plain, lib, err, nbytes, 4 * n * dm, dtype)
+
+    def scan(b, s, h, p, n, chunk, dtype, tag):
+        """y and the final state; x, B and C are strided slices of one
+        tensor, as the model hands them over.  No single PyTorch call
+        computes the chunked SSD, so there is no library time."""
+        xbc = rnd(b, s, h * p + 2 * n, dtype=dtype)
+        xh, bm, cm = torch.split(xbc, [h * p, n, n], -1)
+        xh = xh.reshape(b, s, h, p)
+        dt = (rnd(b, s, h, dtype=torch.float32).abs() * 0.1).to(dtype)
+        a_log = rnd(h, dtype=torch.float32) * 0.5
+        kern = lambda: ops.mamba_scan(xh, dt, a_log, bm, cm, chunk=chunk)
+        plain = lambda: ref.ssd_ref(xh, dt, a_log, bm, cm)
+        (y, st), (want_y, want_st) = kern(), plain()
+        label = f"mamba_scan B={b} S={s} H={h} P={p} N={n} L={chunk} {tag}"
+        err = max(compare(label + " y", y, want_y, dtype, SSD_TOL[dtype]),
+                  compare(label + " state", st, want_st, dtype,
+                          SSD_TOL[dtype]))
+        # each input read once, y and the state written once; operations of
+        # the causal triangle: C·Bᵀ once for all heads, then per head the
+        # intra-chunk product, C @ state and the state update
+        el, ell = xh.element_size(), min(chunk, s)
+        nc, pairs = s // ell, ell * (ell + 1) // 2
+        nbytes = el * (2 * xh.numel() + 2 * b * s * n + dt.numel()) \
+            + 4 * h + 4 * b * h * n * p
+        flops = b * nc * (2 * n * pairs + h * (2 * p * pairs + 4 * ell * n * p))
+        return timed(kern, plain, None, err, nbytes, flops, dtype)
+
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).replace("torch.", "")
+        # flash attention: prefill of one prompt, glm4_9b heads; 9, 67 and
+        # 110 are served prompt lengths, causal in a ragged 64-row tile
+        for s in (9, 64, 67, 110, 512):
+            rows[("flash_attention", tag, f"S={s}")] = attention(
+                s, 32, 2, 128, dtype, tag)
+        rows[("flash_decode", tag, "T=1024")] = decode(32, 2, 128, dtype, tag)
+        # RMSNorm: the decode step's 4 rows and a 512-token prefill, at
+        # glm4_9b's d_model and zamba2's gated-norm width
         for n in (4, 512):
-            dm = 4096
-            x, s_ = rnd(n, dm, dtype=dtype), rnd(dm, dtype=torch.float32)
-            kern = lambda: ops.fused_rmsnorm(x, s_, eps=1e-5)
-            plain = lambda: ref.rmsnorm_ref(x, s_, 1e-5)
-            lib = lambda: F.rms_norm(x, (dm,), s_.to(dtype), eps=1e-5)
-            err = compare(f"rmsnorm N={n} {tag}", kern(), plain(), dtype)
-            nbytes = 2 * x.numel() * x.element_size() + 4 * dm
-            rows[("rmsnorm", tag, n)] = dict(
-                err=err, ms=cuda_ms(kern), host_ms=host_ms(kern),
-                plain_ms=cuda_ms(plain), library_ms=cuda_ms(lib),
-                bound=bound(nbytes, 4 * n * dm, dtype))
+            for dm in (4096, 7168):
+                rows[("rmsnorm", tag, f"N={n} D={dm}")] = rmsnorm(
+                    n, dm, dtype, tag)
+        # the SSD scan at zamba2's prefill (a ragged chunk, one chunk, eight
+        # chunks) and at one shape of tests/test_kernels.py
+        for s in (17, 64, 512):
+            rows[("mamba_scan", tag, f"S={s}")] = scan(
+                1, s, 112, 64, 64, 64, dtype, tag)
+        rows[("mamba_scan", tag, "B=2 S=64 H=3 P=16 N=8 L=16")] = scan(
+            2, 64, 3, 16, 8, 16, dtype, tag)
+    # zamba2's shared attention: head dim 112, 32 KV heads (group 1)
+    for s in (17, 512):
+        rows[("flash_attention", "float32", f"S={s} D=112 MHA")] = attention(
+            s, 32, 32, 112, torch.float32, "float32")
+    rows[("flash_decode", "float32", "T=1024 D=112 MHA")] = decode(
+        32, 32, 112, torch.float32, "float32")
     for (name, tag, size), r in rows.items():
-        print(f"  {name:16s} {tag:9s} size {size:5d}  max_abs_err "
+        lib = "none" if r["library_ms"] is None else \
+            f"{r['library_ms']:.4f} ms"
+        print(f"  {name:16s} {tag:9s} {size:27s} max_abs_err "
               f"{r['err']:.3e}  kernel {r['ms']:.4f} ms (host-issued "
-              f"{r['host_ms']:.4f} ms)  plain "
-              f"{r['plain_ms']:.4f} ms  library {r['library_ms']:.4f} ms  "
-              f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")
+              f"{r['host_ms']:.4f} ms)  plain {r['plain_ms']:.4f} ms  "
+              f"library {lib}  bound {r['bound'][0]:.4f} ms "
+              f"({r['bound'][1]})")
     return rows
 
 
@@ -189,13 +251,14 @@ def run_greedy(cfg, params, prompt, cache_len, steps):
     return out_logits, out_tokens
 
 
-def phase_two_layers(seed):
-    """Phase 3: full-width glm4_9b at 2 layers, card against CPU."""
+def phase_cut(arch, n_layers, seed):
+    """Phases 3 and 5: a full-width model cut to ``n_layers``, the same
+    weights on the card and on the CPU."""
     from repro_torch.configs import get_config
     from repro_torch.models import api
     from repro_torch.models.common import init_params
-    cfg = get_config("glm4_9b").replace(n_layers=2, dtype="float32",
-                                        attn_impl="kernel")
+    cfg = get_config(arch).replace(n_layers=n_layers, dtype="float32",
+                                   attn_impl="kernel")
     gen = torch.Generator(device="cuda").manual_seed(seed)
     p_gpu = init_params(api.param_spec(cfg), gen, "cuda")
 
@@ -217,11 +280,26 @@ def phase_two_layers(seed):
         check(rel <= 1e-3, f"step {i}: card logits off the CPU's by {rel} of "
                            f"max |logit|")
     check(gt == ct, f"greedy tokens differ: card {gt} cpu {ct}")
-    print(f"  2-layer full-width glm4_9b: prefill 128 + 8 decode steps, "
-          f"worst |card - cpu| / max|logit| = {worst:.3e}, tokens equal "
-          f"({gt}); card {t1 - t0:.2f} s, cpu {t2 - t1:.2f} s")
+    print(f"  {n_layers}-layer full-width {arch}: prefill 128 + 8 decode "
+          f"steps, worst |card - cpu| / max|logit| = {worst:.3e}, tokens "
+          f"equal ({gt}); card {t1 - t0:.2f} s, cpu {t2 - t1:.2f} s")
     del p_gpu, p_cpu
     torch.cuda.empty_cache()
+
+
+def structure_launches(cfg, n_prefill, n_steps):
+    """Kernel launches the model's structure implies for ``n_prefill``
+    prefills and ``n_steps`` decode ticks.  Dense: one attention and two
+    norms a layer.  Hybrid: one SSD scan and two norms (the block's and the
+    gated one) a Mamba2 layer, one attention and two norms a shared block.
+    Both: one final norm."""
+    if cfg.family == "hybrid":
+        m, g = cfg.n_layers, cfg.n_layers // cfg.attn_every
+    else:
+        m, g = 0, cfg.n_layers
+    return {"flash_attention": g * n_prefill, "flash_decode": g * n_steps,
+            "mamba_scan": m * n_prefill,
+            "rmsnorm": (2 * m + 2 * g + 1) * (n_prefill + n_steps)}
 
 
 def serve_once(cfg, params, prompts, new_tokens):
@@ -247,22 +325,32 @@ def serve_once(cfg, params, prompts, new_tokens):
         check(len(r.output) == new_tokens
               and all(0 <= t < cfg.vocab for t in r.output),
               f"request {r.uid}: bad output {r.output}")
-    n_prefill, n_steps, n_layers = len(prompts), engine.steps, cfg.n_layers
-    want = {"flash_attention": n_layers * n_prefill,
-            "flash_decode": n_layers * n_steps,
-            "rmsnorm": (2 * n_layers + 1) * (n_prefill + n_steps)}
+    want = structure_launches(cfg, len(prompts), engine.steps)
     check(launches == want, f"launch counts {launches}, the model's "
                             f"structure implies {want}")
     return finished, engine, wall, launches
 
 
-def phase_serve(seed, repeats: int = 3):
-    """Phase 4: full glm4_9b through the serving engine, the same 8
-    requests ``repeats`` times, each on a fresh engine."""
+def tick_params(cfg, spec):
+    """Parameters one decode tick reads: every weight once, except the
+    hybrid's shared attention blocks, read once per group of Mamba2
+    layers, alternating between the weight sets."""
+    from repro_torch.models.common import count_params
+    n = count_params(spec)
+    if cfg.family == "hybrid":
+        per_set = count_params(spec["shared_attn"]) // cfg.n_shared_attn
+        n += per_set * (cfg.n_layers // cfg.attn_every - cfg.n_shared_attn)
+    return n
+
+
+def phase_serve(arch, seed, max_prompt, repeats: int = 3):
+    """Phases 4 and 6: a full model through the serving engine, the same 8
+    requests ``repeats`` times, each on a fresh engine.  Six prompts are
+    drawn in [4, max_prompt], two are 256 and 512 long."""
     from repro_torch.configs import get_config
     from repro_torch.models import api
     from repro_torch.models.common import count_params, init_params
-    cfg = get_config("glm4_9b").replace(dtype="float32", attn_impl="kernel")
+    cfg = get_config(arch).replace(dtype="float32", attn_impl="kernel")
     spec = api.param_spec(cfg)
     n_params = count_params(spec)
     torch.cuda.reset_peak_memory_stats()
@@ -270,16 +358,19 @@ def phase_serve(seed, repeats: int = 3):
     params = init_params(spec, torch.Generator(device="cuda").manual_seed(
         seed), "cuda")
     torch.cuda.synchronize()
-    print(f"  glm4_9b: {n_params / 1e9:.3f} B params fp32 "
+    print(f"  {arch}: {n_params / 1e9:.3f} B params fp32 "
           f"({4 * n_params / 1e9:.1f} GB), init {time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(seed)
-    lens = [int(x) for x in rng.integers(4, 129, 6)] + [256, 512]
+    lens = [int(x) for x in rng.integers(4, max_prompt + 1, 6)] + [256, 512]
     prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in lens]
     new_tokens = 32
-    step_bound = 4 * n_params / HBM_BYTES_PER_S * 1e3
+    n_tick = tick_params(cfg, spec)
+    step_bound = 4 * n_tick / HBM_BYTES_PER_S * 1e3
     print(f"  prompts {lens}, {new_tokens} new tokens each, 4 slots, cache "
-          f"1024; decode-step bound {step_bound:.2f} ms (fp32 weights over "
-          f"HBM)")
+          f"1024; decode-step bound {step_bound:.2f} ms ({n_tick / 1e9:.3f} B "
+          f"fp32 weights a tick over HBM)")
+    print(f"  launches per prefill {structure_launches(cfg, 1, 0)}, per tick "
+          f"{structure_launches(cfg, 0, 1)}")
     first, all_steps = None, []
     for run in range(repeats):
         finished, engine, wall, launches = serve_once(cfg, params, prompts,
@@ -299,7 +390,8 @@ def phase_serve(seed, repeats: int = 3):
               f"{[round((r.t_first - r.t_submit) * 1e3, 1) for r in finished]}")
     all_steps.sort()
     print(f"  decode step over all {repeats} runs: p50 "
-          f"{all_steps[len(all_steps) // 2]:.2f} ms of {len(all_steps)} ticks")
+          f"{all_steps[len(all_steps) // 2]:.2f} ms, min {all_steps[0]:.2f} "
+          f"ms, max {all_steps[-1]:.2f} ms of {len(all_steps)} ticks")
     print(f"  launches {first}; peak memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     phase_profile(cfg, params, seed)
@@ -378,15 +470,30 @@ def main() -> int:
     print(f"[1] kernels built in {time.perf_counter() - t0:.1f} s (nvcc "
           f"{_build.BUILD_SECONDS:.1f} s)")
 
-    print("[2] kernels against their plain versions")
-    rows = phase_kernels(torch.Generator(device="cuda").manual_seed(seed))
-    print("[3] full-width 2-layer model, card against CPU")
-    phase_two_layers(seed)
-    print("[4] serving full glm4_9b")
-    launches = phase_serve(seed)
+    def phase(n, label, fn, *args):
+        print(f"[{n}] {label}")
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print(f"[{n}] {time.perf_counter() - t0:.1f} s")
+        return out
 
-    timed = {"flash_attention": ("float32", 512),
-             "flash_decode": ("float32", 1024), "rmsnorm": ("float32", 4)}
+    rows = phase(2, "kernels against their plain versions", phase_kernels,
+                 torch.Generator(device="cuda").manual_seed(seed))
+    phase(3, "full-width 2-layer glm4_9b, card against CPU", phase_cut,
+          "glm4_9b", 2, seed)
+    by_path = {"glm4_9b": phase(4, "serving full glm4_9b", phase_serve,
+                                "glm4_9b", seed, 128)}
+    gc.collect()
+    torch.cuda.empty_cache()        # glm4_9b's weights are gone
+    phase(5, "full-width 13-layer zamba2_7b, card against CPU", phase_cut,
+          "zamba2_7b", 13, seed)
+    by_path["zamba2_7b"] = phase(6, "serving full zamba2_7b", phase_serve,
+                                 "zamba2_7b", seed, 64)
+
+    timed = {"flash_attention": ("float32", "S=512"),
+             "flash_decode": ("float32", "T=1024"),
+             "rmsnorm": ("float32", "N=4 D=4096"),
+             "mamba_scan": ("float32", "S=512")}
     sources = {
         "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:75"),
@@ -394,13 +501,17 @@ def main() -> int:
                          "src/repro/kernels/flash_decode.py:62"),
         "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
                     "src/repro/kernels/rmsnorm.py:27"),
+        "mamba_scan": ("src/repro_torch/kernels/csrc/mamba_scan.cu",
+                       "src/repro/kernels/mamba_scan.py:62"),
     }
     kernels = []
     for name, (tag, size) in timed.items():
         r = rows[(name, tag, size)]
+        per_path = {arch: n[name] for arch, n in by_path.items()}
         kernels.append({
             "name": name, "route": "cuda", "source": sources[name][0],
-            "replaces": sources[name][1], "launches": launches[name],
+            "replaces": sources[name][1], "launches": sum(per_path.values()),
+            "launches_by_path": per_path,
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": r["library_ms"]})

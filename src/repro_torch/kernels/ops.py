@@ -21,10 +21,12 @@ import torch
 
 from . import flash_attention as _fa
 from . import flash_decode as _fd
+from . import mamba_scan as _ms
 from . import ref
 from . import rmsnorm as _rms
 
-_KERNELS = {"flash_attention": _fa, "flash_decode": _fd, "rmsnorm": _rms}
+_KERNELS = {"flash_attention": _fa, "flash_decode": _fd, "mamba_scan": _ms,
+            "rmsnorm": _rms}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -84,6 +86,23 @@ def flash_decode(q, k, v, kv_len, *, scale=None):
     else:
         out = ref.decode_ref(q[:, 0], kt, vt, kv_len, scale=scale)
     return out[:, None]
+
+
+def mamba_scan(xh, dt, a_log, bm, cm, *, chunk: int = 128):
+    """Chunked SSD: xh:(B,S,H,P) dt:(B,S,H) a_log:(H,) bm/cm:(B,S,N) ->
+    (y (B,S,H,P), final state (B,H,N,P) fp32).
+
+    Block contract of the TPU ``mamba_scan`` and of ``ssd_chunked``: the
+    chunk is min(chunk, S), and S must be a multiple of it.
+    """
+    s = xh.shape[1]
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"mamba_scan takes S a multiple of its chunk, got "
+                         f"S={s}, chunk={chunk}")
+    if _on_card(xh, dt, a_log, bm, cm):
+        return _ms.mamba_scan(xh, dt, a_log, bm, cm, chunk=chunk)
+    return ref.ssd_ref(xh, dt, a_log, bm, cm)
 
 
 def fused_rmsnorm(x, scale, *, eps: float = 1e-5):

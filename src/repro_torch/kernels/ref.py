@@ -1,10 +1,10 @@
 """Plain PyTorch versions of the port's kernels (the allclose targets).
 
 Ported from ``repro/kernels/ref.py``: quadratic attention, masked softmax
-decode and fp32 RMSNorm, independent of the model code so a kernel bug
-cannot hide behind a shared helper.  On the CPU the kernel wrappers in
-``ops`` run these; on the card ``chip_smoke.py`` holds each kernel
-against them.
+decode, fp32 RMSNorm and the sequential SSD recurrence, independent of the
+model code so a kernel bug cannot hide behind a shared helper.  On the CPU
+the kernel wrappers in ``ops`` run these; on the card ``chip_smoke.py``
+holds each kernel against them.
 """
 from __future__ import annotations
 
@@ -62,3 +62,25 @@ def rmsnorm_ref(x, scale, eps: float = 1e-5):
     x32 = x.float()
     var = x32.square().mean(dim=-1, keepdim=True)
     return (x32 * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def ssd_ref(xh, dt, a_log, bm, cm):
+    """Sequential-recurrence oracle of the chunked SSD kernel.
+
+    xh:(B,S,H,P) dt:(B,S,H) a_log:(H,) bm/cm:(B,S,N) -> y (B,S,H,P) in
+    xh's dtype and the final state (B,H,N,P) in fp32, by the direct
+    h_t = exp(dt*A) h_{t-1} + dt*B x recurrence with fp32 math.
+    """
+    b, s, h, p = xh.shape
+    n = bm.shape[-1]
+    a = -torch.exp(a_log.float())
+    x32, dt32, b32, c32 = xh.float(), dt.float(), bm.float(), cm.float()
+    state = torch.zeros((b, h, n, p), dtype=torch.float32, device=xh.device)
+    ys = []
+    for t in range(s):
+        decay = torch.exp(dt32[:, t] * a[None, :])[..., None, None]
+        upd = torch.einsum("bn,bh,bhp->bhnp", b32[:, t], dt32[:, t],
+                           x32[:, t])
+        state = state * decay + upd
+        ys.append(torch.einsum("bn,bhnp->bhp", c32[:, t], state))
+    return torch.stack(ys, dim=1).to(xh.dtype), state

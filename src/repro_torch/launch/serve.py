@@ -3,6 +3,8 @@ synthetic request trace; reports throughput, TTFT and decode-step time.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4_9b \
       --requests 8 --slots 4 --cache-len 1024 --prompt-len 128
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2_7b \
+      --smoke --device cpu
 
 Runs on the GPU (``--device cuda``, the default) and raises when there is
 none; ``--device cpu`` runs the plain PyTorch versions of the kernels.
@@ -50,9 +52,13 @@ def main(argv=None) -> int:
                            ServeConfig(n_slots=args.slots,
                                        cache_len=args.cache_len))
     rng = np.random.default_rng(args.seed)
+    # The hybrid prefill takes a prompt over one SSD chunk only at a
+    # multiple of the chunk (as JAX's ssd_chunked), so draw within a chunk.
+    max_len = min(args.prompt_len, cfg.ssm_chunk) \
+        if cfg.family == "hybrid" else args.prompt_len
     t0 = time.time()
     for uid in range(args.requests):
-        plen = int(rng.integers(4, args.prompt_len + 1))
+        plen = int(rng.integers(4, max_len + 1))
         prompt = rng.integers(0, cfg.vocab, size=plen).astype(np.int32)
         engine.submit(Request(uid=uid, prompt=prompt,
                               max_new_tokens=args.max_new))

@@ -1,4 +1,5 @@
-"""Decoder-only LM for the dense family, after ``repro/models/transformer.py``.
+"""Decoder-only LM for the dense and hybrid families, after
+``repro/models/transformer.py``.
 
   lm_spec(cfg)                                -> ParamSpec tree
   lm_forward(cfg, params, tokens)             -> logits
@@ -8,12 +9,15 @@
 Layers are stacked on a leading "layers" axis as in the JAX package; the
 JAX ``lax.scan`` over layers is a Python loop over views of the stacked
 tensors here.  Sharding constraints (no-ops without a mesh) are dropped.
-The other families (MoE, MLA, hybrid, xLSTM, VLM) are later slices of the
-port (ROADMAP.md) and raise ``NotImplementedError``.
+The hybrid family (Zamba2) runs groups of Mamba2 layers, each group
+followed by one of ``n_shared_attn`` shared attention blocks, then the
+rest layers; its SSD goes through ``ops.mamba_scan``.  The other families
+(MoE, MLA, xLSTM, VLM) are later slices of the port (ROADMAP.md) and
+raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -21,14 +25,15 @@ from .attention import gqa_decode_layer, gqa_layer, gqa_spec
 from .common import (ParamSpec, embed, embed_spec, init_params,
                      mask_padded_vocab, rmsnorm, rmsnorm_spec, spec_map,
                      swiglu, swiglu_spec, unembed)
+from .ssm import mamba_decode_layer, mamba_layer, mamba_mixer, mamba_spec
 
 
-def _require_dense(cfg) -> None:
-    if cfg.family != "dense" or cfg.attn != "gqa":
+def _require_ported(cfg) -> None:
+    if cfg.family not in ("dense", "hybrid") or cfg.attn != "gqa":
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} with {cfg.attn!r} attention "
             f"is not ported yet (see ROADMAP.md); the port runs the dense "
-            f"GQA decoder")
+            f"and hybrid GQA decoders")
 
 
 def stack_specs(tree, n: int):
@@ -73,27 +78,137 @@ def block_decode(cfg, p, x, cache, position, kv_len):
     return x + swiglu(p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps))
 
 
+# ---------------------------------------------------------------------------
+# Hybrid (Zamba2-style) structure
+# ---------------------------------------------------------------------------
+
+
+def _hybrid_layout(cfg) -> Tuple[int, int, int]:
+    """(n_groups, layers per group, rest layers) of the Mamba2 stack."""
+    group = cfg.attn_every
+    n_groups = cfg.n_layers // group
+    return n_groups, group, cfg.n_layers - n_groups * group
+
+
+def _mamba_block_spec(cfg) -> Dict:
+    return {"ln": rmsnorm_spec(cfg.d_model),
+            "mixer": mamba_spec(cfg.d_model, expand=cfg.ssm_expand,
+                                headdim=cfg.ssm_headdim, state=cfg.ssm_state)}
+
+
+def _mamba_cache_spec(cfg, batch: int) -> Dict:
+    """One Mamba2 layer's decode cache: the conv tail in the activation
+    dtype and the SSD state in fp32."""
+    d_inner = cfg.ssm_expand * cfg.d_model
+    h = d_inner // cfg.ssm_headdim
+    return {
+        "conv": ParamSpec((batch, 3, d_inner + 2 * cfg.ssm_state),
+                          ("batch", None, "mlp"), cfg.torch_dtype,
+                          init="zeros"),
+        "ssm": ParamSpec((batch, h, cfg.ssm_state, cfg.ssm_headdim),
+                         ("batch", "heads", None, None), torch.float32,
+                         init="zeros"),
+    }
+
+
+def _hybrid_walk(cfg, params, cache=None):
+    """The hybrid schedule in order: ``("mamba", layer params, layer
+    cache)`` for every Mamba2 layer, and ``("attn", shared block params,
+    the group's K/V cache)`` after each group, whose weight set is
+    ``gi % n_shared_attn``.  Cache entries are views (None without a
+    cache), so writing them writes the cache."""
+    n_groups, group, rest = _hybrid_layout(cfg)
+    shared = _layers(params["shared_attn"], cfg.n_shared_attn)
+
+    def views(tree, n):
+        return [None] * n if tree is None else _layers(tree, n)
+
+    def sub(key):
+        return None if cache is None else cache[key]
+
+    groups = zip(_layers(params["groups"], n_groups),
+                 views(sub("groups"), n_groups), views(sub("attn"), n_groups))
+    for gi, (gp, gc, kv) in enumerate(groups):
+        for p, c in zip(_layers(gp, group), views(gc, group)):
+            yield "mamba", p, c
+        yield "attn", shared[gi % cfg.n_shared_attn], kv
+    if rest:
+        for p, c in zip(_layers(params["rest"], rest),
+                        views(sub("rest"), rest)):
+            yield "mamba", p, c
+
+
+# ---------------------------------------------------------------------------
+# Entry points
+# ---------------------------------------------------------------------------
+
+
 def lm_spec(cfg) -> Dict:
-    _require_dense(cfg)
-    return {"embed": embed_spec(cfg.padded_vocab, cfg.d_model),
-            "final_norm": rmsnorm_spec(cfg.d_model),
-            "blocks": stack_specs(block_spec(cfg), cfg.n_layers)}
+    _require_ported(cfg)
+    sp = {"embed": embed_spec(cfg.padded_vocab, cfg.d_model),
+          "final_norm": rmsnorm_spec(cfg.d_model)}
+    if cfg.family == "dense":
+        sp["blocks"] = stack_specs(block_spec(cfg), cfg.n_layers)
+        return sp
+    n_groups, group, rest = _hybrid_layout(cfg)
+    sp["groups"] = stack_specs(stack_specs(_mamba_block_spec(cfg), group),
+                               n_groups)
+    if rest:
+        sp["rest"] = stack_specs(_mamba_block_spec(cfg), rest)
+    # the shared attention block is the dense block (JAX _shared_attn_spec)
+    sp["shared_attn"] = stack_specs(block_spec(cfg), cfg.n_shared_attn)
+    return sp
 
 
 def decode_cache_spec(cfg, batch: int, cache_len: int) -> Dict:
-    _require_dense(cfg)
+    _require_ported(cfg)
     kv = ParamSpec((batch, cache_len, cfg.n_kv_heads, cfg.dh),
                    ("batch", "kv_seq", "kv", None), cfg.torch_dtype,
                    init="zeros")
-    return {"layers": stack_specs({"k": kv, "v": kv}, cfg.n_layers)}
+    if cfg.family == "dense":
+        return {"layers": stack_specs({"k": kv, "v": kv}, cfg.n_layers)}
+    n_groups, group, rest = _hybrid_layout(cfg)
+    mamba = _mamba_cache_spec(cfg, batch)
+    cache = {"groups": stack_specs(stack_specs(mamba, group), n_groups),
+             "attn": stack_specs({"k": kv, "v": kv}, n_groups)}
+    if rest:
+        cache["rest"] = stack_specs(mamba, rest)
+    return cache
+
+
+def _hybrid_trunk(cfg, params, x, positions, cache=None):
+    """The Mamba2 groups, their shared attention blocks and the rest layers.
+    With a cache (the prefill), each Mamba2 layer's conv tail and SSD state
+    and each shared block's K/V go into it; the prompt length must then be
+    a multiple of min(ssm_chunk, S), as in the JAX prefill."""
+    s = x.shape[1]
+    for kind, p, c in _hybrid_walk(cfg, params, cache):
+        if kind == "attn":
+            x, k, v = block_apply(cfg, p, x, positions)
+            if c is not None:
+                c["k"][:, :s] = k
+                c["v"][:, :s] = v
+            continue
+        h = rmsnorm(p["ln"], x, cfg.norm_eps)
+        if c is None:
+            y = mamba_layer(p["mixer"], h, chunk=cfg.ssm_chunk, impl="kernel")
+        else:
+            y, state = mamba_mixer(p["mixer"], h, chunk=cfg.ssm_chunk,
+                                   impl="kernel")
+            c["conv"].copy_(state["conv"])
+            c["ssm"].copy_(state["ssm"])
+        x = x + y
+    return x
 
 
 def _trunk(cfg, params, tokens, cache=None):
-    """Embedding and blocks; writes each layer's K/V into ``cache`` when
-    one is given."""
+    """Embedding and blocks; writes each layer's K/V (and, in the hybrid,
+    each Mamba2 layer's states) into ``cache`` when one is given."""
     x = embed(params["embed"], tokens).to(cfg.torch_dtype)
     b, s = x.shape[0], x.shape[1]
     positions = torch.arange(s, device=x.device).expand(b, s)
+    if cfg.family == "hybrid":
+        return _hybrid_trunk(cfg, params, x, positions, cache)
     for i, p in enumerate(_layers(params["blocks"], cfg.n_layers)):
         x, k, v = block_apply(cfg, p, x, positions)
         if cache is not None:
@@ -104,7 +219,7 @@ def _trunk(cfg, params, tokens, cache=None):
 
 def lm_forward(cfg, params, tokens):
     """Full-sequence logits. tokens:(B,S) -> (B,S,V)."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     x = rmsnorm(params["final_norm"], _trunk(cfg, params, tokens),
                 cfg.norm_eps)
     return mask_padded_vocab(unembed(params["embed"], x), cfg.vocab)
@@ -114,9 +229,10 @@ def lm_prefill(cfg, params, tokens, cache_len: int):
     """Process the prompt; return (last-token logits (B,V), cache).
 
     Each layer's K/V is computed once, in the attention, and written into
-    a zero cache of ``cache_len`` rows.
+    a zero cache of ``cache_len`` rows; in the hybrid, each Mamba2 layer's
+    final states come from the same SSD launch as its output.
     """
-    _require_dense(cfg)
+    _require_ported(cfg)
     b, s = tokens.shape
     if s > cache_len:
         raise ValueError(f"prompt of {s} tokens over cache_len {cache_len}")
@@ -133,11 +249,22 @@ def lm_decode(cfg, params, token, cache, kv_len):
 
     Returns (logits (B,V), cache); the cache is updated in place.
     """
-    _require_dense(cfg)
+    _require_ported(cfg)
     x = embed(params["embed"], token).to(cfg.torch_dtype)
-    layer_caches = _layers(cache["layers"], cfg.n_layers)
-    for p, c in zip(_layers(params["blocks"], cfg.n_layers), layer_caches):
-        x = block_decode(cfg, p, x, c, kv_len, kv_len)
+    if cfg.family == "hybrid":
+        for kind, p, c in _hybrid_walk(cfg, params, cache):
+            if kind == "attn":
+                x = block_decode(cfg, p, x, c, kv_len, kv_len)
+                continue
+            y, state = mamba_decode_layer(
+                p["mixer"], rmsnorm(p["ln"], x, cfg.norm_eps), c)
+            c["conv"].copy_(state["conv"])
+            c["ssm"].copy_(state["ssm"])
+            x = x + y
+    else:
+        for p, c in zip(_layers(params["blocks"], cfg.n_layers),
+                        _layers(cache["layers"], cfg.n_layers)):
+            x = block_decode(cfg, p, x, c, kv_len, kv_len)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = mask_padded_vocab(unembed(params["embed"], x[:, 0]), cfg.vocab)
     return logits, cache

@@ -3,9 +3,9 @@
 
 * a fixed pool of ``n_slots`` sequence slots shares one decode KV cache
   (slot = batch row; a row is reused after its sequence finishes);
-* arriving requests are prefilled one at a time and their KV is written
-  into the slot's row; every tick decodes the whole pool, so new
-  sequences join mid-flight;
+* arriving requests are prefilled one at a time and their cache (KV, and
+  the Mamba2 states of the hybrid) is written into the slot's row; every
+  tick decodes the whole pool, so new sequences join mid-flight;
 * finished sequences (EOS, ``max_new_tokens`` or a full cache) free their
   slot.
 
@@ -25,7 +25,7 @@ import torch
 
 from ..configs.base import ArchConfig, InputShape
 from ..models import api
-from ..models.common import init_params
+from ..models.common import init_params, spec_map
 
 
 @dataclasses.dataclass
@@ -47,16 +47,14 @@ class ServeConfig:
     cache_len: int = 512
 
 
-# Every leaf of a decode cache is (layers, batch, ...): the slot axis is 1.
-_SLOT_AXIS = 1
-
-
-def _put_row(pool, one, slot: int) -> None:
+def _put_row(pool, one, slot_axes, slot: int) -> None:
+    """Copy the one-row cache ``one`` into row ``slot`` of ``pool``; each
+    leaf's slot axis comes from ``slot_axes``, the same tree of ints."""
     if isinstance(pool, dict):
         for k in pool:
-            _put_row(pool[k], one[k], slot)
+            _put_row(pool[k], one[k], slot_axes[k], slot)
     else:
-        pool.select(_SLOT_AXIS, slot).copy_(one.select(_SLOT_AXIS, 0))
+        pool.select(slot_axes, slot).copy_(one.select(slot_axes, 0))
 
 
 class ServingEngine:
@@ -69,8 +67,11 @@ class ServingEngine:
         self.device = params["embed"]["embedding"].device
         shape = InputShape("engine", serve_cfg.cache_len,
                            serve_cfg.n_slots, "decode")
-        self.cache = init_params(api.cache_spec(cfg, shape), None,
-                                 self.device)
+        spec = api.cache_spec(cfg, shape)
+        self.cache = init_params(spec, None, self.device)
+        # the slot axis of every leaf is where its spec says "batch"; the
+        # hybrid cache nests it under one or two stacking axes
+        self._slot_axes = spec_map(lambda s: s.axes.index("batch"), spec)
         n = serve_cfg.n_slots
         self.kv_len = torch.zeros(n, dtype=torch.int32, device=self.device)
         self.kv_len_host = np.zeros(n, np.int64)
@@ -101,7 +102,7 @@ class ServingEngine:
         tokens = torch.as_tensor(np.asarray(req.prompt)[None, :],
                                  dtype=torch.long, device=self.device)
         logits, cache1 = self._prefill(self.params, {"tokens": tokens})
-        _put_row(self.cache, cache1, slot)
+        _put_row(self.cache, cache1, self._slot_axes, slot)
         next_tok = int(logits[0].argmax())
         req.output.append(next_tok)
         req.t_first = time.time()

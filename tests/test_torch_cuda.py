@@ -21,6 +21,18 @@ ATTN_CASES = [  # (b, h, hkv, s, t, d), causal; causal only at S == T
     # served prompt lengths: causal inside a ragged tile
     ((1, 32, 2, 9, 9, 128), True), ((1, 32, 2, 67, 67, 128), True),
     ((1, 32, 2, 110, 110, 128), True),
+    # zamba2's shared attention: head dim 112 (a masked tail of the 16-wide
+    # split), 32 KV heads (group 1), prompts of 17 and 512
+    ((1, 32, 32, 17, 17, 112), True), ((1, 32, 32, 512, 512, 112), True),
+]
+SSD_TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
+SCAN_SHAPES = [  # (b, s, h, p, n, chunk)
+    (1, 32, 2, 8, 4, 8), (2, 64, 3, 16, 8, 16), (1, 128, 1, 32, 16, 32),
+    (2, 64, 2, 16, 8, 64), (1, 17, 3, 16, 8, 64),
+    # zamba2's prefill: one ragged chunk, one chunk, eight chunks
+    (1, 17, 112, 64, 64, 64), (1, 64, 112, 64, 64, 64),
+    (1, 512, 112, 64, 64, 64),
+    (1, 256, 4, 64, 64, 128),   # the JAX default chunk of 128 rows
 ]
 
 
@@ -60,6 +72,7 @@ def test_flash_attention_kernel(cuda_device, shape, causal, dtype):
 @pytest.mark.parametrize("b,h,hkv,t,d", [
     (2, 4, 2, 128, 32), (1, 8, 8, 256, 64), (3, 4, 1, 512, 16),
     (4, 32, 2, 1024, 128), (2, 4, 2, 256, 256),
+    (4, 32, 32, 1024, 112),     # zamba2's decode: D = 112, group 1
 ])
 def test_flash_decode_kernel(cuda_device, b, h, hkv, t, d, dtype):
     g = torch.Generator(device=cuda_device).manual_seed(1)
@@ -82,6 +95,50 @@ def test_rmsnorm_kernel(cuda_device, n, d, dtype):
     _close(ops.fused_rmsnorm(x, s), ref.rmsnorm_ref(x, s), dtype)
 
 
+def _scan_inputs(gen, dtype, b, s, h, p, n):
+    """xh, dt, a_log, B, C drawn as tests/test_kernels.py does; xh, B and
+    C are strided slices of one tensor, as the model hands them over."""
+    xbc = _rnd(gen, dtype, b, s, h * p + 2 * n)
+    xh, bm, cm = torch.split(xbc, [h * p, n, n], -1)
+    dt = (_rnd(gen, torch.float32, b, s, h).abs() * 0.1).to(dtype)
+    return xh.reshape(b, s, h, p), dt, _rnd(gen, torch.float32, h) * 0.5, \
+        bm, cm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,p,n,chunk", SCAN_SHAPES)
+def test_mamba_scan_kernel(cuda_device, b, s, h, p, n, chunk, dtype):
+    """y and the final state against the sequential oracle, at the SSD
+    tolerance of tests/test_kernels.py in fp32 (chunked and sequential sums
+    differ in order)."""
+    from repro_torch.kernels.mamba_scan import mamba_scan
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    args = _scan_inputs(g, dtype, b, s, h, p, n)
+    y, state = mamba_scan(*args, chunk=min(chunk, s))
+    want_y, want_state = ref.ssd_ref(*args)
+    assert y.dtype == dtype and state.dtype == torch.float32
+    tol = SSD_TOL[dtype]
+    torch.testing.assert_close(y.float(), want_y.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(state, want_state, atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_mamba_scan_refuses_tiles_over_shared_memory(cuda_device):
+    from repro_torch.kernels import mamba_scan as ms
+    assert ms.smem_bytes(64, 64, 64) == 83_456          # zamba2: 81.5 KB
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    args = _scan_inputs(g, torch.float32, 1, 128, 2, 128, 128)
+    assert ms.smem_bytes(128, 128, 128) > ms.MAX_SMEM_BYTES
+    before = ms.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        ms.mamba_scan(*args, chunk=128)
+    assert ms.launches == before
+    y, _ = ms.mamba_scan(*args, chunk=32)                # fits: 32-row chunks
+    torch.testing.assert_close(y, ref.ssd_ref(*args)[0], atol=2e-4,
+                               rtol=2e-4)
+
+
 @pytest.mark.cuda
 def test_decode_with_empty_cache_gives_zero(cuda_device):
     """kv_len = 0 gives 0, as the TPU kernel does."""
@@ -100,6 +157,11 @@ def test_kernels_refuse_what_they_do_not_take(cuda_device):
     x = torch.zeros(4, 64, device=cuda_device)
     with pytest.raises(ValueError):
         ops.fused_rmsnorm(x, torch.ones(32, device=cuda_device))
+    xh = torch.zeros(1, 16, 2, 8, device=cuda_device, dtype=torch.float16)
+    bc = torch.zeros(1, 16, 4, device=cuda_device, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        ops.mamba_scan(xh, torch.zeros(1, 16, 2, device=cuda_device),
+                       torch.zeros(2, device=cuda_device), bc, bc, chunk=16)
 
 
 @pytest.mark.cuda
@@ -119,7 +181,57 @@ def test_model_path_counts_launches(cuda_device):
                  torch.tensor([16], dtype=torch.int32, device=cuda_device))
     n = cfg.n_layers
     assert ops.launch_counts() == {"flash_attention": n, "flash_decode": n,
-                                   "rmsnorm": 2 * (2 * n + 1)}
+                                   "mamba_scan": 0, "rmsnorm": 2 * (2 * n + 1)}
+
+
+def _to(tree, dev):
+    return tree.to(dev) if isinstance(tree, torch.Tensor) else \
+        {k: _to(v, dev) for k, v in tree.items()}
+
+
+@pytest.mark.cuda
+def test_hybrid_on_card_matches_cpu_and_counts_launches(cuda_device):
+    """Reduced zamba2 (2 groups of 3 Mamba2 layers, both shared attention
+    weight sets, 1 rest layer): a 32-token prefill (two SSD chunks) and 4
+    decode steps on the card, against the same weights on the CPU, with
+    each kernel launched as often as the structure says."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import api, transformer as tf
+    from repro_torch.models.common import init_params
+    cfg = get_config("zamba2_7b").reduced().replace(attn_impl="kernel")
+    cpu = init_params(api.param_spec(cfg), torch.Generator().manual_seed(0),
+                      "cpu")
+    tokens = torch.randint(0, cfg.vocab, (1, 32),
+                           generator=torch.Generator().manual_seed(1))
+    runs = []
+    for dev in ("cpu", cuda_device):
+        params = _to(cpu, dev)
+        ops.reset_launch_counts()
+        logits, cache = tf.lm_prefill(cfg, params, tokens.to(dev), 64)
+        after_prefill = ops.launch_counts()
+        kv = torch.tensor([32], dtype=torch.int32, device=dev)
+        out = [logits.cpu()]
+        for _ in range(4):
+            logits, cache = tf.lm_decode(cfg, params,
+                                         logits.argmax(-1, keepdim=True),
+                                         cache, kv)
+            kv += 1
+            out.append(logits.cpu())
+        runs.append((out, after_prefill, ops.launch_counts(), _to(cache,
+                                                                  "cpu")))
+    (cpu_out, _, _, cpu_cache), (gpu_out, pre, total, gpu_cache) = runs
+    for c, g in zip(cpu_out, gpu_out):
+        torch.testing.assert_close(g, c, atol=1e-4, rtol=1e-4)
+    for k in ("groups", "attn", "rest"):
+        for leaf in cpu_cache[k]:
+            torch.testing.assert_close(gpu_cache[k][leaf], cpu_cache[k][leaf],
+                                       atol=1e-4, rtol=1e-4)
+    n_mamba, n_groups = cfg.n_layers, cfg.n_layers // cfg.attn_every
+    norms = 2 * n_mamba + 2 * n_groups + 1
+    assert pre == {"flash_attention": n_groups, "flash_decode": 0,
+                   "mamba_scan": n_mamba, "rmsnorm": norms}
+    assert total == {"flash_attention": n_groups, "flash_decode": 4 * n_groups,
+                     "mamba_scan": n_mamba, "rmsnorm": 5 * norms}
 
 
 @pytest.mark.cuda
@@ -134,15 +246,11 @@ def test_serving_on_card_matches_cpu(cuda_device):
                                                   attn_impl="kernel")
     cpu = init_params(api.param_spec(cfg), torch.Generator().manual_seed(0),
                       "cpu")
-
-    def to(tree, dev):
-        return tree.to(dev) if isinstance(tree, torch.Tensor) else \
-            {k: to(v, dev) for k, v in tree.items()}
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
                for n in (5, 16, 9, 32)]
     outs = []
-    for params in (cpu, to(cpu, cuda_device)):
+    for params in (cpu, _to(cpu, cuda_device)):
         eng = ServingEngine(cfg, params, ServeConfig(n_slots=2, cache_len=64))
         for i, p in enumerate(prompts):
             eng.submit(Request(uid=i, prompt=p, max_new_tokens=6))

@@ -1,4 +1,5 @@
-"""The port's dense decoder (repro_torch.models) against the JAX package's.
+"""The port's dense and hybrid decoders (repro_torch.models) against the
+JAX package's.
 
 Weights come from the JAX package's ``init_params`` and are converted key
 for key, so both packages compute the same function on the same numbers.
@@ -84,7 +85,7 @@ def _shapes(tree):
 
 
 @pytest.mark.parametrize("arch", ["glm4_9b", "deepseek_7b",
-                                  "mistral_large_123b"])
+                                  "mistral_large_123b", "zamba2_7b"])
 def test_full_param_spec_matches_jax(arch):
     """Full-size configs: same names, shapes, axes and init (nothing is
     allocated)."""
@@ -104,11 +105,76 @@ def test_cache_spec_matches_jax():
 
 
 @pytest.mark.parametrize("arch", ["deepseek_moe_16b", "deepseek_v2_236b",
-                                  "minicpm3_4b", "zamba2_7b", "xlstm_125m",
+                                  "minicpm3_4b", "xlstm_125m",
                                   "whisper_medium", "llava_next_mistral_7b"])
 def test_unported_families_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tapi.param_spec(torch_config(arch))
+
+
+@pytest.mark.parametrize("arch,shape", [("zamba2_7b", (1024, 4)),
+                                        ("zamba2_7b", (64, 1))])
+def test_hybrid_cache_spec_matches_jax(arch, shape):
+    """Key for key, with the hybrid's nested stacking and its dtypes (conv
+    tail in the activation dtype, SSD state in fp32)."""
+    from repro.configs.base import InputShape as JShape
+    from repro_torch.configs.base import InputShape as TShape
+    jc, tc = jax_config(arch), torch_config(arch)
+    js = japi.cache_spec(jc, JShape("e", shape[0], shape[1], "decode"))
+    ts = tapi.cache_spec(tc, TShape("e", shape[0], shape[1], "decode"))
+    assert _shapes(ts) == _shapes(js)
+    assert jax.tree_util.tree_leaves(jax.tree_util.tree_map(
+        lambda s: jnp.dtype(s.dtype).name, js, is_leaf=jcommon.is_spec)) == \
+        [str(s.dtype).removeprefix("torch.") for s in
+         tcommon.spec_leaves(ts)]
+
+
+@pytest.mark.parametrize("jax_impl,torch_impl", [("pallas", "kernel"),
+                                                 ("chunked", "chunked")])
+def test_hybrid_prefill_and_decode_match_jax(jax_impl, torch_impl):
+    """Reduced zamba2 (7 layers: 2 groups of 3 and 1 rest layer, both
+    shared weight sets): a 32-token prefill, two SSD chunks of 16, and 4
+    decode steps, logits and every cache leaf."""
+    jc, jp, tc, tp = _models("zamba2_7b", jax_impl, torch_impl)
+    tokens = np.random.default_rng(5).integers(0, jc.vocab, (2, 32))
+    jl, jcache = jtf.lm_prefill(jc, jp, jnp.asarray(tokens, jnp.int32), 64)
+    tl, tcache = ttf.lm_prefill(tc, tp, torch.from_numpy(tokens), 64)
+
+    def caches_close():
+        flat_j = jax.tree_util.tree_leaves_with_path(jcache)
+        flat_t = dict(jax.tree_util.tree_leaves_with_path(tcache))
+        assert len(flat_j) == len(flat_t) == 6
+        for path, leaf in flat_j:
+            _close(flat_t[path], leaf)
+    _close(tl, jl)
+    caches_close()
+    kv_len = np.array([32, 32], np.int32)
+    for _ in range(4):
+        tok = np.array(jnp.argmax(jl, axis=-1))[:, None]
+        jl, jcache = jtf.lm_decode(jc, jp, jnp.asarray(tok, jnp.int32),
+                                   jcache, jnp.asarray(kv_len))
+        tl, tcache = ttf.lm_decode(tc, tp, torch.from_numpy(tok), tcache,
+                                   torch.from_numpy(kv_len))
+        _close(tl, jl)
+        kv_len += 1
+    caches_close()
+
+
+def test_hybrid_forward_matches_jax():
+    """Full-sequence logits, 20 tokens: the Mamba2 layers pad to 32."""
+    jc, jp, tc, tp = _models("zamba2_7b", "pallas", "kernel")
+    tokens = np.random.default_rng(6).integers(0, jc.vocab, (2, 20))
+    _close(ttf.lm_forward(tc, tp, torch.from_numpy(tokens)),
+           jtf.lm_forward(jc, jp, jnp.asarray(tokens, jnp.int32)))
+
+
+def test_hybrid_prefill_off_the_chunk_raises_like_jax():
+    jc, jp, tc, tp = _models("zamba2_7b", "chunked", "chunked")
+    tokens = np.zeros((1, 20), np.int64)       # over one chunk of 16, not 32
+    with pytest.raises(AssertionError):
+        jtf.lm_prefill(jc, jp, jnp.asarray(tokens, jnp.int32), 64)
+    with pytest.raises(ValueError, match="chunk"):
+        ttf.lm_prefill(tc, tp, torch.from_numpy(tokens), 64)
 
 
 def test_configs_match_jax():

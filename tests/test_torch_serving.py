@@ -25,11 +25,11 @@ torch.set_num_threads(1)
 TOL = dict(atol=1e-4, rtol=1e-4)
 
 
-def _setup(jax_impl="pallas", torch_impl="kernel"):
-    jc = jax_config("glm4_9b").reduced().replace(dtype="float32",
-                                                 attn_impl=jax_impl)
-    tc = torch_config("glm4_9b").reduced().replace(dtype="float32",
-                                                   attn_impl=torch_impl)
+def _setup(jax_impl="pallas", torch_impl="kernel", arch="glm4_9b"):
+    jc = jax_config(arch).reduced().replace(dtype="float32",
+                                            attn_impl=jax_impl)
+    tc = torch_config(arch).reduced().replace(dtype="float32",
+                                              attn_impl=torch_impl)
     jp = jcommon.init_params(japi.param_spec(jc), jax.random.PRNGKey(0))
     tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), "cpu")
     return jc, jp, tc, tp
@@ -71,8 +71,8 @@ def _record(engine, is_jax):
     return log
 
 
-def _serve_both(prompts, max_new, slots, cache_len, **impls):
-    jc, jp, tc, tp = _setup(**impls)
+def _serve_both(prompts, max_new, slots, cache_len, **setup):
+    jc, jp, tc, tp = _setup(**setup)
     jeng = JServingEngine(jc, jp, JServeConfig(n_slots=slots,
                                                cache_len=cache_len))
     teng = ServingEngine(tc, tp, ServeConfig(n_slots=slots,
@@ -102,6 +102,21 @@ def test_engine_matches_jax_engine_continuous_batching():
     prompts = [rng.integers(0, 512, int(rng.integers(3, 9))).astype(np.int32)
                for _ in range(5)]
     _serve_both(prompts, max_new=5, slots=3, cache_len=64)
+
+
+@pytest.mark.parametrize("slots", [1, 3])
+def test_hybrid_engine_matches_jax_engine(slots):
+    """Reduced zamba2 (Mamba2 groups + shared attention): the slot row of
+    every cache leaf, stacked under one or two layer axes, is written on
+    its spec's batch axis.  At one slot JAX's shape guess is ambiguous
+    (every leaf has axes of size 1), the spec's axis is not.  Prompts are
+    within one SSD chunk (16) or a multiple of it, as the JAX prefill
+    needs."""
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, 512, n).astype(np.int32)
+               for n in (5, 16, 9, 32)]
+    _serve_both(prompts, max_new=5, slots=slots, cache_len=64,
+                arch="zamba2_7b")
 
 
 def test_engine_matches_jax_engine_until_cache_full():
