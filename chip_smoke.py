@@ -12,8 +12,9 @@ prints its seconds:
    serving paths' shapes, in fp32 (atol = rtol = 2e-5; 2e-4 for the SSD
    scan, whose chunked and sequential sums differ in order) and bf16
    (3e-2), and time kernel, plain version and the one PyTorch library call
-   that computes the same function (none for the SSD scan), beside the
-   card's bound;
+   that computes the same function (none for the SSD scan; ``torch.bmm``
+   for the grouped matmul, which the port never calls), beside the card's
+   bound;
 3. full-width glm4_9b cut to 2 layers, same weights on the card
    (kernels) and on the CPU (plain versions): a 128-token prefill and 8
    greedy decode steps must give logits within 1e-3 of max |logit| and
@@ -33,7 +34,17 @@ prints its seconds:
 6. serve full zamba2_7b (81 Mamba2 layers and 13 shared attention blocks,
    fp32, random weights from a seed) as in phase 4, glm4_9b's weights
    freed first; prompts are within one SSD chunk of 64 or a multiple of
-   it (256, 512), as the reference's prefill takes them.
+   it (256, 512), as the reference's prefill takes them;
+7. full-width deepseek_moe_16b cut to 3 layers (its dense first layer and
+   2 MoE layers), card against CPU as in phase 3, printing how many
+   (token, layer) top-6 routes differ between the two;
+8. serve full deepseek_moe_16b (28 layers, 64 routed experts of which 6
+   a token and 2 shared, fp32, 64.66 GB of random weights from a seed) as
+   in phase 4, zamba2's weights freed first; every routed-expert product
+   goes through the grouped-matmul kernel, 81 launches a prefill and a
+   tick; then one decode step's MoE FFN runs under
+   ``torch.cuda.set_sync_debug_mode("error")``, so a host sync inside the
+   dispatch fails the run.
 
 Then a ``{"kernels": [...]}`` line and, last, the device line.  Exits
 nonzero without a CUDA device or without the repository around it.
@@ -196,6 +207,21 @@ def phase_kernels(gen):
         flops = b * nc * (2 * n * pairs + h * (2 * p * pairs + 4 * ell * n * p))
         return timed(kern, plain, None, err, nbytes, flops, dtype)
 
+    def gmm(e, c, d, f, dtype, tag):
+        """x is the model's view of its (E, C + 1, D) dispatch buffer
+        without the sink row; w ~ N(0, 1/D), the scale of the model's
+        weights, so outputs are O(1) and fp32 sums of D products in two
+        orders stay within 2e-5."""
+        x = rnd(e, c + 1, d, dtype=dtype)[:, :c]
+        w = (rnd(e, d, f, dtype=torch.float32) * d ** -0.5).to(dtype)
+        kern = lambda: ops.moe_gmm(x, w)
+        plain = lambda: ref.gmm_ref(x, w)
+        lib = lambda: torch.bmm(x, w)
+        err = compare(f"moe_gmm E={e} C={c} D={d} F={f} {tag}", kern(),
+                      plain(), dtype)
+        nbytes = (e * c * d + w.numel() + e * c * f) * x.element_size()
+        return timed(kern, plain, lib, err, nbytes, 2 * e * c * d * f, dtype)
+
     rows = {}
     for dtype in (torch.float32, torch.bfloat16):
         tag = str(dtype).replace("torch.", "")
@@ -218,12 +244,28 @@ def phase_kernels(gen):
                 1, s, 112, 64, 64, 64, dtype, tag)
         rows[("mamba_scan", tag, "B=2 S=64 H=3 P=16 N=8 L=16")] = scan(
             2, 64, 3, 16, 8, 16, dtype, tag)
+        # the grouped matmul at deepseek_moe_16b's expert FFN: decode (C = 1
+        # at four slots), prefill at S = 128 and 512 (C = 15 and 60 at
+        # capacity factor 1.25), gate/up (D=2048, F=1408) and down (D=1408,
+        # F=2048); and a ragged C of tests/test_kernels.py
+        for c, d, f in ((1, 2048, 1408), (1, 1408, 2048), (15, 2048, 1408),
+                        (60, 2048, 1408), (60, 1408, 2048)):
+            rows[("moe_gmm", tag, f"E=64 C={c} D={d} F={f}")] = gmm(
+                64, c, d, f, dtype, tag)
+        rows[("moe_gmm", tag, "E=8 C=7 D=32 F=64")] = gmm(8, 7, 32, 64,
+                                                          dtype, tag)
     # zamba2's shared attention: head dim 112, 32 KV heads (group 1)
     for s in (17, 512):
         rows[("flash_attention", "float32", f"S={s} D=112 MHA")] = attention(
             s, 32, 32, 112, torch.float32, "float32")
     rows[("flash_decode", "float32", "T=1024 D=112 MHA")] = decode(
         32, 32, 112, torch.float32, "float32")
+    # deepseek_moe_16b's attention: MHA, 16 heads of 128
+    for s in (110, 512):
+        rows[("flash_attention", "float32", f"S={s} H=16 MHA")] = attention(
+            s, 16, 16, 128, torch.float32, "float32")
+    rows[("flash_decode", "float32", "T=1024 H=16 MHA")] = decode(
+        16, 16, 128, torch.float32, "float32")
     for (name, tag, size), r in rows.items():
         lib = "none" if r["library_ms"] is None else \
             f"{r['library_ms']:.4f} ms"
@@ -251,9 +293,40 @@ def run_greedy(cfg, params, prompt, cache_len, steps):
     return out_logits, out_tokens
 
 
+class RouteLog:
+    """Records the top-k expert ids of every ``moe.route`` call, as sorted
+    (token, k) arrays on the host, while it is entered."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.calls, self._route = [], moe.route
+
+        def logged(params, x_flat, top_k):
+            out = self._route(params, x_flat, top_k)
+            self.calls.append(out[1].sort(dim=-1).values.cpu())
+            return out
+        moe.route = logged
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.route = self._route
+
+
+def route_differences(card, cpu):
+    """(token, layer) routes whose top-k sets differ, and all of them."""
+    check(len(card) == len(cpu) and all(a.shape == b.shape
+                                        for a, b in zip(card, cpu)),
+          "card and CPU routed different numbers of tokens")
+    diff = sum(int((a != b).any(dim=-1).sum()) for a, b in zip(card, cpu))
+    return diff, sum(a.shape[0] for a in card)
+
+
 def phase_cut(arch, n_layers, seed):
-    """Phases 3 and 5: a full-width model cut to ``n_layers``, the same
-    weights on the card and on the CPU."""
+    """Phases 3, 5 and 7: a full-width model cut to ``n_layers``, the same
+    weights on the card and on the CPU.  For an MoE model it also counts
+    the (token, layer) top-k routes that differ between the two; a route
+    that flips on a near-tie is reported, not hidden."""
     from repro_torch.configs import get_config
     from repro_torch.models import api
     from repro_torch.models.common import init_params
@@ -268,10 +341,16 @@ def phase_cut(arch, n_layers, seed):
     p_cpu = to_cpu(p_gpu)
     prompt = np.random.default_rng(seed).integers(0, cfg.vocab, 128)
     t0 = time.perf_counter()
-    gl, gt = run_greedy(cfg, p_gpu, prompt, 256, 8)
+    with RouteLog() as card_routes:
+        gl, gt = run_greedy(cfg, p_gpu, prompt, 256, 8)
     t1 = time.perf_counter()
-    cl, ct = run_greedy(cfg, p_cpu, prompt, 256, 8)
+    with RouteLog() as cpu_routes:
+        cl, ct = run_greedy(cfg, p_cpu, prompt, 256, 8)
     t2 = time.perf_counter()
+    if cfg.family == "moe":
+        diff, total = route_differences(card_routes.calls, cpu_routes.calls)
+        print(f"  top-{cfg.top_k} routes that differ between card and CPU: "
+              f"{diff} of {total} (token, layer) routes")
     worst = 0.0
     for i, (g, c) in enumerate(zip(gl, cl)):
         check(bool(torch.isfinite(g).all()), f"step {i}: non-finite logits")
@@ -289,16 +368,19 @@ def phase_cut(arch, n_layers, seed):
 
 def structure_launches(cfg, n_prefill, n_steps):
     """Kernel launches the model's structure implies for ``n_prefill``
-    prefills and ``n_steps`` decode ticks.  Dense: one attention and two
-    norms a layer.  Hybrid: one SSD scan and two norms (the block's and the
+    prefills and ``n_steps`` decode ticks.  Dense and MoE: one attention
+    and two norms a layer, and three grouped matmuls (gate, up, down) an
+    MoE layer.  Hybrid: one SSD scan and two norms (the block's and the
     gated one) a Mamba2 layer, one attention and two norms a shared block.
-    Both: one final norm."""
+    All: one final norm."""
     if cfg.family == "hybrid":
         m, g = cfg.n_layers, cfg.n_layers // cfg.attn_every
     else:
         m, g = 0, cfg.n_layers
+    n_moe = cfg.n_layers - cfg.first_dense if cfg.family == "moe" else 0
     return {"flash_attention": g * n_prefill, "flash_decode": g * n_steps,
             "mamba_scan": m * n_prefill,
+            "moe_gmm": 3 * n_moe * (n_prefill + n_steps),
             "rmsnorm": (2 * m + 2 * g + 1) * (n_prefill + n_steps)}
 
 
@@ -332,9 +414,10 @@ def serve_once(cfg, params, prompts, new_tokens):
 
 
 def tick_params(cfg, spec):
-    """Parameters one decode tick reads: every weight once, except the
-    hybrid's shared attention blocks, read once per group of Mamba2
-    layers, alternating between the weight sets."""
+    """Parameters one decode tick reads: every weight once (every expert's
+    too: the grouped matmul reads the weights of experts without rows),
+    except the hybrid's shared attention blocks, read once per group of
+    Mamba2 layers, alternating between the weight sets."""
     from repro_torch.models.common import count_params
     n = count_params(spec)
     if cfg.family == "hybrid":
@@ -343,10 +426,11 @@ def tick_params(cfg, spec):
     return n
 
 
-def phase_serve(arch, seed, max_prompt, repeats: int = 3):
-    """Phases 4 and 6: a full model through the serving engine, the same 8
-    requests ``repeats`` times, each on a fresh engine.  Six prompts are
-    drawn in [4, max_prompt], two are 256 and 512 long."""
+def phase_serve(arch, seed, max_prompt, repeats: int = 3, then=None):
+    """Phases 4, 6 and 8: a full model through the serving engine, the same
+    8 requests ``repeats`` times, each on a fresh engine.  Six prompts are
+    drawn in [4, max_prompt], two are 256 and 512 long.  ``then(cfg,
+    params)`` runs last, on the same weights."""
     from repro_torch.configs import get_config
     from repro_torch.models import api
     from repro_torch.models.common import count_params, init_params
@@ -371,8 +455,9 @@ def phase_serve(arch, seed, max_prompt, repeats: int = 3):
           f"fp32 weights a tick over HBM)")
     print(f"  launches per prefill {structure_launches(cfg, 1, 0)}, per tick "
           f"{structure_launches(cfg, 0, 1)}")
-    first, all_steps = None, []
+    first, all_steps, engine = None, [], None
     for run in range(repeats):
+        engine = None       # one pool's cache at a time
         finished, engine, wall, launches = serve_once(cfg, params, prompts,
                                                       new_tokens)
         first = first or launches
@@ -394,8 +479,36 @@ def phase_serve(arch, seed, max_prompt, repeats: int = 3):
           f"ms, max {all_steps[-1]:.2f} ms of {len(all_steps)} ticks")
     print(f"  launches {first}; peak memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del engine
     phase_profile(cfg, params, seed)
+    if then is not None:
+        then(cfg, params)
     return first
+
+
+def moe_decode_without_sync(cfg, params):
+    """Phase 8's last check: the MoE FFN of one decode step (4 slots, the
+    first MoE layer, capacity factor 4.0) under sync debug mode "error",
+    where any call that waits for the device raises; its output must equal
+    that of the same call run beforehand."""
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import _layers
+    p = _layers(params["blocks"], 1)[0]["ffn"]
+    x = torch.randn(4, 1, cfg.d_model, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(1))
+    want = moe.moe_apply(p, x, cfg.top_k, capacity_factor=4.0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = moe.moe_apply(p, x, cfg.top_k, capacity_factor=4.0)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    check(err <= 1e-5 * want.abs().max().item(), f"the MoE FFN under sync "
+                                                 f"debug mode differs by {err}")
+    print(f"  one decode step's MoE FFN ran under sync debug mode \"error\" "
+          f"without a host sync (|diff| to an earlier run {err:.3e})")
 
 
 def phase_profile(cfg, params, seed, plain_ticks: int = 16,
@@ -489,11 +602,19 @@ def main() -> int:
           "zamba2_7b", 13, seed)
     by_path["zamba2_7b"] = phase(6, "serving full zamba2_7b", phase_serve,
                                  "zamba2_7b", seed, 64)
+    gc.collect()
+    torch.cuda.empty_cache()        # zamba2_7b's weights are gone
+    phase(7, "full-width 3-layer deepseek_moe_16b, card against CPU",
+          phase_cut, "deepseek_moe_16b", 3, seed)
+    by_path["deepseek_moe_16b"] = phase(
+        8, "serving full deepseek_moe_16b", phase_serve, "deepseek_moe_16b",
+        seed, 128, 3, moe_decode_without_sync)
 
     timed = {"flash_attention": ("float32", "S=512"),
              "flash_decode": ("float32", "T=1024"),
              "rmsnorm": ("float32", "N=4 D=4096"),
-             "mamba_scan": ("float32", "S=512")}
+             "mamba_scan": ("float32", "S=512"),
+             "moe_gmm": ("float32", "E=64 C=1 D=2048 F=1408")}
     sources = {
         "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:75"),
@@ -503,6 +624,8 @@ def main() -> int:
                     "src/repro/kernels/rmsnorm.py:27"),
         "mamba_scan": ("src/repro_torch/kernels/csrc/mamba_scan.cu",
                        "src/repro/kernels/mamba_scan.py:62"),
+        "moe_gmm": ("src/repro_torch/kernels/csrc/moe_gmm.cu",
+                    "src/repro/kernels/moe_gmm.py:37"),
     }
     kernels = []
     for name, (tag, size) in timed.items():

@@ -22,11 +22,12 @@ import torch
 from . import flash_attention as _fa
 from . import flash_decode as _fd
 from . import mamba_scan as _ms
+from . import moe_gmm as _gmm
 from . import ref
 from . import rmsnorm as _rms
 
 _KERNELS = {"flash_attention": _fa, "flash_decode": _fd, "mamba_scan": _ms,
-            "rmsnorm": _rms}
+            "moe_gmm": _gmm, "rmsnorm": _rms}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -103,6 +104,23 @@ def mamba_scan(xh, dt, a_log, bm, cm, *, chunk: int = 128):
     if _on_card(xh, dt, a_log, bm, cm):
         return _ms.mamba_scan(xh, dt, a_log, bm, cm, chunk=chunk)
     return ref.ssd_ref(xh, dt, a_log, bm, cm)
+
+
+def moe_gmm(x, w):
+    """Grouped matmul (E,C,D) @ (E,D,F) -> (E,C,F), fp32 accumulation, the
+    result in x's dtype.
+
+    Block contract of the TPU ``gmm``: D a multiple of min(128, D) and F of
+    min(128, F).  Any C is taken: the TPU wrapper pads C to its block, the
+    CUDA kernel masks it.
+    """
+    d, f = x.shape[-1], w.shape[-1]
+    if d % min(128, d) or f % min(128, f):
+        raise ValueError(f"moe_gmm takes D and F that are multiples of their "
+                         f"128-wide block, got D={d}, F={f}")
+    if _on_card(x, w):
+        return _gmm.moe_gmm(x, w)
+    return ref.gmm_ref(x, w)
 
 
 def fused_rmsnorm(x, scale, *, eps: float = 1e-5):

@@ -1,10 +1,10 @@
 """Plain PyTorch versions of the port's kernels (the allclose targets).
 
 Ported from ``repro/kernels/ref.py``: quadratic attention, masked softmax
-decode, fp32 RMSNorm and the sequential SSD recurrence, independent of the
-model code so a kernel bug cannot hide behind a shared helper.  On the CPU
-the kernel wrappers in ``ops`` run these; on the card ``chip_smoke.py``
-holds each kernel against them.
+decode, fp32 RMSNorm, the sequential SSD recurrence and the grouped
+matmul, independent of the model code so a kernel bug cannot hide behind a
+shared helper.  On the CPU the kernel wrappers in ``ops`` run these; on
+the card ``chip_smoke.py`` holds each kernel against them.
 """
 from __future__ import annotations
 
@@ -62,6 +62,12 @@ def rmsnorm_ref(x, scale, eps: float = 1e-5):
     x32 = x.float()
     var = x32.square().mean(dim=-1, keepdim=True)
     return (x32 * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def gmm_ref(x, w):
+    """Grouped matmul oracle: (E,C,D) @ (E,D,F) -> (E,C,F), fp32 math, the
+    result in x's dtype."""
+    return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)
 
 
 def ssd_ref(xh, dt, a_log, bm, cm):

@@ -5,6 +5,8 @@ synthetic request trace; reports throughput, TTFT and decode-step time.
       --requests 8 --slots 4 --cache-len 1024 --prompt-len 128
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2_7b \
       --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch deepseek_moe_16b --smoke --device cpu
 
 Runs on the GPU (``--device cuda``, the default) and raises when there is
 none; ``--device cpu`` runs the plain PyTorch versions of the kernels.

@@ -1,0 +1,132 @@
+"""Fine-grained Mixture-of-Experts (DeepSeekMoE-style), after
+``repro/models/moe.py``.
+
+Shared experts (always-on dense SwiGLU) + routed experts with top-k
+softmax routing, with the JAX package's sort-based capacity dispatch:
+
+  1. flatten tokens, top-k expert ids per token;
+  2. stable-sort the (token, expert) pairs by expert id;
+  3. position-in-expert = rank within the sorted run; slots >= capacity drop;
+  4. gather into an (E, C, D) buffer, batched expert SwiGLU whose three
+     products go through the grouped-matmul kernel (``ops.moe_gmm``),
+     scatter back, weighted combine.
+
+On the card ``moe_apply`` never waits for the host: the capacity comes
+from shapes, the counts per expert from ``scatter_add_``, and every index
+is a device tensor (no boolean-mask indexing, no ``bincount``, no
+``.item()``).  ``moe_ref`` (dense every-expert evaluation) is the oracle
+for tests; with a generous capacity factor the two agree.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels import ops
+from .common import ParamSpec, swiglu, swiglu_spec
+
+
+def moe_spec(d_model: int, n_experts: int, d_ff_expert: int,
+             n_shared: int) -> Dict:
+    sp = {
+        "router": ParamSpec((d_model, n_experts), ("embed", None),
+                            scale=0.02),
+        "w_gate": ParamSpec((n_experts, d_model, d_ff_expert),
+                            ("experts", "embed", "mlp")),
+        "w_up": ParamSpec((n_experts, d_model, d_ff_expert),
+                          ("experts", "embed", "mlp")),
+        "w_down": ParamSpec((n_experts, d_ff_expert, d_model),
+                            ("experts", "mlp", "embed")),
+    }
+    if n_shared > 0:
+        sp["shared"] = swiglu_spec(d_model, d_ff_expert * n_shared)
+    return sp
+
+
+def route(params, x_flat, top_k: int):
+    """Router probs -> (weights, ids, probs), weights renormalised over
+    the top-k.  The router runs in fp32."""
+    logits = x_flat.float() @ params["router"].float()
+    probs = torch.softmax(logits, dim=-1)
+    weights, ids = torch.topk(probs, top_k, dim=-1)          # (N,k)
+    weights = weights / weights.sum(-1, keepdim=True).clamp_min(1e-9)
+    return weights, ids, probs
+
+
+def aux_load_balance_loss(probs, ids, n_experts: int):
+    """Switch-style load-balance loss: E * sum_e f_e * p_e."""
+    flat = ids.reshape(-1)
+    counts = torch.zeros(n_experts, dtype=torch.float32, device=probs.device)
+    counts.index_add_(0, flat, torch.ones_like(flat, dtype=torch.float32))
+    frac = counts / max(ids.numel(), 1)
+    return n_experts * torch.sum(frac * probs.mean(dim=0))
+
+
+def moe_apply(params, x, top_k: int, capacity_factor: float = 1.25,
+              return_aux: bool = False):
+    """x: (B,S,D) -> (B,S,D).  Sort-based dispatch, see module docstring."""
+    b, s, d = x.shape
+    e = params["router"].shape[1]
+    n = b * s
+    dev = x.device
+    xf = x.reshape(n, d)
+    weights, ids, probs = route(params, xf, top_k)
+
+    nk = n * top_k
+    cap = int(max(1, (n * top_k / e) * capacity_factor))
+    flat_ids = ids.reshape(nk)
+    flat_w = weights.reshape(nk)
+    tok = torch.arange(nk, device=dev) // top_k            # token of a pair
+
+    order = torch.argsort(flat_ids, stable=True)
+    s_ids = flat_ids[order]
+    s_tok = tok[order]
+    s_w = flat_w[order]
+    counts = torch.zeros(e, dtype=torch.long, device=dev).scatter_add_(
+        0, flat_ids, torch.ones_like(flat_ids))
+    starts = torch.cumsum(counts, 0) - counts              # exclusive prefix
+    pos = torch.arange(nk, device=dev) - starts[s_ids]
+    keep = pos < cap
+    # JAX writes with mode="drop" and reads with mode="fill": here an
+    # over-capacity slot goes to row ``cap``, a sink row of the
+    # (E, cap + 1, D) buffer that the expert products never see, and its
+    # combine weight is 0.
+    pos_c = torch.where(keep, pos, cap)
+    buf = torch.zeros((e, cap + 1, d), dtype=x.dtype, device=dev)
+    buf[s_ids, pos_c] = xf[s_tok]
+    slots = buf[:, :cap]                                   # strided view
+
+    g = ops.moe_gmm(slots, params["w_gate"])
+    u = ops.moe_gmm(slots, params["w_up"])
+    out_buf = ops.moe_gmm(F.silu(g) * u, params["w_down"])  # (E, cap, D)
+
+    # Weighted combine, added straight into the (N, D) output.
+    slot_out = out_buf[s_ids, pos_c.clamp_max(cap - 1)]
+    s_w = torch.where(keep, s_w, 0.0).to(x.dtype)
+    y = torch.zeros((n, d), dtype=x.dtype, device=dev).index_add_(
+        0, s_tok, slot_out * s_w[:, None])
+
+    if "shared" in params:
+        y = y + swiglu(params["shared"], xf)
+    y = y.reshape(b, s, d)
+    if return_aux:
+        return y, aux_load_balance_loss(probs, ids, e)
+    return y
+
+
+def moe_ref(params, x, top_k: int):
+    """Oracle: evaluate EVERY expert for every token, dense mixture."""
+    b, s, d = x.shape
+    xf = x.reshape(b * s, d)
+    weights, ids, _ = route(params, xf, top_k)
+    g = torch.einsum("nd,edf->nef", xf, params["w_gate"])
+    u = torch.einsum("nd,edf->nef", xf, params["w_up"])
+    h = F.silu(g) * u
+    all_out = torch.einsum("nef,efd->ned", h, params["w_down"])  # (N,E,D)
+    sel = torch.take_along_dim(all_out, ids[..., None], dim=1)  # (N,k,D)
+    y = (sel * weights[..., None]).sum(dim=1).to(x.dtype)
+    if "shared" in params:
+        y = y + swiglu(params["shared"], xf)
+    return y.reshape(b, s, d)

@@ -1,4 +1,4 @@
-"""Decoder-only LM for the dense and hybrid families, after
+"""Decoder-only LM for the dense, MoE and hybrid families, after
 ``repro/models/transformer.py``.
 
   lm_spec(cfg)                                -> ParamSpec tree
@@ -9,11 +9,16 @@
 Layers are stacked on a leading "layers" axis as in the JAX package; the
 JAX ``lax.scan`` over layers is a Python loop over views of the stacked
 tensors here.  Sharding constraints (no-ops without a mesh) are dropped.
-The hybrid family (Zamba2) runs groups of Mamba2 layers, each group
-followed by one of ``n_shared_attn`` shared attention blocks, then the
-rest layers; its SSD goes through ``ops.mamba_scan``.  The other families
-(MoE, MLA, xLSTM, VLM) are later slices of the port (ROADMAP.md) and
-raise ``NotImplementedError``.
+The MoE family (DeepSeekMoE) runs its ``first_dense`` dense layers
+("dense_blocks", cache "dense_layers") and then its MoE layers ("blocks",
+cache "layers"), whose FFN is ``moe.moe_apply`` with its expert products
+through ``ops.moe_gmm``: at ``cfg.capacity_factor`` in prefill and 4.0 in
+decode, as in the JAX package.  The hybrid family (Zamba2) runs groups of
+Mamba2 layers, each group followed by one of ``n_shared_attn`` shared
+attention blocks, then the rest layers; its SSD goes through
+``ops.mamba_scan``.  The other families (MLA, xLSTM, VLM, encoder-decoder)
+are later slices of the port (ROADMAP.md) and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -25,15 +30,16 @@ from .attention import gqa_decode_layer, gqa_layer, gqa_spec
 from .common import (ParamSpec, embed, embed_spec, init_params,
                      mask_padded_vocab, rmsnorm, rmsnorm_spec, spec_map,
                      swiglu, swiglu_spec, unembed)
+from .moe import moe_apply, moe_spec
 from .ssm import mamba_decode_layer, mamba_layer, mamba_mixer, mamba_spec
 
 
 def _require_ported(cfg) -> None:
-    if cfg.family not in ("dense", "hybrid") or cfg.attn != "gqa":
+    if cfg.family not in ("dense", "moe", "hybrid") or cfg.attn != "gqa":
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} with {cfg.attn!r} attention "
-            f"is not ported yet (see ROADMAP.md); the port runs the dense "
-            f"and hybrid GQA decoders")
+            f"is not ported yet (see ROADMAP.md); the port runs the dense, "
+            f"MoE and hybrid GQA decoders")
 
 
 def stack_specs(tree, n: int):
@@ -51,11 +57,22 @@ def _layers(tree, n: int):
     return [take(tree, i) for i in range(n)]
 
 
-def block_spec(cfg) -> Dict:
+def block_spec(cfg, moe_layer: bool = False) -> Dict:
+    ffn = moe_spec(cfg.d_model, cfg.n_experts, cfg.d_ff_expert,
+                   cfg.n_shared) if moe_layer \
+        else swiglu_spec(cfg.d_model, cfg.d_ff)
     return {"ln1": rmsnorm_spec(cfg.d_model), "ln2": rmsnorm_spec(cfg.d_model),
             "attn": gqa_spec(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                              cfg.dh),
-            "ffn": swiglu_spec(cfg.d_model, cfg.d_ff)}
+            "ffn": ffn}
+
+
+def _ffn(cfg, p, h, capacity_factor: float):
+    """The block's FFN: the MoE where its params have a router, as in the
+    JAX package, else the dense SwiGLU."""
+    if "router" in p:
+        return moe_apply(p, h, cfg.top_k, capacity_factor)
+    return swiglu(p, h)
 
 
 def block_apply(cfg, p, x, positions):
@@ -65,17 +82,28 @@ def block_apply(cfg, p, x, positions):
     a, k, v = gqa_layer(p["attn"], h, positions, impl=cfg.attn_impl,
                         rope_theta=cfg.rope_theta, chunk=cfg.attn_chunk)
     x = x + a
-    x = x + swiglu(p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps))
+    x = x + _ffn(cfg, p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps),
+                 cfg.capacity_factor)
     return x, k, v
 
 
 def block_decode(cfg, p, x, cache, position, kv_len):
-    """One block for one token; updates ``cache`` ({"k","v"}) in place."""
+    """One block for one token; updates ``cache`` ({"k","v"}) in place.
+    The MoE FFN runs at capacity factor 4.0, as JAX's decode does."""
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     a, _, _ = gqa_decode_layer(p["attn"], h, cache["k"], cache["v"],
                                position, kv_len, cfg.rope_theta)
     x = x + a
-    return x + swiglu(p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps))
+    return x + _ffn(cfg, p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps), 4.0)
+
+
+def _stacks(cfg):
+    """The stacks of attention blocks in order, as (params key, cache key,
+    depth): the MoE family's ``first_dense`` dense layers, then the rest."""
+    if cfg.family == "moe" and cfg.first_dense:
+        return [("dense_blocks", "dense_layers", cfg.first_dense),
+                ("blocks", "layers", cfg.n_layers - cfg.first_dense)]
+    return [("blocks", "layers", cfg.n_layers)]
 
 
 # ---------------------------------------------------------------------------
@@ -147,8 +175,10 @@ def lm_spec(cfg) -> Dict:
     _require_ported(cfg)
     sp = {"embed": embed_spec(cfg.padded_vocab, cfg.d_model),
           "final_norm": rmsnorm_spec(cfg.d_model)}
-    if cfg.family == "dense":
-        sp["blocks"] = stack_specs(block_spec(cfg), cfg.n_layers)
+    if cfg.family in ("dense", "moe"):
+        for key, _, n in _stacks(cfg):
+            sp[key] = stack_specs(block_spec(
+                cfg, cfg.family == "moe" and key == "blocks"), n)
         return sp
     n_groups, group, rest = _hybrid_layout(cfg)
     sp["groups"] = stack_specs(stack_specs(_mamba_block_spec(cfg), group),
@@ -165,8 +195,9 @@ def decode_cache_spec(cfg, batch: int, cache_len: int) -> Dict:
     kv = ParamSpec((batch, cache_len, cfg.n_kv_heads, cfg.dh),
                    ("batch", "kv_seq", "kv", None), cfg.torch_dtype,
                    init="zeros")
-    if cfg.family == "dense":
-        return {"layers": stack_specs({"k": kv, "v": kv}, cfg.n_layers)}
+    if cfg.family in ("dense", "moe"):
+        return {ckey: stack_specs({"k": kv, "v": kv}, n)
+                for _, ckey, n in _stacks(cfg)}
     n_groups, group, rest = _hybrid_layout(cfg)
     mamba = _mamba_cache_spec(cfg, batch)
     cache = {"groups": stack_specs(stack_specs(mamba, group), n_groups),
@@ -209,11 +240,12 @@ def _trunk(cfg, params, tokens, cache=None):
     positions = torch.arange(s, device=x.device).expand(b, s)
     if cfg.family == "hybrid":
         return _hybrid_trunk(cfg, params, x, positions, cache)
-    for i, p in enumerate(_layers(params["blocks"], cfg.n_layers)):
-        x, k, v = block_apply(cfg, p, x, positions)
-        if cache is not None:
-            cache["layers"]["k"][i, :, :s] = k
-            cache["layers"]["v"][i, :, :s] = v
+    for key, ckey, n in _stacks(cfg):
+        for i, p in enumerate(_layers(params[key], n)):
+            x, k, v = block_apply(cfg, p, x, positions)
+            if cache is not None:
+                cache[ckey]["k"][i, :, :s] = k
+                cache[ckey]["v"][i, :, :s] = v
     return x
 
 
@@ -262,9 +294,10 @@ def lm_decode(cfg, params, token, cache, kv_len):
             c["ssm"].copy_(state["ssm"])
             x = x + y
     else:
-        for p, c in zip(_layers(params["blocks"], cfg.n_layers),
-                        _layers(cache["layers"], cfg.n_layers)):
-            x = block_decode(cfg, p, x, c, kv_len, kv_len)
+        for key, ckey, n in _stacks(cfg):
+            for p, c in zip(_layers(params[key], n),
+                            _layers(cache[ckey], n)):
+                x = block_decode(cfg, p, x, c, kv_len, kv_len)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = mask_padded_vocab(unembed(params["embed"], x[:, 0]), cfg.vocab)
     return logits, cache

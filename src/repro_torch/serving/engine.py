@@ -11,7 +11,11 @@
 
 The fill levels live on the device as an int32 tensor, which the decode
 kernel reads, with a host mirror for the scheduling decisions; a tick's
-one device-to-host copy is the argmax of its logits.
+one device-to-host copy is the argmax of its logits.  Rows are not
+independent in the MoE family: its decode dispatch gives every row of the
+pool, a free one too, a share of one capacity per expert (JAX's
+``capacity_factor=4.0``), so free and finished rows are fed exactly what
+the JAX engine feeds them.
 """
 from __future__ import annotations
 
@@ -127,7 +131,6 @@ class ServingEngine:
                                           self.cache, self.kv_len)
         self.kv_len += self._active_rows
         nxt_dev = logits.argmax(dim=-1)
-        self.tokens.copy_(nxt_dev[:, None])    # finished rows: ignored
         nxt = nxt_dev.cpu().numpy()            # the tick's one sync
         self.decode_s.append(time.perf_counter() - t0)
         self.steps += 1
@@ -145,6 +148,11 @@ class ServingEngine:
                 self.finished.append(r)
                 self.active[i] = None
                 self._active_rows[i] = 0
+        # Only rows that go on take their new token; a finished or free row
+        # keeps its last one, as in the JAX engine.  The MoE needs this: its
+        # decode capacity is shared by every row of the pool, free ones too.
+        self.tokens.copy_(torch.where(self._active_rows[:, None] > 0,
+                                      nxt_dev[:, None], self.tokens))
         return sum(r is not None for r in self.active)
 
     def run_until_drained(self, max_steps: int = 10_000) -> List[Request]:

@@ -139,6 +139,67 @@ def test_mamba_scan_refuses_tiles_over_shared_memory(cuda_device):
                                rtol=2e-4)
 
 
+GMM_SHAPES = [  # (e, c, d, f)
+    (2, 64, 32, 64), (4, 100, 64, 128), (1, 128, 128, 256), (8, 7, 32, 64),
+    (8, 1, 128, 256), (3, 5, 96, 24),     # F under a 4-column group's width
+    (1, 130, 256, 128),                   # three C tiles, the last ragged
+    # deepseek_moe_16b: decode (C = 1) and prefill at S = 128 and 512
+    # (C = 15 and 60 at capacity factor 1.25), gate/up and down
+    (64, 1, 2048, 1408), (64, 1, 1408, 2048), (64, 15, 2048, 1408),
+    (64, 60, 1408, 2048),
+]
+
+
+def _gmm_inputs(seed, dtype, e, c, d, f, c_alloc=None):
+    """x ~ N(0, 1) and w ~ N(0, 1/D), the scale of the model's weights (its
+    init is smaller still), so an output is O(1) and fp32 sums of D
+    products in two orders stay within the 2e-5 of the other kernels."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = _rnd(g, dtype, e, c_alloc or c, d)[:, :c]
+    w = (_rnd(g, torch.float32, e, d, f) * d ** -0.5).to(dtype)
+    return x, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e,c,d,f", GMM_SHAPES)
+def test_moe_gmm_kernel(cuda_device, e, c, d, f, dtype):
+    from repro_torch.kernels.moe_gmm import moe_gmm
+    x, w = _gmm_inputs(5, dtype, e, c, d, f)
+    out = moe_gmm(x, w)
+    assert out.shape == (e, c, f) and out.dtype == dtype
+    _close(out, ref.gmm_ref(x, w), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_gmm_kernel_reads_a_strided_x(cuda_device, dtype):
+    """The model's dispatch buffer without its sink row: rows of stride
+    D, experts of stride (C + 1) D."""
+    x, w = _gmm_inputs(6, dtype, 16, 9, 256, 384, c_alloc=10)
+    assert not x.is_contiguous()
+    _close(ops.moe_gmm(x, w), ref.gmm_ref(x, w), dtype)
+
+
+@pytest.mark.cuda
+def test_moe_gmm_kernel_refuses_what_it_does_not_take(cuda_device):
+    from repro_torch.kernels import moe_gmm as mg
+    before = mg.launches
+    x = torch.zeros(2, 4, 200, device=cuda_device)
+    with pytest.raises(ValueError, match="128"):      # the block contract
+        ops.moe_gmm(x, torch.zeros(2, 200, 128, device=cuda_device))
+    with pytest.raises(TypeError):
+        mg.moe_gmm(x.half(), torch.zeros(2, 200, 128, device=cuda_device,
+                                         dtype=torch.float16))
+    with pytest.raises(ValueError, match="grouped matmul"):
+        mg.moe_gmm(x, torch.zeros(3, 200, 128, device=cuda_device))
+    with pytest.raises(ValueError, match="contiguous"):
+        mg.moe_gmm(x, torch.zeros(2, 128, 200, device=cuda_device).mT)
+    with pytest.raises(ValueError, match="CUDA"):
+        mg.moe_gmm(x.cpu(), torch.zeros(2, 200, 128))
+    assert mg.launches == before
+
+
 @pytest.mark.cuda
 def test_decode_with_empty_cache_gives_zero(cuda_device):
     """kv_len = 0 gives 0, as the TPU kernel does."""
@@ -181,7 +242,8 @@ def test_model_path_counts_launches(cuda_device):
                  torch.tensor([16], dtype=torch.int32, device=cuda_device))
     n = cfg.n_layers
     assert ops.launch_counts() == {"flash_attention": n, "flash_decode": n,
-                                   "mamba_scan": 0, "rmsnorm": 2 * (2 * n + 1)}
+                                   "mamba_scan": 0, "moe_gmm": 0,
+                                   "rmsnorm": 2 * (2 * n + 1)}
 
 
 def _to(tree, dev):
@@ -229,9 +291,72 @@ def test_hybrid_on_card_matches_cpu_and_counts_launches(cuda_device):
     n_mamba, n_groups = cfg.n_layers, cfg.n_layers // cfg.attn_every
     norms = 2 * n_mamba + 2 * n_groups + 1
     assert pre == {"flash_attention": n_groups, "flash_decode": 0,
-                   "mamba_scan": n_mamba, "rmsnorm": norms}
+                   "mamba_scan": n_mamba, "moe_gmm": 0, "rmsnorm": norms}
     assert total == {"flash_attention": n_groups, "flash_decode": 4 * n_groups,
-                     "mamba_scan": n_mamba, "rmsnorm": 5 * norms}
+                     "mamba_scan": n_mamba, "moe_gmm": 0,
+                     "rmsnorm": 5 * norms}
+
+
+@pytest.mark.cuda
+def test_moe_on_card_matches_cpu_and_counts_launches(cuda_device):
+    """Reduced deepseek_moe_16b with 16 experts (a decode tick's capacity
+    is 1, as at the full model): a 32-token prefill and 4 decode steps of
+    3 rows on the card against the same weights on the CPU, with three
+    moe_gmm launches per MoE layer and call."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import api, transformer as tf
+    from repro_torch.models.common import init_params
+    cfg = get_config("deepseek_moe_16b").reduced().replace(
+        attn_impl="kernel", n_experts=16)
+    cpu = init_params(api.param_spec(cfg), torch.Generator().manual_seed(0),
+                      "cpu")
+    tokens = torch.randint(0, cfg.vocab, (3, 32),
+                           generator=torch.Generator().manual_seed(1))
+    runs = []
+    for dev in ("cpu", cuda_device):
+        params = _to(cpu, dev)
+        ops.reset_launch_counts()
+        logits, cache = tf.lm_prefill(cfg, params, tokens.to(dev), 64)
+        after_prefill = ops.launch_counts()
+        kv = torch.full((3,), 32, dtype=torch.int32, device=dev)
+        out = [logits.cpu()]
+        for _ in range(4):
+            logits, cache = tf.lm_decode(cfg, params,
+                                         logits.argmax(-1, keepdim=True),
+                                         cache, kv)
+            kv += 1
+            out.append(logits.cpu())
+        runs.append((out, after_prefill, ops.launch_counts()))
+    (cpu_out, _, _), (gpu_out, pre, total) = runs
+    for c, g in zip(cpu_out, gpu_out):
+        torch.testing.assert_close(g, c, atol=1e-4, rtol=1e-4)
+    n, n_moe = cfg.n_layers, cfg.n_layers - cfg.first_dense
+    assert pre == {"flash_attention": n, "flash_decode": 0, "mamba_scan": 0,
+                   "moe_gmm": 3 * n_moe, "rmsnorm": 2 * n + 1}
+    assert total == {"flash_attention": n, "flash_decode": 4 * n,
+                     "mamba_scan": 0, "moe_gmm": 5 * 3 * n_moe,
+                     "rmsnorm": 5 * (2 * n + 1)}
+
+
+@pytest.mark.cuda
+def test_moe_decode_ffn_does_not_sync(cuda_device):
+    """The MoE FFN of a decode step at deepseek_moe_16b's routing (64
+    experts, top-6, 4 rows) queues its work without waiting for the
+    host: any synchronising call raises under sync debug mode "error"."""
+    from repro_torch.models import moe
+    from repro_torch.models.common import init_params
+    spec = moe.moe_spec(256, 64, 128, 2)
+    params = init_params(spec, torch.Generator(
+        device=cuda_device).manual_seed(0), cuda_device)
+    x = torch.randn(4, 1, 256, device=cuda_device)
+    want = moe.moe_apply(params, x, 6, capacity_factor=4.0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = moe.moe_apply(params, x, 6, capacity_factor=4.0)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
 
 
 @pytest.mark.cuda

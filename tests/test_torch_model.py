@@ -1,5 +1,5 @@
-"""The port's dense and hybrid decoders (repro_torch.models) against the
-JAX package's.
+"""The port's dense, MoE and hybrid decoders (repro_torch.models) against
+the JAX package's.
 
 Weights come from the JAX package's ``init_params`` and are converted key
 for key, so both packages compute the same function on the same numbers.
@@ -38,26 +38,30 @@ def _close(port, ref, **tol):
                                np.asarray(ref, np.float32), **(tol or TOL))
 
 
-def _models(arch, jax_impl, torch_impl):
+def _models(arch, jax_impl, torch_impl, **overrides):
     jc = jax_config(arch).reduced().replace(dtype="float32",
-                                            attn_impl=jax_impl)
+                                            attn_impl=jax_impl, **overrides)
     tc = torch_config(arch).reduced().replace(dtype="float32",
-                                              attn_impl=torch_impl)
+                                              attn_impl=torch_impl,
+                                              **overrides)
     jp = jcommon.init_params(japi.param_spec(jc), jax.random.PRNGKey(0))
     return jc, jp, tc, params_from_numpy(_np(jp), "cpu")
 
 
 @pytest.mark.parametrize("jax_impl,torch_impl", [("pallas", "kernel"),
                                                  ("chunked", "chunked")])
-@pytest.mark.parametrize("arch", ["glm4_9b", "deepseek_7b"])
+@pytest.mark.parametrize("arch", ["glm4_9b", "deepseek_7b",
+                                  "deepseek_moe_16b"])
 def test_prefill_and_decode_match_jax(arch, jax_impl, torch_impl):
     jc, jp, tc, tp = _models(arch, jax_impl, torch_impl)
     tokens = np.random.default_rng(0).integers(0, jc.vocab, (2, 24))
     jl, jcache = jtf.lm_prefill(jc, jp, jnp.asarray(tokens, jnp.int32), 64)
     tl, tcache = ttf.lm_prefill(tc, tp, torch.from_numpy(tokens), 64)
     _close(tl, jl)
-    for name in ("k", "v"):
-        _close(tcache["layers"][name], jcache["layers"][name])
+    assert tcache.keys() == jcache.keys()
+    for layers in tcache:
+        for name in ("k", "v"):
+            _close(tcache[layers][name], jcache[layers][name])
     kv_len = np.array([24, 24], np.int32)
     for _ in range(4):
         tok = np.array(jnp.argmax(jl, axis=-1))[:, None]
@@ -67,8 +71,45 @@ def test_prefill_and_decode_match_jax(arch, jax_impl, torch_impl):
                                    torch.from_numpy(kv_len))
         _close(tl, jl)
         kv_len += 1
-    for name in ("k", "v"):
-        _close(tcache["layers"][name], jcache["layers"][name])
+    for layers in tcache:
+        for name in ("k", "v"):
+            _close(tcache[layers][name], jcache[layers][name])
+
+
+def test_moe_decode_drops_match_jax():
+    """Reduced deepseek_moe_16b (a dense first layer, 3 MoE layers, top-2)
+    with 16 experts: a 24-token prefill of 3 rows and 6 decode steps.  A
+    decode step's capacity is then int(3 * 2 / 16 * 4.0) = 1, so pairs
+    that meet on an expert drop, as at the full model's 64 experts and
+    top-6 (at the reduced 8 experts the capacity equals the rows and
+    nothing drops)."""
+    jc, jp, tc, tp = _models("deepseek_moe_16b", "pallas", "kernel",
+                             n_experts=16)
+    tokens = np.random.default_rng(7).integers(0, jc.vocab, (3, 24))
+    jl, jcache = jtf.lm_prefill(jc, jp, jnp.asarray(tokens, jnp.int32), 64)
+    tl, tcache = ttf.lm_prefill(tc, tp, torch.from_numpy(tokens), 64)
+    _close(tl, jl)
+    kv_len = np.full(3, 24, np.int32)
+    for _ in range(6):
+        tok = np.array(jnp.argmax(jl, axis=-1))[:, None]
+        jl, jcache = jtf.lm_decode(jc, jp, jnp.asarray(tok, jnp.int32),
+                                   jcache, jnp.asarray(kv_len))
+        tl, tcache = ttf.lm_decode(tc, tp, torch.from_numpy(tok), tcache,
+                                   torch.from_numpy(kv_len))
+        _close(tl, jl)
+        kv_len += 1
+    flat_j = jax.tree_util.tree_leaves_with_path(jcache)
+    flat_t = dict(jax.tree_util.tree_leaves_with_path(tcache))
+    assert len(flat_j) == len(flat_t) == 4
+    for path, leaf in flat_j:
+        _close(flat_t[path], leaf)
+
+
+def test_moe_forward_matches_jax():
+    jc, jp, tc, tp = _models("deepseek_moe_16b", "pallas", "kernel")
+    tokens = np.random.default_rng(8).integers(0, jc.vocab, (2, 32))
+    _close(ttf.lm_forward(tc, tp, torch.from_numpy(tokens)),
+           jtf.lm_forward(jc, jp, jnp.asarray(tokens, jnp.int32)))
 
 
 def test_forward_matches_jax():
@@ -85,7 +126,8 @@ def _shapes(tree):
 
 
 @pytest.mark.parametrize("arch", ["glm4_9b", "deepseek_7b",
-                                  "mistral_large_123b", "zamba2_7b"])
+                                  "mistral_large_123b", "zamba2_7b",
+                                  "deepseek_moe_16b"])
 def test_full_param_spec_matches_jax(arch):
     """Full-size configs: same names, shapes, axes and init (nothing is
     allocated)."""
@@ -104,12 +146,26 @@ def test_cache_spec_matches_jax():
     assert _shapes(ts) == _shapes(js)
 
 
-@pytest.mark.parametrize("arch", ["deepseek_moe_16b", "deepseek_v2_236b",
+@pytest.mark.parametrize("arch", ["deepseek_v2_236b",
                                   "minicpm3_4b", "xlstm_125m",
                                   "whisper_medium", "llava_next_mistral_7b"])
 def test_unported_families_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tapi.param_spec(torch_config(arch))
+
+
+@pytest.mark.parametrize("shape", [(1024, 4), (64, 1)])
+def test_moe_cache_spec_matches_jax(shape):
+    """deepseek_moe_16b: "dense_layers" for its dense first layer and
+    "layers" for its 27 MoE layers, key for key and in dtype."""
+    from repro.configs.base import InputShape as JShape
+    from repro_torch.configs.base import InputShape as TShape
+    jc, tc = jax_config("deepseek_moe_16b"), torch_config("deepseek_moe_16b")
+    js = japi.cache_spec(jc, JShape("e", shape[0], shape[1], "decode"))
+    ts = tapi.cache_spec(tc, TShape("e", shape[0], shape[1], "decode"))
+    assert _shapes(ts) == _shapes(js)
+    assert ts["dense_layers"]["k"].shape == (1, shape[1], shape[0], 16, 128)
+    assert ts["layers"]["v"].shape == (27, shape[1], shape[0], 16, 128)
 
 
 @pytest.mark.parametrize("arch,shape", [("zamba2_7b", (1024, 4)),

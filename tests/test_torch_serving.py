@@ -25,11 +25,13 @@ torch.set_num_threads(1)
 TOL = dict(atol=1e-4, rtol=1e-4)
 
 
-def _setup(jax_impl="pallas", torch_impl="kernel", arch="glm4_9b"):
+def _setup(jax_impl="pallas", torch_impl="kernel", arch="glm4_9b",
+           **overrides):
     jc = jax_config(arch).reduced().replace(dtype="float32",
-                                            attn_impl=jax_impl)
+                                            attn_impl=jax_impl, **overrides)
     tc = torch_config(arch).reduced().replace(dtype="float32",
-                                              attn_impl=torch_impl)
+                                              attn_impl=torch_impl,
+                                              **overrides)
     jp = jcommon.init_params(japi.param_spec(jc), jax.random.PRNGKey(0))
     tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), "cpu")
     return jc, jp, tc, tp
@@ -72,15 +74,18 @@ def _record(engine, is_jax):
 
 
 def _serve_both(prompts, max_new, slots, cache_len, **setup):
+    """``max_new``: one count for every request, or one per request."""
     jc, jp, tc, tp = _setup(**setup)
     jeng = JServingEngine(jc, jp, JServeConfig(n_slots=slots,
                                                cache_len=cache_len))
     teng = ServingEngine(tc, tp, ServeConfig(n_slots=slots,
                                              cache_len=cache_len))
     jlog, tlog = _record(jeng, True), _record(teng, False)
-    for i, p in enumerate(prompts):
-        jeng.submit(JRequest(uid=i, prompt=p, max_new_tokens=max_new))
-        teng.submit(Request(uid=i, prompt=p, max_new_tokens=max_new))
+    if isinstance(max_new, int):
+        max_new = [max_new] * len(prompts)
+    for i, (p, m) in enumerate(zip(prompts, max_new)):
+        jeng.submit(JRequest(uid=i, prompt=p, max_new_tokens=m))
+        teng.submit(Request(uid=i, prompt=p, max_new_tokens=m))
     jdone = sorted(jeng.run_until_drained(), key=lambda r: r.uid)
     tdone = sorted(teng.run_until_drained(), key=lambda r: r.uid)
     assert [r.uid for r in tdone] == [r.uid for r in jdone] \
@@ -117,6 +122,24 @@ def test_hybrid_engine_matches_jax_engine(slots):
                for n in (5, 16, 9, 32)]
     _serve_both(prompts, max_new=5, slots=slots, cache_len=64,
                 arch="zamba2_7b")
+
+
+@pytest.mark.parametrize("slots", [1, 3])
+def test_moe_engine_matches_jax_engine(slots):
+    """Reduced deepseek_moe_16b (a dense first layer, then MoE layers) with
+    16 experts: 5 requests of ragged prompts and ragged lengths.  A decode
+    tick's MoE capacity is shared by every row of the pool; with 16
+    experts and top-2 it is 1 at 3 slots (int(3 * 2 / 16 * 4.0)), so pairs
+    that meet on an expert drop, free and finished rows' pairs too, as at
+    the full model (at the reduced 8 experts nothing would drop).  The
+    port feeds a finished or free row what the JAX engine feeds it (its
+    last token), so the live rows' logits agree; fed its new token, they
+    would not at 3 slots."""
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, 512, n).astype(np.int32)
+               for n in (5, 16, 9, 32, 7)]
+    _serve_both(prompts, max_new=[3, 9, 4, 6, 8], slots=slots, cache_len=64,
+                arch="deepseek_moe_16b", n_experts=16)
 
 
 def test_engine_matches_jax_engine_until_cache_full():
