@@ -12,9 +12,11 @@ prints its seconds:
    serving paths' shapes, in fp32 (atol = rtol = 2e-5; 2e-4 for the SSD
    scan, whose chunked and sequential sums differ in order) and bf16
    (3e-2), and time kernel, plain version and the one PyTorch library call
-   that computes the same function (none for the SSD scan; ``torch.bmm``
-   for the grouped matmul, which the port never calls), beside the card's
-   bound;
+   that computes the same function (none for the SSD scan and the sLSTM;
+   ``torch.bmm`` for the grouped matmul, which the port never calls),
+   beside the card's bound; the sLSTM at xlstm_125m's prefill (S = 512 and
+   300) and decode tick (4 slots, S = 1, from a state), its final state
+   compared too;
 3. full-width glm4_9b cut to 2 layers, same weights on the card
    (kernels) and on the CPU (plain versions): a 128-token prefill and 8
    greedy decode steps must give logits within 1e-3 of max |logit| and
@@ -44,7 +46,13 @@ prints its seconds:
    goes through the grouped-matmul kernel, 81 launches a prefill and a
    tick; then one decode step's MoE FFN runs under
    ``torch.cuda.set_sync_debug_mode("error")``, so a host sync inside the
-   dispatch fails the run.
+   dispatch fails the run;
+9. the whole 12-layer xlstm_125m, card against CPU as in phase 3, with a
+   300-token prefill (no multiple of the TPU sLSTM kernel's 256 steps);
+10. serve full xlstm_125m (9 mLSTM and 3 sLSTM blocks, fp32, random
+   weights from a seed) as in phase 4, deepseek_moe_16b's weights freed
+   first, with prompts of 300 and 512 among the eight; every sLSTM layer
+   of a prefill and of a tick is one ``slstm_seq`` launch.
 
 Then a ``{"kernels": [...]}`` line and, last, the device line.  Exits
 nonzero without a CUDA device or without the repository around it.
@@ -53,6 +61,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -207,6 +216,34 @@ def phase_kernels(gen):
         flops = b * nc * (2 * n * pairs + h * (2 * p * pairs + 4 * ell * n * p))
         return timed(kern, plain, None, err, nbytes, flops, dtype)
 
+    def slstm(b, s, h, dh, r_scale, b_scale, dtype, tag, prefix=0):
+        """h and the final state.  r and bias at the model's init (r at
+        0.02, bias 0) or larger, so that the recurrence matters; with
+        ``prefix``, from the state the plain version reaches after that
+        many steps.  The recurrent product is fp32 whatever xg's type, so
+        its operations are bounded at the fp32 peak.  No single PyTorch
+        call computes the exp-gated sLSTM (``nn.LSTM`` is another
+        function), so there is no library time."""
+        xg = rnd(b, s, 4, h, dh, dtype=dtype)
+        r = rnd(4, h, dh, dh, dtype=torch.float32) * r_scale
+        bias = rnd(4, h, dh, dtype=torch.float32) * b_scale
+        state = None if not prefix else ref.slstm_seq_ref(
+            rnd(b, prefix, 4, h, dh, dtype=dtype), r, bias)[1]
+        kern = lambda: ops.slstm_seq(xg, r, bias, state)
+        plain = lambda: ref.slstm_seq_ref(xg, r, bias, state)
+        (got_h, got_st), (want_h, want_st) = kern(), plain()
+        label = f"slstm_seq B={b} S={s} H={h} Dh={dh} r={r_scale} {tag}"
+        err = max([compare(label + " h", got_h, want_h, dtype)]
+                  + [compare(f"{label} {k}", got_st[k], want_st[k], dtype)
+                     for k in want_st])
+        # xg read and h written once, r and bias read once, the four state
+        # leaves written (and read, from a state) once
+        n_state = 4 * 4 * b * h * dh * (2 if prefix else 1)
+        nbytes = xg.element_size() * (xg.numel() + b * s * h * dh) \
+            + 4 * (r.numel() + bias.numel()) + n_state
+        flops = 2 * b * s * 4 * h * dh * dh
+        return timed(kern, plain, None, err, nbytes, flops, torch.float32)
+
     def gmm(e, c, d, f, dtype, tag):
         """x is the model's view of its (E, C + 1, D) dispatch buffer
         without the sink row; w ~ N(0, 1/D), the scale of the model's
@@ -254,6 +291,15 @@ def phase_kernels(gen):
                 64, c, d, f, dtype, tag)
         rows[("moe_gmm", tag, "E=8 C=7 D=32 F=64")] = gmm(8, 7, 32, 64,
                                                           dtype, tag)
+        # the sLSTM at xlstm_125m's heads (4 of 192): a 512- and a 300-token
+        # prefill, and a decode tick of 4 slots from a state
+        for s_, rs, bs in ((512, 0.02, 0.0), (512, 0.1, 0.1),
+                           (300, 0.02, 0.0)):
+            rows[("slstm_seq", tag, f"B=1 S={s_} r={rs}")] = slstm(
+                1, s_, 4, 192, rs, bs, dtype, tag)
+        for rs, bs in ((0.02, 0.0), (0.1, 0.1)):
+            rows[("slstm_seq", tag, f"B=4 S=1 r={rs} from state")] = slstm(
+                4, 1, 4, 192, rs, bs, dtype, tag, prefix=9)
     # zamba2's shared attention: head dim 112, 32 KV heads (group 1)
     for s in (17, 512):
         rows[("flash_attention", "float32", f"S={s} D=112 MHA")] = attention(
@@ -322,9 +368,10 @@ def route_differences(card, cpu):
     return diff, sum(a.shape[0] for a in card)
 
 
-def phase_cut(arch, n_layers, seed):
-    """Phases 3, 5 and 7: a full-width model cut to ``n_layers``, the same
-    weights on the card and on the CPU.  For an MoE model it also counts
+def phase_cut(arch, n_layers, seed, prompt_len=128):
+    """Phases 3, 5, 7 and 9: a full-width model cut to ``n_layers``, the
+    same weights on the card and on the CPU, a ``prompt_len``-token prefill
+    and 8 greedy decode steps.  For an MoE model it also counts
     the (token, layer) top-k routes that differ between the two; a route
     that flips on a near-tie is reported, not hidden."""
     from repro_torch.configs import get_config
@@ -339,13 +386,13 @@ def phase_cut(arch, n_layers, seed):
         return t.cpu() if isinstance(t, torch.Tensor) else \
             {k: to_cpu(v) for k, v in t.items()}
     p_cpu = to_cpu(p_gpu)
-    prompt = np.random.default_rng(seed).integers(0, cfg.vocab, 128)
+    prompt = np.random.default_rng(seed).integers(0, cfg.vocab, prompt_len)
     t0 = time.perf_counter()
     with RouteLog() as card_routes:
-        gl, gt = run_greedy(cfg, p_gpu, prompt, 256, 8)
+        gl, gt = run_greedy(cfg, p_gpu, prompt, 2 * prompt_len, 8)
     t1 = time.perf_counter()
     with RouteLog() as cpu_routes:
-        cl, ct = run_greedy(cfg, p_cpu, prompt, 256, 8)
+        cl, ct = run_greedy(cfg, p_cpu, prompt, 2 * prompt_len, 8)
     t2 = time.perf_counter()
     if cfg.family == "moe":
         diff, total = route_differences(card_routes.calls, cpu_routes.calls)
@@ -353,35 +400,46 @@ def phase_cut(arch, n_layers, seed):
               f"{diff} of {total} (token, layer) routes")
     worst = 0.0
     for i, (g, c) in enumerate(zip(gl, cl)):
+        # over the real vocab: the padded entries are masked to -1e30, which
+        # would make any difference look small beside max |logit|
+        g, c = g[..., :cfg.vocab], c[..., :cfg.vocab]
         check(bool(torch.isfinite(g).all()), f"step {i}: non-finite logits")
         rel = ((g - c).abs().max() / c.abs().max()).item()
         worst = max(worst, rel)
         check(rel <= 1e-3, f"step {i}: card logits off the CPU's by {rel} of "
                            f"max |logit|")
     check(gt == ct, f"greedy tokens differ: card {gt} cpu {ct}")
-    print(f"  {n_layers}-layer full-width {arch}: prefill 128 + 8 decode "
-          f"steps, worst |card - cpu| / max|logit| = {worst:.3e}, tokens "
-          f"equal ({gt}); card {t1 - t0:.2f} s, cpu {t2 - t1:.2f} s")
+    print(f"  {n_layers}-layer full-width {arch}: prefill {prompt_len} + 8 "
+          f"decode steps, worst |card - cpu| / max|logit| = {worst:.3e}, "
+          f"tokens equal ({gt}); card {t1 - t0:.2f} s, cpu "
+          f"{t2 - t1:.2f} s")
     del p_gpu, p_cpu
     torch.cuda.empty_cache()
 
 
 def structure_launches(cfg, n_prefill, n_steps):
     """Kernel launches the model's structure implies for ``n_prefill``
-    prefills and ``n_steps`` decode ticks.  Dense and MoE: one attention
-    and two norms a layer, and three grouped matmuls (gate, up, down) an
-    MoE layer.  Hybrid: one SSD scan and two norms (the block's and the
-    gated one) a Mamba2 layer, one attention and two norms a shared block.
-    All: one final norm."""
+    prefills and ``n_steps`` decode ticks.  Two norms a block: a dense, MoE
+    or shared attention block, a Mamba2 layer (the block's and the gated
+    one) and an xLSTM block (the block's and the heads'), and one final
+    norm.  One attention a dense, MoE or shared attention block; one SSD
+    scan a Mamba2 layer; three grouped matmuls (gate, up, down) an MoE
+    layer; one sLSTM recurrence an sLSTM block."""
+    calls = n_prefill + n_steps
+    attn = mamba = moe = slstm = 0
     if cfg.family == "hybrid":
-        m, g = cfg.n_layers, cfg.n_layers // cfg.attn_every
+        mamba, attn = cfg.n_layers, cfg.n_layers // cfg.attn_every
+    elif cfg.family == "ssm":
+        slstm = cfg.n_layers // cfg.slstm_every
     else:
-        m, g = 0, cfg.n_layers
-    n_moe = cfg.n_layers - cfg.first_dense if cfg.family == "moe" else 0
-    return {"flash_attention": g * n_prefill, "flash_decode": g * n_steps,
-            "mamba_scan": m * n_prefill,
-            "moe_gmm": 3 * n_moe * (n_prefill + n_steps),
-            "rmsnorm": (2 * m + 2 * g + 1) * (n_prefill + n_steps)}
+        attn = cfg.n_layers
+    if cfg.family == "moe":
+        moe = cfg.n_layers - cfg.first_dense
+    blocks = cfg.n_layers + (attn if cfg.family == "hybrid" else 0)
+    return {"flash_attention": attn * n_prefill,
+            "flash_decode": attn * n_steps,
+            "mamba_scan": mamba * n_prefill, "moe_gmm": 3 * moe * calls,
+            "rmsnorm": (2 * blocks + 1) * calls, "slstm_seq": slstm * calls}
 
 
 def serve_once(cfg, params, prompts, new_tokens):
@@ -426,11 +484,31 @@ def tick_params(cfg, spec):
     return n
 
 
-def phase_serve(arch, seed, max_prompt, repeats: int = 3, then=None):
-    """Phases 4, 6 and 8: a full model through the serving engine, the same
-    8 requests ``repeats`` times, each on a fresh engine.  Six prompts are
-    drawn in [4, max_prompt], two are 256 and 512 long.  ``then(cfg,
-    params)`` runs last, on the same weights."""
+def tick_cache_bytes(cfg, slots, fill):
+    """Bytes of cache a tick of ``slots`` rows reads and writes, from the
+    cache spec: a K/V leaf is read to ``fill`` positions a row and written
+    at one; every other leaf (recurrent state, a conv tail) is read and
+    written whole."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.models import api
+    from repro_torch.models.common import spec_leaves
+    spec = api.cache_spec(cfg, InputShape("tick", 1024, slots, "decode"))
+    total = 0.0
+    for s in spec_leaves(spec):
+        size = math.prod(s.shape) * s.dtype.itemsize
+        if "kv_seq" in s.axes:
+            total += size / s.shape[s.axes.index("kv_seq")] * (fill + 1)
+        else:
+            total += 2 * size
+    return total
+
+
+def phase_serve(arch, seed, max_prompt, repeats: int = 3, then=None,
+                long=(256, 512)):
+    """Phases 4, 6, 8 and 10: a full model through the serving engine, the
+    same 8 requests ``repeats`` times, each on a fresh engine.  Six prompts
+    are drawn in [4, max_prompt], two have the ``long`` lengths.
+    ``then(cfg, params)`` runs last, on the same weights."""
     from repro_torch.configs import get_config
     from repro_torch.models import api
     from repro_torch.models.common import count_params, init_params
@@ -445,14 +523,17 @@ def phase_serve(arch, seed, max_prompt, repeats: int = 3, then=None):
     print(f"  {arch}: {n_params / 1e9:.3f} B params fp32 "
           f"({4 * n_params / 1e9:.1f} GB), init {time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(seed)
-    lens = [int(x) for x in rng.integers(4, max_prompt + 1, 6)] + [256, 512]
+    lens = [int(x) for x in rng.integers(4, max_prompt + 1, 6)] + list(long)
     prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in lens]
     new_tokens = 32
     n_tick = tick_params(cfg, spec)
-    step_bound = 4 * n_tick / HBM_BYTES_PER_S * 1e3
+    fill = sum(lens) / len(lens) + new_tokens / 2
+    n_cache = tick_cache_bytes(cfg, 4, fill)
+    step_bound = (4 * n_tick + n_cache) / HBM_BYTES_PER_S * 1e3
     print(f"  prompts {lens}, {new_tokens} new tokens each, 4 slots, cache "
-          f"1024; decode-step bound {step_bound:.2f} ms ({n_tick / 1e9:.3f} B "
-          f"fp32 weights a tick over HBM)")
+          f"1024; decode-step bound {step_bound:.3f} ms ({n_tick / 1e9:.3f} B "
+          f"fp32 weights a tick + {n_cache / 1e6:.1f} MB of cache read and "
+          f"written at a mean fill of {fill:.1f} positions, over HBM)")
     print(f"  launches per prefill {structure_launches(cfg, 1, 0)}, per tick "
           f"{structure_launches(cfg, 0, 1)}")
     first, all_steps, engine = None, [], None
@@ -609,12 +690,20 @@ def main() -> int:
     by_path["deepseek_moe_16b"] = phase(
         8, "serving full deepseek_moe_16b", phase_serve, "deepseek_moe_16b",
         seed, 128, 3, moe_decode_without_sync)
+    gc.collect()
+    torch.cuda.empty_cache()        # deepseek_moe_16b's weights are gone
+    phase(9, "full 12-layer xlstm_125m, card against CPU", phase_cut,
+          "xlstm_125m", 12, seed, 300)
+    by_path["xlstm_125m"] = phase(10, "serving full xlstm_125m", phase_serve,
+                                  "xlstm_125m", seed, 128, 3, None,
+                                  (300, 512))
 
     timed = {"flash_attention": ("float32", "S=512"),
              "flash_decode": ("float32", "T=1024"),
              "rmsnorm": ("float32", "N=4 D=4096"),
              "mamba_scan": ("float32", "S=512"),
-             "moe_gmm": ("float32", "E=64 C=1 D=2048 F=1408")}
+             "moe_gmm": ("float32", "E=64 C=1 D=2048 F=1408"),
+             "slstm_seq": ("float32", "B=1 S=512 r=0.02")}
     sources = {
         "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:75"),
@@ -626,6 +715,8 @@ def main() -> int:
                        "src/repro/kernels/mamba_scan.py:62"),
         "moe_gmm": ("src/repro_torch/kernels/csrc/moe_gmm.cu",
                     "src/repro/kernels/moe_gmm.py:37"),
+        "slstm_seq": ("src/repro_torch/kernels/csrc/slstm_seq.cu",
+                      "src/repro/kernels/slstm_cell.py:65"),
     }
     kernels = []
     for name, (tag, size) in timed.items():

@@ -25,9 +25,10 @@ from . import mamba_scan as _ms
 from . import moe_gmm as _gmm
 from . import ref
 from . import rmsnorm as _rms
+from . import slstm_cell as _sl
 
 _KERNELS = {"flash_attention": _fa, "flash_decode": _fd, "mamba_scan": _ms,
-            "moe_gmm": _gmm, "rmsnorm": _rms}
+            "moe_gmm": _gmm, "rmsnorm": _rms, "slstm_seq": _sl}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -121,6 +122,23 @@ def moe_gmm(x, w):
     if _on_card(x, w):
         return _gmm.moe_gmm(x, w)
     return ref.gmm_ref(x, w)
+
+
+def slstm_seq(xg, r, bias, state=None):
+    """sLSTM recurrence: xg:(B,S,4,H,Dh) r:(4,H,Dh,Dh) bias:(4,H,Dh), an
+    optional initial state {"c","n","h","m"} of (B,H,Dh) fp32 (zeros
+    without one) -> (h (B,S,H,Dh) in xg's dtype, final state, fp32).
+
+    Any S >= 1 is taken: the TPU wrapper's S % min(256, S) == 0 is a VMEM
+    blocking detail, and the JAX model's recurrence takes any length.
+    """
+    if xg.dim() != 5 or xg.shape[1] < 1:
+        raise ValueError(f"slstm_seq takes xg (B, S, 4, H, Dh) with S >= 1, "
+                         f"got {tuple(xg.shape)}")
+    leaves = [] if state is None else [state[k] for k in _sl.STATE_KEYS]
+    if _on_card(xg, r, bias, *leaves):
+        return _sl.slstm_seq(xg, r, bias, state)
+    return ref.slstm_seq_ref(xg, r, bias, state)
 
 
 def fused_rmsnorm(x, scale, *, eps: float = 1e-5):

@@ -1,10 +1,11 @@
 """Plain PyTorch versions of the port's kernels (the allclose targets).
 
 Ported from ``repro/kernels/ref.py``: quadratic attention, masked softmax
-decode, fp32 RMSNorm, the sequential SSD recurrence and the grouped
-matmul, independent of the model code so a kernel bug cannot hide behind a
-shared helper.  On the CPU the kernel wrappers in ``ops`` run these; on
-the card ``chip_smoke.py`` holds each kernel against them.
+decode, fp32 RMSNorm, the sequential SSD recurrence, the grouped matmul
+and the sequential sLSTM recurrence, independent of the model code so a
+kernel bug cannot hide behind a shared helper.  On the CPU the kernel
+wrappers in ``ops`` run these; on the card ``chip_smoke.py`` holds each
+kernel against them.
 """
 from __future__ import annotations
 
@@ -90,3 +91,38 @@ def ssd_ref(xh, dt, a_log, bm, cm):
         state = state * decay + upd
         ys.append(torch.einsum("bn,bhnp->bhp", c32[:, t], state))
     return torch.stack(ys, dim=1).to(xh.dtype), state
+
+
+def slstm_seq_ref(xg, r, bias, state=None):
+    """Sequential sLSTM oracle, step by step in fp32.
+
+    xg:(B,S,4,H,Dh) precomputed input gates (z, i, f, o); r:(4,H,Dh,Dh)
+    block-diagonal recurrent weights; bias:(4,H,Dh); ``state`` an optional
+    {"c","n","h","m"} of (B,H,Dh) to start from, zeros (m too) without
+    one.  Returns (h (B,S,H,Dh) in xg's dtype, the final state, each leaf
+    (B,H,Dh) fp32).  The forget gate is taken in log space and the input
+    gate is exponential, both stabilised by the running max m.
+    """
+    b, s, _, h, dh = xg.shape
+    if state is None:
+        state = {k: torch.zeros((b, h, dh), dtype=torch.float32,
+                                device=xg.device) for k in "cnhm"}
+    c, n, hp, m = (state[k].float() for k in "cnhm")
+    r32, b32 = r.float(), bias.float()[None]
+    hs = []
+    for t in range(s):
+        g = xg[:, t].float() + torch.einsum("bhd,ghde->bghe", hp, r32) + b32
+        zt = torch.tanh(g[:, 0])
+        it = g[:, 1]
+        ft = torch.nn.functional.logsigmoid(g[:, 2])
+        ot = torch.sigmoid(g[:, 3])
+        m_new = torch.maximum(ft + m, it)
+        i_ = torch.exp(it - m_new)
+        f_ = torch.exp(ft + m - m_new)
+        c = f_ * c + i_ * zt
+        n = f_ * n + i_
+        hp = ot * c / torch.clamp(n, min=1.0)
+        m = m_new
+        hs.append(hp)
+    out = torch.stack(hs, dim=1) if hs else xg.new_zeros((b, 0, h, dh))
+    return out.to(xg.dtype), {"c": c, "n": n, "h": hp, "m": m}

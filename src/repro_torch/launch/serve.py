@@ -7,6 +7,8 @@ synthetic request trace; reports throughput, TTFT and decode-step time.
       --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch deepseek_moe_16b --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm_125m \
+      --smoke --device cpu
 
 Runs on the GPU (``--device cuda``, the default) and raises when there is
 none; ``--device cpu`` runs the plain PyTorch versions of the kernels.
@@ -55,9 +57,11 @@ def main(argv=None) -> int:
                                        cache_len=args.cache_len))
     rng = np.random.default_rng(args.seed)
     # The hybrid prefill takes a prompt over one SSD chunk only at a
-    # multiple of the chunk (as JAX's ssd_chunked), so draw within a chunk.
-    max_len = min(args.prompt_len, cfg.ssm_chunk) \
-        if cfg.family == "hybrid" else args.prompt_len
+    # multiple of the chunk (as JAX's ssd_chunked), and the xLSTM prefill
+    # one over an mLSTM chunk (attn_chunk) likewise, so draw within a chunk.
+    chunk = {"hybrid": cfg.ssm_chunk, "ssm": cfg.attn_chunk}.get(cfg.family)
+    max_len = args.prompt_len if chunk is None else min(args.prompt_len,
+                                                        chunk)
     t0 = time.time()
     for uid in range(args.requests):
         plen = int(rng.integers(4, max_len + 1))

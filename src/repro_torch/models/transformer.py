@@ -1,4 +1,4 @@
-"""Decoder-only LM for the dense, MoE and hybrid families, after
+"""Decoder-only LM for the dense, MoE, hybrid and xLSTM families, after
 ``repro/models/transformer.py``.
 
   lm_spec(cfg)                                -> ParamSpec tree
@@ -16,9 +16,11 @@ through ``ops.moe_gmm``: at ``cfg.capacity_factor`` in prefill and 4.0 in
 decode, as in the JAX package.  The hybrid family (Zamba2) runs groups of
 Mamba2 layers, each group followed by one of ``n_shared_attn`` shared
 attention blocks, then the rest layers; its SSD goes through
-``ops.mamba_scan``.  The other families (MLA, xLSTM, VLM, encoder-decoder)
-are later slices of the port (ROADMAP.md) and raise
-``NotImplementedError``.
+``ops.mamba_scan``.  The xLSTM family ("ssm") runs groups of
+``slstm_every - 1`` mLSTM blocks and one sLSTM block; its cache is
+recurrent state only, and its sLSTM recurrence goes through
+``ops.slstm_seq``.  The other families (MLA, VLM, encoder-decoder) are
+later slices of the port (ROADMAP.md) and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -32,14 +34,17 @@ from .common import (ParamSpec, embed, embed_spec, init_params,
                      swiglu, swiglu_spec, unembed)
 from .moe import moe_apply, moe_spec
 from .ssm import mamba_decode_layer, mamba_layer, mamba_mixer, mamba_spec
+from .xlstm import (mlstm_chunked, mlstm_decode, mlstm_spec, slstm_decode,
+                    slstm_mixer, slstm_spec)
 
 
 def _require_ported(cfg) -> None:
-    if cfg.family not in ("dense", "moe", "hybrid") or cfg.attn != "gqa":
+    if cfg.family not in ("dense", "moe", "hybrid", "ssm") \
+            or cfg.attn != "gqa":
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} with {cfg.attn!r} attention "
             f"is not ported yet (see ROADMAP.md); the port runs the dense, "
-            f"MoE and hybrid GQA decoders")
+            f"MoE and hybrid GQA decoders and the xLSTM")
 
 
 def stack_specs(tree, n: int):
@@ -167,6 +172,60 @@ def _hybrid_walk(cfg, params, cache=None):
 
 
 # ---------------------------------------------------------------------------
+# xLSTM structure
+# ---------------------------------------------------------------------------
+
+
+def _xlstm_layout(cfg) -> Tuple[int, int]:
+    """(n_groups, blocks per group): each group is ``group - 1`` mLSTM
+    blocks and one sLSTM block."""
+    group = cfg.slstm_every
+    return cfg.n_layers // group, group
+
+
+def _xlstm_block_spec(cfg, mixer) -> Dict:
+    return {"ln": rmsnorm_spec(cfg.d_model),
+            "mixer": mixer(cfg.d_model, cfg.n_heads)}
+
+
+def _xlstm_walk(cfg, params, cache=None):
+    """The xLSTM blocks in order as ``(kind, block params, block cache)``,
+    kind "mlstm" or "slstm"; cache entries are views (None without a
+    cache), so writing them writes the cache."""
+    n_groups, group = _xlstm_layout(cfg)
+
+    def views(tree, n):
+        return [None] * n if tree is None else _layers(tree, n)
+
+    gp, gc = params["groups"], cache or {}
+    groups = zip(_layers(gp["mlstm"], n_groups),
+                 views(gc.get("mlstm"), n_groups),
+                 _layers(gp["slstm"], n_groups),
+                 views(gc.get("slstm"), n_groups))
+    for mp, mc, sp, sc in groups:
+        for p, c in zip(_layers(mp, group - 1), views(mc, group - 1)):
+            yield "mlstm", p, c
+        yield "slstm", sp, sc
+
+
+def _xlstm_trunk(cfg, params, x, cache=None):
+    """The xLSTM blocks over a sequence.  With a cache (the prefill), each
+    mLSTM block's carry (chunked at ``cfg.attn_chunk``, as in the JAX
+    prefill) and each sLSTM block's final state go into it."""
+    for kind, p, c in _xlstm_walk(cfg, params, cache):
+        h = rmsnorm(p["ln"], x, cfg.norm_eps)
+        if kind == "mlstm":
+            y, state = mlstm_chunked(p["mixer"], h, chunk=cfg.attn_chunk)
+        else:
+            y, state = slstm_mixer(p["mixer"], h)
+        if c is not None:
+            for k in c:
+                c[k].copy_(state[k])
+        x = x + y
+    return x
+
+
+# ---------------------------------------------------------------------------
 # Entry points
 # ---------------------------------------------------------------------------
 
@@ -179,6 +238,15 @@ def lm_spec(cfg) -> Dict:
         for key, _, n in _stacks(cfg):
             sp[key] = stack_specs(block_spec(
                 cfg, cfg.family == "moe" and key == "blocks"), n)
+        return sp
+    if cfg.family == "ssm":
+        n_groups, group = _xlstm_layout(cfg)
+        sp["groups"] = {
+            "mlstm": stack_specs(stack_specs(
+                _xlstm_block_spec(cfg, mlstm_spec), group - 1), n_groups),
+            "slstm": stack_specs(_xlstm_block_spec(cfg, slstm_spec),
+                                 n_groups),
+        }
         return sp
     n_groups, group, rest = _hybrid_layout(cfg)
     sp["groups"] = stack_specs(stack_specs(_mamba_block_spec(cfg), group),
@@ -198,6 +266,21 @@ def decode_cache_spec(cfg, batch: int, cache_len: int) -> Dict:
     if cfg.family in ("dense", "moe"):
         return {ckey: stack_specs({"k": kv, "v": kv}, n)
                 for _, ckey, n in _stacks(cfg)}
+    if cfg.family == "ssm":
+        # recurrent state only, in fp32; the mLSTM "m" starts at 0 here,
+        # unlike mlstm_init_cache's -1e30, as in the JAX package
+        n_groups, group = _xlstm_layout(cfg)
+        dh = cfg.d_model // cfg.n_heads
+
+        def state(*shape):
+            return ParamSpec((batch, cfg.n_heads) + shape,
+                             ("batch", "heads") + (None,) * len(shape),
+                             torch.float32, init="zeros")
+        mlstm = {"C": state(dh, dh), "n": state(dh), "m": state()}
+        slstm = {k: state(dh) for k in ("c", "n", "h", "m")}
+        return {"mlstm": stack_specs(stack_specs(mlstm, group - 1),
+                                     n_groups),
+                "slstm": stack_specs(slstm, n_groups)}
     n_groups, group, rest = _hybrid_layout(cfg)
     mamba = _mamba_cache_spec(cfg, batch)
     cache = {"groups": stack_specs(stack_specs(mamba, group), n_groups),
@@ -240,6 +323,8 @@ def _trunk(cfg, params, tokens, cache=None):
     positions = torch.arange(s, device=x.device).expand(b, s)
     if cfg.family == "hybrid":
         return _hybrid_trunk(cfg, params, x, positions, cache)
+    if cfg.family == "ssm":
+        return _xlstm_trunk(cfg, params, x, cache)
     for key, ckey, n in _stacks(cfg):
         for i, p in enumerate(_layers(params[key], n)):
             x, k, v = block_apply(cfg, p, x, positions)
@@ -262,7 +347,8 @@ def lm_prefill(cfg, params, tokens, cache_len: int):
 
     Each layer's K/V is computed once, in the attention, and written into
     a zero cache of ``cache_len`` rows; in the hybrid, each Mamba2 layer's
-    final states come from the same SSD launch as its output.
+    final states come from the same SSD launch as its output, and in the
+    xLSTM each sLSTM layer's from the same ``slstm_seq`` launch.
     """
     _require_ported(cfg)
     b, s = tokens.shape
@@ -292,6 +378,13 @@ def lm_decode(cfg, params, token, cache, kv_len):
                 p["mixer"], rmsnorm(p["ln"], x, cfg.norm_eps), c)
             c["conv"].copy_(state["conv"])
             c["ssm"].copy_(state["ssm"])
+            x = x + y
+    elif cfg.family == "ssm":
+        for kind, p, c in _xlstm_walk(cfg, params, cache):
+            step = mlstm_decode if kind == "mlstm" else slstm_decode
+            y, state = step(p["mixer"], rmsnorm(p["ln"], x, cfg.norm_eps), c)
+            for k in c:
+                c[k].copy_(state[k])
             x = x + y
     else:
         for key, ckey, n in _stacks(cfg):

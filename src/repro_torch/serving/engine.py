@@ -3,15 +3,18 @@
 
 * a fixed pool of ``n_slots`` sequence slots shares one decode KV cache
   (slot = batch row; a row is reused after its sequence finishes);
-* arriving requests are prefilled one at a time and their cache (KV, and
-  the Mamba2 states of the hybrid) is written into the slot's row; every
-  tick decodes the whole pool, so new sequences join mid-flight;
+* arriving requests are prefilled one at a time and their cache (KV, the
+  Mamba2 states of the hybrid, or the xLSTM's mLSTM and sLSTM states) is
+  written into the slot's row; every tick decodes the whole pool, so new
+  sequences join mid-flight;
 * finished sequences (EOS, ``max_new_tokens`` or a full cache) free their
   slot.
 
 The fill levels live on the device as an int32 tensor, which the decode
 kernel reads, with a host mirror for the scheduling decisions; a tick's
-one device-to-host copy is the argmax of its logits.  Rows are not
+one device-to-host copy is the argmax of its logits.  The xLSTM cache is
+recurrent state only: there ``kv_len`` only counts the fill, which ends a
+request at ``cache_len - 1`` as in the JAX engine.  Rows are not
 independent in the MoE family: its decode dispatch gives every row of the
 pool, a free one too, a share of one capacity per expert (JAX's
 ``capacity_factor=4.0``), so free and finished rows are fed exactly what
@@ -74,7 +77,7 @@ class ServingEngine:
         spec = api.cache_spec(cfg, shape)
         self.cache = init_params(spec, None, self.device)
         # the slot axis of every leaf is where its spec says "batch"; the
-        # hybrid cache nests it under one or two stacking axes
+        # hybrid and xLSTM caches nest it under one or two stacking axes
         self._slot_axes = spec_map(lambda s: s.axes.index("batch"), spec)
         n = serve_cfg.n_slots
         self.kv_len = torch.zeros(n, dtype=torch.int32, device=self.device)

@@ -200,6 +200,95 @@ def test_moe_gmm_kernel_refuses_what_it_does_not_take(cuda_device):
     assert mg.launches == before
 
 
+SLSTM_SHAPES = [  # (b, s, h, dh)
+    (2, 32, 3, 8), (1, 64, 2, 16), (2, 48, 1, 8),   # tests/test_kernels.py
+    (2, 17, 2, 256),                                # the widest head
+    # xlstm_125m (4 heads of 192): prefills of 300 (no multiple of the TPU
+    # kernel's 256-step block) and 512 tokens, and a decode tick of 4 slots
+    (1, 300, 4, 192), (1, 512, 4, 192), (4, 1, 4, 192),
+]
+
+
+def _slstm_inputs(seed, dtype, b, s, h, dh, scale, prefix=0):
+    """xg ~ N(0, 1); r and bias at ``scale`` (0.02 is the model's init of r,
+    0.1 lets the recurrence matter more).  With ``prefix``, also the state
+    the plain version reaches after ``prefix`` steps of other inputs."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    xg = _rnd(g, dtype, b, s, 4, h, dh)
+    r = _rnd(g, torch.float32, 4, h, dh, dh) * scale
+    bias = _rnd(g, torch.float32, 4, h, dh) * scale
+    state = None
+    if prefix:
+        state = ref.slstm_seq_ref(_rnd(g, dtype, b, prefix, 4, h, dh), r,
+                                  bias)[1]
+    return xg, r, bias, state
+
+
+def _slstm_close(got, want, dtype):
+    (h, st), (want_h, want_st) = got, want
+    assert h.dtype == dtype and set(st) == {"c", "n", "h", "m"}
+    _close(h, want_h, dtype)
+    for k in st:
+        assert st[k].dtype == torch.float32
+        _close(st[k], want_st[k], dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [0.02, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,dh", SLSTM_SHAPES)
+def test_slstm_seq_kernel(cuda_device, b, s, h, dh, dtype, scale):
+    """h and the final state against the sequential plain version."""
+    from repro_torch.kernels.slstm_cell import slstm_seq
+    args = _slstm_inputs(7, dtype, b, s, h, dh, scale)[:3]
+    _slstm_close(slstm_seq(*args), ref.slstm_seq_ref(*args), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_slstm_seq_kernel_from_a_state(cuda_device, dtype):
+    """A decode tick of xlstm_125m (4 slots, S = 1) from a state reached
+    after 9 steps, and a run resumed from a middle state equal to the
+    whole run."""
+    from repro_torch.kernels.slstm_cell import slstm_seq
+    xg, r, bias, state = _slstm_inputs(8, dtype, 4, 1, 4, 192, 0.1,
+                                       prefix=9)
+    assert state["n"].abs().max().item() > 0
+    _slstm_close(slstm_seq(xg, r, bias, state),
+                 ref.slstm_seq_ref(xg, r, bias, state), dtype)
+    xg, r, bias, _ = _slstm_inputs(9, dtype, 2, 40, 4, 192, 0.1)
+    whole_h, whole_st = slstm_seq(xg, r, bias)
+    head_h, mid = slstm_seq(xg[:, :25].contiguous(), r, bias)
+    tail_h, end = slstm_seq(xg[:, 25:].contiguous(), r, bias, mid)
+    _slstm_close((torch.cat([head_h, tail_h], dim=1), end),
+                 (whole_h, whole_st), dtype)
+
+
+@pytest.mark.cuda
+def test_slstm_seq_kernel_refuses_what_it_does_not_take(cuda_device):
+    from repro_torch.kernels import slstm_cell as sl
+    before = sl.launches
+    xg, r, bias, state = _slstm_inputs(10, torch.float32, 2, 8, 2, 16, 0.1,
+                                       prefix=2)
+    with pytest.raises(TypeError):
+        sl.slstm_seq(xg.half(), r, bias)
+    with pytest.raises(ValueError, match="sLSTM"):
+        sl.slstm_seq(xg, r[:, :1], bias)
+    for dh in (6, 260):       # not a multiple of 4; over 4 * Dh threads
+        x2, r2, b2, _ = _slstm_inputs(10, torch.float32, 1, 4, 1, dh, 0.1)
+        with pytest.raises(ValueError, match="head dim"):
+            sl.slstm_seq(x2, r2, b2)
+    with pytest.raises(ValueError, match="contiguous"):
+        sl.slstm_seq(xg.transpose(0, 1), r, bias)
+    with pytest.raises(ValueError, match="state"):
+        sl.slstm_seq(xg, r, bias, {k: v[:1] for k, v in state.items()})
+    with pytest.raises(ValueError, match="CUDA"):
+        sl.slstm_seq(xg, r.cpu(), bias)
+    with pytest.raises(ValueError, match="S >= 1"):
+        ops.slstm_seq(xg[:, :0], r, bias)
+    assert sl.launches == before
+
+
 @pytest.mark.cuda
 def test_decode_with_empty_cache_gives_zero(cuda_device):
     """kv_len = 0 gives 0, as the TPU kernel does."""
@@ -243,7 +332,8 @@ def test_model_path_counts_launches(cuda_device):
     n = cfg.n_layers
     assert ops.launch_counts() == {"flash_attention": n, "flash_decode": n,
                                    "mamba_scan": 0, "moe_gmm": 0,
-                                   "rmsnorm": 2 * (2 * n + 1)}
+                                   "rmsnorm": 2 * (2 * n + 1),
+                                   "slstm_seq": 0}
 
 
 def _to(tree, dev):
@@ -291,10 +381,11 @@ def test_hybrid_on_card_matches_cpu_and_counts_launches(cuda_device):
     n_mamba, n_groups = cfg.n_layers, cfg.n_layers // cfg.attn_every
     norms = 2 * n_mamba + 2 * n_groups + 1
     assert pre == {"flash_attention": n_groups, "flash_decode": 0,
-                   "mamba_scan": n_mamba, "moe_gmm": 0, "rmsnorm": norms}
+                   "mamba_scan": n_mamba, "moe_gmm": 0, "rmsnorm": norms,
+                   "slstm_seq": 0}
     assert total == {"flash_attention": n_groups, "flash_decode": 4 * n_groups,
                      "mamba_scan": n_mamba, "moe_gmm": 0,
-                     "rmsnorm": 5 * norms}
+                     "rmsnorm": 5 * norms, "slstm_seq": 0}
 
 
 @pytest.mark.cuda
@@ -332,10 +423,56 @@ def test_moe_on_card_matches_cpu_and_counts_launches(cuda_device):
         torch.testing.assert_close(g, c, atol=1e-4, rtol=1e-4)
     n, n_moe = cfg.n_layers, cfg.n_layers - cfg.first_dense
     assert pre == {"flash_attention": n, "flash_decode": 0, "mamba_scan": 0,
-                   "moe_gmm": 3 * n_moe, "rmsnorm": 2 * n + 1}
+                   "moe_gmm": 3 * n_moe, "rmsnorm": 2 * n + 1,
+                   "slstm_seq": 0}
     assert total == {"flash_attention": n, "flash_decode": 4 * n,
                      "mamba_scan": 0, "moe_gmm": 5 * 3 * n_moe,
-                     "rmsnorm": 5 * (2 * n + 1)}
+                     "rmsnorm": 5 * (2 * n + 1), "slstm_seq": 0}
+
+
+@pytest.mark.cuda
+def test_xlstm_on_card_matches_cpu_and_counts_launches(cuda_device):
+    """Reduced xlstm_125m (3 mLSTM blocks and 1 sLSTM block of 4 heads of
+    32): a 40-token prefill and 4 decode steps of 2 rows on the card,
+    against the same weights on the CPU, logits and every cache leaf, with
+    one slstm_seq launch per sLSTM block and call."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import api, transformer as tf
+    from repro_torch.models.common import init_params
+    cfg = get_config("xlstm_125m").reduced().replace(dtype="float32")
+    cpu = init_params(api.param_spec(cfg), torch.Generator().manual_seed(0),
+                      "cpu")
+    tokens = torch.randint(0, cfg.vocab, (2, 40),
+                           generator=torch.Generator().manual_seed(1))
+    runs = []
+    for dev in ("cpu", cuda_device):
+        params = _to(cpu, dev)
+        ops.reset_launch_counts()
+        logits, cache = tf.lm_prefill(cfg, params, tokens.to(dev), 64)
+        after_prefill = ops.launch_counts()
+        kv = torch.full((2,), 40, dtype=torch.int32, device=dev)
+        out = [logits.cpu()]
+        for _ in range(4):
+            logits, cache = tf.lm_decode(cfg, params,
+                                         logits.argmax(-1, keepdim=True),
+                                         cache, kv)
+            kv += 1
+            out.append(logits.cpu())
+        runs.append((out, after_prefill, ops.launch_counts(), _to(cache,
+                                                                  "cpu")))
+    (cpu_out, _, _, cpu_cache), (gpu_out, pre, total, gpu_cache) = runs
+    for c, g in zip(cpu_out, gpu_out):
+        torch.testing.assert_close(g, c, atol=1e-4, rtol=1e-4)
+    for k in ("mlstm", "slstm"):
+        for leaf in cpu_cache[k]:
+            torch.testing.assert_close(gpu_cache[k][leaf], cpu_cache[k][leaf],
+                                       atol=1e-4, rtol=1e-4)
+    n, n_groups = cfg.n_layers, cfg.n_layers // cfg.slstm_every
+    assert pre == {"flash_attention": 0, "flash_decode": 0, "mamba_scan": 0,
+                   "moe_gmm": 0, "rmsnorm": 2 * n + 1, "slstm_seq": n_groups}
+    assert total == {"flash_attention": 0, "flash_decode": 0,
+                     "mamba_scan": 0, "moe_gmm": 0,
+                     "rmsnorm": 5 * (2 * n + 1), "slstm_seq": 5 * n_groups}
 
 
 @pytest.mark.cuda

@@ -1,5 +1,5 @@
-"""The port's dense, MoE and hybrid decoders (repro_torch.models) against
-the JAX package's.
+"""The port's dense, MoE, hybrid and xLSTM decoders (repro_torch.models)
+against the JAX package's.
 
 Weights come from the JAX package's ``init_params`` and are converted key
 for key, so both packages compute the same function on the same numbers.
@@ -127,7 +127,7 @@ def _shapes(tree):
 
 @pytest.mark.parametrize("arch", ["glm4_9b", "deepseek_7b",
                                   "mistral_large_123b", "zamba2_7b",
-                                  "deepseek_moe_16b"])
+                                  "deepseek_moe_16b", "xlstm_125m"])
 def test_full_param_spec_matches_jax(arch):
     """Full-size configs: same names, shapes, axes and init (nothing is
     allocated)."""
@@ -147,7 +147,7 @@ def test_cache_spec_matches_jax():
 
 
 @pytest.mark.parametrize("arch", ["deepseek_v2_236b",
-                                  "minicpm3_4b", "xlstm_125m",
+                                  "minicpm3_4b",
                                   "whisper_medium", "llava_next_mistral_7b"])
 def test_unported_families_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -183,6 +183,25 @@ def test_hybrid_cache_spec_matches_jax(arch, shape):
         lambda s: jnp.dtype(s.dtype).name, js, is_leaf=jcommon.is_spec)) == \
         [str(s.dtype).removeprefix("torch.") for s in
          tcommon.spec_leaves(ts)]
+
+
+@pytest.mark.parametrize("shape", [(1024, 4), (64, 1)])
+def test_xlstm_cache_spec_matches_jax(shape):
+    """xlstm_125m: recurrent state only, key for key, axis for axis and in
+    dtype (fp32): "mlstm" stacked (groups, mLSTM blocks a group) and
+    "slstm" stacked (groups); no leaf depends on the cache length."""
+    from repro.configs.base import InputShape as JShape
+    from repro_torch.configs.base import InputShape as TShape
+    jc, tc = jax_config("xlstm_125m"), torch_config("xlstm_125m")
+    js = japi.cache_spec(jc, JShape("e", shape[0], shape[1], "decode"))
+    ts = tapi.cache_spec(tc, TShape("e", shape[0], shape[1], "decode"))
+    assert _shapes(ts) == _shapes(js)
+    assert jax.tree_util.tree_leaves(jax.tree_util.tree_map(
+        lambda s: jnp.dtype(s.dtype).name, js, is_leaf=jcommon.is_spec)) == \
+        [str(s.dtype).removeprefix("torch.") for s in
+         tcommon.spec_leaves(ts)]
+    assert ts["mlstm"]["C"].shape == (3, 3, shape[1], 4, 192, 192)
+    assert ts["slstm"]["h"].shape == (3, shape[1], 4, 192)
 
 
 @pytest.mark.parametrize("jax_impl,torch_impl", [("pallas", "kernel"),

@@ -125,6 +125,20 @@ def test_hybrid_engine_matches_jax_engine(slots):
 
 
 @pytest.mark.parametrize("slots", [1, 3])
+def test_xlstm_engine_matches_jax_engine(slots):
+    """Reduced xlstm_125m (3 mLSTM blocks, 1 sLSTM block): a cache of
+    recurrent state only, whose leaves nest the slot axis under two or one
+    stacking axes; the port's counterpart of tests/test_serving.py's
+    test_recurrent_family_serving.  Prompts are within one mLSTM chunk
+    (64), as the JAX prefill takes them."""
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, 512, n).astype(np.int32)
+               for n in (5, 16, 9, 32, 7)]
+    _serve_both(prompts, max_new=[4, 7, 3, 6, 5], slots=slots, cache_len=64,
+                arch="xlstm_125m")
+
+
+@pytest.mark.parametrize("slots", [1, 3])
 def test_moe_engine_matches_jax_engine(slots):
     """Reduced deepseek_moe_16b (a dense first layer, then MoE layers) with
     16 experts: 5 requests of ragged prompts and ragged lengths.  A decode
@@ -166,11 +180,15 @@ def _greedy(cfg, params, prompt, n_new, cache_len=64):
     return out
 
 
-@pytest.mark.parametrize("slots", [1, 3])
-def test_continuous_batching_isolation(slots):
+@pytest.mark.parametrize("slots,arch", [
+    pytest.param(1, "glm4_9b", id="1"), pytest.param(3, "glm4_9b", id="3"),
+    pytest.param(1, "xlstm_125m", id="xlstm-1"),
+    pytest.param(3, "xlstm_125m", id="xlstm-3")])
+def test_continuous_batching_isolation(slots, arch):
     """Concurrent requests give the tokens of sequential runs, including at
-    one slot, where the slot row is written on its known axis."""
-    _, _, tc, tp = _setup()
+    one slot, where the slot row is written on its known axis.  The xLSTM's
+    rows are independent too: a slot's state is its own."""
+    _, _, tc, tp = _setup(arch=arch)
     eng = ServingEngine(tc, tp, ServeConfig(n_slots=slots, cache_len=64))
     rng = np.random.default_rng(3)
     prompts = [rng.integers(0, tc.vocab, int(rng.integers(3, 9)))
