@@ -8,15 +8,22 @@ prints its seconds:
 
 1. print the card (nvidia-smi name, power limit); build the CUDA kernels
    from ``src/repro_torch/kernels/csrc`` with nvcc and print the seconds;
+   print ptxas's registers, shared memory and spills of the attention
+   kernels and count their tensor-core instructions (HGMMA, HMMA) in the
+   SASS (``cuobjdump -sass``): none would mean a CUDA-core path;
 2. hold each kernel against its plain PyTorch version on the card at the
    serving paths' shapes, in fp32 (atol = rtol = 2e-5; 2e-4 for the SSD
    scan, whose chunked and sequential sums differ in order) and bf16
    (3e-2), and time kernel, plain version and the one PyTorch library call
    that computes the same function (none for the SSD scan and the sLSTM;
    ``torch.bmm`` for the grouped matmul, which the port never calls),
-   beside the card's bound; the sLSTM at xlstm_125m's prefill (S = 512 and
-   300) and decode tick (4 slots, S = 1, from a state), its final state
-   compared too;
+   beside the card's bound; the attention rows run first, and each names
+   the kernels SDPA ran (one ``torch.profiler`` pass a row); SDPA gets
+   GQA's K and V expanded to every head beforehand, so it times one MHA
+   call; the fp32 attention kernel computes on tensor cores in 3xTF32, so
+   its bound counts 3x the flops at the TF32 peak; the sLSTM at
+   xlstm_125m's prefill (S = 512 and 300) and decode tick (4 slots, S =
+   1, from a state), its final state compared too;
 3. full-width glm4_9b cut to 2 layers, same weights on the card
    (kernels) and on the CPU (plain versions): a 128-token prefill and 8
    greedy decode steps must give logits within 1e-3 of max |logit| and
@@ -28,7 +35,9 @@ prints its seconds:
    requests are served three times, each on a fresh engine, so the
    decode-step time is read over repeats; then 16 decode ticks of a full
    pool on the host clock and 8 more under torch.profiler say how busy
-   the card is and which kernels take its time;
+   the card is and which kernels take its time; last, one 512-token
+   prefill alone, timed on the host clock and profiled for the flash
+   attention kernel's share of the device time;
 5. full-width zamba2_7b cut to 13 layers (two groups of 6 Mamba2 layers,
    so both shared attention weight sets, and one rest layer), card
    against CPU as in phase 3: the 128-token prefill is two SSD chunks, so
@@ -63,6 +72,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -76,6 +86,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+TF32_FLOPS = 495e12
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 SSD_TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
 
@@ -116,10 +127,66 @@ def host_ms(fn, iters: int = 20) -> float:
     return (time.perf_counter() - t0) / iters * 1e3
 
 
-def bound(nbytes: float, flops: float, dtype) -> tuple:
+def bound(nbytes: float, flops: float, dtype, peak=None) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_ops = flops / (PEAK_FLOPS[dtype] if peak is None else peak) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def device_kernels(fn) -> list:
+    """Names of the device kernels one (warm) call of ``fn`` runs, from a
+    torch.profiler pass."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.name for e in prof.events()
+                   if e.device_type == DeviceType.CUDA})
+
+
+def kernel_report() -> None:
+    """Phase 1: ptxas's report and the SASS tensor-core instruction counts
+    of the attention kernels (one instantiation per storage type and
+    padded Dv); fails if one has no HGMMA (bf16) or HMMA (fp32)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    ptxas, fn = {}, None
+    for line in _build.build_log().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = m.group(1) if "flash_attn" in m.group(1) else None
+        elif fn and ("spill" in line or "Used" in line):
+            ptxas.setdefault(fn, []).append(line.split(":")[-1].strip())
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(_build.library_path())],
+                          capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1) if "flash_attn" in m.group(1) else None
+            if fn:
+                counts[fn] = {"HGMMA": 0, "HMMA": 0}
+        elif fn:
+            for op in ("HGMMA", "HMMA"):
+                counts[fn][op] += bool(re.search(rf"\b{op}\.", line))
+    check(len(counts) == 6, f"expected 6 attention kernels in the SASS, "
+                            f"found {sorted(counts)}")
+    for fn, c in sorted(counts.items()):
+        bf16 = "bfloat16" in fn
+        dp, dvp = re.findall(r"Li(\d+)E", fn)
+        label = (f"flash_attn_kernel<{'bf16' if bf16 else 'f32'}, D {dp}, "
+                 f"Dv {dvp}>")
+        print(f"  {label}: {c['HGMMA']} HGMMA, {c['HMMA']} HMMA in the SASS; "
+              f"ptxas: {'; '.join(ptxas.get(fn, ['no report']))}")
+        check(c["HGMMA"] > 0 if bf16 else c["HMMA"] > 0,
+              f"{label} has no tensor-core instruction")
+    for dtype in (torch.float32, torch.bfloat16):
+        print(f"  dynamic shared memory at D = Dv = 128, {dtype}: "
+              f"{fa.smem_bytes(dtype, 128, 128)} bytes")
 
 
 def compare(name, got, want, dtype, tol=None) -> float:
@@ -140,25 +207,36 @@ def phase_kernels(gen):
     def rnd(*shape, dtype):
         return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
 
-    def timed(kern, plain, lib, err, nbytes, flops, dtype):
+    def timed(kern, plain, lib, err, nbytes, flops, dtype, peak=None,
+              sdpa=False):
+        """``sdpa``: the library call is SDPA, whose kernels get named."""
         return dict(err=err, ms=cuda_ms(kern), host_ms=host_ms(kern),
                     plain_ms=cuda_ms(plain),
                     library_ms=None if lib is None else cuda_ms(lib),
-                    bound=bound(nbytes, flops, dtype))
+                    library_kernels=device_kernels(lib) if sdpa else None,
+                    bound=bound(nbytes, flops, dtype, peak))
 
     def attention(s, h, hkv, d, dtype, tag):
         q = rnd(1, s, h, d, dtype=dtype)
         k, v = rnd(1, s, hkv, d, dtype=dtype), rnd(1, s, hkv, d, dtype=dtype)
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        # SDPA on K and V expanded to every head before the timed call: one
+        # MHA call, not its GQA path (the math kernel in fp32)
+        ke = kt.repeat_interleave(h // hkv, dim=1)
+        ve = vt.repeat_interleave(h // hkv, dim=1)
         kern = lambda: ops.flash_attention(q, k, v, causal=True)
         plain = lambda: ref.attention_ref(qt, kt, vt, causal=True)
-        lib = lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True)
+        lib = lambda: F.scaled_dot_product_attention(qt, ke, ve,
+                                                     is_causal=True)
         err = compare(f"flash_attention S={s} D={d} {tag}", kern(),
                       plain().transpose(1, 2), dtype)
         pairs = h * s * (s + 1) // 2
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-        return timed(kern, plain, lib, err, nbytes, 4 * d * pairs, dtype)
+        flops = 4 * d * pairs
+        if dtype == torch.float32:      # 3xTF32 on tensor cores
+            return timed(kern, plain, lib, err, nbytes, 3 * flops, dtype,
+                         TF32_FLOPS, sdpa=True)
+        return timed(kern, plain, lib, err, nbytes, flops, dtype, sdpa=True)
 
     def decode(h, hkv, d, dtype, tag):
         """4 slots of a 1024-row cache, ragged fill."""
@@ -179,7 +257,8 @@ def phase_kernels(gen):
         n_kv = int(kv_len.sum())
         nbytes = (2 * q.numel() + 2 * hkv * d * n_kv) * q.element_size() \
             + 4 * b
-        return timed(kern, plain, lib, err, nbytes, 4 * d * h * n_kv, dtype)
+        return timed(kern, plain, lib, err, nbytes, 4 * d * h * n_kv, dtype,
+                     sdpa=True)
 
     def rmsnorm(n, dm, dtype, tag):
         x, s_ = rnd(n, dm, dtype=dtype), rnd(dm, dtype=torch.float32)
@@ -259,6 +338,9 @@ def phase_kernels(gen):
         nbytes = (e * c * d + w.numel() + e * c * f) * x.element_size()
         return timed(kern, plain, lib, err, nbytes, 2 * e * c * d * f, dtype)
 
+    # The attention rows come first: profiler passes that followed the
+    # plain SSD and sLSTM loops (~10^5 launches each) recorded no device
+    # kernel for SDPA.
     rows = {}
     for dtype in (torch.float32, torch.bfloat16):
         tag = str(dtype).replace("torch.", "")
@@ -268,6 +350,20 @@ def phase_kernels(gen):
             rows[("flash_attention", tag, f"S={s}")] = attention(
                 s, 32, 2, 128, dtype, tag)
         rows[("flash_decode", tag, "T=1024")] = decode(32, 2, 128, dtype, tag)
+    # zamba2's shared attention: head dim 112, 32 KV heads (group 1)
+    for s in (17, 512):
+        rows[("flash_attention", "float32", f"S={s} D=112 MHA")] = attention(
+            s, 32, 32, 112, torch.float32, "float32")
+    rows[("flash_decode", "float32", "T=1024 D=112 MHA")] = decode(
+        32, 32, 112, torch.float32, "float32")
+    # deepseek_moe_16b's attention: MHA, 16 heads of 128
+    for s in (110, 512):
+        rows[("flash_attention", "float32", f"S={s} H=16 MHA")] = attention(
+            s, 16, 16, 128, torch.float32, "float32")
+    rows[("flash_decode", "float32", "T=1024 H=16 MHA")] = decode(
+        16, 16, 128, torch.float32, "float32")
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).replace("torch.", "")
         # RMSNorm: the decode step's 4 rows and a 512-token prefill, at
         # glm4_9b's d_model and zamba2's gated-norm width
         for n in (4, 512):
@@ -300,18 +396,6 @@ def phase_kernels(gen):
         for rs, bs in ((0.02, 0.0), (0.1, 0.1)):
             rows[("slstm_seq", tag, f"B=4 S=1 r={rs} from state")] = slstm(
                 4, 1, 4, 192, rs, bs, dtype, tag, prefix=9)
-    # zamba2's shared attention: head dim 112, 32 KV heads (group 1)
-    for s in (17, 512):
-        rows[("flash_attention", "float32", f"S={s} D=112 MHA")] = attention(
-            s, 32, 32, 112, torch.float32, "float32")
-    rows[("flash_decode", "float32", "T=1024 D=112 MHA")] = decode(
-        32, 32, 112, torch.float32, "float32")
-    # deepseek_moe_16b's attention: MHA, 16 heads of 128
-    for s in (110, 512):
-        rows[("flash_attention", "float32", f"S={s} H=16 MHA")] = attention(
-            s, 16, 16, 128, torch.float32, "float32")
-    rows[("flash_decode", "float32", "T=1024 H=16 MHA")] = decode(
-        16, 16, 128, torch.float32, "float32")
     for (name, tag, size), r in rows.items():
         lib = "none" if r["library_ms"] is None else \
             f"{r['library_ms']:.4f} ms"
@@ -320,6 +404,9 @@ def phase_kernels(gen):
               f"{r['host_ms']:.4f} ms)  plain {r['plain_ms']:.4f} ms  "
               f"library {lib}  bound {r['bound'][0]:.4f} ms "
               f"({r['bound'][1]})")
+        if r["library_kernels"] is not None:
+            print(f"    SDPA kernels: " + (" | ".join(
+                n[:100] for n in r["library_kernels"]) or "none recorded"))
     return rows
 
 
@@ -567,6 +654,45 @@ def phase_serve(arch, seed, max_prompt, repeats: int = 3, then=None,
     return first
 
 
+def lone_prefill(cfg, params, s: int = 512, repeats: int = 3):
+    """Phase 4's last step: one ``s``-token prefill through the engine's
+    prefill function, alone on the card: a warm call, ``repeats`` timed on
+    the host clock (synchronised), then one under torch.profiler for the
+    flash attention kernel's share of the device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import api
+    prefill = api.prefill_fn(cfg, 1024)
+    tokens = torch.as_tensor(np.random.default_rng(7).integers(
+        0, cfg.vocab, (1, s)), dtype=torch.long, device="cuda")
+    prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+    busy = attn = 0.0
+    n_attn = 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            busy += e.device_time_total
+            if "flash_attn" in e.name:
+                attn += e.device_time_total
+                n_attn += 1
+    check(n_attn == cfg.n_layers, f"the profiled prefill ran {n_attn} flash "
+                                  f"attention kernels, not {cfg.n_layers}")
+    print(f"  one {s}-token prefill alone: {', '.join(f'{t:.2f}' for t in times)}"
+          f" ms (host clock, synchronised); profiled: device busy "
+          f"{busy / 1e3:.2f} ms, flash attention {attn / 1e3:.3f} ms in "
+          f"{n_attn} launches = {100 * attn / busy:.2f}% of it")
+
+
 def moe_decode_without_sync(cfg, params):
     """Phase 8's last check: the MoE FFN of one decode step (4 slots, the
     first MoE layer, capacity factor 4.0) under sync debug mode "error",
@@ -663,6 +789,7 @@ def main() -> int:
     _build.library()
     print(f"[1] kernels built in {time.perf_counter() - t0:.1f} s (nvcc "
           f"{_build.BUILD_SECONDS:.1f} s)")
+    kernel_report()
 
     def phase(n, label, fn, *args):
         print(f"[{n}] {label}")
@@ -676,7 +803,7 @@ def main() -> int:
     phase(3, "full-width 2-layer glm4_9b, card against CPU", phase_cut,
           "glm4_9b", 2, seed)
     by_path = {"glm4_9b": phase(4, "serving full glm4_9b", phase_serve,
-                                "glm4_9b", seed, 128)}
+                                "glm4_9b", seed, 128, 3, lone_prefill)}
     gc.collect()
     torch.cuda.empty_cache()        # glm4_9b's weights are gone
     phase(5, "full-width 13-layer zamba2_7b, card against CPU", phase_cut,
@@ -728,7 +855,8 @@ def main() -> int:
             "launches_by_path": per_path,
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
-            "library_ms": r["library_ms"]})
+            "library_ms": r["library_ms"],
+            "library_kernels": r["library_kernels"]})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

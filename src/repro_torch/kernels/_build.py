@@ -8,7 +8,9 @@ the root of the checkout, and reused while the sources are unchanged.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`check` raises when that is not 0, so a refused launch is never
-mistaken for a result.
+mistaken for a result.  ptxas reports each kernel's registers, shared
+memory and spills (``-Xptxas -v``); the report is kept beside the library
+in a ``.log`` file, :func:`build_log` returns it.
 """
 from __future__ import annotations
 
@@ -26,10 +28,14 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
     "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# C entry points return these for a TMA tensor map they could not encode
+# (csrc/hopper.cuh): no cuTensorMapEncodeTiled, or its CUresult + the base
+NO_ENCODER, ENCODE_FAILED = 90000, 90001
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+_lib_path: Optional[pathlib.Path] = None
 _functions = {}
 BUILD_SECONDS = 0.0     # time of the nvcc call; 0 when the library is reused
 
@@ -50,7 +56,7 @@ def _nvcc() -> str:
 
 def library() -> ctypes.CDLL:
     """The loaded kernel library, building it on first use."""
-    global _lib, BUILD_SECONDS
+    global _lib, _lib_path, BUILD_SECONDS
     with _lock:
         if _lib is not None:
             return _lib
@@ -71,9 +77,22 @@ def library() -> ctypes.CDLL:
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
                                    f"{proc.stdout}{proc.stderr}")
+            out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
             os.replace(tmp, out)
-        _lib = ctypes.CDLL(str(out))
+        _lib, _lib_path = ctypes.CDLL(str(out)), out
         return _lib
+
+
+def library_path() -> pathlib.Path:
+    """The built library's file (building it on first use)."""
+    library()
+    return _lib_path
+
+
+def build_log() -> str:
+    """nvcc's and ptxas's report of the build that made the library."""
+    log = library_path().with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 def function(name: str, argtypes) -> ctypes._CFuncPtr:
@@ -89,6 +108,12 @@ def function(name: str, argtypes) -> ctypes._CFuncPtr:
 
 
 def check(err: int, name: str) -> None:
+    if err == NO_ENCODER:
+        raise RuntimeError(f"CUDA kernel {name}: the CUDA runtime found no "
+                           f"cuTensorMapEncodeTiled")
+    if err >= ENCODE_FAILED:
+        raise RuntimeError(f"CUDA kernel {name}: cuTensorMapEncodeTiled "
+                           f"failed, CUresult {err - ENCODE_FAILED}")
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {err}")

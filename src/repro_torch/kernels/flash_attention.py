@@ -1,5 +1,6 @@
 """Flash attention forward on the card: the wrapper of
-``csrc/flash_attention.cu``.
+``csrc/flash_attention.cu`` (TMA loads; wgmma in bf16, 3xTF32 mma.sync in
+fp32).
 
 Replaces ``repro/kernels/flash_attention.py::flash_attention_fwd``.  The
 plain version is ``ref.attention_ref``; ``ops.flash_attention`` picks
@@ -20,15 +21,67 @@ _ENTRY = {torch.float32: "flash_attention_f32",
 _ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
          + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 MAX_HEAD_DIM = 128
+# head dims the tensor-core products step through: wgmma's k16 in bf16,
+# mma.sync's k8 in fp32
+HEAD_DIM_MULTIPLE = {torch.bfloat16: 16, torch.float32: 8}
+TMA_ALIGN = 16      # bytes: TMA's base address and stride granule
+
+
+def smem_bytes(dtype: torch.dtype, d: int, dv: int) -> int:
+    """Dynamic shared memory of one CTA, as the kernel's launch sizes it:
+    1 KB of alignment slack, the Q block and the stages of K and V (4 in
+    bf16, 3 in fp32) in boxes of 64 rows by 128 bytes (wgmma's N covers
+    whole V boxes in bf16), and two mbarriers a stage and one for Q."""
+    bf16 = dtype == torch.bfloat16
+    box, stages = (64, 4) if bf16 else (32, 3)
+    nbd = -(-d // box)
+    nbv = (64 if dv <= 64 else 128) // 64 if bf16 else -(-dv // 32)
+    return 1024 + (nbd + stages * (nbd + nbv)) * 64 * 128 \
+        + 8 * (2 * stages + 1)
+
+
+def tma_strides(x: torch.Tensor) -> tuple:
+    """The three outer strides of a (B, H, S, D) tensor as its tensor map
+    takes them.  A dimension of size 1 is never stepped, so its stride is
+    replaced by one row's length rounded up to the TMA granule."""
+    el = x.element_size()
+    row = -(-x.shape[-1] * el // TMA_ALIGN) * TMA_ALIGN // el
+    return tuple(st if n > 1 else row
+                 for n, st in zip(x.shape[:3], x.stride()[:3]))
+
+
+def check_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Raise ValueError on a head width or layout the kernel refuses.
+
+    D and Dv must be multiples of 16 in bf16 and of 8 in fp32, at most 128;
+    the head dimension contiguous; each base pointer 16-byte aligned and
+    each outer stride a multiple of 16 bytes, as TMA requires.  Works on
+    tensors of any device, so the CPU tests reach it.
+    """
+    mult = HEAD_DIM_MULTIPLE[q.dtype]
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        d = x.shape[-1]
+        if d <= 0 or d > MAX_HEAD_DIM or d % mult:
+            raise ValueError(f"{name}: head dim {d} must be a multiple of "
+                             f"{mult} in {q.dtype}, at most {MAX_HEAD_DIM}")
+        if x.stride(-1) != 1:
+            raise ValueError(f"{name}: the head dimension must be contiguous")
+        if x.data_ptr() % TMA_ALIGN:
+            raise ValueError(f"{name}: base address not {TMA_ALIGN}-byte "
+                             f"aligned, as TMA needs (storage offset "
+                             f"{x.storage_offset()})")
+        if any(st * x.element_size() % TMA_ALIGN for st in tma_strides(x)):
+            raise ValueError(f"{name}: strides {x.stride()} are not multiples "
+                             f"of {TMA_ALIGN} bytes, as TMA needs")
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, scale=None) -> torch.Tensor:
     """q:(B,H,S,D) k/v:(B,Hkv,T,D) CUDA tensors -> (B,H,S,Dv).
 
-    Any strides are taken as long as the head dimension is contiguous, so
-    a (B,S,H,D) tensor passes as its transposed view without a copy; the
-    result is a (B,H,S,Dv) view of a contiguous (B,S,H,Dv) tensor.
+    Any strides are taken within ``check_layout``'s rules, so a (B,S,H,D)
+    tensor passes as its transposed view without a copy; the result is a
+    (B,H,S,Dv) view of a contiguous (B,S,H,Dv) tensor.
     """
     global launches
     b, h, s, d = q.shape
@@ -44,15 +97,12 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or hkv == 0 or h % hkv:
         raise ValueError(f"shapes q{tuple(q.shape)} k{tuple(k.shape)} "
                          f"v{tuple(v.shape)} do not form GQA attention")
-    if d > MAX_HEAD_DIM or dv > MAX_HEAD_DIM:
-        raise ValueError(f"head dim {d}/{dv} over {MAX_HEAD_DIM}")
-    if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
-        raise ValueError("the head dimension must be contiguous")
+    check_layout(q, k, v)
     scale = d ** -0.5 if scale is None else float(scale)
     out = torch.empty((b, s, h, dv), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
-    strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],
-                                       *v.stride()[:3], *out.stride()[:3])
+    strides = (ctypes.c_longlong * 12)(*tma_strides(q), *tma_strides(k),
+                                       *tma_strides(v), *out.stride()[:3])
     fn = _build.function(_ENTRY[q.dtype], _ARGS)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

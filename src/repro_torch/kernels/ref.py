@@ -38,6 +38,65 @@ def attention_ref(q, k, v, *, causal: bool = True, scale=None):
     return torch.einsum("bhst,bhtd->bhsd", w, v).to(q.dtype)
 
 
+def tf32(x):
+    """fp32 rounded to TF32 by its bits: to nearest, ties away from zero
+    (13 mantissa bits dropped), as ``cvt.rna.tf32.f32`` does; finite x."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _product_3xtf32(eq, a, b):
+    """einsum of fp32 operands as three TF32 products in fp32:
+    lo(a)·hi(b) + hi(a)·lo(b) + hi(a)·hi(b), with hi = tf32(x) and
+    lo = tf32(x - hi)."""
+    ah, bh = tf32(a), tf32(b)
+    al, bl = tf32(a - ah), tf32(b - bh)
+    return (torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl)
+            + torch.einsum(eq, ah, bh))
+
+
+def _product_tf32(eq, a, b):
+    """einsum of fp32 operands as one TF32 product."""
+    return torch.einsum(eq, tf32(a), tf32(b))
+
+
+def _attention_plan(q, k, v, causal, scale, qk, pv, round_p):
+    """Softmax attention with the kernel's order of work: scores by ``qk``,
+    p = exp(s - max) unnormalised, l = sum of fp32 p, ``round_p`` applied
+    to p before ``pv``, then a division by max(l, 1e-30)."""
+    b, h, s, d = q.shape
+    t = k.shape[2]
+    scale = d ** -0.5 if scale is None else scale
+    k = _repeat_kv(k, h).float()
+    v = _repeat_kv(v, h).float()
+    logits = qk("bhsd,bhtd->bhst", q.float(), k) * scale
+    if causal:
+        mask = torch.ones(s, t, dtype=torch.bool, device=q.device).tril(t - s)
+        logits = logits.masked_fill(~mask, NEG_INF)
+    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)
+    out = pv("bhst,bhtd->bhsd", round_p(p), v) / l.clamp(min=1e-30)
+    return out.to(q.dtype)
+
+
+def attention_3xtf32(q, k, v, *, causal: bool = True, scale=None,
+                     split: bool = True):
+    """The fp32 CUDA kernel's rounding plan: both products on TF32 tensor
+    cores as three products (``split=False``: one TF32 product, which the
+    fp32 gate does not pass).  Layout as ``attention_ref``; for tests."""
+    prod = _product_3xtf32 if split else _product_tf32
+    return _attention_plan(q, k, v, causal, scale, prod, prod, lambda p: p)
+
+
+def attention_bf16p(q, k, v, *, causal: bool = True, scale=None):
+    """The bf16 CUDA kernel's rounding plan: fp32 scores of the bf16 inputs,
+    p rounded to bf16 before P·V (the row sum l from fp32 p).  Layout as
+    ``attention_ref``; for tests."""
+    return _attention_plan(q, k, v, causal, scale, torch.einsum,
+                           torch.einsum,
+                           lambda p: p.to(torch.bfloat16).float())
+
+
 def decode_ref(q, k, v, kv_len=None, scale=None):
     """q:(B,H,D) k/v:(B,Hkv,T,D) kv_len:(B,) -> (B,H,Dv).
 

@@ -24,6 +24,9 @@ ATTN_CASES = [  # (b, h, hkv, s, t, d), causal; causal only at S == T
     # zamba2's shared attention: head dim 112 (a masked tail of the 16-wide
     # split), 32 KV heads (group 1), prompts of 17 and 512
     ((1, 32, 32, 17, 17, 112), True), ((1, 32, 32, 512, 512, 112), True),
+    ((1, 4, 2, 192, 192, 128), True),     # a ragged number of 128-row blocks
+    ((1, 8, 8, 512, 512, 64), True),      # D = 64
+    ((1, 4, 2, 64, 320, 32), False),      # T of five 64-key tiles, S of one
 ]
 SSD_TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
 SCAN_SHAPES = [  # (b, s, h, p, n, chunk)
@@ -65,6 +68,21 @@ def test_flash_attention_kernel(cuda_device, shape, causal, dtype):
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     want = ref.attention_ref(qt, kt, vt, causal=causal)
     _close(flash_attention_fwd(qt, kt, vt, causal=causal), want, dtype)
+
+
+@pytest.mark.cuda
+def test_flash_attention_refuses_misaligned_input(cuda_device):
+    """A bf16 q one element into its storage is 2 bytes off TMA's 16-byte
+    alignment: the kernel wrapper raises rather than compute or fall back."""
+    from repro_torch.kernels import flash_attention as fa
+    n = 1 * 2 * 64 * 32
+    q = torch.zeros(n + 1, dtype=torch.bfloat16,
+                    device=cuda_device)[1:].view(1, 2, 64, 32)
+    kv = torch.zeros(1, 2, 64, 32, dtype=torch.bfloat16, device=cuda_device)
+    before = fa.launches
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_attention_fwd(q, kv, kv)
+    assert fa.launches == before
 
 
 @pytest.mark.cuda

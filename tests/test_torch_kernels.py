@@ -15,7 +15,8 @@ import torch
 from repro.kernels import ops as jops
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.flash_attention import flash_attention_fwd
+from repro_torch.kernels.flash_attention import (check_layout,
+                                                flash_attention_fwd)
 
 torch.set_num_threads(1)
 
@@ -61,6 +62,108 @@ def test_flash_attention(shape, causal, dtype):
                                      interpret=True), dtype)
     _close(out, jops.flash_attention(qj, kj, vj, causal=causal, impl="xla"),
            dtype)
+
+
+# the CUDA kernel's rounding plans against the Pallas kernel: the shape
+# sweep and two served shapes with few heads (glm4_9b's and deepseek's head
+# width, zamba2_7b's D = 112)
+PLAN_CASES = ATTN_CASES + [((1, 2, 2, 512, 512, 128), True),
+                           ((1, 2, 2, 512, 512, 112), True)]
+
+
+def _attn_inputs(shape, dtype, seed=5):
+    b, h, hkv, s, t, d = shape
+    rng = np.random.default_rng(seed)
+    return [_both(rng.standard_normal(x, np.float32), dtype)
+            for x in ((b, s, h, d), (b, t, hkv, d), (b, t, hkv, d))]
+
+
+def _pallas(inputs, causal):
+    return jops.flash_attention(*(j for j, _ in inputs), causal=causal,
+                                interpret=True)
+
+
+def _plan(fn, inputs, causal, **kw):
+    qt, kt, vt = (t.transpose(1, 2) for _, t in inputs)
+    return fn(qt, kt, vt, causal=causal, **kw).transpose(1, 2)
+
+
+@pytest.mark.parametrize("shape,causal", PLAN_CASES)
+def test_attention_3xtf32_plan_matches_pallas(shape, causal):
+    """fp32: both products as three TF32 products hold the 2e-5 gate."""
+    inputs = _attn_inputs(shape, "float32")
+    _close(_plan(tref.attention_3xtf32, inputs, causal),
+           _pallas(inputs, causal), "float32")
+
+
+@pytest.mark.parametrize("shape,causal", PLAN_CASES)
+def test_attention_bf16p_plan_matches_pallas(shape, causal):
+    """bf16: p rounded to bf16 before P·V holds the 3e-2 gate."""
+    inputs = _attn_inputs(shape, "bfloat16")
+    _close(_plan(tref.attention_bf16p, inputs, causal),
+           _pallas(inputs, causal), "bfloat16")
+
+
+def test_single_tf32_product_misses_the_fp32_gate():
+    """Why the fp32 kernel splits: one TF32 product a score and an output
+    misses 2e-5 at D = 128, S = 512, where the split passes."""
+    inputs = _attn_inputs((1, 2, 2, 512, 512, 128), "float32")
+    want = np.asarray(_pallas(inputs, True), np.float32)
+    one = _plan(tref.attention_3xtf32, inputs, True, split=False)
+    err = np.abs(one.numpy() - want).max()
+    assert err > 2e-5, err
+    three = _plan(tref.attention_3xtf32, inputs, True)
+    assert np.abs(three.numpy() - want).max() < 2e-5
+
+
+def test_tf32_rounds_to_nearest_ties_away():
+    x = torch.tensor([1.0, 1 + 2 ** -11, 1 + 2 ** -12, 1 + 3 * 2 ** -12,
+                      -(1 + 2 ** -11), -(1 + 2 ** -12)])
+    want = torch.tensor([1.0, 1 + 2 ** -10, 1.0, 1 + 2 ** -10,
+                         -(1 + 2 ** -10), -1.0])
+    assert torch.equal(tref.tf32(x), want)
+
+
+def _misaligned(dtype, shape):
+    n = int(np.prod(shape))
+    return torch.zeros(n + 1, dtype=dtype)[1:].view(*shape)
+
+
+@pytest.mark.parametrize("dtype,d,ok", [
+    (torch.bfloat16, 16, True), (torch.bfloat16, 112, True),
+    (torch.bfloat16, 128, True), (torch.bfloat16, 24, False),
+    (torch.bfloat16, 144, False), (torch.float32, 24, True),
+    (torch.float32, 112, True), (torch.float32, 12, False),
+    (torch.float32, 136, False),
+])
+def test_flash_attention_head_dim_contract(dtype, d, ok):
+    """D and Dv: multiples of wgmma's k16 in bf16 and mma.sync's k8 in fp32,
+    at most 128."""
+    q = torch.zeros(1, 64, 2, d, dtype=dtype).transpose(1, 2)
+    if ok:
+        check_layout(q, q, q)
+    else:
+        with pytest.raises(ValueError, match="multiple"):
+            check_layout(q, q, q)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_tma_layout_contract(dtype):
+    """TMA's rules: 16-byte aligned bases, outer strides in 16-byte steps,
+    the head dimension contiguous; a (B,S,H,D) tensor's transposed view and
+    any stride of a size-1 dimension pass."""
+    good = torch.zeros(2, 64, 4, 32, dtype=dtype).transpose(1, 2)
+    check_layout(good, good, good)
+    one = torch.zeros(32, dtype=dtype).as_strided((1, 1, 1, 32), (3, 5, 7, 1))
+    check_layout(one, good, good)
+    with pytest.raises(ValueError, match="aligned"):
+        check_layout(good, _misaligned(dtype, (2, 4, 64, 32)), good)
+    odd = torch.zeros(2, 4, 64, 36, dtype=dtype)[..., :32]   # 72 or 144 B
+    if odd.stride(2) * odd.element_size() % 16:
+        with pytest.raises(ValueError, match="strides"):
+            check_layout(good, good, odd)
+    with pytest.raises(ValueError, match="contiguous"):
+        check_layout(good.transpose(2, 3)[..., :32, :], good, good)
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
