@@ -9,8 +9,10 @@ prints its seconds:
 1. print the card (nvidia-smi name, power limit); build the CUDA kernels
    from ``src/repro_torch/kernels/csrc`` with nvcc and print the seconds;
    print ptxas's registers, shared memory and spills of the attention
-   kernels and count their tensor-core instructions (HGMMA, HMMA) in the
-   SASS (``cuobjdump -sass``): none would mean a CUDA-core path;
+   kernels and of the grouped matmul's tiled and streaming kernels, and
+   count the tensor-core instructions (HGMMA, HMMA) of the attention and
+   tiled grouped-matmul kernels in the SASS (``cuobjdump -sass``): none
+   would mean a CUDA-core path;
 2. hold each kernel against its plain PyTorch version on the card at the
    serving paths' shapes, in fp32 (atol = rtol = 2e-5; 2e-4 for the SSD
    scan, whose chunked and sequential sums differ in order) and bf16
@@ -21,7 +23,10 @@ prints its seconds:
    the kernels SDPA ran (one ``torch.profiler`` pass a row); SDPA gets
    GQA's K and V expanded to every head beforehand, so it times one MHA
    call; the fp32 attention kernel computes on tensor cores in 3xTF32, so
-   its bound counts 3x the flops at the TF32 peak; the sLSTM at
+   its bound counts 3x the flops at the TF32 peak, as does the grouped
+   matmul's fp32 tiled path; the grouped matmul also with the row counts
+   of a seeded top-6 routing (a 4-slot decode tick and a 512-token
+   prefill), bounded by the active experts' bytes and rows; the sLSTM at
    xlstm_125m's prefill (S = 512 and 300) and decode tick (4 slots, S =
    1, from a state), its final state compared too;
 3. full-width glm4_9b cut to 2 layers, same weights on the card
@@ -53,7 +58,9 @@ prints its seconds:
    a token and 2 shared, fp32, 64.66 GB of random weights from a seed) as
    in phase 4, zamba2's weights freed first; every routed-expert product
    goes through the grouped-matmul kernel, 81 launches a prefill and a
-   tick; then one decode step's MoE FFN runs under
+   tick; the profile prints ``moe_gmm``'s ms a tick and, over 8 more
+   ticks, the mean number of experts that hold rows a launch; then one
+   decode step's MoE FFN runs under
    ``torch.cuda.set_sync_debug_mode("error")``, so a host sync inside the
    dispatch fails the run;
 9. the whole 12-layer xlstm_125m, card against CPU as in phase 3, with a
@@ -150,14 +157,20 @@ def device_kernels(fn) -> list:
 def kernel_report() -> None:
     """Phase 1: ptxas's report and the SASS tensor-core instruction counts
     of the attention kernels (one instantiation per storage type and
-    padded Dv); fails if one has no HGMMA (bf16) or HMMA (fp32)."""
+    padded Dv) and of the grouped matmul's tiled path (one per storage
+    type); fails if one has no HGMMA (bf16) or HMMA (fp32).  ptxas's lines
+    of the grouped matmul's streaming instantiations are printed too."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
+
+    def ours(name):
+        return "flash_attn" in name or "gmm_tiled" in name \
+            or "gmm_stream" in name
     ptxas, fn = {}, None
     for line in _build.build_log().splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            fn = m.group(1) if "flash_attn" in m.group(1) else None
+            fn = m.group(1) if ours(m.group(1)) else None
         elif fn and ("spill" in line or "Used" in line):
             ptxas.setdefault(fn, []).append(line.split(":")[-1].strip())
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
@@ -167,23 +180,37 @@ def kernel_report() -> None:
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            fn = m.group(1) if "flash_attn" in m.group(1) else None
+            fn = m.group(1) if ours(m.group(1)) else None
             if fn:
                 counts[fn] = {"HGMMA": 0, "HMMA": 0}
         elif fn:
             for op in ("HGMMA", "HMMA"):
                 counts[fn][op] += bool(re.search(rf"\b{op}\.", line))
-    check(len(counts) == 6, f"expected 6 attention kernels in the SASS, "
-                            f"found {sorted(counts)}")
-    for fn, c in sorted(counts.items()):
-        bf16 = "bfloat16" in fn
+    attention = sorted(f for f in counts if "flash_attn" in f)
+    tiled = sorted(f for f in counts if "gmm_tiled" in f)
+    check(len(attention) == 6, f"expected 6 attention kernels in the SASS, "
+                               f"found {attention}")
+    check(len(tiled) == 2, f"expected 2 tiled moe_gmm kernels in the SASS, "
+                           f"found {tiled}")
+
+    def dtype(fn):
+        return "bf16" if "bfloat16" in fn else "f32"
+    labels = {}
+    for fn in attention:
         dp, dvp = re.findall(r"Li(\d+)E", fn)
-        label = (f"flash_attn_kernel<{'bf16' if bf16 else 'f32'}, D {dp}, "
-                 f"Dv {dvp}>")
-        print(f"  {label}: {c['HGMMA']} HGMMA, {c['HMMA']} HMMA in the SASS; "
-              f"ptxas: {'; '.join(ptxas.get(fn, ['no report']))}")
+        labels[fn] = f"flash_attn_kernel<{dtype(fn)}, D {dp}, Dv {dvp}>"
+    for fn in tiled:
+        labels[fn] = f"gmm_tiled<{dtype(fn)}>"
+    for fn in attention + tiled:
+        c, bf16 = counts[fn], "bfloat16" in fn
+        print(f"  {labels[fn]}: {c['HGMMA']} HGMMA, {c['HMMA']} HMMA in the "
+              f"SASS; ptxas: {'; '.join(ptxas.get(fn, ['no report']))}")
         check(c["HGMMA"] > 0 if bf16 else c["HMMA"] > 0,
-              f"{label} has no tensor-core instruction")
+              f"{labels[fn]} has no tensor-core instruction")
+    for fn in sorted(f for f in ptxas if "gmm_stream" in f):
+        cs, unroll = re.findall(r"Li(\d+)E", fn)
+        print(f"  gmm_stream<{dtype(fn)}, rows {cs}, loads {unroll}>: "
+              f"ptxas: {'; '.join(ptxas[fn])}")
     for dtype in (torch.float32, torch.bfloat16):
         print(f"  dynamic shared memory at D = Dv = 128, {dtype}: "
               f"{fa.smem_bytes(dtype, 128, 128)} bytes")
@@ -208,13 +235,14 @@ def phase_kernels(gen):
         return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
 
     def timed(kern, plain, lib, err, nbytes, flops, dtype, peak=None,
-              sdpa=False):
-        """``sdpa``: the library call is SDPA, whose kernels get named."""
+              sdpa=False, note=""):
+        """``sdpa``: the library call is SDPA, whose kernels get named;
+        ``note`` goes into the printed row (the bound's accounting)."""
         return dict(err=err, ms=cuda_ms(kern), host_ms=host_ms(kern),
                     plain_ms=cuda_ms(plain),
                     library_ms=None if lib is None else cuda_ms(lib),
                     library_kernels=device_kernels(lib) if sdpa else None,
-                    bound=bound(nbytes, flops, dtype, peak))
+                    bound=bound(nbytes, flops, dtype, peak), note=note)
 
     def attention(s, h, hkv, d, dtype, tag):
         q = rnd(1, s, h, d, dtype=dtype)
@@ -323,20 +351,41 @@ def phase_kernels(gen):
         flops = 2 * b * s * 4 * h * dh * dh
         return timed(kern, plain, None, err, nbytes, flops, torch.float32)
 
-    def gmm(e, c, d, f, dtype, tag):
+    def gmm(e, c, d, f, dtype, tag, counts=None):
         """x is the model's view of its (E, C + 1, D) dispatch buffer
         without the sink row; w ~ N(0, 1/D), the scale of the model's
         weights, so outputs are O(1) and fp32 sums of D products in two
-        orders stay within 2e-5."""
+        orders stay within 2e-5.  ``counts``: the rows each expert holds,
+        clamped to C and passed as ``rows``, with x zero past them as the
+        dispatch builds it; the bound then counts the active experts'
+        weights and their rows' operations only, while ``torch.bmm`` still
+        computes the whole buffer.  The tiled fp32 path computes in
+        3xTF32 on tensor cores, so its bound counts 3x the flops at the
+        TF32 peak; the streaming path's FMAs are fp32 on CUDA cores."""
+        from repro_torch.kernels import moe_gmm as mg
         x = rnd(e, c + 1, d, dtype=dtype)[:, :c]
         w = (rnd(e, d, f, dtype=torch.float32) * d ** -0.5).to(dtype)
-        kern = lambda: ops.moe_gmm(x, w)
-        plain = lambda: ref.gmm_ref(x, w)
+        rows, n_rows, active = None, e * c, e
+        if counts is not None:
+            rows = torch.as_tensor(counts, dtype=torch.int32,
+                                   device="cuda").clamp_max(c)
+            x.masked_fill_(torch.arange(c, device="cuda")[None, :, None]
+                           >= rows[:, None, None], 0.0)
+            n_rows, active = int(rows.sum()), int((rows > 0).sum())
+        kern = lambda: ops.moe_gmm(x, w, rows)
+        plain = lambda: ref.gmm_ref(x, w, rows)
         lib = lambda: torch.bmm(x, w)
         err = compare(f"moe_gmm E={e} C={c} D={d} F={f} {tag}", kern(),
                       plain(), dtype)
-        nbytes = (e * c * d + w.numel() + e * c * f) * x.element_size()
-        return timed(kern, plain, lib, err, nbytes, 2 * e * c * d * f, dtype)
+        path = mg.path(x, w)
+        nbytes = (n_rows * d + active * d * f + e * c * f) \
+            * x.element_size() + (0 if rows is None else 4 * e)
+        flops = 2 * n_rows * d * f
+        note = f"{path}, {active} of {e} experts active"
+        if dtype == torch.float32 and path == "tiled":
+            return timed(kern, plain, lib, err, nbytes, 3 * flops, dtype,
+                         TF32_FLOPS, note=note + ", 3xTF32 accounting")
+        return timed(kern, plain, lib, err, nbytes, flops, dtype, note=note)
 
     # The attention rows come first: profiler passes that followed the
     # plain SSD and sLSTM loops (~10^5 launches each) recorded no device
@@ -387,6 +436,14 @@ def phase_kernels(gen):
                 64, c, d, f, dtype, tag)
         rows[("moe_gmm", tag, "E=8 C=7 D=32 F=64")] = gmm(8, 7, 32, 64,
                                                           dtype, tag)
+        # routed rows: the counts of a seeded top-6 routing over 64 experts,
+        # of a 4-slot decode tick (C = 1 at capacity factor 4.0) and of a
+        # 512-token prefill (C = 60 at 1.25)
+        for n_tok, c in ((4, 1), (512, 60)):
+            rows[("moe_gmm", tag, f"routed {n_tok} tokens E=64 C={c} "
+                                  f"D=2048 F=1408")] = gmm(
+                64, c, 2048, 1408, dtype, tag,
+                routed_counts(n_tok, 64, 6, seed=n_tok))
         # the sLSTM at xlstm_125m's heads (4 of 192): a 512- and a 300-token
         # prefill, and a decode tick of 4 slots from a state
         for s_, rs, bs in ((512, 0.02, 0.0), (512, 0.1, 0.1),
@@ -403,11 +460,19 @@ def phase_kernels(gen):
               f"{r['err']:.3e}  kernel {r['ms']:.4f} ms (host-issued "
               f"{r['host_ms']:.4f} ms)  plain {r['plain_ms']:.4f} ms  "
               f"library {lib}  bound {r['bound'][0]:.4f} ms "
-              f"({r['bound'][1]})")
+              f"({r['bound'][1]})" + (f"  [{r['note']}]" if r["note"] else ""))
         if r["library_kernels"] is not None:
             print(f"    SDPA kernels: " + (" | ".join(
                 n[:100] for n in r["library_kernels"]) or "none recorded"))
     return rows
+
+
+def routed_counts(n_tokens: int, n_experts: int, top_k: int, seed: int):
+    """Rows per expert of a seeded routing: each token picks ``top_k``
+    distinct experts uniformly."""
+    rng = np.random.default_rng(seed)
+    ids = np.argsort(rng.random((n_tokens, n_experts)), axis=1)[:, :top_k]
+    return np.bincount(ids.ravel(), minlength=n_experts)
 
 
 def run_greedy(cfg, params, prompt, cache_len, steps):
@@ -559,8 +624,9 @@ def serve_once(cfg, params, prompts, new_tokens):
 
 
 def tick_params(cfg, spec):
-    """Parameters one decode tick reads: every weight once (every expert's
-    too: the grouped matmul reads the weights of experts without rows),
+    """Parameters one decode tick reads: every weight once, every expert's
+    included (the floor of §2 in PERF.md, one definition for every path;
+    phase 8 also prints it at the measured share of active experts),
     except the hybrid's shared attention blocks, read once per group of
     Mamba2 layers, alternating between the weight sets."""
     from repro_torch.models.common import count_params
@@ -648,7 +714,17 @@ def phase_serve(arch, seed, max_prompt, repeats: int = 3, then=None,
     print(f"  launches {first}; peak memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     del engine
-    phase_profile(cfg, params, seed)
+    active = phase_profile(cfg, params, seed)
+    if active is not None:
+        # the floor at the measured share of experts with rows: only their
+        # weights need to be read
+        routed = 3 * (cfg.n_layers - cfg.first_dense) * cfg.n_experts \
+            * cfg.d_model * cfg.d_ff_expert
+        unread = routed * (1 - active / cfg.n_experts)
+        print(f"  decode-step bound at {active:.2f} of {cfg.n_experts} "
+              f"experts read a launch: "
+              f"{(4 * (n_tick - unread) + n_cache) / HBM_BYTES_PER_S * 1e3:.3f}"
+              f" ms ({(n_tick - unread) / 1e9:.3f} B fp32 weights a tick)")
     if then is not None:
         then(cfg, params)
     return first
@@ -718,13 +794,39 @@ def moe_decode_without_sync(cfg, params):
           f"without a host sync (|diff| to an earlier run {err:.3e})")
 
 
+class ActiveExperts:
+    """Counts, on the device, the experts that hold rows in every
+    ``ops.moe_gmm`` call made while it is entered."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self.ops, self._gmm, self.calls = ops, ops.moe_gmm, 0
+        self.total = torch.zeros((), dtype=torch.long, device="cuda")
+
+        def counted(x, w, rows=None):
+            self.calls += 1
+            self.total += x.shape[0] if rows is None else (rows > 0).sum()
+            return self._gmm(x, w, rows)
+        ops.moe_gmm = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.moe_gmm = self._gmm
+
+    def mean(self) -> float:
+        return self.total.item() / max(self.calls, 1)
+
+
 def phase_profile(cfg, params, seed, plain_ticks: int = 16,
                   ticks: int = 8):
     """Where a decode tick's time goes, on a full 4-slot pool after its
     admissions: ``plain_ticks`` ticks timed on the host clock alone, then
     ``ticks`` more under torch.profiler.  The device's busy time comes
     from the profile; its share is taken of the unprofiled tick, since
-    the profiler's own host cost lengthens the ticks it traces."""
+    the profiler's own host cost lengthens the ticks it traces.  For an
+    MoE model, ``moe_gmm``'s time a tick, and then, over ``ticks`` more
+    ticks, the mean number of experts with rows a launch, which it
+    returns (None for other models)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving import Request, ServeConfig, ServingEngine
@@ -734,7 +836,7 @@ def phase_profile(cfg, params, seed, plain_ticks: int = 16,
     for uid in range(4):
         engine.submit(Request(uid=uid, prompt=rng.integers(
             0, cfg.vocab, 64).astype(np.int32),
-            max_new_tokens=plain_ticks + ticks + 4))
+            max_new_tokens=plain_ticks + 2 * ticks + 4))
     engine.step()
     torch.cuda.synchronize()
     for _ in range(plain_ticks):
@@ -767,6 +869,20 @@ def phase_profile(cfg, params, seed, plain_ticks: int = 16,
     for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]:
         print(f"    {us / ticks / 1e3:8.3f} ms/tick  {n // ticks:4d}/tick  "
               f"{name[:90]}")
+    if cfg.family == "moe":
+        gmm = [(n, us) for name, (n, us) in by_name.items()
+               if "gmm_stream" in name or "gmm_tiled" in name]
+        check(bool(gmm), "the profiled ticks ran no moe_gmm kernel")
+        with ActiveExperts() as active:
+            for _ in range(ticks):
+                engine.step()
+        print(f"  moe_gmm: {sum(us for _, us in gmm) / ticks / 1e3:.3f} "
+              f"ms/tick in {sum(n for n, _ in gmm) // ticks} launches/tick; "
+              f"{active.mean():.2f} of {cfg.n_experts} experts hold rows a "
+              f"launch (mean of {active.calls} launches over {ticks} more "
+              f"ticks)")
+        return active.mean()
+    return None
 
 
 def main() -> int:

@@ -11,6 +11,11 @@ Every C entry point returns ``cudaGetLastError()`` after its launch;
 mistaken for a result.  ptxas reports each kernel's registers, shared
 memory and spills (``-Xptxas -v``); the report is kept beside the library
 in a ``.log`` file, :func:`build_log` returns it.
+
+The kernels have no backward yet: a wrapper's output carries no
+``grad_fn``.  So every wrapper first calls :func:`refuse_grad`, which
+raises where autograd would otherwise record the call and lose the
+gradient without a word.
 """
 from __future__ import annotations
 
@@ -23,6 +28,8 @@ import subprocess
 import threading
 import time
 from typing import Optional, Sequence
+
+import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
@@ -105,6 +112,17 @@ def function(name: str, argtypes) -> ctypes._CFuncPtr:
         fn.restype = ctypes.c_int
         _functions[name] = fn
     return fn
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise when grad mode is on and a tensor input requires grad: the
+    kernel's output would carry no ``grad_fn``.  Every kernel wrapper calls
+    this before any other check, so it holds on every device."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(f"CUDA kernel {name} has no backward, and an "
+                           f"input requires grad under grad mode: run it "
+                           f"under torch.no_grad() or on detached inputs")
 
 
 def check(err: int, name: str) -> None:

@@ -156,6 +156,27 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
+// D(64x128, f32) += A(64x16, bf16, K-major in smem) * B(16x128, bf16,
+// MN-major in smem: the transposed B operand, N contiguous), + D unless
+// ``accumulate`` is 0.  B's descriptor: LBO = the stride between its
+// 64-column (128-byte) chunks, SBO = 1024; a k-step of 16 rows advances the
+// start address by 16 x 128 bytes.
+__device__ __forceinline__ void wgmma_m64n128k16_ss_tb(float (&d)[64],
+                                                       uint64_t desc_a,
+                                                       uint64_t desc_b,
+                                                       int accumulate) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %66, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 1;\n\t}"
+      : HOPPER_ACC32(d, 0), HOPPER_ACC32(d, 32)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
 // D(64xN, f32) += A(64x16, bf16, from registers) * B(16xN, bf16, MN-major
 // in smem: the transposed B operand, N contiguous).  A's four registers hold
 // (row g, k 2t..2t+1), (g+8, 2t..), (g, 2t+8..), (g+8, 2t+8..) of the warp's
@@ -211,6 +232,16 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
   lo = tf32_rna(x - __uint_as_float(hi));
 }
 
+// x = hi + lo with hi = tf32(x) and lo = x - hi passed unrounded: whatever
+// the tensor core does with lo's low 13 bits moves lo·y by at most 2^-21 of
+// |x·y|.  One integer add, one mask and one subtraction, against five
+// instructions for split_tf32.  Finite inputs only.
+__device__ __forceinline__ void split_tf32_fast(float x, uint32_t& hi,
+                                                uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
 // C(16x8, f32) += A(16x8, tf32) * B(8x8, tf32).  g = lane/4, t = lane%4:
 // a = (g, t), (g+8, t), (g, t+4), (g+8, t+4); b = (k t, n g), (k t+4, n g);
 // c = (g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1).
@@ -220,6 +251,20 @@ __device__ __forceinline__ void mma_tf32(float* c, const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// D(16x8, f32) = A(16x8, tf32) * B(8x8, tf32), with C = 0: a fresh partial
+// sum.  The tensor core truncates as it accumulates, so a long chain of
+// mma.sync into one accumulator drifts (about 5e-5 over 768 products of
+// O(1) sums); a kernel adds such partials into its fp32 sum instead.
+__device__ __forceinline__ void mma_tf32_zero(float (&d)[4],
+                                              const uint32_t (&a)[4],
+                                              uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(0.f));
 }
 
 // ---- host: tensor maps ------------------------------------------------------

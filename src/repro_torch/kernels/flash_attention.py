@@ -84,6 +84,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B,H,S,Dv) view of a contiguous (B,S,H,Dv) tensor.
     """
     global launches
+    _build.refuse_grad("flash_attention", q, k, v)
     b, h, s, d = q.shape
     hkv, t, dv = k.shape[1], k.shape[2], v.shape[-1]
     if not (q.device.type == "cuda" and k.device == q.device

@@ -30,6 +30,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B,T,Hkv,D) cache passes as its transposed view.
     """
     global launches
+    _build.refuse_grad("flash_decode", q, k, v, kv_len)
     b, h, d = q.shape
     hkv, t, dv = k.shape[1], k.shape[2], v.shape[-1]
     dev = q.device

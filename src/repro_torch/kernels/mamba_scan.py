@@ -38,6 +38,7 @@ def mamba_scan(xh: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     kernel in fp32.
     """
     global launches
+    _build.refuse_grad("mamba_scan", xh, dt, a_log, bm, cm)
     b, s, h, p = xh.shape
     n = bm.shape[-1]
     dev = xh.device

@@ -107,9 +107,15 @@ def mamba_scan(xh, dt, a_log, bm, cm, *, chunk: int = 128):
     return ref.ssd_ref(xh, dt, a_log, bm, cm)
 
 
-def moe_gmm(x, w):
+def moe_gmm(x, w, rows=None):
     """Grouped matmul (E,C,D) @ (E,D,F) -> (E,C,F), fp32 accumulation, the
     result in x's dtype.
+
+    ``rows``: an optional (E,) int32 tensor of the rows each expert holds.
+    Row r of expert e is then x[e, r] @ w[e] for r < min(rows[e], C) and
+    exactly 0 past it; on a buffer whose rows past the count are zero, as
+    the MoE dispatch builds it, that is the TPU ``gmm``.  The kernel reads
+    no weights of an expert without rows.
 
     Block contract of the TPU ``gmm``: D a multiple of min(128, D) and F of
     min(128, F).  Any C is taken: the TPU wrapper pads C to its block, the
@@ -119,9 +125,13 @@ def moe_gmm(x, w):
     if d % min(128, d) or f % min(128, f):
         raise ValueError(f"moe_gmm takes D and F that are multiples of their "
                          f"128-wide block, got D={d}, F={f}")
-    if _on_card(x, w):
-        return _gmm.moe_gmm(x, w)
-    return ref.gmm_ref(x, w)
+    if rows is not None and (rows.dtype != torch.int32
+                             or tuple(rows.shape) != (x.shape[0],)):
+        raise ValueError(f"moe_gmm takes rows as an ({x.shape[0]},) int32 "
+                         f"tensor, got {tuple(rows.shape)} {rows.dtype}")
+    if _on_card(x, w, *(() if rows is None else (rows,))):
+        return _gmm.moe_gmm(x, w, rows)
+    return ref.gmm_ref(x, w, rows)
 
 
 def slstm_seq(xg, r, bias, state=None):

@@ -124,10 +124,15 @@ def rmsnorm_ref(x, scale, eps: float = 1e-5):
     return (x32 * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
 
 
-def gmm_ref(x, w):
+def gmm_ref(x, w, rows=None):
     """Grouped matmul oracle: (E,C,D) @ (E,D,F) -> (E,C,F), fp32 math, the
-    result in x's dtype."""
-    return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)
+    result in x's dtype.  With ``rows`` (E,), row r of expert e is exactly 0
+    from min(rows[e], C) on, whatever x holds there."""
+    out = torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)
+    if rows is None:
+        return out
+    past = torch.arange(x.shape[1], device=x.device)[None, :] >= rows[:, None]
+    return out.masked_fill(past[..., None], 0)
 
 
 def ssd_ref(xh, dt, a_log, bm, cm):

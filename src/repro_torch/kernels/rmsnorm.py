@@ -22,6 +22,7 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
             eps: float = 1e-5) -> torch.Tensor:
     """(N,D),(D,) CUDA tensors -> (N,D) in x's dtype; fp32 math."""
     global launches
+    _build.refuse_grad("rmsnorm", x, scale)
     if x.device.type != "cuda" or scale.device != x.device:
         raise ValueError("rmsnorm kernel takes CUDA tensors on one device")
     if x.dtype not in _ENTRY:

@@ -31,6 +31,8 @@ def slstm_seq(xg: torch.Tensor, r: torch.Tensor, bias: torch.Tensor,
     xg and the state leaves must be contiguous.
     """
     global launches
+    _build.refuse_grad("slstm_seq", xg, r, bias,
+                       *(() if state is None else state.values()))
     if xg.dim() != 5 or xg.shape[2] != 4:
         raise ValueError(f"xg of shape {tuple(xg.shape)} is not "
                          f"(B, S, 4, H, Dh)")

@@ -8,7 +8,8 @@ softmax routing, with the JAX package's sort-based capacity dispatch:
   2. stable-sort the (token, expert) pairs by expert id;
   3. position-in-expert = rank within the sorted run; slots >= capacity drop;
   4. gather into an (E, C, D) buffer, batched expert SwiGLU whose three
-     products go through the grouped-matmul kernel (``ops.moe_gmm``),
+     products go through the grouped-matmul kernel (``ops.moe_gmm``, given
+     each expert's row count, so experts without rows read no weights),
      scatter back, weighted combine.
 
 On the card ``moe_apply`` never waits for the host: the capacity comes
@@ -98,9 +99,13 @@ def moe_apply(params, x, top_k: int, capacity_factor: float = 1.25,
     buf[s_ids, pos_c] = xf[s_tok]
     slots = buf[:, :cap]                                   # strided view
 
-    g = ops.moe_gmm(slots, params["w_gate"])
-    u = ops.moe_gmm(slots, params["w_up"])
-    out_buf = ops.moe_gmm(F.silu(g) * u, params["w_down"])  # (E, cap, D)
+    # The rows each expert holds, on the device: the kernel skips experts
+    # without rows and writes exact zeros past each count, so the down
+    # product's input there is silu(0) * 0 = 0.
+    rows = counts.clamp_max(cap).to(torch.int32)
+    g = ops.moe_gmm(slots, params["w_gate"], rows)
+    u = ops.moe_gmm(slots, params["w_up"], rows)
+    out_buf = ops.moe_gmm(F.silu(g) * u, params["w_down"], rows)  # (E,cap,D)
 
     # Weighted combine, added straight into the (N, D) output.
     slot_out = out_buf[s_ids, pos_c.clamp_max(cap - 1)]

@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import ops, ref
+from torch_wrapper_calls import WRAPPERS, wrapper_call
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 ATTN_CASES = [  # (b, h, hkv, s, t, d), causal; causal only at S == T
@@ -161,6 +162,12 @@ GMM_SHAPES = [  # (e, c, d, f)
     (2, 64, 32, 64), (4, 100, 64, 128), (1, 128, 128, 256), (8, 7, 32, 64),
     (8, 1, 128, 256), (3, 5, 96, 24),     # F under a 4-column group's width
     (1, 130, 256, 128),                   # three C tiles, the last ragged
+    # both sides of the streaming/tiled threshold (C <= 8 streams)
+    (8, 8, 128, 256), (8, 9, 128, 256),
+    # rows of 200 bytes in bf16, which TMA cannot read: C > 8 streams in
+    # 8-row chunks (fp32's 400-byte rows take the tiled path, D and F
+    # ragged inside their tiles)
+    (4, 20, 100, 60),
     # deepseek_moe_16b: decode (C = 1) and prefill at S = 128 and 512
     # (C = 15 and 60 at capacity factor 1.25), gate/up and down
     (64, 1, 2048, 1408), (64, 1, 1408, 2048), (64, 15, 2048, 1408),
@@ -197,6 +204,85 @@ def test_moe_gmm_kernel_reads_a_strided_x(cuda_device, dtype):
     x, w = _gmm_inputs(6, dtype, 16, 9, 256, 384, c_alloc=10)
     assert not x.is_contiguous()
     _close(ops.moe_gmm(x, w), ref.gmm_ref(x, w), dtype)
+
+
+def _counts(seed, e, c, device):
+    """Seeded row counts: expert 0 takes about half of C (a ragged tile),
+    expert 1 none, expert 2 all C, expert 3 more than C (clamped); the rest
+    are drawn in [0, C + 2]."""
+    g = torch.Generator().manual_seed(seed)
+    rows = torch.randint(0, c + 3, (e,), generator=g, dtype=torch.int32)
+    for i, n in enumerate((c // 2 + 1, 0, c, c + 5)[:e]):
+        rows[i] = n
+    return rows.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e,c,d,f", GMM_SHAPES)
+def test_moe_gmm_kernel_paths(cuda_device, e, c, d, f, dtype):
+    """C <= 8 takes the streaming GEMV and larger C the tiled tensor-core
+    path where TMA can read the rows (16-byte multiples), so GMM_SHAPES
+    covers both and the fallback."""
+    from repro_torch.kernels import moe_gmm as mg
+    x, w = _gmm_inputs(5, dtype, e, c, d, f)
+    el = x.element_size()
+    tma = (d * el) % 16 == 0 and (f * el) % 16 == 0
+    assert mg.path(x, w) == ("tiled" if c > 8 and tma else "stream")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e,c,d,f", GMM_SHAPES)
+def test_moe_gmm_kernel_with_rows(cuda_device, e, c, d, f, dtype,
+                                  monkeypatch):
+    """With seeded counts, x's rows past each count NaN (a stale buffer) and
+    the output allocated NaN-filled: rows within the count match the plain
+    version, and every row past it comes back exactly 0."""
+    from repro_torch.kernels.moe_gmm import moe_gmm
+    x, w = _gmm_inputs(7, dtype, e, c, d, f)
+    rows = _counts(e * 1000 + c, e, c, cuda_device)
+    past = torch.arange(c, device=cuda_device)[None, :] \
+        >= rows.clamp_max(c)[:, None]
+    x = x.masked_fill(past[..., None], float("nan"))
+    empty = torch.empty
+    monkeypatch.setattr(torch, "empty", lambda *a, **k: empty(
+        *a, **k).fill_(float("nan")))
+    out = moe_gmm(x, w, rows)
+    monkeypatch.undo()
+    assert out.shape == (e, c, f) and out.dtype == dtype
+    assert (out[past] == 0).all()
+    _close(out, ref.gmm_ref(x, w, rows), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [1, 60])
+def test_moe_gmm_kernel_all_zero_rows_returns_zeros(cuda_device, c, dtype):
+    """No expert holds a row: every output is 0, even with NaN in x and w,
+    since no weight is read and no product is taken."""
+    x = torch.full((8, c, 256), float("nan"), dtype=dtype,
+                   device=cuda_device)
+    w = torch.full((8, 256, 384), float("nan"), dtype=dtype,
+                   device=cuda_device)
+    rows = torch.zeros(8, dtype=torch.int32, device=cuda_device)
+    out = ops.moe_gmm(x, w, rows)
+    assert out.shape == (8, c, 384) and (out == 0).all()
+
+
+@pytest.mark.cuda
+def test_moe_gmm_kernel_refuses_bad_rows(cuda_device):
+    from repro_torch.kernels import moe_gmm as mg
+    before = mg.launches
+    x = torch.zeros(2, 4, 128, device=cuda_device)
+    w = torch.zeros(2, 128, 128, device=cuda_device)
+    for rows in (torch.zeros(2, dtype=torch.int64, device=cuda_device),
+                 torch.zeros(3, dtype=torch.int32, device=cuda_device),
+                 torch.zeros(2, dtype=torch.int32),
+                 torch.zeros(4, dtype=torch.int32, device=cuda_device)[::2]):
+        with pytest.raises(ValueError, match="rows"):
+            mg.moe_gmm(x, w, rows)
+    assert mg.launches == before
 
 
 @pytest.mark.cuda
@@ -305,6 +391,24 @@ def test_slstm_seq_kernel_refuses_what_it_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="S >= 1"):
         ops.slstm_seq(xg[:, :0], r, bias)
     assert sl.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", WRAPPERS)
+def test_kernel_wrappers_refuse_inputs_that_require_grad(cuda_device, name):
+    """On the card, a wrapper whose input requires grad under grad mode
+    raises, naming its kernel, and launches nothing; under torch.no_grad()
+    the same call launches its kernel."""
+    call = wrapper_call(name, cuda_device)
+    before = ops.launch_counts()[name]
+    with pytest.raises(RuntimeError, match=f"CUDA kernel {name} has no "
+                                           f"backward"):
+        call()
+    assert ops.launch_counts()[name] == before
+    with torch.no_grad():
+        call()
+    torch.cuda.synchronize()
+    assert ops.launch_counts()[name] == before + 1
 
 
 @pytest.mark.cuda

@@ -17,6 +17,7 @@ from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.flash_attention import (check_layout,
                                                 flash_attention_fwd)
+from torch_wrapper_calls import WRAPPERS, wrapper_call
 
 torch.set_num_threads(1)
 
@@ -254,3 +255,31 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     q = torch.zeros(1, 2, 64, 16)
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention_fwd(q, q, q)
+
+
+@pytest.mark.parametrize("name", WRAPPERS)
+def test_kernel_wrappers_refuse_inputs_that_require_grad(name):
+    """The kernels have no backward, so a wrapper raises, naming its kernel,
+    when grad mode is on and an input requires grad; the check comes before
+    the device check, so it holds here too.  Under torch.no_grad() the call
+    gets past it and meets the device check instead."""
+    call = wrapper_call(name, "cpu")
+    with pytest.raises(RuntimeError, match=f"CUDA kernel {name} has no "
+                                           f"backward"):
+        call()
+    with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
+        call()
+
+
+def test_ops_on_cpu_stay_differentiable():
+    """On the CPU, ops run the plain versions, which autograd records."""
+    x = torch.randn(2, 4, 32, requires_grad=True)
+    w = torch.randn(2, 32, 64, requires_grad=True)
+    rows = torch.tensor([3, 0], dtype=torch.int32)
+    y = tops.moe_gmm(x, w, rows)
+    y.sum().backward()
+    assert x.grad is not None and w.grad is not None
+    assert x.grad[1].abs().max().item() == 0.0      # expert 1 holds no row
+    s = torch.ones(64, requires_grad=True)
+    tops.fused_rmsnorm(torch.randn(4, 64), s).sum().backward()
+    assert s.grad is not None

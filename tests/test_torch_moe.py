@@ -67,6 +67,67 @@ def test_moe_gmm_takes_a_strided_x():
                              interpret=True), atol=2e-5, rtol=2e-5)
 
 
+# Row counts per expert, as moe_apply passes them: none, all C, a ragged
+# count, and one above C, which clamps to C.
+ROW_CASES = {"zero": 0, "full": None, "ragged": 3, "above_c": 1000}
+
+
+@pytest.mark.parametrize("dtype", list(GMM_DTYPES))
+@pytest.mark.parametrize("case", list(ROW_CASES))
+@pytest.mark.parametrize("e,c,d,f", [(4, 7, 32, 64), (4, 60, 128, 256),
+                                     (8, 1, 128, 256)])
+def test_moe_gmm_rows_match_jax_pallas(e, c, d, f, case, dtype):
+    """ops.moe_gmm(x, w, rows) against the TPU gmm on the same buffer,
+    whose rows past each expert's count are zero, as the MoE dispatch
+    builds it.  Expert 0 takes the case's count, the others seeded ones
+    (0 to C + 2), so one call mixes empty, ragged, full and clamped
+    experts."""
+    jdt, tdt, tol = GMM_DTYPES[dtype]
+    rng = np.random.default_rng(e * 100 + c)
+    counts = rng.integers(0, c + 3, e).astype(np.int32)
+    counts[0] = c if ROW_CASES[case] is None else ROW_CASES[case]
+    x = rng.standard_normal((e, c, d)).astype(np.float32)
+    x[np.arange(c)[None, :] >= counts[:, None]] = 0.0
+    w = rng.standard_normal((e, d, f)).astype(np.float32)
+    rows = torch.from_numpy(counts)
+    out = tops.moe_gmm(torch.from_numpy(x).to(tdt),
+                       torch.from_numpy(w).to(tdt), rows)
+    assert out.shape == (e, c, f) and out.dtype == tdt
+    want = jops.moe_gmm(jnp.asarray(x, jdt), jnp.asarray(w, jdt),
+                        interpret=True)
+    _close(out, want, atol=tol, rtol=tol)
+    past = np.arange(c)[None, :] >= np.minimum(counts, c)[:, None]
+    assert (out.float().numpy()[past] == 0.0).all()
+
+
+def test_moe_gmm_rows_give_exact_zeros_whatever_x_holds():
+    """Rows past the count are exactly 0 even where x holds NaN there (a
+    stale buffer), and rows within it are untouched by those NaNs."""
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((3, 5, 64)).astype(np.float32)
+    w = rng.standard_normal((3, 64, 128)).astype(np.float32)
+    counts = np.array([2, 0, 5], np.int32)
+    want = jops.moe_gmm(jnp.asarray(x), jnp.asarray(w), interpret=True)
+    x[0, 2:] = np.nan
+    x[1] = np.nan
+    out = tops.moe_gmm(torch.from_numpy(x), torch.from_numpy(w),
+                       torch.from_numpy(counts)).numpy()
+    assert (out[0, 2:] == 0).all() and (out[1] == 0).all()
+    np.testing.assert_allclose(out[0, :2], np.asarray(want)[0, :2],
+                               atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(out[2], np.asarray(want)[2], atol=2e-5,
+                               rtol=2e-5)
+
+
+@pytest.mark.parametrize("rows", [torch.zeros(4, dtype=torch.int64),
+                                  torch.zeros(3, dtype=torch.int32),
+                                  torch.zeros(4, 1, dtype=torch.int32)])
+def test_moe_gmm_refuses_rows_that_are_not_e_int32(rows):
+    x, w = torch.zeros(4, 2, 32), torch.zeros(4, 32, 64)
+    with pytest.raises(ValueError, match="int32"):
+        tops.moe_gmm(x, w, rows)
+
+
 @pytest.mark.parametrize("d,f", [(200, 128), (128, 136), (384, 130)])
 def test_moe_gmm_refuses_off_block_shapes_like_jax(d, f):
     """D and F must be multiples of their 128-wide block (any size under
