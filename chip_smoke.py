@@ -9,10 +9,12 @@ prints its seconds:
 1. print the card (nvidia-smi name, power limit); build the CUDA kernels
    from ``src/repro_torch/kernels/csrc`` with nvcc and print the seconds;
    print ptxas's registers, shared memory and spills of the attention
-   kernels and of the grouped matmul's tiled and streaming kernels, and
-   count the tensor-core instructions (HGMMA, HMMA) of the attention and
-   tiled grouped-matmul kernels in the SASS (``cuobjdump -sass``): none
-   would mean a CUDA-core path;
+   kernels, of the grouped matmul's tiled and streaming kernels and of
+   the four flash-decode instantiations, and count the tensor-core
+   instructions (HGMMA, HMMA) of the attention, tiled grouped-matmul and
+   flash-decode kernels in the SASS (``cuobjdump -sass``): none in an
+   attention, tiled or bf16 decode kernel would mean a CUDA-core path
+   (the fp32 decode kernels must have none);
 2. hold each kernel against its plain PyTorch version on the card at the
    serving paths' shapes, in fp32 (atol = rtol = 2e-5; 2e-4 for the SSD
    scan, whose chunked and sequential sums differ in order) and bf16
@@ -22,8 +24,12 @@ prints its seconds:
    beside the card's bound; the attention rows run first, and each names
    the kernels SDPA ran (one ``torch.profiler`` pass a row); SDPA gets
    GQA's K and V expanded to every head beforehand, so it times one MHA
-   call; the fp32 attention kernel computes on tensor cores in 3xTF32, so
-   its bound counts 3x the flops at the TF32 peak, as does the grouped
+   call; the decode rows cover glm4_9b's, zamba2_7b's and
+   deepseek_moe_16b's head layouts in both types, and a served fill
+   (kv_len 544/160/68/9) in fp32, and each fails unless one
+   ``ops.flash_decode`` call runs exactly one device kernel; the fp32
+   attention kernel computes on tensor cores in 3xTF32, so its bound
+   counts 3x the flops at the TF32 peak, as does the grouped
    matmul's fp32 tiled path; the grouped matmul also with the row counts
    of a seeded top-6 routing (a 4-slot decode tick and a 512-token
    prefill), bounded by the active experts' bytes and rows; the sLSTM at
@@ -140,9 +146,9 @@ def bound(nbytes: float, flops: float, dtype, peak=None) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def device_kernels(fn) -> list:
-    """Names of the device kernels one (warm) call of ``fn`` runs, from a
-    torch.profiler pass."""
+def device_events(fn) -> list:
+    """Names of the device events (kernels, copies, sets) of one (warm)
+    call of ``fn``, one entry an event, from a torch.profiler pass."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -150,8 +156,12 @@ def device_kernels(fn) -> list:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sorted({e.name for e in prof.events()
-                   if e.device_type == DeviceType.CUDA})
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def device_kernels(fn) -> list:
+    """Names of the device kernels one (warm) call of ``fn`` runs."""
+    return sorted(set(device_events(fn)))
 
 
 def kernel_report() -> None:
@@ -162,10 +172,11 @@ def kernel_report() -> None:
     of the grouped matmul's streaming instantiations are printed too."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
 
     def ours(name):
         return "flash_attn" in name or "gmm_tiled" in name \
-            or "gmm_stream" in name
+            or "gmm_stream" in name or "flash_decode" in name
     ptxas, fn = {}, None
     for line in _build.build_log().splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -211,9 +222,24 @@ def kernel_report() -> None:
         cs, unroll = re.findall(r"Li(\d+)E", fn)
         print(f"  gmm_stream<{dtype(fn)}, rows {cs}, loads {unroll}>: "
               f"ptxas: {'; '.join(ptxas[fn])}")
+    decode = sorted(f for f in ptxas if "flash_decode" in f)
+    check(len(decode) == 4, f"expected 4 flash_decode kernels, found "
+                            f"{decode}")
+    for fn in decode:
+        nc, stages = re.findall(r"Li(\d+)E", fn)
+        hmma = counts.get(fn, {}).get("HMMA", 0)
+        print(f"  flash_decode_kernel<{dtype(fn)}, Dv chunks {nc}, stages "
+              f"{stages}>: {hmma} HMMA in the SASS; ptxas: "
+              f"{'; '.join(ptxas[fn])}")
+        # bf16 groups of 8-16 heads run mma.sync; fp32 stays on CUDA cores
+        check(hmma > 0 if "bfloat16" in fn else hmma == 0,
+              f"flash_decode_kernel<{dtype(fn)}>: {hmma} HMMA")
     for dtype in (torch.float32, torch.bfloat16):
         print(f"  dynamic shared memory at D = Dv = 128, {dtype}: "
-              f"{fa.smem_bytes(dtype, 128, 128)} bytes")
+              f"attention {fa.smem_bytes(dtype, 128, 128)} bytes; decode, "
+              f"a block of glm4_9b (G = 16) "
+              f"{fd.smem_bytes(dtype, 128, 128, 16)}, of G = 1 "
+              f"{fd.smem_bytes(dtype, 128, 128, 1)}")
 
 
 def compare(name, got, want, dtype, tol=None) -> float:
@@ -266,13 +292,14 @@ def phase_kernels(gen):
                          TF32_FLOPS, sdpa=True)
         return timed(kern, plain, lib, err, nbytes, flops, dtype, sdpa=True)
 
-    def decode(h, hkv, d, dtype, tag):
-        """4 slots of a 1024-row cache, ragged fill."""
+    def decode(h, hkv, d, dtype, tag, lens=(1024, 700, 129, 1)):
+        """4 slots of a 1024-row cache, ragged fill; one call must run one
+        device kernel (the split keys merge in the same launch)."""
+        from repro_torch.kernels import flash_decode as fd
         b, t = 4, 1024
         q = rnd(b, 1, h, d, dtype=dtype)
         k, v = rnd(b, t, hkv, d, dtype=dtype), rnd(b, t, hkv, d, dtype=dtype)
-        kv_len = torch.tensor([1024, 700, 129, 1], dtype=torch.int32,
-                              device="cuda")
+        kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
         mask = (torch.arange(t, device="cuda")[None, :]
                 < kv_len[:, None])[:, None, None, :]
@@ -282,11 +309,23 @@ def phase_kernels(gen):
             qt, kt, vt, attn_mask=mask, enable_gqa=True)
         err = compare(f"flash_decode D={d} {tag}", kern()[:, 0], plain(),
                       dtype)
+        # a profiler pass now and then records no device event at all (as
+        # after the plain SSD loops, above); a pass that records none says
+        # nothing, so take up to three
+        events = []
+        for _ in range(3):
+            events = events or device_events(kern)
+        check(len(events) == 1 and "flash_decode" in events[0],
+              f"one flash_decode call ran {len(events)} device events: "
+              f"{events}")
         n_kv = int(kv_len.sum())
         nbytes = (2 * q.numel() + 2 * hkv * d * n_kv) * q.element_size() \
             + 4 * b
+        split = fd.split_count(t, fd.groups_of(b, h, hkv),
+                               torch.cuda.get_device_properties(0)
+                               .multi_processor_count)
         return timed(kern, plain, lib, err, nbytes, 4 * d * h * n_kv, dtype,
-                     sdpa=True)
+                     sdpa=True, note=f"{split} splits, 1 device kernel")
 
     def rmsnorm(n, dm, dtype, tag):
         x, s_ = rnd(n, dm, dtype=dtype), rnd(dm, dtype=torch.float32)
@@ -403,14 +442,28 @@ def phase_kernels(gen):
     for s in (17, 512):
         rows[("flash_attention", "float32", f"S={s} D=112 MHA")] = attention(
             s, 32, 32, 112, torch.float32, "float32")
-    rows[("flash_decode", "float32", "T=1024 D=112 MHA")] = decode(
-        32, 32, 112, torch.float32, "float32")
+    # decode rows: each layout in both types at kv_len 1024/700/129/1, and
+    # in fp32 at a served fill, 544/160/68/9 (a 512-token prompt and 32 new
+    # tokens, down to a short prompt)
+    served = (544, 160, 68, 9)
+    rows[("flash_decode", "float32", "T=1024 fill 544/160/68/9")] = decode(
+        32, 2, 128, torch.float32, "float32", served)
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).replace("torch.", "")
+        rows[("flash_decode", tag, "T=1024 D=112 MHA")] = decode(
+            32, 32, 112, dtype, tag)
+    rows[("flash_decode", "float32", "T=1024 D=112 MHA fill 544/160/68/9")] \
+        = decode(32, 32, 112, torch.float32, "float32", served)
     # deepseek_moe_16b's attention: MHA, 16 heads of 128
     for s in (110, 512):
         rows[("flash_attention", "float32", f"S={s} H=16 MHA")] = attention(
             s, 16, 16, 128, torch.float32, "float32")
-    rows[("flash_decode", "float32", "T=1024 H=16 MHA")] = decode(
-        16, 16, 128, torch.float32, "float32")
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).replace("torch.", "")
+        rows[("flash_decode", tag, "T=1024 H=16 MHA")] = decode(
+            16, 16, 128, dtype, tag)
+    rows[("flash_decode", "float32", "T=1024 H=16 MHA fill 544/160/68/9")] \
+        = decode(16, 16, 128, torch.float32, "float32", served)
     for dtype in (torch.float32, torch.bfloat16):
         tag = str(dtype).replace("torch.", "")
         # RMSNorm: the decode step's 4 rows and a 512-token prefill, at
@@ -456,7 +509,7 @@ def phase_kernels(gen):
     for (name, tag, size), r in rows.items():
         lib = "none" if r["library_ms"] is None else \
             f"{r['library_ms']:.4f} ms"
-        print(f"  {name:16s} {tag:9s} {size:27s} max_abs_err "
+        print(f"  {name:16s} {tag:9s} {size:36s} max_abs_err "
               f"{r['err']:.3e}  kernel {r['ms']:.4f} ms (host-issued "
               f"{r['host_ms']:.4f} ms)  plain {r['plain_ms']:.4f} ms  "
               f"library {lib}  bound {r['bound'][0]:.4f} ms "

@@ -117,6 +117,46 @@ def decode_ref(q, k, v, kv_len=None, scale=None):
     return torch.einsum("bht,bhtd->bhd", w, v).to(q.dtype)
 
 
+def decode_split_ref(q, k, v, kv_len, split: int, scale=None, tile: int = 32,
+                     round_p: bool = False):
+    """The CUDA decode kernel's plan: the key axis cut into ``split``
+    chunks (T / split rounded up to the ``tile``), a partial (m, l, acc) per
+    chunk over the keys below kv_len, then the max-shifted merge, in which a
+    chunk with no key weighs exactly 0.  fp32 throughout; with ``round_p``
+    P is rounded to bf16 before P·V (l stays the fp32 sum), as the kernel's
+    tensor-core path does (``flash_decode.rounds_p``).
+    Keys at or past kv_len enter no product, so the cache's unwritten tail
+    may hold anything, NaN included.  Layout as ``decode_ref``; kv_len = 0
+    gives 0, as the kernel does."""
+    b, h, d = q.shape
+    t = k.shape[2]
+    scale = d ** -0.5 if scale is None else scale
+    k = _repeat_kv(k, h).float()
+    v = _repeat_kv(v, h).float()
+    logits = torch.einsum("bhd,bhtd->bht", q.float(), k) * scale
+    valid = torch.arange(t, device=q.device)[None, None, :] < \
+        kv_len.to(q.device)[:, None, None]
+    per = -(-t // split)
+    chunk = -(-per // tile) * tile
+    ms, has, ls, accs = [], [], [], []
+    for s0 in range(0, split * chunk, chunk):
+        live = valid[..., s0:s0 + chunk]
+        x = logits[..., s0:s0 + chunk].masked_fill(~live, NEG_INF)
+        m = torch.cat([x, x.new_full((b, h, 1), NEG_INF)], -1).amax(-1)
+        p = torch.exp(x - m[..., None]).masked_fill(~live, 0.0)
+        ms.append(m)
+        has.append(live.any(dim=-1))
+        ls.append(p.sum(dim=-1))
+        vc = v[:, :, s0:s0 + chunk].masked_fill(~live[..., None], 0.0)
+        pv = p.to(torch.bfloat16).float() if round_p else p
+        accs.append(torch.einsum("bht,bhtd->bhd", pv, vc))
+    m = torch.stack(ms)                               # (split, B, H)
+    w = torch.where(torch.stack(has), torch.exp(m - m.amax(dim=0)), 0.0)
+    l = (w * torch.stack(ls)).sum(dim=0)
+    acc = (w[..., None] * torch.stack(accs)).sum(dim=0)
+    return (acc / l.clamp(min=1e-30)[..., None]).to(q.dtype)
+
+
 def rmsnorm_ref(x, scale, eps: float = 1e-5):
     """(N,D),(D,) -> (N,D), fp32 math."""
     x32 = x.float()

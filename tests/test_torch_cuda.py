@@ -92,6 +92,12 @@ def test_flash_attention_refuses_misaligned_input(cuda_device):
     (2, 4, 2, 128, 32), (1, 8, 8, 256, 64), (3, 4, 1, 512, 16),
     (4, 32, 2, 1024, 128), (2, 4, 2, 256, 256),
     (4, 32, 32, 1024, 112),     # zamba2's decode: D = 112, group 1
+    (4, 16, 16, 1024, 128),     # deepseek_moe_16b's decode: 16 heads, MHA
+    (2, 16, 2, 512, 64),        # G = 8
+    (4, 32, 2, 256, 128),       # T = 256: 8 splits of 32 keys
+    (2, 4, 2, 32, 32),          # T = 32: one split, merged in the block
+    (1, 64, 1, 512, 64),        # G = 64: two blocks of 32 heads a split
+    (2, 4, 2, 128, 20),         # D = 20: bf16 rows off 16 bytes
 ])
 def test_flash_decode_kernel(cuda_device, b, h, hkv, t, d, dtype):
     g = torch.Generator(device=cuda_device).manual_seed(1)
@@ -102,6 +108,111 @@ def test_flash_decode_kernel(cuda_device, b, h, hkv, t, d, dtype):
     want = ref.decode_ref(q[:, 0], k.transpose(1, 2), v.transpose(1, 2),
                           kv_len)
     _close(ops.flash_decode(q, k, v, kv_len)[:, 0], want, dtype)
+
+
+def _decode_inputs(dev, dtype, b, h, hkv, t, d, seed=1):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = _rnd(g, dtype, b, 1, h, d)
+    return q, _rnd(g, dtype, b, t, hkv, d), _rnd(g, dtype, b, t, hkv, d)
+
+
+def _decode_want(q, k, v, kv_len):
+    return ref.decode_ref(q[:, 0], k.transpose(1, 2), v.transpose(1, 2),
+                          kv_len)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,hkv,t,d", [
+    (4, 32, 2, 1024, 128), (4, 32, 32, 1024, 112), (4, 16, 16, 1024, 128),
+    (4, 16, 2, 256, 64),
+])
+def test_flash_decode_kernel_at_split_boundaries(cuda_device, b, h, hkv, t,
+                                                 d, dtype):
+    """kv_len of 1, at a split boundary, one past it and T, and the same
+    against the kernel's split plan (``ref.decode_split_ref``)."""
+    from repro_torch.kernels import flash_decode as fd
+    q, k, v = _decode_inputs(cuda_device, dtype, b, h, hkv, t, d)
+    chunk = t // fd.split_count(t, fd.groups_of(b, h, hkv), fd._sms(
+        cuda_device))
+    kv_len = torch.tensor([1, chunk, chunk + 1, t], dtype=torch.int32,
+                          device=cuda_device)
+    got = ops.flash_decode(q, k, v, kv_len)[:, 0]
+    _close(got, _decode_want(q, k, v, kv_len), dtype)
+    split = t // chunk
+    _close(got, ref.decode_split_ref(
+        q[:, 0], k.transpose(1, 2), v.transpose(1, 2), kv_len, split,
+        round_p=fd.rounds_p(dtype, h // hkv, d, d)), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_kernel_ignores_nan_past_kv_len(cuda_device, dtype):
+    """NaN in the cache's unwritten tail (a freed slot's rows, say) does
+    not reach the result: keys past kv_len are never read into a product."""
+    q, k, v = _decode_inputs(cuda_device, dtype, 4, 32, 2, 1024, 128)
+    kv_len = torch.tensor([1024, 700, 129, 1], dtype=torch.int32,
+                          device=cuda_device)
+    want = ops.flash_decode(q, k, v, kv_len)
+    for i, n in enumerate(kv_len.tolist()):
+        k[i, n:], v[i, n:] = float("nan"), float("nan")
+    got = ops.flash_decode(q, k, v, kv_len)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+    _close(got[:, 0], _decode_want(q, k.nan_to_num(), v.nan_to_num(),
+                                   kv_len), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_kernel_reads_the_model_cache_view(cuda_device, dtype):
+    """The model's (B, T, Hkv, D) cache inside a larger pool: K and V are
+    interleaved slices of one tensor and the rows a slice of the pool's
+    slots, read through their strides with no copy."""
+    from repro_torch.kernels import flash_decode as fd
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    pool = _rnd(g, dtype, 6, 1024, 2, 2, 128)     # slots, T, Hkv, K|V, D
+    k, v = pool[1:5, :, :, 0], pool[1:5, :, :, 1]
+    assert not k.is_contiguous() and k.data_ptr() != pool.data_ptr()
+    q = _rnd(g, dtype, 4, 1, 32, 128)
+    kv_len = torch.tensor([544, 160, 68, 9], dtype=torch.int32,
+                          device=cuda_device)
+    before = fd.launches
+    got = ops.flash_decode(q, k, v, kv_len)
+    assert fd.launches == before + 1
+    _close(got[:, 0], _decode_want(q, k.contiguous(), v.contiguous(),
+                                   kv_len), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_replays_in_a_cuda_graph(cuda_device, dtype):
+    """One ``ops.flash_decode`` call captured in a CUDA graph and replayed
+    after kv_len and the cache change in place: the launch reads kv_len on
+    the device, and its grid does not depend on it."""
+    q, k, v = _decode_inputs(cuda_device, dtype, 4, 32, 2, 1024, 128)
+    kv_len = torch.tensor([1024, 700, 129, 1], dtype=torch.int32,
+                          device=cuda_device)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.flash_decode(q, k, v, kv_len)          # warm: build, attribute
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ops.flash_decode(q, k, v, kv_len)
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    for lens in ([1024, 700, 129, 1], [9, 68, 160, 544], [0, 1, 32, 33],
+                 [1023, 1024, 64, 65]):
+        kv_len.copy_(torch.tensor(lens, dtype=torch.int32))
+        k.copy_(_rnd(g, dtype, *k.shape))
+        q.copy_(_rnd(g, dtype, *q.shape))
+        graph.replay()
+        torch.cuda.synchronize()
+        want = _decode_want(q, k, v, kv_len)
+        empty = kv_len == 0                         # the kernel gives 0 there
+        want[empty] = 0
+        _close(out[:, 0], want, dtype)
 
 
 @pytest.mark.cuda
