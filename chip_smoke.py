@@ -9,12 +9,13 @@ prints its seconds:
 1. print the card (nvidia-smi name, power limit); build the CUDA kernels
    from ``src/repro_torch/kernels/csrc`` with nvcc and print the seconds;
    print ptxas's registers, shared memory and spills of the attention
-   kernels, of the grouped matmul's tiled and streaming kernels and of
-   the four flash-decode instantiations, and count the tensor-core
-   instructions (HGMMA, HMMA) of the attention, tiled grouped-matmul and
-   flash-decode kernels in the SASS (``cuobjdump -sass``): none in an
-   attention, tiled or bf16 decode kernel would mean a CUDA-core path
-   (the fp32 decode kernels must have none);
+   kernels, of the grouped matmul's tiled and streaming kernels, of the
+   four flash-decode and of the eight SSD-scan instantiations, and count
+   the tensor-core instructions (HGMMA, HMMA) of the attention, tiled
+   grouped-matmul, flash-decode and SSD-scan kernels in the SASS
+   (``cuobjdump -sass``): none in an attention, tiled, bf16 decode or scan
+   kernel would mean a CUDA-core path (the fp32 decode kernels must have
+   none);
 2. hold each kernel against its plain PyTorch version on the card at the
    serving paths' shapes, in fp32 (atol = rtol = 2e-5; 2e-4 for the SSD
    scan, whose chunked and sequential sums differ in order) and bf16
@@ -29,8 +30,9 @@ prints its seconds:
    (kv_len 544/160/68/9) in fp32, and each fails unless one
    ``ops.flash_decode`` call runs exactly one device kernel; the fp32
    attention kernel computes on tensor cores in 3xTF32, so its bound
-   counts 3x the flops at the TF32 peak, as does the grouped
-   matmul's fp32 tiled path; the grouped matmul also with the row counts
+   counts 3x the flops at the TF32 peak, as do the grouped matmul's fp32
+   tiled path and the fp32 SSD scan; the scan at zamba2_7b's prefill
+   lengths 17, 64, 256 and 512; the grouped matmul also with the row counts
    of a seeded top-6 routing (a 4-slot decode tick and a 512-token
    prefill), bounded by the active experts' bytes and rows; the sLSTM at
    xlstm_125m's prefill (S = 512 and 300) and decode tick (4 slots, S =
@@ -56,7 +58,9 @@ prints its seconds:
 6. serve full zamba2_7b (81 Mamba2 layers and 13 shared attention blocks,
    fp32, random weights from a seed) as in phase 4, glm4_9b's weights
    freed first; prompts are within one SSD chunk of 64 or a multiple of
-   it (256, 512), as the reference's prefill takes them;
+   it (256, 512), as the reference's prefill takes them; last, one
+   512-token prefill alone, as in phase 4, profiled for the SSD scan's
+   and flash attention's shares of the device time;
 7. full-width deepseek_moe_16b cut to 3 layers (its dense first layer and
    2 MoE layers), card against CPU as in phase 3, printing how many
    (token, layer) top-6 routes differ between the two;
@@ -81,6 +85,7 @@ nonzero without a CUDA device or without the repository around it.
 """
 from __future__ import annotations
 
+import functools
 import gc
 import json
 import math
@@ -167,16 +172,20 @@ def device_kernels(fn) -> list:
 def kernel_report() -> None:
     """Phase 1: ptxas's report and the SASS tensor-core instruction counts
     of the attention kernels (one instantiation per storage type and
-    padded Dv) and of the grouped matmul's tiled path (one per storage
-    type); fails if one has no HGMMA (bf16) or HMMA (fp32).  ptxas's lines
-    of the grouped matmul's streaming instantiations are printed too."""
+    padded Dv), of the grouped matmul's tiled path (one per storage type)
+    and of the SSD scan (storage type x N tile x P tile); fails if one has
+    no HGMMA (bf16 attention and tiled matmul) or HMMA (the rest).
+    ptxas's lines of the grouped matmul's streaming instantiations and of
+    the decode kernels are printed too."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import mamba_scan as ms
 
     def ours(name):
         return "flash_attn" in name or "gmm_tiled" in name \
-            or "gmm_stream" in name or "flash_decode" in name
+            or "gmm_stream" in name or "flash_decode" in name \
+            or "mamba_scan" in name
     ptxas, fn = {}, None
     for line in _build.build_log().splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -234,12 +243,24 @@ def kernel_report() -> None:
         # bf16 groups of 8-16 heads run mma.sync; fp32 stays on CUDA cores
         check(hmma > 0 if "bfloat16" in fn else hmma == 0,
               f"flash_decode_kernel<{dtype(fn)}>: {hmma} HMMA")
+    scans = sorted(f for f in counts if "mamba_scan" in f)
+    check(len(scans) == 8, f"expected 8 mamba_scan kernels, found {scans}")
+    for fn in scans:
+        nt, pw = re.findall(r"Li(\d+)E", fn)
+        hmma = counts[fn]["HMMA"]
+        print(f"  mamba_scan_kernel<{dtype(fn)}, N tile {nt}, P tile {pw}>: "
+              f"{hmma} HMMA in the SASS; ptxas: "
+              f"{'; '.join(ptxas.get(fn, ['no report']))}")
+        check(hmma > 0, f"mamba_scan_kernel<{dtype(fn)}, {nt}, {pw}> has no "
+                        f"tensor-core instruction")
     for dtype in (torch.float32, torch.bfloat16):
         print(f"  dynamic shared memory at D = Dv = 128, {dtype}: "
               f"attention {fa.smem_bytes(dtype, 128, 128)} bytes; decode, "
               f"a block of glm4_9b (G = 16) "
               f"{fd.smem_bytes(dtype, 128, 128, 16)}, of G = 1 "
-              f"{fd.smem_bytes(dtype, 128, 128, 1)}")
+              f"{fd.smem_bytes(dtype, 128, 128, 1)}; SSD scan at N = 64, "
+              f"P tile 64 {ms.smem_bytes(dtype, 64, 64)}, P tile 32 "
+              f"{ms.smem_bytes(dtype, 64, 32)}")
 
 
 def compare(name, got, want, dtype, tol=None) -> float:
@@ -338,8 +359,11 @@ def phase_kernels(gen):
 
     def scan(b, s, h, p, n, chunk, dtype, tag):
         """y and the final state; x, B and C are strided slices of one
-        tensor, as the model hands them over.  No single PyTorch call
-        computes the chunked SSD, so there is no library time."""
+        tensor, as the model hands them over.  The fp32 kernel computes its
+        products in 3xTF32 on tensor cores, so its bound counts 3x the
+        flops at the TF32 peak.  No single PyTorch call computes the
+        chunked SSD, so there is no library time."""
+        from repro_torch.kernels import mamba_scan as ms
         xbc = rnd(b, s, h * p + 2 * n, dtype=dtype)
         xh, bm, cm = torch.split(xbc, [h * p, n, n], -1)
         xh = xh.reshape(b, s, h, p)
@@ -360,7 +384,13 @@ def phase_kernels(gen):
         nbytes = el * (2 * xh.numel() + 2 * b * s * n + dt.numel()) \
             + 4 * h + 4 * b * h * n * p
         flops = b * nc * (2 * n * pairs + h * (2 * p * pairs + 4 * ell * n * p))
-        return timed(kern, plain, None, err, nbytes, flops, dtype)
+        pw, units = ms.tiling(b, s, h, p, torch.cuda.get_device_properties(
+            0).multi_processor_count)
+        note = f"{units} blocks of {pw} columns of P"
+        if dtype == torch.float32:      # 3xTF32 on tensor cores
+            return timed(kern, plain, None, err, nbytes, 3 * flops, dtype,
+                         TF32_FLOPS, note=note + ", 3xTF32 accounting")
+        return timed(kern, plain, None, err, nbytes, flops, dtype, note=note)
 
     def slstm(b, s, h, dh, r_scale, b_scale, dtype, tag, prefix=0):
         """h and the final state.  r and bias at the model's init (r at
@@ -472,9 +502,10 @@ def phase_kernels(gen):
             for dm in (4096, 7168):
                 rows[("rmsnorm", tag, f"N={n} D={dm}")] = rmsnorm(
                     n, dm, dtype, tag)
-        # the SSD scan at zamba2's prefill (a ragged chunk, one chunk, eight
-        # chunks) and at one shape of tests/test_kernels.py
-        for s in (17, 64, 512):
+        # the SSD scan at zamba2's prefill (a ragged chunk, one chunk, the
+        # served long prompts of four and eight chunks) and at one shape of
+        # tests/test_kernels.py
+        for s in (17, 64, 256, 512):
             rows[("mamba_scan", tag, f"S={s}")] = scan(
                 1, s, 112, 64, 64, 64, dtype, tag)
         rows[("mamba_scan", tag, "B=2 S=64 H=3 P=16 N=8 L=16")] = scan(
@@ -783,11 +814,17 @@ def phase_serve(arch, seed, max_prompt, repeats: int = 3, then=None,
     return first
 
 
-def lone_prefill(cfg, params, s: int = 512, repeats: int = 3):
-    """Phase 4's last step: one ``s``-token prefill through the engine's
-    prefill function, alone on the card: a warm call, ``repeats`` timed on
-    the host clock (synchronised), then one under torch.profiler for the
-    flash attention kernel's share of the device time."""
+# the device kernels' names of a kernel family, in a profile
+DEVICE_NAMES = {"flash_attention": "flash_attn", "mamba_scan": "mamba_scan"}
+
+
+def lone_prefill(kernels, cfg, params, s: int = 512, repeats: int = 3):
+    """The last step of phases 4 and 6: one ``s``-token prefill through the
+    engine's prefill function, alone on the card: a warm call, ``repeats``
+    timed on the host clock (synchronised), then one under torch.profiler
+    for the share of the device time of each of ``kernels`` (keys of
+    ``DEVICE_NAMES``), each of which must run as often as the model's
+    structure implies."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import api
@@ -806,20 +843,25 @@ def lone_prefill(cfg, params, s: int = 512, repeats: int = 3):
                              ProfilerActivity.CUDA]) as prof:
         prefill(params, {"tokens": tokens})
         torch.cuda.synchronize()
-    busy = attn = 0.0
-    n_attn = 0
+    busy = 0.0
+    us = {k: 0.0 for k in kernels}
+    runs = {k: 0 for k in kernels}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             busy += e.device_time_total
-            if "flash_attn" in e.name:
-                attn += e.device_time_total
-                n_attn += 1
-    check(n_attn == cfg.n_layers, f"the profiled prefill ran {n_attn} flash "
-                                  f"attention kernels, not {cfg.n_layers}")
+            for k in kernels:
+                if DEVICE_NAMES[k] in e.name:
+                    us[k] += e.device_time_total
+                    runs[k] += 1
+    want = structure_launches(cfg, 1, 0)
+    for k in kernels:
+        check(runs[k] == want[k], f"the profiled prefill ran {runs[k]} {k} "
+                                  f"kernels, not {want[k]}")
+    shares = ", ".join(f"{k} {us[k] / 1e3:.3f} ms in {runs[k]} launches = "
+                       f"{100 * us[k] / busy:.2f}%" for k in kernels)
     print(f"  one {s}-token prefill alone: {', '.join(f'{t:.2f}' for t in times)}"
           f" ms (host clock, synchronised); profiled: device busy "
-          f"{busy / 1e3:.2f} ms, flash attention {attn / 1e3:.3f} ms in "
-          f"{n_attn} launches = {100 * attn / busy:.2f}% of it")
+          f"{busy / 1e3:.2f} ms; {shares} of it")
 
 
 def moe_decode_without_sync(cfg, params):
@@ -972,13 +1014,16 @@ def main() -> int:
     phase(3, "full-width 2-layer glm4_9b, card against CPU", phase_cut,
           "glm4_9b", 2, seed)
     by_path = {"glm4_9b": phase(4, "serving full glm4_9b", phase_serve,
-                                "glm4_9b", seed, 128, 3, lone_prefill)}
+                                "glm4_9b", seed, 128, 3,
+                                functools.partial(lone_prefill,
+                                                  ("flash_attention",)))}
     gc.collect()
     torch.cuda.empty_cache()        # glm4_9b's weights are gone
     phase(5, "full-width 13-layer zamba2_7b, card against CPU", phase_cut,
           "zamba2_7b", 13, seed)
-    by_path["zamba2_7b"] = phase(6, "serving full zamba2_7b", phase_serve,
-                                 "zamba2_7b", seed, 64)
+    by_path["zamba2_7b"] = phase(
+        6, "serving full zamba2_7b", phase_serve, "zamba2_7b", seed, 64, 3,
+        functools.partial(lone_prefill, ("mamba_scan", "flash_attention")))
     gc.collect()
     torch.cuda.empty_cache()        # zamba2_7b's weights are gone
     phase(7, "full-width 3-layer deepseek_moe_16b, card against CPU",

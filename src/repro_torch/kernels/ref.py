@@ -197,6 +197,56 @@ def ssd_ref(xh, dt, a_log, bm, cm):
     return torch.stack(ys, dim=1).to(xh.dtype), state
 
 
+def ssd_plan(xh, dt, a_log, bm, cm, *, rows: int = 64):
+    """The CUDA SSD kernel's plan: its chunks and its rounding.
+
+    The sequence is cut into chunks of ``rows`` (the last one ragged).  Per
+    chunk, with cum the cumsum of dt * a and w = dt exp(cum_L - cum):
+    Z = (B ⊙ w)ᵀ X, G = (C Bᵀ) ⊙ exp(cum_i - cum_j) ⊙ dt_j for j <= i,
+    y = G X + exp(cum) ⊙ (C state), then state = exp(cum_L) state + Z.
+    fp32 x, B and C: every product in 3xTF32.  bf16: C Bᵀ, G X and Z in
+    fp32 over bf16 operands, with G and B ⊙ w each cut to a bf16 pair hi +
+    lo first (hi = bf16(v), lo = bf16(v - hi)); C state in 3xTF32, which for
+    bf16 C (exact in TF32) is two products.  The state is fp32 throughout.
+    Layout and results as ``ssd_ref``; for tests.
+    """
+    b, s, h, p = xh.shape
+    n = bm.shape[-1]
+    a = -torch.exp(a_log.float())
+    if xh.dtype == torch.bfloat16:
+        prod = torch.einsum
+
+        def rnd(t):
+            hi = t.to(torch.bfloat16).float()
+            return hi + (t - hi).to(torch.bfloat16).float()
+    else:
+        prod = _product_3xtf32
+
+        def rnd(t):
+            return t
+    state = torch.zeros((b, h, n, p), dtype=torch.float32, device=xh.device)
+    ys = []
+    for c0 in range(0, s, rows):
+        x = xh[:, c0:c0 + rows].float()                    # (B,L,H,P)
+        d = dt[:, c0:c0 + rows].float()                    # (B,L,H)
+        bc, cc = bm[:, c0:c0 + rows].float(), cm[:, c0:c0 + rows].float()
+        ell = x.shape[1]
+        cum = torch.cumsum(d * a, dim=1)                   # (B,L,H)
+        last = cum[:, -1]                                  # (B,H)
+        w = d * torch.exp(last[:, None] - cum)
+        z = prod("bjhn,bjhp->bhnp", rnd(bc[:, :, None] * w[..., None]), x)
+        tri = torch.ones(ell, ell, dtype=torch.bool, device=xh.device).tril()
+        decay = torch.where(tri[None, :, :, None],
+                            torch.exp(cum[:, :, None] - cum[:, None]), 0.0)
+        cb = prod("bin,bjn->bij", cc, bc)                  # (B,L,L)
+        g = rnd(cb[..., None] * decay * d[:, None])        # (B,i,j,H)
+        y = prod("bijh,bjhp->bihp", g, x) + torch.exp(cum)[..., None] * \
+            _product_3xtf32("bin,bhnp->bihp", cc, state)
+        state = torch.exp(last)[..., None, None] * state + z
+        ys.append(y)
+    return torch.cat(ys, dim=1).to(xh.dtype), state
+
+
 def slstm_seq_ref(xg, r, bias, state=None):
     """Sequential sLSTM oracle, step by step in fp32.
 

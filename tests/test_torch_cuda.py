@@ -30,13 +30,17 @@ ATTN_CASES = [  # (b, h, hkv, s, t, d), causal; causal only at S == T
     ((1, 4, 2, 64, 320, 32), False),      # T of five 64-key tiles, S of one
 ]
 SSD_TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
+# the kernel against its own plan (ref.ssd_plan): the same products in
+# another order of sums, exp to an ulp, and in bf16 a rounding of y, G or
+# B ⊙ w that falls the other way now and then (one bf16 ulp is 2^-8)
+PLAN_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
 SCAN_SHAPES = [  # (b, s, h, p, n, chunk)
     (1, 32, 2, 8, 4, 8), (2, 64, 3, 16, 8, 16), (1, 128, 1, 32, 16, 32),
     (2, 64, 2, 16, 8, 64), (1, 17, 3, 16, 8, 64),
-    # zamba2's prefill: one ragged chunk, one chunk, eight chunks
-    (1, 17, 112, 64, 64, 64), (1, 64, 112, 64, 64, 64),
-    (1, 512, 112, 64, 64, 64),
     (1, 256, 4, 64, 64, 128),   # the JAX default chunk of 128 rows
+    (1, 96, 2, 16, 8, 96),      # the kernel's chunks: 64 rows, then 32
+] + [  # zamba2's prefill: H = 112, P = N = 64, chunk 64, at served lengths
+    (b, s, 112, 64, 64, 64) for b in (1, 2) for s in (4, 17, 64, 256, 512)
 ]
 
 
@@ -254,19 +258,99 @@ def test_mamba_scan_kernel(cuda_device, b, s, h, p, n, chunk, dtype):
 
 
 @pytest.mark.cuda
-def test_mamba_scan_refuses_tiles_over_shared_memory(cuda_device):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,p,n,chunk", SCAN_SHAPES)
+def test_mamba_scan_kernel_follows_its_plan(cuda_device, b, s, h, p, n,
+                                            chunk, dtype):
+    """y and the final state against ref.ssd_plan, the kernel's own chunks
+    and rounding, at PLAN_TOL: tighter than the gate against the
+    sequential oracle."""
+    from repro_torch.kernels.mamba_scan import mamba_scan
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    args = _scan_inputs(g, dtype, b, s, h, p, n)
+    y, state = mamba_scan(*args, chunk=min(chunk, s))
+    want_y, want_state = ref.ssd_plan(*args)
+    tol = PLAN_TOL[dtype]
+    torch.testing.assert_close(y.float(), want_y.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(state, want_state, atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_mamba_scan_shape_contract(cuda_device):
+    """N = P = 128 at the JAX default chunk runs (128-row state tiles, P in
+    blocks); N over 128 raises ValueError before a launch.  The tiles, not
+    the caller's chunk, set the shared memory: 64 rows whatever it is."""
     from repro_torch.kernels import mamba_scan as ms
-    assert ms.smem_bytes(64, 64, 64) == 83_456          # zamba2: 81.5 KB
+    limit = torch.cuda.get_device_properties(cuda_device) \
+        .shared_memory_per_block_optin
+    for dtype in (torch.float32, torch.bfloat16):
+        for n in (64, 128):
+            for pw in (32, 64):
+                assert 0 < ms.smem_bytes(dtype, n, pw) <= limit
     g = torch.Generator(device=cuda_device).manual_seed(4)
-    args = _scan_inputs(g, torch.float32, 1, 128, 2, 128, 128)
-    assert ms.smem_bytes(128, 128, 128) > ms.MAX_SMEM_BYTES
+    args = _scan_inputs(g, torch.float32, 1, 256, 2, 128, 128)
+    y, state = ms.mamba_scan(*args, chunk=128)
+    want_y, want_state = ref.ssd_ref(*args)
+    torch.testing.assert_close(y, want_y, atol=2e-4, rtol=2e-4)
+    torch.testing.assert_close(state, want_state, atol=2e-4, rtol=2e-4)
+    wide = _scan_inputs(g, torch.float32, 1, 64, 2, 64, 136)
     before = ms.launches
-    with pytest.raises(ValueError, match="shared memory"):
-        ms.mamba_scan(*args, chunk=128)
+    with pytest.raises(ValueError, match="N=136"):
+        ms.mamba_scan(*wide, chunk=64)
     assert ms.launches == before
-    y, _ = ms.mamba_scan(*args, chunk=32)                # fits: 32-row chunks
-    torch.testing.assert_close(y, ref.ssd_ref(*args)[0], atol=2e-4,
-                               rtol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba_scan_does_not_sync(cuda_device, dtype):
+    """A zamba2 prefill's scan (S = 512, eight chunks carried through the
+    look-back) under sync debug mode "error", where any call that waits
+    for the device raises; then again, on the counters the first call left
+    at 0, with the same result."""
+    from repro_torch.kernels.mamba_scan import mamba_scan
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    args = _scan_inputs(g, dtype, 1, 512, 112, 64, 64)
+    mamba_scan(*args, chunk=64)           # the counters of this grid exist
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y, state = mamba_scan(*args, chunk=64)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    y2, state2 = mamba_scan(*args, chunk=64)
+    want_y, want_state = ref.ssd_plan(*args)
+    tol = PLAN_TOL[dtype]
+    for got_y, got_state in ((y, state), (y2, state2)):
+        torch.testing.assert_close(got_y.float(), want_y.float(), atol=tol,
+                                   rtol=tol)
+        torch.testing.assert_close(got_state, want_state, atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_mamba_scan_replays_in_a_cuda_graph(cuda_device):
+    """The grid depends on shapes only and every launch leaves its counters
+    at 0, so a captured prefill scan replays on new inputs copied in
+    place."""
+    from repro_torch.kernels.mamba_scan import mamba_scan
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    args = _scan_inputs(g, torch.float32, 1, 256, 112, 64, 64)
+    new = _scan_inputs(g, torch.float32, 1, 256, 112, 64, 64)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        mamba_scan(*args, chunk=64)       # warm: counters and scratch
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y, state = mamba_scan(*args, chunk=64)
+    for dst, src in zip(args, new):
+        dst.copy_(src)
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    want_y, want_state = ref.ssd_plan(*new)
+    torch.testing.assert_close(y, want_y, atol=2e-5, rtol=2e-5)
+    torch.testing.assert_close(state, want_state, atol=2e-5, rtol=2e-5)
 
 
 GMM_SHAPES = [  # (e, c, d, f)

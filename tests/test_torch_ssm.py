@@ -7,7 +7,10 @@ is held against JAX's Pallas kernel in interpret mode (y) and JAX's
 ``ssd_ref`` (final state) at atol = rtol = 2e-4, the reference's own SSD
 tolerance (tests/test_kernels.py): chunked and sequential sums differ in
 order.  The port's chunked path is held against JAX's at 2e-5, the same
-algorithm in another framework.
+algorithm in another framework.  ``ref.ssd_plan``, the CUDA kernel's own
+order of work and rounding (3xTF32 in fp32; G and B ⊙ w rounded in bf16),
+is held against the same JAX references at 2e-4 in fp32 and 3e-2 in bf16,
+also where the decays underflow (dt x 10) and at S = 1.
 """
 import jax
 import jax.numpy as jnp
@@ -20,7 +23,9 @@ from repro.kernels import ref as jref
 from repro.models import common as jcommon
 from repro.models import ssm as jssm
 from repro_torch.convert import params_from_numpy
+from repro_torch.kernels import mamba_scan as tms
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
 from repro_torch.models import ssm as tssm
 
 torch.set_num_threads(1)
@@ -33,12 +38,12 @@ def _close(port, ref, tol):
                                np.asarray(ref, np.float32), **tol)
 
 
-def _inputs(b, s, h, p, n, seed=0):
+def _inputs(b, s, h, p, n, seed=0, dt_scale=0.1):
     """xh, dt, a_log, B, C as numpy, drawn as tests/test_kernels.py does."""
     rng = np.random.default_rng(seed)
     f = np.float32
     return (rng.standard_normal((b, s, h, p)).astype(f),
-            (np.abs(rng.standard_normal((b, s, h))) * 0.1).astype(f),
+            (np.abs(rng.standard_normal((b, s, h))) * dt_scale).astype(f),
             (rng.standard_normal(h) * 0.5).astype(f),
             rng.standard_normal((b, s, n)).astype(f),
             rng.standard_normal((b, s, n)).astype(f))
@@ -66,6 +71,94 @@ def test_mamba_scan_matches_jax(b, s, h, p, n, chunk):
     _, jstate = jref.ssd_ref(*j)
     _close(y, jy, SSD_TOL)
     _close(state, jstate, SSD_TOL)
+
+
+PLAN_CASES = [(shape, 0.1) for shape in SCAN_SHAPES] + [
+    # decays that underflow: dt x 10 drives exp(cum) to 0 within a chunk
+    ((2, 64, 3, 16, 8, 16), 1.0), ((1, 128, 1, 32, 16, 32), 1.0),
+    ((1, 1, 3, 16, 8, 64), 0.1), ((2, 1, 2, 8, 4, 64), 1.0),   # S = 1
+    ((1, 96, 2, 16, 8, 96), 0.1),   # the kernel's chunks: 64 rows, then 32
+]
+PLAN_TOL = {"float32": SSD_TOL, "bfloat16": dict(atol=3e-2, rtol=3e-2)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,dt_scale", PLAN_CASES)
+def test_ssd_plan_matches_jax(shape, dt_scale, dtype):
+    """The kernel's plan against the Pallas kernel in interpret mode (y)
+    and JAX's ssd_chunked (the final state), on the same x, B and C in
+    ``dtype``; dt and a_log stay fp32, as the wrapper hands them over."""
+    b, s, h, p, n, chunk = shape
+    xh, dt, a_log, bm, cm = _inputs(b, s, h, p, n, seed=4, dt_scale=dt_scale)
+    jdt, tdt = {"float32": (jnp.float32, torch.float32),
+                "bfloat16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    jx, jb, jc = (jnp.asarray(a, jdt) for a in (xh, bm, cm))
+    tx, tb, tc = (torch.from_numpy(a).to(tdt) for a in (xh, bm, cm))
+    y, state = tref.ssd_plan(tx, torch.from_numpy(dt), torch.from_numpy(a_log),
+                             tb, tc)
+    assert y.dtype == tdt and state.dtype == torch.float32
+    jy, _ = jops.mamba_scan(jx, jnp.asarray(dt), jnp.asarray(a_log), jb, jc,
+                            chunk=chunk, interpret=True)
+    _, jstate = jssm.ssd_chunked(jx, jnp.asarray(dt), jnp.asarray(a_log), jb,
+                                 jc, chunk=chunk)
+    assert bool(torch.isfinite(y.float()).all())
+    _close(y, jy, PLAN_TOL[dtype])
+    _close(state, jstate, PLAN_TOL[dtype])
+
+
+def test_ssd_plan_is_the_sequential_recurrence_at_one_row_chunks():
+    """With chunks of one row the plan's products have a single term: its
+    fp32 result is the sequential oracle's up to 3xTF32's rounding."""
+    _, t = _jt(_inputs(2, 9, 3, 8, 4, seed=5))
+    y, state = tref.ssd_plan(*t, rows=1)
+    want_y, want_state = tref.ssd_ref(*t)
+    _close(y, want_y.numpy(), TOL)
+    _close(state, want_state.numpy(), TOL)
+
+
+def test_mamba_scan_tiling_fills_the_card():
+    """zamba2's prefill on 132 SMs: eight chunks fill it with 64-column
+    blocks, one chunk (S <= 64) takes 32-column halves of each head."""
+    assert tms.tiling(1, 512, 112, 64, 132) == (64, 896)
+    assert tms.tiling(1, 256, 112, 64, 132) == (64, 448)
+    assert tms.tiling(1, 64, 112, 64, 132) == (32, 224)
+    assert tms.tiling(1, 17, 112, 64, 132) == (32, 224)
+    assert tms.tiling(2, 64, 3, 16, 132) == (32, 6)
+    assert tms.tiling(1, 256, 4, 128, 132) == (32, 64)
+    assert (tms.state_tile(4), tms.state_tile(64), tms.state_tile(65)) == \
+        (64, 64, 128)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba_scan_layout_contract(dtype):
+    """The model's slices of one conv output pass, and their rows start on
+    16 bytes (copied 16 bytes at a time); rows off 16 bytes pass too, to be
+    copied element by element.  N over 128, P off a multiple of 4 and a
+    non-contiguous last dimension raise ValueError."""
+    h, p, n = 3, 16, 8
+    xbc = torch.zeros(2, 32, h * p + 2 * n, dtype=dtype)
+    xh, bm, cm = torch.split(xbc, [h * p, n, n], -1)
+    tms.check_layout(xh.reshape(2, 32, h, p), bm, cm)
+    assert tms.rows_aligned(xh, bm, cm)
+    wide = torch.zeros(1, 8, 136, dtype=dtype)
+    with pytest.raises(ValueError, match="N=136"):
+        tms.check_layout(torch.zeros(1, 8, 2, 16, dtype=dtype), wide, wide)
+    with pytest.raises(ValueError, match="P=6"):
+        tms.check_layout(torch.zeros(1, 8, 2, 6, dtype=dtype), bm, cm)
+    with pytest.raises(ValueError, match="contiguous"):
+        tms.check_layout(torch.zeros(1, 8, 16, 2, dtype=dtype)
+                         .transpose(-1, -2), bm, cm)
+    odd = torch.zeros(2, 32, h * p + 2 * n + 1, dtype=dtype)[..., 1:]
+    ox, ob, oc = torch.split(odd, [h * p, n, n], -1)
+    tms.check_layout(ox.reshape(2, 32, h, p), ob, oc)
+    assert not tms.rows_aligned(ox, ob, oc)
+    # zamba2's slices: rows of 7,296 elements
+    xbc = torch.zeros(1, 4, 112 * 64 + 128, dtype=dtype)
+    assert tms.rows_aligned(*torch.split(xbc, [112 * 64, 64, 64], -1))
+    # a bf16 C of 4 state columns after 16 + 4 columns: 40 bytes in
+    xbc = torch.zeros(1, 4, 24, dtype=dtype)
+    assert tms.rows_aligned(*torch.split(xbc, [16, 4, 4], -1)) == \
+        (dtype == torch.float32)
 
 
 @pytest.mark.parametrize("b,s,h,p,n,chunk", SCAN_SHAPES)
