@@ -15,7 +15,8 @@ prints its seconds:
    grouped-matmul, flash-decode and SSD-scan kernels in the SASS
    (``cuobjdump -sass``): none in an attention, tiled, bf16 decode or scan
    kernel would mean a CUDA-core path (the fp32 decode kernels must have
-   none);
+   none); ptxas's lines of the twelve sLSTM instantiations, and the sLSTM
+   kernel's cluster plan at xlstm_125m's heads;
 2. hold each kernel against its plain PyTorch version on the card at the
    serving paths' shapes, in fp32 (atol = rtol = 2e-5; 2e-4 for the SSD
    scan, whose chunked and sequential sums differ in order) and bf16
@@ -35,8 +36,8 @@ prints its seconds:
    lengths 17, 64, 256 and 512; the grouped matmul also with the row counts
    of a seeded top-6 routing (a 4-slot decode tick and a 512-token
    prefill), bounded by the active experts' bytes and rows; the sLSTM at
-   xlstm_125m's prefill (S = 512 and 300) and decode tick (4 slots, S =
-   1, from a state), its final state compared too;
+   xlstm_125m's prefill (S = 512, 300 and 17) and decode tick (4 slots, S
+   = 1, from a state), its final state compared too;
 3. full-width glm4_9b cut to 2 layers, same weights on the card
    (kernels) and on the CPU (plain versions): a 128-token prefill and 8
    greedy decode steps must give logits within 1e-3 of max |logit| and
@@ -78,7 +79,9 @@ prints its seconds:
 10. serve full xlstm_125m (9 mLSTM and 3 sLSTM blocks, fp32, random
    weights from a seed) as in phase 4, deepseek_moe_16b's weights freed
    first, with prompts of 300 and 512 among the eight; every sLSTM layer
-   of a prefill and of a tick is one ``slstm_seq`` launch.
+   of a prefill and of a tick is one ``slstm_seq`` launch; last, one
+   512-token prefill alone, as in phase 4, profiled for the sLSTM kernel's
+   share of the device time.
 
 Then a ``{"kernels": [...]}`` line and, last, the device line.  Exits
 nonzero without a CUDA device or without the repository around it.
@@ -112,27 +115,6 @@ SSD_TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
-
-
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of one call, by CUDA events around ``iters`` calls.
-
-    A sleep kernel first holds the stream while the host queues every
-    call, so the events time the card's work back to back and not the
-    host's launch rate (which ``host_ms`` gives).
-    """
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(100_000_000)          # ~50 ms at the H100's clock
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def host_ms(fn, iters: int = 20) -> float:
@@ -181,11 +163,12 @@ def kernel_report() -> None:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import slstm_cell as sl
 
     def ours(name):
         return "flash_attn" in name or "gmm_tiled" in name \
             or "gmm_stream" in name or "flash_decode" in name \
-            or "mamba_scan" in name
+            or "mamba_scan" in name or "slstm_seq" in name
     ptxas, fn = {}, None
     for line in _build.build_log().splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -253,6 +236,18 @@ def kernel_report() -> None:
               f"{'; '.join(ptxas.get(fn, ['no report']))}")
         check(hmma > 0, f"mamba_scan_kernel<{dtype(fn)}, {nt}, {pw}> has no "
                         f"tensor-core instruction")
+    slstm = sorted(f for f in ptxas if "slstm_seq" in f)
+    check(len(slstm) == 12, f"expected 12 slstm_seq kernels, found {slstm}")
+    for fn in slstm:
+        j4, nb = re.findall(r"Li(\d+)E", fn)
+        print(f"  slstm_seq_kernel<{dtype(fn)}, h span {32 * int(j4)}, row "
+              f"slots {nb}>: ptxas: {'; '.join(ptxas[fn])}")
+    for b in (1, 4):
+        plan = sl.cluster_plan(b, 4, 192, torch.float32)
+        print(f"  slstm_seq at xlstm_125m's heads, B = {b}: clusters of "
+              f"{plan.cluster} blocks of {max(plan.cols)} columns, grid "
+              f"{plan.grid}, {plan.threads} threads and {plan.smem} bytes of "
+              f"shared memory a block")
     for dtype in (torch.float32, torch.bfloat16):
         print(f"  dynamic shared memory at D = Dv = 128, {dtype}: "
               f"attention {fa.smem_bytes(dtype, 128, 128)} bytes; decode, "
@@ -277,6 +272,7 @@ def phase_kernels(gen):
     """Phase 2: every kernel against its plain version, timed.  Rows are
     keyed (kernel, dtype, shape label)."""
     from repro_torch.kernels import ops, ref
+    from repro_torch.launch.timing import device_ms
 
     def rnd(*shape, dtype):
         return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
@@ -285,9 +281,9 @@ def phase_kernels(gen):
               sdpa=False, note=""):
         """``sdpa``: the library call is SDPA, whose kernels get named;
         ``note`` goes into the printed row (the bound's accounting)."""
-        return dict(err=err, ms=cuda_ms(kern), host_ms=host_ms(kern),
-                    plain_ms=cuda_ms(plain),
-                    library_ms=None if lib is None else cuda_ms(lib),
+        return dict(err=err, ms=device_ms(kern), host_ms=host_ms(kern),
+                    plain_ms=device_ms(plain),
+                    library_ms=None if lib is None else device_ms(lib),
                     library_kernels=device_kernels(lib) if sdpa else None,
                     bound=bound(nbytes, flops, dtype, peak), note=note)
 
@@ -400,6 +396,7 @@ def phase_kernels(gen):
         its operations are bounded at the fp32 peak.  No single PyTorch
         call computes the exp-gated sLSTM (``nn.LSTM`` is another
         function), so there is no library time."""
+        from repro_torch.kernels import slstm_cell as sl
         xg = rnd(b, s, 4, h, dh, dtype=dtype)
         r = rnd(4, h, dh, dh, dtype=torch.float32) * r_scale
         bias = rnd(4, h, dh, dtype=torch.float32) * b_scale
@@ -418,7 +415,11 @@ def phase_kernels(gen):
         nbytes = xg.element_size() * (xg.numel() + b * s * h * dh) \
             + 4 * (r.numel() + bias.numel()) + n_state
         flops = 2 * b * s * 4 * h * dh * dh
-        return timed(kern, plain, None, err, nbytes, flops, torch.float32)
+        plan = sl.cluster_plan(b, h, dh, dtype)
+        return timed(kern, plain, None, err, nbytes, flops, torch.float32,
+                     note=f"{plan.grid[1] * plan.grid[2]} clusters of "
+                          f"{plan.cluster} blocks, {max(plan.cols)} columns "
+                          f"and {plan.threads} threads a block")
 
     def gmm(e, c, d, f, dtype, tag, counts=None):
         """x is the model's view of its (E, C + 1, D) dispatch buffer
@@ -528,10 +529,10 @@ def phase_kernels(gen):
                                   f"D=2048 F=1408")] = gmm(
                 64, c, 2048, 1408, dtype, tag,
                 routed_counts(n_tok, 64, 6, seed=n_tok))
-        # the sLSTM at xlstm_125m's heads (4 of 192): a 512- and a 300-token
-        # prefill, and a decode tick of 4 slots from a state
+        # the sLSTM at xlstm_125m's heads (4 of 192): a 512-, a 300- and a
+        # 17-token prefill, and a decode tick of 4 slots from a state
         for s_, rs, bs in ((512, 0.02, 0.0), (512, 0.1, 0.1),
-                           (300, 0.02, 0.0)):
+                           (300, 0.02, 0.0), (17, 0.02, 0.0)):
             rows[("slstm_seq", tag, f"B=1 S={s_} r={rs}")] = slstm(
                 1, s_, 4, 192, rs, bs, dtype, tag)
         for rs, bs in ((0.02, 0.0), (0.1, 0.1)):
@@ -815,11 +816,12 @@ def phase_serve(arch, seed, max_prompt, repeats: int = 3, then=None,
 
 
 # the device kernels' names of a kernel family, in a profile
-DEVICE_NAMES = {"flash_attention": "flash_attn", "mamba_scan": "mamba_scan"}
+DEVICE_NAMES = {"flash_attention": "flash_attn", "mamba_scan": "mamba_scan",
+                "slstm_seq": "slstm_seq_kernel"}
 
 
 def lone_prefill(kernels, cfg, params, s: int = 512, repeats: int = 3):
-    """The last step of phases 4 and 6: one ``s``-token prefill through the
+    """The last step of phases 4, 6 and 10: one ``s``-token prefill through the
     engine's prefill function, alone on the card: a warm call, ``repeats``
     timed on the host clock (synchronised), then one under torch.profiler
     for the share of the device time of each of ``kernels`` (keys of
@@ -1035,9 +1037,9 @@ def main() -> int:
     torch.cuda.empty_cache()        # deepseek_moe_16b's weights are gone
     phase(9, "full 12-layer xlstm_125m, card against CPU", phase_cut,
           "xlstm_125m", 12, seed, 300)
-    by_path["xlstm_125m"] = phase(10, "serving full xlstm_125m", phase_serve,
-                                  "xlstm_125m", seed, 128, 3, None,
-                                  (300, 512))
+    by_path["xlstm_125m"] = phase(
+        10, "serving full xlstm_125m", phase_serve, "xlstm_125m", seed, 128,
+        3, functools.partial(lone_prefill, ("slstm_seq",)), (300, 512))
 
     timed = {"flash_attention": ("float32", "S=512"),
              "flash_decode": ("float32", "T=1024"),

@@ -90,6 +90,34 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
+def stamped_library(source: str, define: str) -> ctypes.CDLL:
+    """``csrc/<source>`` alone, built with ``-D<define>`` (its phase
+    stamps, for the scripts in ``repro_torch/launch``) into
+    ``build/<stem>_stamps/`` beside the kernel library."""
+    src = CSRC / source
+    flags = [*NVCC_FLAGS, f"-D{define}"]
+    h = hashlib.sha256(" ".join(flags).encode())
+    for f in (src, *CSRC.glob("*.cuh")):
+        h.update(f.read_bytes())
+    out = BUILD_DIR.parent / f"{src.stem}_stamps" / \
+        f"lib{src.stem}_{h.hexdigest()[:16]}.so"
+    if not out.exists():
+        out.parent.mkdir(parents=True, exist_ok=True)
+        proc = subprocess.run([_nvcc(), *flags, "-o", str(out), str(src)],
+                              capture_output=True, text=True)
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed:\n{proc.stdout}{proc.stderr}")
+    return ctypes.CDLL(str(out))
+
+
+def use(lib: ctypes.CDLL) -> None:
+    """Point every kernel wrapper at ``lib``: a :func:`stamped_library`,
+    or the one :func:`library` returned before."""
+    global _lib, _functions
+    with _lock:
+        _lib, _functions = lib, {}
+
+
 def library_path() -> pathlib.Path:
     """The built library's file (building it on first use)."""
     library()

@@ -368,6 +368,8 @@ flash_attn_kernel(const __grid_constant__ CUtensorMap tm_q,
       pv_bf16<DVP>(acc, s, hopper::smem_u32(sV));
     else
       pv_f32<DVP>(acc, s, sV, prm.Dv, g, t);
+    if constexpr (sizeof(T) == 4)
+      hopper::fence_proxy_async();  // K and V read with plain loads
     hopper::mbar_arrive(empty0 + 8 * st);
   }
 

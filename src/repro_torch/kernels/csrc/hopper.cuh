@@ -1,7 +1,8 @@
-// Hopper (sm_90a) building blocks of the port's tensor-core kernels:
-// mbarriers, the TMA tile load, wgmma shared-memory descriptors, the wgmma
-// and mma.sync instructions the kernels issue, and the host-side encoding
-// of a TMA tensor map.
+// Hopper (sm_90a) building blocks of the port's kernels: mbarriers, the
+// proxy fence, thread block clusters (rank, distributed shared memory, the
+// cluster barrier), the TMA tile load, wgmma shared-memory descriptors, the
+// wgmma and mma.sync instructions the kernels issue, and the host-side
+// encoding of a TMA tensor map.
 //
 // The tensor map is encoded with cuTensorMapEncodeTiled, which lives in
 // libcuda.  The library links no libcuda (the build is one plain nvcc call,
@@ -71,9 +72,56 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
+// Orders this thread's earlier shared-memory reads and writes (the generic
+// proxy) before later accesses of the async proxy: TMA.  A consumer that
+// read a ring stage with plain loads issues it before it releases the
+// stage; without it the TMA write that refills the stage can land first.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
 // Barrier ``id`` (1-15; 0 is __syncthreads) over ``count`` threads.
 __device__ __forceinline__ void named_barrier(int id, int count) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+
+// ---- thread block clusters --------------------------------------------------
+
+// This block's rank in its cluster.
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+// The address in the shared memory of the cluster's block ``rank`` that
+// corresponds to ``addr`` (a shared-memory address of this block).
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(r)
+               : "r"(addr), "r"(rank));
+  return r;
+}
+
+// A 16-byte store into another block's shared memory, at a 16-byte aligned
+// address from map_rank.
+__device__ __forceinline__ void st_cluster(uint32_t addr, float4 v) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};" ::"r"(
+                   addr),
+               "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
+}
+
+// The cluster barrier, split: every thread of every block of the cluster
+// arrives (releasing its earlier writes, shared memory of other blocks
+// included) and later waits (acquiring everyone's).  Every thread of a warp
+// must take both together.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
 }
 
 // ---- TMA --------------------------------------------------------------------

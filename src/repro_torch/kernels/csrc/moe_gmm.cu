@@ -41,7 +41,12 @@
 //   that an fp32 add takes into the sum (the tensor core truncates as it
 //   accumulates).
 //   Each warp owns 32 columns (one 128-byte TMA box) and all 64 rows, and
-//   skips the 16-row slices that lie past the count.
+//   skips the 16-row slices that lie past the count.  It reads a stage
+//   with plain shared-memory loads, so it fences the async proxy before it
+//   releases the stage: without the fence the TMA write that refills the
+//   stage could land before the reads, and now and then did: at 64
+//   experts and C = 60, one call in five to eight had tiles of 17-32 rows
+//   off by up to 0.6.
 //
 // The tiled path needs TMA's layout: 16-byte aligned bases and strides.
 // Without it (a D or F that is no multiple of 8 in bf16 or 4 in fp32) C > 8
@@ -387,6 +392,7 @@ __device__ __forceinline__ void consume_3xtf32(float (&acc)[4][4][4],
     const uint8_t* sx = smem + st * kStageBytes;
     stage_3xtf32<MT>(acc, sx, sx + kXBoxBytes + warp * Tile<float>::BK * 128,
                      g, t);
+    hopper::fence_proxy_async();  // the stage's reads before its refill
     hopper::mbar_arrive(empty0 + 8 * st);
   }
 }

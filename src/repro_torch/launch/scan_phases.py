@@ -12,12 +12,11 @@ block's time from its start, the span of the launch, and when the blocks
 started (the waves of a grid larger than the card holds at once).  Thread
 0 sees the block's critical path, save where another warp publishes.  The
 stamps cost a few global stores a block; the default build has none.
-Needs a CUDA device and nvcc; the build goes to ``build/scan_phases``.
+Needs a CUDA device and nvcc; the build goes to ``build/mamba_scan_stamps``.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import subprocess
 import sys
 
@@ -32,23 +31,6 @@ PHASES = {1: "take the unit", 2: "x, B, C loads; cumsum", 3: "B ⊙ w",
           4: "Z out (and flagged)", 5: "C Bᵀ and G", 6: "G X",
           7: "look-back", 8: "the chunk's state out", 9: "C state_prev",
           10: "y out", 11: "publish, count out"}
-
-
-def stamped_library() -> ctypes.CDLL:
-    src = _build.CSRC / "mamba_scan.cu"
-    flags = [*_build.NVCC_FLAGS, "-DMAMBA_SCAN_STAMPS"]
-    h = hashlib.sha256(" ".join(flags).encode())
-    for f in (src, _build.CSRC / "common.cuh", _build.CSRC / "hopper.cuh"):
-        h.update(f.read_bytes())
-    out = _build.BUILD_DIR.parent / "scan_phases" / \
-        f"libscan_{h.hexdigest()[:16]}.so"
-    if not out.exists():
-        out.parent.mkdir(parents=True, exist_ok=True)
-        proc = subprocess.run([_build._nvcc(), *flags, "-o", str(out),
-                               str(src)], capture_output=True, text=True)
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed:\n{proc.stdout}{proc.stderr}")
-    return ctypes.CDLL(str(out))
 
 
 def inputs(gen, dtype, s, h=112, p=64, n=64):
@@ -89,10 +71,10 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(f"card: {smi}")
-    lib = stamped_library()
+    lib = _build.stamped_library("mamba_scan.cu", "MAMBA_SCAN_STAMPS")
     read = lib.mamba_scan_read_stamps
     read.argtypes, read.restype = [ctypes.c_void_p], ctypes.c_int
-    _build._lib, _build._functions = lib, {}    # the wrappers use this build
+    _build.use(lib)
     gen = torch.Generator(device="cuda").manual_seed(0)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     buf = np.zeros((UNITS, STAMPS), dtype=np.uint64)

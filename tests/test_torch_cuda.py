@@ -452,6 +452,24 @@ def test_moe_gmm_kernel_with_rows(cuda_device, e, c, d, f, dtype,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_gmm_kernel_with_rows_is_the_same_every_call(cuda_device, dtype):
+    """deepseek_moe_16b's prefill at S = 512 (C = 60) with seeded counts,
+    100 calls: every one bit-equal to the first and to the plain version's
+    tolerance.  Tiles of 17-32 rows read a ring stage that TMA could refill
+    before the reads were done, which showed as a wrong tile now and then
+    (``python -m repro_torch.launch.gmm_repeats``)."""
+    from repro_torch.kernels.moe_gmm import moe_gmm
+    e, c, d, f = 64, 60, 1408, 2048
+    x, w = _gmm_inputs(7, dtype, e, c, d, f)
+    rows = _counts(e * 1000 + c, e, c, cuda_device)
+    want, first = ref.gmm_ref(x, w, rows), moe_gmm(x, w, rows)
+    _close(first, want, dtype)
+    for _ in range(99):
+        assert torch.equal(moe_gmm(x, w, rows), first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("c", [1, 60])
 def test_moe_gmm_kernel_all_zero_rows_returns_zeros(cuda_device, c, dtype):
     """No expert holds a row: every output is 0, even with NaN in x and w,
@@ -573,7 +591,7 @@ def test_slstm_seq_kernel_refuses_what_it_does_not_take(cuda_device):
         sl.slstm_seq(xg.half(), r, bias)
     with pytest.raises(ValueError, match="sLSTM"):
         sl.slstm_seq(xg, r[:, :1], bias)
-    for dh in (6, 260):       # not a multiple of 4; over 4 * Dh threads
+    for dh in (6, 260):       # not a multiple of 4; over the 256 it takes
         x2, r2, b2, _ = _slstm_inputs(10, torch.float32, 1, 4, 1, dh, 0.1)
         with pytest.raises(ValueError, match="head dim"):
             sl.slstm_seq(x2, r2, b2)
@@ -586,6 +604,110 @@ def test_slstm_seq_kernel_refuses_what_it_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="S >= 1"):
         ops.slstm_seq(xg[:, :0], r, bias)
     assert sl.launches == before
+
+
+# the cluster plan's cases: one row, a cluster of 3 rows, two clusters of 3
+# and 2; one step (no exchange), two, a short prompt and a long one; a
+# one-block cluster (Dh = 4), 8 and 12 blocks of 4 columns (Dh = 32, 48),
+# and 16 blocks of 4, 12 and 16 columns (Dh = 64, 192, 256)
+PLAN_SHAPES = [(b, s, dh) for b in (1, 3, 5) for s in (1, 2, 17, 300)
+               for dh in (4, 32, 48, 64, 192, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prefix", [0, 5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,dh", PLAN_SHAPES)
+def test_slstm_seq_kernel_over_the_plan(cuda_device, b, s, dh, dtype,
+                                        prefix):
+    """h and the final state against the plain version, from a zero state
+    and from the state ``prefix`` steps of other inputs reach."""
+    from repro_torch.kernels.slstm_cell import slstm_seq
+    xg, r, bias, state = _slstm_inputs(11, dtype, b, s, 2, dh, 0.1, prefix)
+    _slstm_close(slstm_seq(xg, r, bias, state),
+                 ref.slstm_seq_ref(xg, r, bias, state), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", range(1, 17))
+def test_slstm_seq_kernel_at_every_cluster_size(cuda_device, cluster):
+    """Dh = 4 K, which the plan lays out as a cluster of K blocks of 4
+    columns, for every K the card takes: 1 to 8 portable, 9 to 16 not."""
+    from repro_torch.kernels import slstm_cell as sl
+    dh = 4 * cluster
+    assert sl.cluster_plan(2, 4, dh, torch.float32).cluster == cluster
+    xg, r, bias, state = _slstm_inputs(12, torch.float32, 2, 33, 4, dh,
+                                       0.1, prefix=3)
+    _slstm_close(sl.slstm_seq(xg, r, bias, state),
+                 ref.slstm_seq_ref(xg, r, bias, state), torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,dh,cut", [(1, 192, 1), (5, 64, 16), (3, 256, 9)])
+def test_slstm_seq_kernel_resumes_over_the_plan(cuda_device, b, dh, cut,
+                                                dtype):
+    """A run cut after ``cut`` steps and resumed from its state equals the
+    whole run."""
+    from repro_torch.kernels.slstm_cell import slstm_seq
+    xg, r, bias, _ = _slstm_inputs(13, dtype, b, 17, 3, dh, 0.1)
+    whole_h, whole_st = slstm_seq(xg, r, bias)
+    head_h, mid = slstm_seq(xg[:, :cut].contiguous(), r, bias)
+    tail_h, end = slstm_seq(xg[:, cut:].contiguous(), r, bias, mid)
+    _slstm_close((torch.cat([head_h, tail_h], dim=1), end),
+                 (whole_h, whole_st), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s", [(4, 1), (1, 17)])
+def test_slstm_seq_replays_in_a_cuda_graph(cuda_device, b, s):
+    """One launch captured in a CUDA graph (a decode tick of 4 slots, and a
+    short prompt that exchanges h), replayed after xg and the state change
+    in place: equal to an eager launch on the new inputs, bit for bit."""
+    from repro_torch.kernels.slstm_cell import slstm_seq
+    xg, r, bias, state = _slstm_inputs(14, torch.float32, b, s, 4, 192, 0.1,
+                                       prefix=9)
+    g = torch.Generator(device="cuda").manual_seed(15)
+    new_xg = _rnd(g, torch.float32, b, s, 4, 4, 192)
+    new_state = ref.slstm_seq_ref(_rnd(g, torch.float32, b, 7, 4, 4, 192),
+                                  r, bias)[1]
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        slstm_seq(xg, r, bias, state)           # warm: the kernel's attributes
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        h, final = slstm_seq(xg, r, bias, state)
+    xg.copy_(new_xg)
+    for k in state:
+        state[k].copy_(new_state[k])
+    graph.replay()
+    torch.cuda.synchronize()
+    want_h, want_st = slstm_seq(xg, r, bias, state)
+    assert torch.equal(h, want_h)
+    assert all(torch.equal(final[k], want_st[k]) for k in want_st)
+    _slstm_close((h, final), ref.slstm_seq_ref(xg, r, bias, state),
+                 torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_slstm_seq_does_not_sync(cuda_device, dtype):
+    """A decode tick from a state and a 64-token prefill under sync debug
+    mode "error", where any call that waits for the device raises."""
+    from repro_torch.kernels.slstm_cell import slstm_seq
+    tick = _slstm_inputs(16, dtype, 4, 1, 4, 192, 0.1, prefix=3)
+    prefill = _slstm_inputs(17, dtype, 1, 64, 4, 192, 0.1)
+    slstm_seq(*tick)                            # the kernel is built
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [slstm_seq(*args) for args in (tick, prefill)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for args, out in zip((tick, prefill), got):
+        _slstm_close(out, ref.slstm_seq_ref(*args), dtype)
 
 
 @pytest.mark.cuda
