@@ -81,7 +81,20 @@ prints its seconds:
    first, with prompts of 300 and 512 among the eight; every sLSTM layer
    of a prefill and of a tick is one ``slstm_seq`` launch; last, one
    512-token prefill alone, as in phase 4, profiled for the sLSTM kernel's
-   share of the device time.
+   share of the device time;
+11. the paper's cost model (``repro_torch.core``, no CUDA source of its
+   own): benchmarks/engine_bench.py's 10,000 heterogeneous specs packed
+   with ``share_nre`` False and True (host seconds printed), priced by
+   ``CostEngine.total`` on the card and on the CPU, the ten fields held
+   together at 1e-5 relative and 64 seeded systems held against the scalar
+   ``re_cost`` / ``amortized_costs``; one ``total`` under
+   ``torch.cuda.set_sync_debug_mode("error")``; a 10^6-system batch (the
+   standalone batch tiled 100 times through ``from_arrays``, every tile its
+   own product group) whose every tile must equal the 10^4 result, with the
+   card's ms per ``total`` (median of 20, CUDA events), the CPU's, systems/s
+   and peak device memory; then ``best_partition``, ``sweep_partitions``
+   over Fig. 4's grid, ``optimize_chiplet_count`` and
+   ``price_accelerators`` on the card against the CPU.
 
 Then a ``{"kernels": [...]}`` line and, last, the device line.  Exits
 nonzero without a CUDA device or without the repository around it.
@@ -982,6 +995,305 @@ def phase_profile(cfg, params, seed, plain_ticks: int = 16,
     return None
 
 
+# The cost model's design points: benchmarks/engine_bench.py's heterogeneous
+# sweep (5 nodes x 4 integrations, 150-850 mm^2, 2-5 unequal chiplets).  A
+# copy, since that module imports the JAX package.
+COST_NODES = ("5nm", "7nm", "12nm", "14nm", "28nm")
+COST_INTEGRATIONS = ("SoC", "MCM", "InFO", "2.5D")
+# Fig. 4's grid (benchmarks/fig4_re_integration.py), with the unsplit n = 1
+FIG4_NODES = ("14nm", "7nm", "5nm")
+FIG4_INTEGRATIONS = ("MCM", "InFO", "2.5D")
+FIG4_AREAS = (300.0, 500.0, 800.0, 900.0)
+FIG4_NS = (1, 2, 3, 5)
+ENGINE_RTOL, ENGINE_ATOL = 1e-5, 1e-8   # tests/test_engine.py's tolerance
+
+
+def make_specs(n: int):
+    """n deterministic heterogeneous design points (no RNG: index-derived)."""
+    specs = []
+    for i in range(n):
+        integ = COST_INTEGRATIONS[i % len(COST_INTEGRATIONS)]
+        area = 150.0 + (i * 7919) % 700          # 150..850 mm^2
+        qty = 1e5 * (1 + i % 50)
+        if integ == "SoC":
+            specs.append({"kind": "soc", "name": f"s{i}", "area": float(area),
+                          "process": COST_NODES[i % len(COST_NODES)],
+                          "quantity": qty})
+        else:
+            k = 2 + i % 4                        # 2..5 chiplets
+            fracs = [1.0 + ((i + j) % 3) for j in range(k)]  # unequal slices
+            procs = [COST_NODES[(i + j) % len(COST_NODES)] for j in range(k)]
+            specs.append({"kind": "split", "name": f"s{i}",
+                          "area": float(area), "fractions": fracs,
+                          "processes": procs, "integration": integ,
+                          "quantity": qty})
+    return specs
+
+
+def cost_fields(tc) -> dict:
+    """The ten per-system outputs of ``CostEngine.total``: five RE, four
+    NRE and the total."""
+    return {**{k: getattr(tc.re, k) for k in
+               ("raw_chips", "chip_defects", "raw_package",
+                "package_defects", "wasted_kgd")},
+            **{f"nre_{k}": getattr(tc.nre, k) for k in
+               ("modules", "chips", "packages", "d2d")},
+            "total": tc.total}
+
+
+def hold(label, got: dict, want: dict, rtol=ENGINE_RTOL) -> str:
+    """Each field of ``got`` within ``atol + rtol * |want|``, on the host;
+    returns the largest relative difference and its field, printed."""
+    worst, field = 0.0, "none"
+    for k, w in want.items():
+        w = torch.as_tensor(w, dtype=torch.float64).cpu()
+        g = torch.as_tensor(got[k]).cpu().double().reshape(w.shape)
+        diff = (g - w).abs()
+        check(bool((diff <= ENGINE_ATOL + rtol * w.abs()).all()),
+              f"{label}: {k} differs, max abs {diff.max().item():.3e}")
+        rel = (diff / w.abs().clamp_min(1e-30)).max().item()
+        if rel > worst:
+            worst, field = rel, k
+    return f"{worst:.3e} ({field})"
+
+
+def scalar_reference(core, systems, picks, shared: bool) -> dict:
+    """The scalar path's ten fields for the systems at ``picks``: each
+    system alone, or all of them as one group."""
+    group = core.amortized_costs(systems) if shared else None
+    rows = []
+    for i in picks:
+        s = systems[i]
+        u = group[s.name] if shared else core.amortized_costs([s])[s.name]
+        rows.append([u.re.raw_chips, u.re.chip_defects, u.re.raw_package,
+                     u.re.package_defects, u.re.wasted_kgd, u.nre_modules,
+                     u.nre_chips, u.nre_packages, u.nre_d2d, u.total])
+    cols = list(zip(*rows))
+    keys = ("raw_chips", "chip_defects", "raw_package", "package_defects",
+            "wasted_kgd", "nre_modules", "nre_chips", "nre_packages",
+            "nre_d2d", "total")
+    return {k: list(v) for k, v in zip(keys, cols)}
+
+
+def tile_batch(core, b, k: int):
+    """``b`` repeated ``k`` times along every axis through ``from_arrays``,
+    each tile's entity ids and owning systems offset so that every tile is
+    its own product group; built on b's device."""
+    n = b.n_systems
+    sizes = {"chip_entity_id": b.chip_entity_area.shape[0],
+             "pkg_entity_id": b.pkg_entity_area.shape[0],
+             "mod_entity": b.mod_entity_area.shape[0],
+             "d2d_entity": b.d2d_entity_nre.shape[0],
+             "mod_sys": n, "d2d_sys": n}
+    leaves = {}
+    for f in core.SystemBatch._LEAVES:
+        a = getattr(b, f)
+        t = a.repeat(k, *([1] * (a.ndim - 1)))
+        if f in sizes:
+            tile = torch.arange(k, device=a.device, dtype=torch.int32)
+            off = tile.repeat_interleave(a.shape[0]) * sizes[f]
+            t = t + (off[:, None] if a.ndim == 2 else off)
+        leaves[f] = t
+    return core.SystemBatch.from_arrays(device=b.device, **leaves)
+
+
+def median_event_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Median device time of one call, by a pair of CUDA events around each
+    of ``iters`` calls after ``warmup`` calls."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def device_busy(fn) -> tuple:
+    """(device events, device-busy ms, the three names that take the most
+    of it with their ms) of one warm call of ``fn``, from a torch.profiler
+    pass: kernels, copies and sets, which one stream runs one after
+    another."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name = {}
+    for e in dev:
+        by_name[e.name] = by_name.get(e.name, 0.0) + \
+            e.time_range.elapsed_us() / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+    return len(dev), sum(by_name.values()), top
+
+
+def cpu_ms(fn) -> float:
+    """Host time of one call on the CPU."""
+    t0 = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def phase_cost_model(seed: int, smi: str) -> dict:
+    """Phase 11: the paper's cost model (``repro_torch.core``) on the card
+    against the CPU, at engine_bench's 10^4 heterogeneous systems and at a
+    10^6-system batch; then the explorer, the gradient partitioner and the
+    codesign pricer."""
+    from repro_torch import core
+    from repro_torch.core.gradient import optimize_chiplet_count
+
+    n_small, reps = 10_000, 100
+    torch.cuda.synchronize()        # the CUDA context exists before packing
+    t0 = time.perf_counter()
+    systems = [core.spec(d) for d in make_specs(n_small)]
+    t_spec = time.perf_counter() - t0
+    engine = core.CostEngine()
+    batches, pack_s = {}, {}
+    for shared in (False, True):
+        t0 = time.perf_counter()
+        batches[shared] = core.SystemBatch.from_systems(
+            systems, share_nre=shared, device="cuda")
+        torch.cuda.synchronize()
+        pack_s[shared] = time.perf_counter() - t0
+    print(f"[11] {n_small} specs built in {t_spec:.3f} s; packed on the host "
+          f"and copied: share_nre=False {pack_s[False]:.3f} s, True "
+          f"{pack_s[True]:.3f} s")
+
+    picks = np.random.default_rng(seed).choice(n_small, 64, replace=False)
+    small = {}
+    for shared, b in batches.items():
+        card = cost_fields(engine.total(b))
+        cpu = cost_fields(engine.total(b.to("cpu")))
+        err = hold(f"10k share_nre={shared}, card against CPU", card, cpu)
+        ref = scalar_reference(core, systems, picks, shared)
+        idx = torch.as_tensor(picks, device="cuda")
+        err_ref = hold(f"10k share_nre={shared}, card against the scalar "
+                       "path", {k: v[idx] for k, v in card.items()}, ref)
+        print(f"[11] share_nre={shared}: ten fields, card against CPU, max "
+              f"rel {err}; 64 seeded systems against the scalar path, "
+              f"max rel {err_ref}")
+        small[shared] = card
+    b = batches[True]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        engine.total(b).total
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    print("[11] CostEngine.total ran under sync debug mode 'error'")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    big = tile_batch(core, batches[False], reps)
+    n_big = big.n_systems
+    got = cost_fields(engine.total(big))
+    want = {k: v.reshape(1, -1).expand(reps, -1)
+            for k, v in small[False].items()}
+    err = hold(f"{n_big} systems: every tile against the 10k result",
+               {k: v.reshape(reps, -1) for k, v in got.items()}, want)
+    print(f"[11] {n_big} systems ({reps} tiles of {n_small}, each its own "
+          f"product group): every tile equals the 10k result, max rel "
+          f"{err}")
+
+    timing = {}
+    for label, bb in (("1e4", batches[False]), ("1e6", big)):
+        ms = median_event_ms(lambda: engine.total(bb).total)
+        events, busy, top = device_busy(lambda: engine.total(bb).total)
+        # the least bytes a call moves: every leaf read once, ten (N,)
+        # float32 outputs written once
+        nbytes = sum(getattr(bb, f).numel() * getattr(bb, f).element_size()
+                     for f in core.SystemBatch._LEAVES) + 10 * 4 * bb.n_systems
+        on_cpu = bb.to("cpu")
+        engine.total(on_cpu).total                  # first call: allocations
+        c_ms = cpu_ms(lambda: engine.total(on_cpu).total)
+        timing[label] = {"systems": bb.n_systems, "card_ms": ms,
+                         "device_events": events, "busy_ms": busy,
+                         "bytes": nbytes,
+                         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                         "cpu_ms": c_ms,
+                         "card_systems_per_s": bb.n_systems / ms * 1e3,
+                         "cpu_systems_per_s": bb.n_systems / c_ms * 1e3}
+        print(f"[11] {bb.n_systems} systems, CostEngine.total: card "
+              f"{ms:.4f} ms (median of 20, CUDA events), "
+              f"{timing[label]['card_systems_per_s']:.4g} systems/s; CPU "
+              f"{c_ms:.2f} ms (one call), "
+              f"{timing[label]['cpu_systems_per_s']:.4g} systems/s; {smi}")
+        print(f"[11] {bb.n_systems} systems: one call runs {events} device "
+              f"events, busy {busy:.4f} ms of the {ms:.4f} ms; its "
+              f"{nbytes / 1e6:.1f} MB read and written once take "
+              f"{timing[label]['bound_ms']:.4f} ms at 3.35 TB/s; {smi}")
+        print(f"[11] {bb.n_systems} systems: most busy time in " + "; ".join(
+            f"{name[:60]} {ms_:.4f} ms" for name, ms_ in top))
+        del on_cpu
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[11] peak device memory from the 10^6 batch on: {peak / 2**20:.1f}"
+          f" MiB; {smi}")
+    del big, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    card_bp = core.best_partition("5nm", "MCM", 800.0, device="cuda")
+    cpu_bp = core.best_partition("5nm", "MCM", 800.0, device="cpu")
+    check(card_bp["best_n"] == cpu_bp["best_n"],
+          f"best_partition: n {card_bp['best_n']} on the card, "
+          f"{cpu_bp['best_n']} on the CPU")
+    hold("best_partition", {k: card_bp[k] for k in ("best_cost", "soc_cost")},
+         {k: cpu_bp[k] for k in ("best_cost", "soc_cost")})
+    for process in FIG4_NODES:
+        for integ in FIG4_INTEGRATIONS:
+            card = core.sweep_partitions(process, integ, FIG4_AREAS, FIG4_NS,
+                                         device="cuda")
+            cpu = core.sweep_partitions(process, integ, FIG4_AREAS, FIG4_NS,
+                                        device="cpu")
+            hold(f"sweep_partitions {process} {integ}",
+                 {"total": card["total"]}, {"total": cpu["total"]})
+    t0 = time.perf_counter()
+    card_opt = optimize_chiplet_count("5nm", "MCM", 800.0,
+                                                    device="cuda")
+    t_opt = time.perf_counter() - t0
+    cpu_opt = optimize_chiplet_count("5nm", "MCM", 800.0,
+                                                   device="cpu")
+    check(card_opt.n_rounded == cpu_opt.n_rounded,
+          f"optimize_chiplet_count: n {card_opt.n_rounded} on the card, "
+          f"{cpu_opt.n_rounded} on the CPU")
+    hold("optimize_chiplet_count", {"n": card_opt.n_relaxed},
+         {"n": cpu_opt.n_relaxed}, rtol=1e-4)
+    hold("optimize_chiplet_count costs",
+         {k: getattr(card_opt, k) for k in ("cost_relaxed", "cost_rounded",
+                                            "cost_soc")},
+         {k: getattr(cpu_opt, k) for k in ("cost_relaxed", "cost_rounded",
+                                           "cost_soc")})
+    acc = core.AcceleratorSpec("acc")
+    card_acc = core.price_accelerators(acc, device="cuda")
+    cpu_acc = core.price_accelerators(acc, device="cpu")
+    for label in cpu_acc:
+        hold(f"price_accelerators {label}", card_acc[label], cpu_acc[label])
+    print(f"[11] best_partition 5nm MCM 800 mm^2: n = {card_bp['best_n']}, "
+          f"saving {card_bp['saving']:.4f}; sweep_partitions over Fig. 4's "
+          f"{len(FIG4_NODES) * len(FIG4_INTEGRATIONS)} grids; "
+          f"optimize_chiplet_count: n* = {card_opt.n_relaxed:.5f} -> "
+          f"{card_opt.n_rounded} (CPU {cpu_opt.n_relaxed:.5f}), 300 steps "
+          f"in {t_opt:.2f} s on the host clock; price_accelerators: "
+          f"{len(card_acc)} candidates; all equal to the CPU's")
+    summary = {"pack_s": {"share_nre_false": pack_s[False],
+                          "share_nre_true": pack_s[True]},
+               "timing": timing, "peak_mib": peak / 2**20,
+               "optimize_s": t_opt, "card": smi}
+    print("[11] " + json.dumps({"cost_model": summary}))
+    return summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -1040,6 +1352,10 @@ def main() -> int:
     by_path["xlstm_125m"] = phase(
         10, "serving full xlstm_125m", phase_serve, "xlstm_125m", seed, 128,
         3, functools.partial(lone_prefill, ("slstm_seq",)), (300, 512))
+    gc.collect()
+    torch.cuda.empty_cache()        # xlstm_125m's weights are gone
+    phase(11, "the cost model, card against CPU", phase_cost_model, seed,
+          smi)
 
     timed = {"flash_attention": ("float32", "S=512"),
              "flash_decode": ("float32", "T=1024"),

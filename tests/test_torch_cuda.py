@@ -958,3 +958,92 @@ def test_serving_on_card_matches_cpu(cuda_device):
         outs.append([r.output for r in sorted(eng.run_until_drained(),
                                               key=lambda r: r.uid)])
     assert outs[0] == outs[1]
+
+
+# -- the cost model (repro_torch.core) on the card -----------------------------
+
+COST_FIELDS = ("raw_chips", "chip_defects", "raw_package", "package_defects",
+               "wasted_kgd")
+
+
+def _cost_fields(tc):
+    return {**{k: getattr(tc.re, k) for k in COST_FIELDS},
+            **{f"nre_{k}": getattr(tc.nre, k)
+               for k in ("modules", "chips", "packages", "d2d")},
+            "total": tc.total}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flow", ["chip-last", "chip-first"])
+@pytest.mark.parametrize("share", [False, True, "groups"])
+def test_cost_engine_on_card_matches_cpu(cuda_device, share, flow):
+    """engine_bench's 10,000 heterogeneous systems priced on the card and
+    on the CPU: every field at the engine's 1e-5 relative."""
+    from chip_smoke import make_specs
+    from repro_torch import core
+    from torch_parity import ENGINE_ATOL, ENGINE_RTOL
+    systems = [core.spec(d) for d in make_specs(10_000)]
+    mode = [i % 97 for i in range(len(systems))] if share == "groups" \
+        else share
+    b = core.SystemBatch.from_systems(systems, share_nre=mode,
+                                      device=cuda_device)
+    engine = core.CostEngine(flow=flow)
+    got = _cost_fields(engine.total(b))
+    want = _cost_fields(engine.total(b.to("cpu")))
+    for k, w in want.items():
+        torch.testing.assert_close(got[k].cpu(), w, rtol=ENGINE_RTOL,
+                                   atol=ENGINE_ATOL, msg=k)
+
+
+@pytest.mark.cuda
+def test_cost_engine_does_not_sync(cuda_device):
+    """RE, NRE and the total queue their work and read nothing back to the
+    host, the padded and empty-instance branches included."""
+    from repro_torch import core
+    specs = [{"kind": "soc", "area": 800.0, "process": "5nm"},
+             {"kind": "split", "area": 700.0, "fractions": [0.5, 0.3, 0.2],
+              "processes": ["5nm", "7nm", "12nm"], "integration": "2.5D"}]
+    batches = [core.SystemBatch.from_specs(specs, share_nre=True,
+                                           device=cuda_device),
+               core.pad_batch(core.SystemBatch.from_specs(
+                   specs[:1], device=cuda_device), n_systems=4,
+                   max_chips=3)]
+    engine = core.CostEngine()
+    want = [engine.total(b).total for b in batches]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [engine.total(b).total for b in batches]
+        engine.re(batches[0], flow="chip-first").total
+        engine.nre(batches[1]).total
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_cost_model_defaults_to_the_card(cuda_device):
+    """Without a device the batch, the engine's results, the sweeps and the
+    gradient partitioner are on the GPU, and equal the CPU's."""
+    from repro_torch import core
+    from repro_torch.core.gradient import optimize_chiplet_count
+    from torch_parity import ENGINE_RTOL
+    specs = [{"kind": "split", "area": 800.0, "process": "5nm", "n": n,
+              "integration": "MCM"} for n in (1, 2, 3)]
+    b = core.SystemBatch.from_specs(specs)
+    assert b.device.type == "cuda"
+    tc = core.CostEngine().total(b)
+    assert tc.total.device.type == "cuda"
+    cpu = core.CostEngine().total(core.SystemBatch.from_specs(specs,
+                                                              device="cpu"))
+    torch.testing.assert_close(tc.total.cpu(), cpu.total, rtol=ENGINE_RTOL,
+                               atol=0)
+    assert core.sweep_partitions("5nm", "MCM", [800.0],
+                                 [1, 2])["total"].device.type == "cuda"
+    assert core.cost_area_curve("5nm", [100.0])["yield"].device.type == "cuda"
+    card = optimize_chiplet_count("5nm", "MCM", 800.0)
+    host = optimize_chiplet_count("5nm", "MCM", 800.0, device="cpu")
+    assert card.n_rounded == host.n_rounded
+    torch.testing.assert_close(card.n_relaxed, host.n_relaxed, rtol=1e-4,
+                               atol=0)

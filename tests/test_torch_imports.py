@@ -53,3 +53,38 @@ def test_chip_smoke_fails_without_card_or_repo(alone, tmp_path):
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def _cost_model_entry(name):
+    from repro_torch import core
+    from repro_torch.core.gradient import optimize_chiplet_count
+    return {
+        "SystemBatch.from_specs": lambda: core.SystemBatch.from_specs(
+            [{"kind": "soc", "area": 100.0, "process": "7nm"}]),
+        "SystemBatch.from_systems": lambda: core.SystemBatch.from_systems(
+            [core.soc_system("a", 100.0, "7nm")]),
+        "sweep_partitions": lambda: core.sweep_partitions(
+            "5nm", "MCM", [800.0], [1, 2]),
+        "best_partition": lambda: core.best_partition("5nm", "MCM", 800.0),
+        "cost_area_curve": lambda: core.cost_area_curve("5nm", [100.0]),
+        "optimize_chiplet_count": lambda: optimize_chiplet_count(
+            "5nm", "MCM", 800.0),
+        "price_accelerators": lambda: core.price_accelerators(
+            core.AcceleratorSpec("acc")),
+        "re_split_relaxed": lambda: core.re_split_relaxed(
+            800.0, 3.0, wafer_cost=1.0, defect_density=0.1, cluster=3.0,
+            tech_params=core.tech("MCM")),
+    }[name]
+
+
+@pytest.mark.parametrize("entry", [
+    "SystemBatch.from_specs", "SystemBatch.from_systems", "sweep_partitions",
+    "best_partition", "cost_area_curve", "optimize_chiplet_count",
+    "price_accelerators", "re_split_relaxed"])
+def test_cost_model_entry_points_raise_without_a_card(entry):
+    """The cost model's entry points default to the GPU and raise without
+    one; only device="cpu" prices on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour on a machine without a GPU")
+    with pytest.raises(RuntimeError, match="GPU"):
+        _cost_model_entry(entry)()
