@@ -94,7 +94,23 @@ prints its seconds:
    card's ms per ``total`` (median of 20, CUDA events), the CPU's, systems/s
    and peak device memory; then ``best_partition``, ``sweep_partitions``
    over Fig. 4's grid, ``optimize_chiplet_count`` and
-   ``price_accelerators`` on the card against the CPU.
+   ``price_accelerators`` on the card against the CPU; ``total`` called
+   20 times on each 10^4 batch must give bit-equal fields every time, and
+   at 10^6 systems the NRE's deterministic segment sums are timed against
+   the float32 ``index_add`` atomics they replaced, in turns;
+12. the paper's design-space exploration (``repro_torch.dse``) on
+   benchmarks/dse_bench.py's space (19,707 candidates, 59,121 systems),
+   each step on the card held against the port on the CPU: every
+   candidate in chunks of 512 at 1e-5, the same exhaustive winner, a
+   second sweep bit-equal and one sweep dispatched under
+   ``torch.cuda.set_sync_debug_mode("error")``; Monte Carlo at 256 draws
+   over 2,048 candidates; the legacy evaluator over 512 candidates,
+   bit-equal across runs and at 1e-6 of the fused prices; the
+   evolutionary search at population 256 for 8 generations, nominal and
+   at the q90 objective, with the CPU's winner and history; the uneven
+   split; candidates/s and generations/s on the host clock, and each DSE
+   graph's card ms (CUDA events) beside its byte floor.  The DSE runs
+   none of the six kernels, and the phase fails if one launches.
 
 Then a ``{"kernels": [...]}`` line and, last, the device line.  Exits
 nonzero without a CUDA device or without the repository around it.
@@ -833,15 +849,19 @@ DEVICE_NAMES = {"flash_attention": "flash_attn", "mamba_scan": "mamba_scan",
                 "slstm_seq": "slstm_seq_kernel"}
 
 
-def lone_prefill(kernels, cfg, params, s: int = 512, repeats: int = 3):
+def lone_prefill(kernels, cfg, params, s: int = 512, repeats: int = 3,
+                 profiles: int = 3):
     """The last step of phases 4, 6 and 10: one ``s``-token prefill through the
     engine's prefill function, alone on the card: a warm call, ``repeats``
     timed on the host clock (synchronised), then one under torch.profiler
     for the share of the device time of each of ``kernels`` (keys of
-    ``DEVICE_NAMES``), each of which must run as often as the model's
-    structure implies."""
+    ``DEVICE_NAMES``).  The wrappers' counts of the profiled prefill must be
+    what the model's structure implies; the profile must hold one device
+    kernel for each of those launches, or it lost records and is taken
+    again, up to ``profiles`` times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops
     from repro_torch.models import api
     prefill = api.prefill_fn(cfg, 1024)
     tokens = torch.as_tensor(np.random.default_rng(7).integers(
@@ -854,24 +874,33 @@ def lone_prefill(kernels, cfg, params, s: int = 512, repeats: int = 3):
         prefill(params, {"tokens": tokens})
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        prefill(params, {"tokens": tokens})
-        torch.cuda.synchronize()
-    busy = 0.0
-    us = {k: 0.0 for k in kernels}
-    runs = {k: 0 for k in kernels}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            busy += e.device_time_total
-            for k in kernels:
-                if DEVICE_NAMES[k] in e.name:
-                    us[k] += e.device_time_total
-                    runs[k] += 1
-    want = structure_launches(cfg, 1, 0)
-    for k in kernels:
-        check(runs[k] == want[k], f"the profiled prefill ran {runs[k]} {k} "
-                                  f"kernels, not {want[k]}")
+    want = {k: structure_launches(cfg, 1, 0)[k] for k in kernels}
+    for attempt in range(1, profiles + 1):
+        ops.reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            prefill(params, {"tokens": tokens})
+            torch.cuda.synchronize()
+        launched = ops.launch_counts()
+        for k in kernels:
+            check(launched[k] == want[k], f"the profiled prefill launched "
+                                          f"{launched[k]} {k}, not {want[k]}")
+        busy = 0.0
+        us = {k: 0.0 for k in kernels}
+        runs = {k: 0 for k in kernels}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                busy += e.device_time_total
+                for k in kernels:
+                    if DEVICE_NAMES[k] in e.name:
+                        us[k] += e.device_time_total
+                        runs[k] += 1
+        if runs == want:
+            break
+        print(f"  profile {attempt} of the prefill holds {runs} device "
+              f"kernels for {want} launches")
+        check(attempt < profiles, f"{profiles} profiles of the prefill each "
+                                  f"lost device kernels")
     shares = ", ".join(f"{k} {us[k] / 1e3:.3f} ms in {runs[k]} launches = "
                        f"{100 * us[k] / busy:.2f}%" for k in kernels)
     print(f"  one {s}-token prefill alone: {', '.join(f'{t:.2f}' for t in times)}"
@@ -1143,6 +1172,39 @@ def cpu_ms(fn) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
+def segment_sum_cost(engine, big, smi: str) -> dict:
+    """What the deterministic NRE sums cost at 10^6 systems: ``total`` and
+    the NRE alone with the engine's sums, and with the float32
+    ``index_add`` atomics they replace, in turns (deterministic, atomics,
+    atomics, deterministic); card ms by CUDA events (median of 20) and
+    the NRE's busy ms (``torch.profiler``)."""
+    from repro_torch.core import engine as engine_mod
+    ordered = engine_mod._segment_sum
+
+    def atomics(values, ids, num_segments):
+        out = torch.zeros((num_segments,), dtype=values.dtype,
+                          device=values.device)
+        return out.index_add(0, ids, values)
+
+    runs = {"deterministic": [], "atomics": []}
+    for label in ("deterministic", "atomics", "atomics", "deterministic"):
+        engine_mod._segment_sum = ordered if label == "deterministic" \
+            else atomics
+        try:
+            total_ms = median_event_ms(lambda: engine.total(big).total)
+            nre_ms = median_event_ms(lambda: engine.nre(big).total)
+            _, nre_busy, top = device_busy(lambda: engine.nre(big).total)
+        finally:
+            engine_mod._segment_sum = ordered
+        runs[label].append({"total_ms": total_ms, "nre_ms": nre_ms,
+                            "nre_busy_ms": nre_busy})
+        print(f"[11] {big.n_systems} systems, NRE sums by {label}: total "
+              f"{total_ms:.4f} ms, NRE {nre_ms:.4f} ms (CUDA events, median "
+              f"of 20), NRE busy {nre_busy:.4f} ms; most of it: " + "; ".join(
+                  f"{name[:50]} {ms_:.4f}" for name, ms_ in top) + f"; {smi}")
+    return runs
+
+
 def phase_cost_model(seed: int, smi: str) -> dict:
     """Phase 11: the paper's cost model (``repro_torch.core``) on the card
     against the CPU, at engine_bench's 10^4 heterogeneous systems and at a
@@ -1191,6 +1253,15 @@ def phase_cost_model(seed: int, smi: str) -> dict:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     print("[11] CostEngine.total ran under sync debug mode 'error'")
+    for shared, b in batches.items():
+        first = cost_fields(engine.total(b))
+        for call in range(1, 20):
+            got = cost_fields(engine.total(b))
+            for k, v in first.items():
+                check(torch.equal(got[k], v), f"share_nre={shared}: call "
+                      f"{call}'s {k} differs from the first call's")
+    print("[11] CostEngine.total on the 10^4 batches, share_nre False and "
+          "True: 20 calls each, every field bit-equal to the first call's")
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -1239,6 +1310,7 @@ def phase_cost_model(seed: int, smi: str) -> dict:
     peak = torch.cuda.max_memory_allocated()
     print(f"[11] peak device memory from the 10^6 batch on: {peak / 2**20:.1f}"
           f" MiB; {smi}")
+    timing["segment_sums"] = segment_sum_cost(engine, big, smi)
     del big, got, want
     gc.collect()
     torch.cuda.empty_cache()
@@ -1291,6 +1363,298 @@ def phase_cost_model(seed: int, smi: str) -> dict:
                "timing": timing, "peak_mib": peak / 2**20,
                "optimize_s": t_opt, "card": smi}
     print("[11] " + json.dumps({"cost_model": summary}))
+    return summary
+
+
+# benchmarks/dse_bench.py's SPACE (a copy: that module imports the JAX
+# package): 3 SKUs, 3 nodes, 2 integrations, chiplet counts 1-6, reuse with
+# and without a shared package; 19,707 candidates, 59,121 systems.
+DSE_SKUS = (("laptop", 300.0, 2e6), ("desktop", 600.0, 1e6),
+            ("server", 900.0, 3e5))
+
+
+def dse_space():
+    from repro_torch import dse
+    return dse.DesignSpace(
+        skus=tuple(dse.SKU(*s) for s in DSE_SKUS),
+        processes=("5nm", "7nm", "12nm"), integrations=("MCM", "2.5D"),
+        chiplet_counts=(1, 2, 3, 4, 6), allow_reuse=True,
+        reuse_package_options=(False, True))
+
+
+def eval_fields(arrays) -> dict:
+    """An EvalArrays' priced fields (risk stats included) by name."""
+    out = {f: getattr(arrays, f) for f in ("sku_unit_total", "sku_unit_re",
+                                           "sku_unit_nre", "portfolio_cost")}
+    out.update({f"risk_{k}": v for k, v in (arrays.risk or {}).items()})
+    return out
+
+
+def same_arrays(label, a, b) -> None:
+    for k, v in eval_fields(a).items():
+        check(np.array_equal(v, eval_fields(b)[k]), f"{label}: {k} differs")
+
+
+def tensor_bytes(*items) -> int:
+    """Bytes of tensors, SystemBatches and dicts of tensors."""
+    from repro_torch.core import SystemBatch
+    n = 0
+    for it in items:
+        if isinstance(it, SystemBatch):
+            it = [getattr(it, f) for f in SystemBatch._LEAVES]
+        elif isinstance(it, dict):
+            it = list(it.values())
+        elif isinstance(it, torch.Tensor):
+            it = [it]
+        n += sum(t.numel() * t.element_size() for t in it)
+    return n
+
+
+def host_rate(fn, n: int) -> tuple:
+    """(items/s, seconds) of one warm call of ``fn`` that ends on the host
+    (it reads its results back), on the host clock."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return n / dt, dt
+
+
+def phase_dse(seed: int, smi: str, card_dev: str = "cuda") -> dict:
+    """Phase 12: the paper's design-space exploration (``repro_torch.dse``)
+    on dse_bench's space, each step on the card held against the port on
+    the CPU; throughputs and the DSE graphs' card times.  ``card_dev`` is
+    the card; naming the CPU rehearses the phase's control flow, with
+    both sides on the CPU."""
+    from repro_torch import dse
+    from repro_torch import random as prng
+    from repro_torch.core import optimize_uneven_split
+    from repro_torch.dse import evaluate as dse_eval
+    from repro_torch.dse import search as dse_search
+    from repro_torch.dse import space as dse_sp
+    from repro_torch.dse import uncertainty as dse_unc
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    sp = dse_space()
+    n = sp.size()
+    check(n == 19707, f"dse_bench's space has {n} candidates, not 19707")
+    idx = np.arange(n)
+    chunk = 512
+    card = dse.ChunkedEvaluator(sp, chunk, device=card_dev)
+    cpu = dse.ChunkedEvaluator(sp, chunk, device="cpu")
+    rates = {}
+
+    # 1. every candidate, card against the CPU, twice on the card
+    rates["fused_candidates_per_s"], t_sweep = host_rate(
+        lambda: card.evaluate_indices(idx), n)
+    got = card.evaluate_indices(idx)
+    t0 = time.perf_counter()
+    want = cpu.evaluate_indices(idx)
+    t_cpu = time.perf_counter() - t0
+    err = hold("fused sweep, card against CPU", eval_fields(got),
+               eval_fields(want))
+    same_arrays("a second fused sweep", card.evaluate_indices(idx), got)
+    ex_card = dse.exhaustive_search(sp, evaluator=card)
+    ex_cpu = dse.exhaustive_search(sp, evaluator=cpu)
+    check(ex_card.best.label == ex_cpu.best.label,
+          f"exhaustive winner {ex_card.best.label} on the card, "
+          f"{ex_cpu.best.label} on the CPU")
+    print(f"[12] {n} candidates ({n * len(sp.skus)} systems) in chunks of "
+          f"{chunk}: card against CPU max rel {err}; a second sweep "
+          f"bit-equal; exhaustive winner {ex_card.best.label} "
+          f"(${ex_card.best.portfolio_cost:,.0f}) on both; one sweep "
+          f"{t_sweep * 1e3:.2f} ms on the host clock, "
+          f"{rates['fused_candidates_per_s']:.4g} candidates/s (CPU "
+          f"{n / t_cpu:.4g}); {smi}")
+
+    wide = 4096
+    rates[f"fused_candidates_per_s_chunk_{wide}"], t_wide = host_rate(
+        lambda: dse.ChunkedEvaluator(sp, wide, device=card_dev)
+        .evaluate_indices(idx), n)
+    print(f"[12] the same sweep in chunks of {wide}: {t_wide * 1e3:.2f} ms, "
+          f"{rates[f'fused_candidates_per_s_chunk_{wide}']:.4g} candidates/s "
+          f"on the host clock (8x fewer launches a candidate); {smi}")
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending = card.dispatch_indices(idx)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    same_arrays("a sweep dispatched under sync debug mode",
+                dse_eval._to_host(pending), got)
+    print(f"[12] one sweep's {-(-n // chunk)} chunks dispatched under sync "
+          "debug mode 'error'; its one copy back equals the sweep")
+
+    # 2. Monte Carlo: 256 draws over 2,048 candidates
+    mc_idx = np.sort(np.random.default_rng(seed).choice(n, 2048,
+                                                        replace=False))
+    mc = dict(mc_key=prng.PRNGKey(seed, "cpu"), mc_draws=256)
+    rates["mc_candidates_per_s"], t_mc = host_rate(
+        lambda: card.evaluate_indices(mc_idx, **mc), mc_idx.size)
+    got_mc = card.evaluate_indices(mc_idx, **mc)
+    err = hold("Monte Carlo, card against CPU", eval_fields(got_mc),
+               eval_fields(cpu.evaluate_indices(mc_idx, **mc)))
+    print(f"[12] Monte Carlo, 256 draws over {mc_idx.size} candidates: card "
+          f"against CPU max rel {err}; {t_mc * 1e3:.2f} ms, "
+          f"{rates['mc_candidates_per_s']:.4g} candidates/s on the host "
+          f"clock; {smi}")
+
+    # 3. the legacy host-packing evaluator: deterministic, and the fused
+    #    path's prices at 1e-6
+    leg_idx = idx[:chunk]
+    legacy = dse.ChunkedEvaluator(sp, chunk, fused=False, device=card_dev)
+    first = legacy.evaluate_indices_legacy(leg_idx)
+    rates["legacy_candidates_per_s"], t_leg = host_rate(
+        lambda: legacy.evaluate_indices_legacy(leg_idx), leg_idx.size)
+    same_arrays("a second legacy run",
+                legacy.evaluate_indices_legacy(leg_idx), first)
+    err = hold("legacy against fused", {"pf": first.portfolio_cost},
+               {"pf": got.portfolio_cost[:chunk]}, rtol=1e-6)
+    print(f"[12] legacy evaluator over {chunk} candidates: three runs "
+          f"bit-equal, against the fused prices max rel {err}; "
+          f"{t_leg * 1e3:.1f} ms, {rates['legacy_candidates_per_s']:.4g} "
+          f"candidates/s on the host clock; {smi}")
+
+    # 4. the evolutionary search, nominal and at the q90 objective
+    search_kw = dict(population=256, generations=8, elite=32)
+    for label, risk in (("nominal", None),
+                        ("q90", dse.RiskConfig(n_draws=256, quantile=0.9))):
+        runs, secs = [], []
+        for dev in (card_dev, "cpu"):
+            ev = dse.ChunkedEvaluator(sp, chunk, device=dev)
+            t0 = time.perf_counter()
+            runs.append(dse.portfolio_search(
+                sp, prng.PRNGKey(seed + 1, dev), risk=risk, evaluator=ev,
+                **search_kw))
+            secs.append(time.perf_counter() - t0)
+        a, b = runs
+        check(a.best.label == b.best.label and
+              [h["best_label"] for h in a.history] ==
+              [h["best_label"] for h in b.history] and
+              [h["evaluated"] for h in a.history] ==
+              [h["evaluated"] for h in b.history],
+              f"{label} search: card and CPU histories differ")
+        hold(f"{label} search objectives",
+             {"best": [h["best_objective"] for h in a.history]},
+             {"best": [h["best_objective"] for h in b.history]})
+        rates[f"search_{label}_generations_per_s"] = \
+            search_kw["generations"] / secs[0]
+        print(f"[12] {label} portfolio_search, population 256, 8 "
+              f"generations: winner {a.best.label} and history as on the "
+              f"CPU; {a.n_evaluated} candidates priced; "
+              f"{rates[f'search_{label}_generations_per_s']:.4g} "
+              f"generations/s on the host clock, final sweep included (CPU "
+              f"{search_kw['generations'] / secs[1]:.4g}); {smi}")
+
+    # 5. the gradient partitioner
+    args = ("5nm", "MCM", [300.0, 200.0, 100.0, 100.0, 100.0], 3)
+    t0 = time.perf_counter()
+    u_card = optimize_uneven_split(*args, device=card_dev)
+    t_uneven = time.perf_counter() - t0
+    u_cpu = optimize_uneven_split(*args, device="cpu")
+    check(u_card["assignment"] == u_cpu["assignment"],
+          f"uneven split: {u_card['assignment']} on the card, "
+          f"{u_cpu['assignment']} on the CPU")
+    hold("uneven split", {k: u_card[k] for k in ("soft_cost", "hard_cost")},
+         {k: u_cpu[k] for k in ("soft_cost", "hard_cost")})
+    print(f"[12] optimize_uneven_split: assignment {u_card['assignment']} "
+          f"as on the CPU, 500 steps in {t_uneven:.2f} s on the host clock")
+
+    # 6. the DSE graphs one at a time: card ms (CUDA events, median of 20)
+    #    beside the bytes each must move once at 3.35 TB/s
+    enc = sp.encoder()
+    tables = enc.tables_on(card_dev)
+    meta = enc.meta
+    qty = torch.tensor([s_[2] for s_ in DSE_SKUS], dtype=torch.float32,
+                       device=card_dev)
+    cidx = torch.as_tensor(idx[:chunk], dtype=torch.int32, device=card_dev)
+    key = prng.PRNGKey(seed, card_dev)
+    sig = dse.Uncertainty().as_array(card_dev)
+    batch = dse_sp.encode_arrays(tables, meta, cidx)
+    pop = prng.randint(key, (256,), 0, n)
+    graphs = {}
+
+    def graph(name, fn, nbytes):
+        ms = median_event_ms(fn)
+        events, busy, _ = device_busy(fn)
+        graphs[name] = {"ms": ms, "bytes": nbytes,
+                        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                        "device_events": events, "busy_ms": busy}
+        print(f"[12] {name}: {ms:.4f} ms (CUDA events, median of 20), "
+              f"{events} device events busy {busy:.4f} ms "
+              f"(torch.profiler); {nbytes / 1e6:.3f} MB once take "
+              f"{graphs[name]['bound_ms']:.5f} ms; {smi}")
+
+    tab_bytes = tensor_bytes(tables)
+    graph("encode_arrays (512 candidates)",
+          lambda: dse_sp.encode_arrays(tables, meta, cidx),
+          tab_bytes + tensor_bytes(cidx, batch))
+    nre = dse_sp.encoded_nre(tables, meta, cidx)
+    graph("encoded_nre (512 candidates)",
+          lambda: dse_sp.encoded_nre(tables, meta, cidx),
+          tab_bytes + tensor_bytes(cidx) + 4 * tensor_bytes(nre.modules))
+    out = dse_eval._chunk_impl(tables, cidx, qty, meta=meta,
+                               flow="chip-last")
+    graph("_chunk_impl (512 candidates)",
+          lambda: dse_eval._chunk_impl(tables, cidx, qty, meta=meta,
+                                       flow="chip-last"),
+          tab_bytes + tensor_bytes(cidx, *[o for o in out if o is not None]))
+    out = dse_eval._chunk_mc_impl(tables, cidx, qty, key, sig, meta=meta,
+                                  flow="chip-last", n_draws=256,
+                                  quantiles=(0.5, 0.9))
+    graph("_chunk_mc_impl (512 candidates, 256 draws)",
+          lambda: dse_eval._chunk_mc_impl(
+              tables, cidx, qty, key, sig, meta=meta, flow="chip-last",
+              n_draws=256, quantiles=(0.5, 0.9)),
+          tab_bytes + tensor_bytes(cidx, *out[:4], out[4], out[5]))
+    draws = dse_unc.mc_re_totals_impl(batch, key, sig, "chip-last", 256)
+    graph("mc_re_totals_impl (1,536 systems, 256 draws)",
+          lambda: dse_unc.mc_re_totals_impl(batch, key, sig, "chip-last",
+                                            256),
+          tensor_bytes(batch, draws))
+    sens = dse_unc._sens_impl(batch, "chip-last", dse.SENSITIVITY_PARAMS)
+    graph("_sens_impl (1,536 systems)",
+          lambda: dse_unc._sens_impl(batch, "chip-last",
+                                     dse.SENSITIVITY_PARAMS),
+          tensor_bytes(batch, sens))
+    for label, n_draws in (("nominal", 0), ("256 draws", 256)):
+        step = functools.partial(
+            dse_search._gen_step_impl, tables, key, pop, qty, key, sig,
+            meta=meta, flow="chip-last", population=256, elite=32,
+            jump_prob=0.15, n_draws=n_draws, quantile=0.9)
+        res = step()
+        graph(f"_gen_step_impl (population 256, {label})", step,
+              tab_bytes + tensor_bytes(pop, res[1]) + 8)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    optimize_uneven_split(*args, device=card_dev)
+    end.record()
+    end.synchronize()
+    graphs["gradient.py:125-126 (one descent step)"] = {
+        "ms": start.elapsed_time(end) / 500, "bytes": None,
+        "bound_ms": None}
+    print(f"[12] optimize_uneven_split, one grad-and-step of 500: "
+          f"{start.elapsed_time(end) / 500:.4f} ms (CUDA events around the "
+          f"500 steps, divided by 500; its bytes are a few hundred); {smi}")
+    bits_ms = median_event_ms(lambda: prng.random_bits(key, (10 ** 6,)))
+    rates["random_bits_1e6_ms"] = bits_ms
+    print(f"[12] random_bits of 10^6 words: {bits_ms:.4f} ms (CUDA events, "
+          f"median of 20); its 8 MB of int64 words written once take "
+          f"{8e6 / HBM_BYTES_PER_S * 1e3:.5f} ms; {smi}")
+
+    launches = ops.launch_counts()
+    check(not any(launches.values()),
+          f"the DSE path launched kernels: {launches}")
+    print(f"[12] kernel launches on the DSE path: {launches} (its graphs "
+          f"are torch graphs; no TPU kernel is on this path)")
+    summary = {"rates": rates, "graphs": graphs,
+               "winner": ex_card.best.label, "card": smi}
+    print("[12] " + json.dumps({"dse": summary}))
     return summary
 
 
@@ -1356,6 +1720,8 @@ def main() -> int:
     torch.cuda.empty_cache()        # xlstm_125m's weights are gone
     phase(11, "the cost model, card against CPU", phase_cost_model, seed,
           smi)
+    phase(12, "the design-space exploration, card against CPU", phase_dse,
+          seed, smi)
 
     timed = {"flash_attention": ("float32", "S=512"),
              "flash_decode": ("float32", "T=1024"),

@@ -19,3 +19,14 @@ def resolve_device(device=None) -> torch.device:
             "repro_torch runs on an NVIDIA GPU and torch sees none; pass "
             "device='cpu' to run the plain PyTorch versions on the CPU")
     return dev
+
+
+def upload(host, device, dtype=None) -> torch.Tensor:
+    """A host array (or list) as a tensor on ``device``.  To a GPU it goes
+    through pinned memory without blocking the host, so code that must
+    not sync (a sweep's dispatch) can carry small host inputs over."""
+    t = torch.as_tensor(host, dtype=dtype)
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t.to(dev)

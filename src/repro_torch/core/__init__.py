@@ -11,7 +11,8 @@ The counterpart of ``repro.core``, module for module:
   nre_cost     -- scalar reference NRE path, Eqs. (6)-(8), amortization
   reuse        -- SCMS / OCME / FSMC scheme builders (Sec. 5)
   explorer     -- engine-backed design-space sweeps and partition search
-  gradient     -- (beyond paper) differentiable chiplet count
+  gradient     -- (beyond paper) differentiable chiplet count and
+                  uneven split
   codesign     -- (beyond paper) accelerator perf-per-dollar bridge
 
 The batched path (``SystemBatch`` + ``CostEngine``) is the primary API and
@@ -40,6 +41,8 @@ from .explorer import (best_partition, cost_area_curve, pareto_front,
                        sweep_hetero_partitions, sweep_partitions, sweep_specs)
 from .codesign import (AcceleratorSpec, accelerator_systems, cost_per_step,
                        price_accelerators)
+from .gradient import (PartitionResult, optimize_chiplet_count,
+                       optimize_uneven_split)
 
 __all__ = [
     "INTEGRATION_TECHS", "PROCESS_NODES", "IntegrationTech", "ProcessNode",
@@ -57,5 +60,6 @@ __all__ = [
     "scms_systems", "best_partition", "cost_area_curve", "pareto_front",
     "sweep_hetero_partitions", "sweep_partitions", "sweep_specs",
     "AcceleratorSpec", "accelerator_systems", "cost_per_step",
-    "price_accelerators",
+    "price_accelerators", "PartitionResult", "optimize_chiplet_count",
+    "optimize_uneven_split",
 ]

@@ -72,10 +72,39 @@ def package_flow_terms(flow: str, *, c_interposer, y1, c_substrate, c_bond,
 
 def _segment_sum(values: torch.Tensor, ids: torch.Tensor,
                  num_segments: int) -> torch.Tensor:
-    """``jax.ops.segment_sum``: the sum of ``values`` over each id."""
-    out = torch.zeros((num_segments,), dtype=values.dtype,
-                      device=values.device)
-    return out.index_add(0, ids, values)
+    """``jax.ops.segment_sum``: the sum of ``values`` over each id, the
+    same bits every call.  The CPU's ``index_add`` adds serially in input
+    order; on CUDA its atomics land in any order, so the sums there go
+    through :func:`_sorted_segment_sum`, which adds in that same order."""
+    if values.device.type == "cpu":
+        out = torch.zeros((num_segments,), dtype=values.dtype)
+        return out.index_add(0, ids, values)
+    return _sorted_segment_sum(values, ids, num_segments)
+
+
+def _sorted_segment_sum(values: torch.Tensor, ids: torch.Tensor,
+                        num_segments: int) -> torch.Tensor:
+    """Segment sums in input order, with no atomics and no host sync.
+
+    A stable sort groups each id's values in input order; a binary search
+    of the sorted ids gives each segment's length; ``segment_reduce``
+    then sums every segment serially, one thread a segment, from 0 — the
+    additions of a serial ``index_add``, so the bits equal the CPU's.
+    Zeros add nothing to a sum, so they take a key past the last segment
+    and are never read: the zeros of padded slots (every padded chip
+    points at entity 0) would otherwise make one long serial segment.
+    """
+    key = torch.where(values == 0.0, num_segments, ids.to(torch.int32))
+    sorted_key, order = torch.sort(key, stable=True)
+    bounds = torch.arange(num_segments + 1, dtype=torch.int32,
+                          device=values.device)
+    starts = torch.searchsorted(sorted_key, bounds)
+    # (n, 1) data: segment_reduce's one-thread-a-segment loop, not a block
+    # a segment; unsafe: lengths summing below n leave the zeros unread,
+    # and the check would read the device
+    out = torch.segment_reduce(values[order][:, None], "sum",
+                               lengths=starts.diff(), unsafe=True)
+    return out[:, 0]
 
 
 # ---------------------------------------------------------------------------

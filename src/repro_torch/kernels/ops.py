@@ -51,12 +51,39 @@ def _on_card(*tensors: torch.Tensor) -> bool:
                      f"and their plain versions on the CPU")
 
 
+class _FlashAttention(torch.autograd.Function):
+    """The kernel's forward with the oracle's backward: the counterpart of
+    the JAX package's custom VJP ``_flash_attn_core``, whose backward rule
+    differentiates ``ref.attention_ref`` at the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.scale = causal, scale
+        with torch.no_grad():
+            return _fa.flash_attention_fwd(q, k, v, causal=causal,
+                                           scale=scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = (x.detach().requires_grad_() for x in ctx.saved_tensors)
+        with torch.enable_grad():
+            out = ref.attention_ref(q, k, v, causal=ctx.causal,
+                                    scale=ctx.scale)
+        dq, dk, dv = torch.autograd.grad(out, (q, k, v), g)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q, k, v, *, causal: bool = True, scale=None):
     """q:(B,S,H,D) k/v:(B,T,Hkv,D) -> (B,S,H,Dv).
 
     Block contract of ``flash_attention_fwd``: S a multiple of min(128, S)
     and T of min(128, T).  Causal attention needs S == T, where the
     kernel's top-left and the oracle's bottom-right alignment agree.
+
+    On the card the result carries a ``grad_fn`` when an input requires
+    grad: the backward differentiates the oracle, as the JAX package's
+    custom VJP does.
     """
     s, t = q.shape[1], k.shape[1]
     if s % min(128, s) or t % min(128, t):
@@ -67,7 +94,12 @@ def flash_attention(q, k, v, *, causal: bool = True, scale=None):
                          f"S={s}, T={t}")
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     if _on_card(q, k, v):
-        out = _fa.flash_attention_fwd(qt, kt, vt, causal=causal, scale=scale)
+        if torch.is_grad_enabled() and any(
+                x.requires_grad for x in (q, k, v)):
+            out = _FlashAttention.apply(qt, kt, vt, causal, scale)
+        else:
+            out = _fa.flash_attention_fwd(qt, kt, vt, causal=causal,
+                                          scale=scale)
     else:
         out = ref.attention_ref(qt, kt, vt, causal=causal, scale=scale)
     return out.transpose(1, 2)

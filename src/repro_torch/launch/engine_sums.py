@@ -8,13 +8,14 @@ installed): the reference's packed batches, ``share_nre`` False and True,
 and its engine's ten outputs.  For each batch the script builds the port's
 batch from those leaves (``SystemBatch.from_arrays``) on the card and on
 the CPU, runs ``CostEngine().total`` on the card ``repeats`` times (default
-20; CUDA's ``index_add`` adds in any order, so each run may round
-differently), and prints, for every field, the largest relative difference
-over the runs against the JAX engine and against the CPU, and how many runs
-differ bit for bit from the first.  It also prints how far each of the four
+20), and prints, for every field, the largest relative difference over the
+runs against the JAX engine and against the CPU, and how many runs differ
+bit for bit from the first (none should: the engine's sums add in one
+order on the card).  It also prints how far each of the four
 amortization denominators, summed on the card in float32, lies from the
 same sum in float64.  It exits 1 if any field misses the engine's
-tolerance, 1e-5 relative and 1e-8 absolute (``tests/test_engine.py``).
+tolerance, 1e-5 relative and 1e-8 absolute (``tests/test_engine.py``), or
+if a run differs from the first.
 Needs a CUDA device.
 """
 from __future__ import annotations
@@ -83,7 +84,7 @@ def run(path: str, repeats: int) -> bool:
             vs_jax = [worst(r[k], want[k]) for r in runs]
             vs_cpu = [worst(r[k], on_cpu[k]) for r in runs]
             moved = sum(not torch.equal(r[k], runs[0][k]) for r in runs[1:])
-            held = all(h for _, h in vs_jax + vs_cpu)
+            held = all(h for _, h in vs_jax + vs_cpu) and not moved
             ok &= held
             print(f"  {k:16s} against JAX {max(r for r, _ in vs_jax):.3e}, "
                   f"against the CPU {max(r for r, _ in vs_cpu):.3e}, "

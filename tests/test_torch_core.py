@@ -550,3 +550,20 @@ def test_engine_gradient_in_chip_area_matches_jax(flow):
     (got,) = torch.autograd.grad(total, areas)
     close(want, got, rtol=1e-4, atol=1e-6, what="d total / d chip_area")
     assert bool((got[tb.chip_mask > 0] > 0).all())
+
+
+@pytest.mark.parametrize("n, segments", [(50_000, 20_000), (1_000, 10),
+                                         (5, 100), (0, 4)])
+def test_sorted_segment_sums_equal_index_add_bit_for_bit(n, segments):
+    """The card's deterministic segment sums (sort, counts,
+    segment_reduce), run here on the CPU: bit-equal to the serial
+    index_add, zeros, empty segments and one long segment included."""
+    from repro_torch.core.engine import _sorted_segment_sum
+    g = torch.Generator().manual_seed(n)
+    ids = torch.randint(0, segments, (n,), generator=g, dtype=torch.int32)
+    ids[: n // 4] = 0                      # one long segment
+    values = torch.rand(n, generator=g) * 1e5
+    values[::3] = 0.0                      # padded slots' zeros
+    want = torch.zeros(segments).index_add(0, ids, values)
+    got = _sorted_segment_sum(values, ids, segments)
+    assert got.dtype == want.dtype and torch.equal(got, want)

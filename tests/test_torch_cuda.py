@@ -1047,3 +1047,218 @@ def test_cost_model_defaults_to_the_card(cuda_device):
     assert card.n_rounded == host.n_rounded
     torch.testing.assert_close(card.n_relaxed, host.n_relaxed, rtol=1e-4,
                                atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("share", [False, True])
+def test_cost_engine_total_is_the_same_every_call(cuda_device, share):
+    """engine_bench's 10,000 systems priced 20 times on the card: every
+    field bit-equal to the first call's (the NRE segment sums land in one
+    fixed order)."""
+    from chip_smoke import make_specs
+    from repro_torch import core
+    systems = [core.spec(d) for d in make_specs(10_000)]
+    b = core.SystemBatch.from_systems(systems, share_nre=share,
+                                      device=cuda_device)
+    engine = core.CostEngine()
+    first = {k: v.cpu() for k, v in _cost_fields(engine.total(b)).items()}
+    for call in range(1, 20):
+        got = _cost_fields(engine.total(b))
+        for k, v in first.items():
+            assert torch.equal(got[k].cpu(), v), f"call {call}: {k} differs"
+
+
+GRAD_CASES = [  # (b, h, hkv, s, d), causal and not at S == T, GQA included
+    (1, 2, 2, 64, 32), (2, 4, 2, 128, 32), (1, 8, 2, 64, 64),
+    (1, 4, 1, 100, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", GRAD_CASES)
+def test_flash_attention_gradients_on_card_match_the_oracle(
+        cuda_device, shape, dtype, causal):
+    """ops.flash_attention on the card keeps autograd: the output has a
+    grad_fn, and dq, dk, dv equal the CPU oracle's (the JAX package's
+    custom VJP differentiates the same oracle)."""
+    b, h, hkv, s, d = shape
+    g = torch.Generator().manual_seed(s + d)
+    q, k, v = (torch.randn(b, s, n, d, generator=g).to(dtype)
+               for n in (h, hkv, hkv))
+    dout = torch.randn(b, s, h, d, generator=g).to(dtype)
+    grads = []
+    for dev in ("cpu", cuda_device):
+        leaves = [x.to(dev).detach().requires_grad_() for x in (q, k, v)]
+        before = ops.launch_counts()["flash_attention"]
+        out = ops.flash_attention(*leaves, causal=causal)
+        if dev != "cpu":
+            assert out.grad_fn is not None
+            assert ops.launch_counts()["flash_attention"] == before + 1
+        out.backward(dout.to(dev))
+        grads.append([x.grad.cpu() for x in leaves])
+    for name, want, got in zip("qkv", *grads):
+        assert got.dtype == dtype, name
+        _close(got, want, dtype)
+
+
+@pytest.mark.cuda
+def test_other_ops_still_refuse_grad_on_card(cuda_device):
+    """JAX differentiates no other kernel, so the five other ops raise on
+    the card when an input requires grad, as their wrappers do."""
+    def t(*shape):
+        return torch.randn(*shape, device=cuda_device).requires_grad_()
+    calls = {
+        "flash_decode": lambda: ops.flash_decode(
+            t(1, 1, 2, 16), t(1, 128, 2, 16), t(1, 128, 2, 16),
+            torch.full((1,), 100, dtype=torch.int32, device=cuda_device)),
+        "mamba_scan": lambda: ops.mamba_scan(
+            t(1, 16, 2, 8), t(1, 16, 2), t(2), t(1, 16, 4), t(1, 16, 4),
+            chunk=16),
+        "moe_gmm": lambda: ops.moe_gmm(t(2, 4, 32), t(2, 32, 64)),
+        "rmsnorm": lambda: ops.fused_rmsnorm(t(4, 64), t(64)),
+        "slstm_seq": lambda: ops.slstm_seq(t(1, 4, 4, 2, 8), t(4, 2, 8, 8),
+                                           t(4, 2, 8)),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match=f"CUDA kernel {name} has no "
+                                               f"backward"):
+            call()
+
+
+# -- the design-space exploration (repro_torch.dse) on the card ------------
+
+def _dse_bench_space():
+    from repro_torch import dse
+    return dse.DesignSpace(
+        skus=(dse.SKU("laptop", 300.0, 2e6), dse.SKU("desktop", 600.0, 1e6),
+              dse.SKU("server", 900.0, 3e5)),
+        processes=("5nm", "7nm", "12nm"), integrations=("MCM", "2.5D"),
+        chiplet_counts=(1, 2, 3, 4, 6), allow_reuse=True,
+        reuse_package_options=(False, True))
+
+
+def _arrays_close(got, want, rtol=1e-5):
+    import numpy as np
+    for f in ("sku_unit_total", "sku_unit_re", "sku_unit_nre",
+              "portfolio_cost"):
+        np.testing.assert_allclose(getattr(got, f), getattr(want, f),
+                                   rtol=rtol, atol=1e-8, err_msg=f)
+    for k in (want.risk or {}):
+        np.testing.assert_allclose(got.risk[k], want.risk[k], rtol=rtol,
+                                   err_msg=k)
+    assert (got.finite == want.finite).all()
+
+
+@pytest.mark.cuda
+def test_prng_on_card_is_the_cpu_stream(cuda_device):
+    import numpy as np
+    from repro_torch import random as tr
+    for seed in (0, 7):
+        kc, kg = tr.PRNGKey(seed, "cpu"), tr.PRNGKey(seed, cuda_device)
+        for fn in (lambda k: tr.split(k, 5), lambda k: tr.fold_in(k, 3),
+                   lambda k: tr.random_bits(k, (33, 7)),
+                   lambda k: tr.uniform(k, (1001,)),
+                   lambda k: tr.randint(k, (1001,), 0, 19707),
+                   lambda k: tr.bernoulli(k, 0.8, (64,)),
+                   lambda k: tr.uniform(tr.split(k, 9), (4,))):
+            assert torch.equal(fn(kg).cpu(), fn(kc))
+        ulp = (tr.normal(kg, (10_000,)).cpu().view(torch.int32).long()
+               - tr.normal(kc, (10_000,)).view(torch.int32).long()).abs()
+        assert int(ulp.max()) <= 4
+
+
+@pytest.mark.cuda
+def test_dse_sweep_on_card_matches_cpu_and_repeats(cuda_device):
+    """All 19,707 candidates of dse_bench's space in chunks of 512: the
+    card against the port on the CPU at 1e-5, the same cheapest
+    candidate, and a second sweep bit-equal to the first."""
+    import numpy as np
+    from repro_torch import dse
+    sp = _dse_bench_space()
+    idx = np.arange(sp.size())
+    card = dse.ChunkedEvaluator(sp, candidates_per_chunk=512,
+                                device=cuda_device)
+    got = card.evaluate_indices(idx)
+    want = dse.ChunkedEvaluator(sp, candidates_per_chunk=512,
+                                device="cpu").evaluate_indices(idx)
+    _arrays_close(got, want)
+    assert got.portfolio_cost.argmin() == want.portfolio_cost.argmin()
+    again = card.evaluate_indices(idx)
+    assert np.array_equal(again.sku_unit_total, got.sku_unit_total)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mc", [False, True])
+def test_dse_sweep_dispatch_does_not_sync(cuda_device, mc):
+    """A sweep's chunks queue on the card without one sync, the upload of
+    the indices included; only the final copy reads back."""
+    import numpy as np
+    from repro_torch import dse
+    from repro_torch import random as tr
+    from repro_torch.dse.evaluate import _to_host
+    sp = _dse_bench_space()
+    ev = dse.ChunkedEvaluator(sp, candidates_per_chunk=256,
+                              device=cuda_device)
+    idx = np.random.default_rng(0).integers(0, sp.size(), 1000)
+    kw = dict(mc_key=tr.PRNGKey(3, cuda_device), mc_draws=32) if mc else {}
+    want = ev.evaluate_indices(idx, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending = ev.dispatch_indices(idx, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    got = _to_host(pending)
+    assert np.array_equal(got.portfolio_cost, want.portfolio_cost)
+
+
+@pytest.mark.cuda
+def test_dse_search_and_monte_carlo_on_card_match_cpu(cuda_device):
+    import numpy as np
+    from repro_torch import dse
+    from repro_torch import random as tr
+    sp = _dse_bench_space()
+    kw = dict(population=64, generations=4, elite=8)
+    for risk in (None, dse.RiskConfig(n_draws=64, quantile=0.9)):
+        got = dse.portfolio_search(sp, tr.PRNGKey(0, cuda_device), risk=risk,
+                                   device=cuda_device, **kw)
+        want = dse.portfolio_search(sp, tr.PRNGKey(0, "cpu"), risk=risk,
+                                    device="cpu", **kw)
+        assert got.best.label == want.best.label
+        assert [h["best_label"] for h in got.history] == \
+            [h["best_label"] for h in want.history]
+        assert got.n_evaluated == want.n_evaluated
+    idx = np.arange(0, sp.size(), 97)
+    key = dict(mc_key=tr.PRNGKey(5, "cpu"), mc_draws=128)
+    _arrays_close(dse.ChunkedEvaluator(sp, 128, device=cuda_device)
+                  .evaluate_indices(idx, **key),
+                  dse.ChunkedEvaluator(sp, 128, device="cpu")
+                  .evaluate_indices(idx, **key))
+
+
+@pytest.mark.cuda
+def test_dse_legacy_evaluator_on_card_is_deterministic(cuda_device):
+    import numpy as np
+    from repro_torch import dse
+    sp = _dse_bench_space()
+    idx = np.random.default_rng(1).integers(0, sp.size(), 96)
+    ev = dse.ChunkedEvaluator(sp, 32, fused=False, device=cuda_device)
+    first = ev.evaluate_indices_legacy(idx)
+    again = ev.evaluate_indices_legacy(idx)
+    assert np.array_equal(first.sku_unit_total, again.sku_unit_total)
+    fused = dse.ChunkedEvaluator(sp, 32, device=cuda_device) \
+        .evaluate_indices(idx)
+    np.testing.assert_allclose(first.portfolio_cost, fused.portfolio_cost,
+                               rtol=1e-6)
+
+
+@pytest.mark.cuda
+def test_uneven_split_on_card_matches_cpu(cuda_device):
+    from repro_torch.core import optimize_uneven_split
+    args = ("5nm", "MCM", [300.0, 200.0, 100.0, 100.0, 100.0], 3)
+    got = optimize_uneven_split(*args, device=cuda_device)
+    want = optimize_uneven_split(*args, device="cpu")
+    assert got["assignment"] == want["assignment"]
+    for k in ("soft_cost", "hard_cost"):
+        torch.testing.assert_close(got[k], want[k], rtol=1e-5, atol=0)

@@ -1,5 +1,7 @@
 """Guards of the port's boundaries: it imports neither JAX nor the JAX
-package, and its entry points do not fall back to the CPU."""
+package, its entry points do not fall back to the CPU, and chip_smoke.py
+fails without a card (its DSE phase rehearses with the CPU in the card's
+place)."""
 import pathlib
 import shutil
 import subprocess
@@ -88,3 +90,71 @@ def test_cost_model_entry_points_raise_without_a_card(entry):
         pytest.skip("checks the behaviour on a machine without a GPU")
     with pytest.raises(RuntimeError, match="GPU"):
         _cost_model_entry(entry)()
+
+
+def _dse_entry(name):
+    import numpy as np
+    from repro_torch import dse
+    from repro_torch import random as prng
+    from repro_torch.core import optimize_uneven_split
+    from repro_torch.launch import portfolio_search as launch
+    space = dse.DesignSpace(skus=(dse.SKU("a", 100.0, 1e5),))
+    return {
+        "PRNGKey": lambda: prng.PRNGKey(0),
+        "ChunkedEvaluator": lambda: dse.ChunkedEvaluator(space),
+        "encode_batch": lambda: dse.encode_batch(space, np.arange(2)),
+        "evaluate_direct": lambda: dse.evaluate_direct(
+            space, space.candidate_at(0)),
+        "exhaustive_search": lambda: dse.exhaustive_search(space),
+        "portfolio_search": lambda: dse.portfolio_search(
+            space, np.zeros(2, np.uint32)),
+        "detail_rows": lambda: dse.detail_rows(space, space.candidate_at(0)),
+        "optimize_uneven_split": lambda: optimize_uneven_split(
+            "5nm", "MCM", [100.0, 50.0], 2),
+        "launch.portfolio_search": lambda: launch.main([]),
+    }[name]
+
+
+@pytest.mark.parametrize("entry", [
+    "PRNGKey", "ChunkedEvaluator", "encode_batch", "evaluate_direct",
+    "exhaustive_search", "portfolio_search", "detail_rows",
+    "optimize_uneven_split", "launch.portfolio_search"])
+def test_dse_entry_points_raise_without_a_card(entry):
+    """The design-space exploration defaults to the GPU too and raises
+    without one: no step of it falls back to the CPU unasked."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour on a machine without a GPU")
+    with pytest.raises(RuntimeError, match="GPU"):
+        _dse_entry(entry)()
+
+
+def test_chip_smoke_phase_12_rehearses_on_the_cpu(monkeypatch, capsys):
+    """chip_smoke.py's phase 12 with the CPU in the card's place (CUDA
+    events, syncs and the profiler stubbed): every step runs and holds."""
+    import time
+
+    import chip_smoke
+
+    class Event:
+        def __init__(self, **_):
+            self.t = 0.0
+
+        def record(self):
+            self.t = time.perf_counter()
+
+        def synchronize(self):
+            pass
+
+        def elapsed_time(self, other):
+            return (other.t - self.t) * 1e3
+
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "set_sync_debug_mode", lambda *a: None)
+    monkeypatch.setattr(chip_smoke, "median_event_ms",
+                        lambda fn, **_: chip_smoke.cpu_ms(fn))
+    monkeypatch.setattr(chip_smoke, "device_busy",
+                        lambda fn: (fn(), 0, 0.0, [])[1:])
+    out = chip_smoke.phase_dse(0, "CPU rehearsal", card_dev="cpu")
+    assert out["winner"] == "reuse[150mm2/12nm/MCM]"
+    assert "history as on the CPU" in capsys.readouterr().out
