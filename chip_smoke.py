@@ -110,7 +110,25 @@ prints its seconds:
    at the q90 objective, with the CPU's winner and history; the uneven
    split; candidates/s and generations/s on the host clock, and each DSE
    graph's card ms (CUDA events) beside its byte floor.  The DSE runs
-   none of the six kernels, and the phase fails if one launches.
+   none of the six kernels, and the phase fails if one launches;
+13. the pricing service (``repro_torch.service``) on dse_bench's space:
+   benchmarks/service_bench.py's full diet (8 clients, each 4 sweeps of
+   2,048 rows and 4 point queries, plus a search at population 32 for 8
+   generations, a Monte Carlo sweep at 64 draws, a what-if grid, a rank
+   over 128 candidates and a raw ``spec()`` group; chunk 128, split 32)
+   served on the card and on the CPU: every response ok, card against CPU
+   at 1e-5 with the same search winner and history, the card's responses
+   bit-equal to the port's ``ChunkedEvaluator`` / ``portfolio_search`` on
+   the card at chunk 128, one copy a tick and no first call of a lane
+   signature in a tick; a 5-client run with every tick under
+   ``torch.cuda.set_sync_debug_mode("error")`` (the copy excepted); the
+   aggregate candidates/s at >= 0.5x the single-client fused rate at
+   chunk 128 (service_bench's bound), p50/p95/p99 latency, ticks by lane,
+   padded-slot waste, and the card's busy share of 16 chunk ticks
+   (``torch.profiler``); then a seeded chaos schedule (typed envelopes,
+   ok rows bit-equal to the fused or legacy oracle) and a crash replayed
+   from its journal (answers equal to an uncrashed run's), on the card.
+   No kernel of the six launches.
 
 Then a ``{"kernels": [...]}`` line and, last, the device line.  Exits
 nonzero without a CUDA device or without the repository around it.
@@ -1658,6 +1676,425 @@ def phase_dse(seed: int, smi: str, card_dev: str = "cuda") -> dict:
     return summary
 
 
+# benchmarks/service_bench.py's full diet: 8 clients, each 4 sweeps of
+# 2,048 rows and 4 point queries, plus a search, a Monte Carlo sweep, a
+# what-if grid, a rank and a raw spec() group (clients 0-4), at chunk 128
+SERVICE_CLIENTS = 8
+
+
+def service_config(S, **kw):
+    return S.ServiceConfig(
+        chunk=128, split=32, warm_mc=((64, (0.5, 0.9)),),
+        warm_search=(S.SearchWarmup(population=32, elite=8),),
+        max_pending=10_000_000, **kw)
+
+
+def service_diet(S, i: int, rng, size: int, sweeps: int = 4,
+                 sweep_rows: int = 2048) -> list:
+    """Client ``i``'s requests, as service_bench's ``_client_requests``
+    makes them (deterministic in the seed)."""
+    reqs = []
+    for _ in range(sweeps):
+        reqs.append(S.PriceRequest(
+            indices=rng.integers(0, size, sweep_rows).tolist()))
+        reqs.append(S.PriceRequest(indices=rng.integers(0, size, 4).tolist()))
+    if i == 0:
+        reqs.append(S.SearchRequest(seed=1, population=32, generations=8,
+                                    elite=8))
+    elif i == 1:
+        reqs.append(S.MCRiskRequest(
+            indices=rng.integers(0, size, 64).tolist(),
+            mc=S.McSpec(draws=64, quantiles=(0.5, 0.9), seed=0)))
+    elif i == 2:
+        reqs.append(S.WhatIfRequest(base=int(rng.integers(0, size))))
+    elif i == 3:
+        reqs.append(S.RankRequest(indices=rng.integers(0, size, 128).tolist(),
+                                  top_k=5))
+    elif i == 4:
+        reqs.append(S.PriceSystemsRequest(specs=(
+            {"kind": "soc", "name": "soc_a", "area": 250.0,
+             "process": "7nm", "quantity": 1e6},
+            {"kind": "split", "name": "mcm_b", "area": 500.0,
+             "process": "7nm", "n_chiplets": 2, "integration": "MCM",
+             "quantity": 5e5},)))
+    return reqs
+
+
+def serve_diet(S, sp, cfg, dev, clients: int = SERVICE_CLIENTS,
+               on_service=None):
+    """Serve the diet of ``clients`` concurrent clients; returns (the
+    requests, the responses in the same order, the wall from the first
+    submission to the last answer, the stopped service)."""
+    import asyncio
+
+    size = sp.size()
+    diets = [service_diet(S, i, np.random.default_rng(100 + i), size)
+             for i in range(clients)]
+
+    async def main():
+        svc = S.PricingService(sp, cfg, device=dev)
+        if on_service is not None:
+            on_service(svc)
+        await svc.start()                               # the warmup
+
+        async def client(reqs):
+            return [await svc.submit(r) for r in reqs]
+
+        t0 = time.perf_counter()
+        per_client = await asyncio.gather(*(client(r) for r in diets))
+        wall = time.perf_counter() - t0
+        await svc.stop()
+        return per_client, wall, svc
+
+    per_client, wall, svc = asyncio.run(main())
+    return ([r for d in diets for r in d],
+            [r for rs in per_client for r in rs], wall, svc)
+
+
+def hold_response(label, got, want, rtol=ENGINE_RTOL) -> None:
+    """One service response against another (card against CPU): prices,
+    risk stats and what-if grids within ``rtol``, rank orders, search
+    winners and histories equal."""
+    check(got.ok and want.ok and got.kind == want.kind,
+          f"{label}: {got.error} / {want.error}")
+    a, b = got.result, want.result
+    if got.kind in ("price", "mc_risk"):
+        check(np.array_equal(a.idx, b.idx), f"{label}: indices differ")
+        hold(label, eval_fields(a), eval_fields(b), rtol)
+    elif got.kind == "rank":
+        hold(label, {"values": a.values}, {"values": b.values}, rtol)
+        if not np.array_equal(a.order, b.order):
+            print(f"[13] {label}: rank orders differ; objectives "
+                  f"{a.values.tolist()} / {b.values.tolist()}")
+        check(np.array_equal(a.order, b.order), f"{label}: rank order")
+    elif got.kind == "what_if":
+        check([r["candidate"] for r in a.rows] ==
+              [r["candidate"] for r in b.rows], f"{label}: what-if grid")
+        hold(label, {"base": [a.base_cost],
+                     "grid": [r["portfolio_cost"] for r in a.rows]},
+             {"base": [b.base_cost],
+              "grid": [r["portfolio_cost"] for r in b.rows]}, rtol)
+    elif got.kind == "search":
+        if a.best.label != b.best.label:
+            print(f"[13] {label}: winners {a.best.label} "
+                  f"({a.best.portfolio_cost}) / {b.best.label} "
+                  f"({b.best.portfolio_cost})")
+        check(a.best.label == b.best.label and
+              [h["best_label"] for h in a.history] ==
+              [h["best_label"] for h in b.history] and
+              [h["evaluated"] for h in a.history] ==
+              [h["evaluated"] for h in b.history] and
+              [r.label for r in a.ranked] == [r.label for r in b.ranked],
+              f"{label}: search winner or history differs")
+        hold(label, {"history": [h["best_objective"] for h in a.history],
+                     "ranked": [r.portfolio_cost for r in a.ranked]},
+             {"history": [h["best_objective"] for h in b.history],
+              "ranked": [r.portfolio_cost for r in b.ranked]}, rtol)
+    else:
+        hold(label, {k: [r[k] for r in a.rows]
+                     for k in ("re_total", "nre_total", "total")},
+             {k: [r[k] for r in b.rows]
+              for k in ("re_total", "nre_total", "total")}, rtol)
+
+
+def hold_direct(label, svc, req, resp, ev, search_kw) -> None:
+    """A card response bit-equal to the port's direct API on the card:
+    ``ChunkedEvaluator`` at the service's chunk shape and
+    ``portfolio_search`` with that evaluator."""
+    from repro_torch import dse
+    from repro_torch import random as prng
+    a = resp.result
+    if resp.kind in ("price", "mc_risk"):
+        kw = {}
+        if req.mc is not None:
+            kw = dict(mc_key=prng.PRNGKey(req.mc.seed, ev.device),
+                      mc_draws=req.mc.draws,
+                      mc_quantiles=req.mc.quantiles)
+        same_arrays(label, a, ev.evaluate_indices(np.asarray(req.indices),
+                                                  **kw))
+    elif resp.kind == "rank":
+        d = ev.evaluate_indices(np.asarray(req.indices))
+        order = np.lexsort((d.idx, d.portfolio_cost))
+        check(np.array_equal(a.order, d.idx[order]) and
+              np.array_equal(a.values, d.portfolio_cost[order]),
+              f"{label}: rank differs from the direct sweep")
+    elif resp.kind == "what_if":
+        idx = svc._what_if_grid(req)[0]
+        d = ev.evaluate_indices(idx).portfolio_cost
+        check(a.base_cost == float(d[0]) and
+              [r["portfolio_cost"] for r in a.rows] ==
+              [float(x) for x in d[1:]],
+              f"{label}: what-if differs from the direct sweep")
+    elif resp.kind == "search":
+        ds = dse.portfolio_search(
+            svc.space, prng.PRNGKey(req.seed, ev.device),
+            population=req.population, generations=req.generations,
+            elite=req.elite, evaluator=ev, **search_kw)
+        check(a.history == ds.history and
+              [r.label for r in a.ranked] == [r.label for r in ds.ranked]
+              and [r.portfolio_cost for r in a.ranked] ==
+              [r.portfolio_cost for r in ds.ranked],
+              f"{label}: search differs from portfolio_search")
+
+
+def phase_service(seed: int, smi: str, card_dev: str = "cuda") -> dict:
+    """Phase 13: the pricing service (``repro_torch.service``) on
+    dse_bench's space, service_bench's full diet served on the card and on
+    the CPU.  ``card_dev`` is the card; naming the CPU rehearses the
+    phase's control flow, with both sides on the CPU."""
+    import asyncio
+    import shutil
+
+    from repro_torch import dse
+    from repro_torch import service as S
+    from repro_torch.kernels import ops
+    from repro_torch.obs import torchhooks
+    from repro_torch.resilience import FaultInjector
+
+    ops.reset_launch_counts()
+    sp = dse_space()
+    size = sp.size()
+    cfg = service_config(S)
+    chunk = cfg.chunk
+
+    # the single-client fused rate at chunk 128 (service_bench's yardstick)
+    ev = dse.ChunkedEvaluator(sp, chunk, device=card_dev)
+    idx = np.random.default_rng(seed).integers(0, size, 4 * 2048)
+    single, _ = host_rate(lambda: ev.evaluate_indices(idx), idx.size)
+
+    # 1. the diet on the card (each tick's dispatch under sync debug mode
+    #    "error", the one copy excepted) and on the CPU
+    real_to_host = torchhooks.to_host
+
+    def copy_outside_debug(tree):
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            return real_to_host(tree)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    def under_debug(svc):
+        tick = svc._tick
+
+        def checked():
+            torch.cuda.set_sync_debug_mode("error")
+            torchhooks.to_host = copy_outside_debug
+            try:
+                return tick()
+            finally:
+                torchhooks.to_host = real_to_host
+                torch.cuda.set_sync_debug_mode(0)
+
+        svc._tick = checked
+
+    reqs, card, wall, svc = serve_diet(S, sp, cfg, card_dev)
+    _, debug, _, dsvc = serve_diet(S, sp, cfg, card_dev, clients=5,
+                                   on_service=under_debug)
+    check(all(r.ok for r in debug), "a tick under sync debug mode failed")
+    t0 = time.perf_counter()
+    _, cpu, cpu_wall, cpu_svc = serve_diet(S, sp, cfg, "cpu")
+    t_cpu = time.perf_counter() - t0
+    bad = [r for r in card + cpu if not r.ok]
+    check(not bad, f"{len(bad)} requests failed: {bad[:1]}")
+    for j, (a, b) in enumerate(zip(card, cpu)):
+        hold_response(f"request {j} ({a.kind}), card against CPU", a, b)
+    for j, (req, r) in enumerate(zip(reqs, card)):
+        if r.kind != "price_systems":
+            hold_direct(f"request {j} ({r.kind}) against the direct API",
+                        svc, req, r, ev, {})
+    snap, dsnap = svc.snapshot(), dsvc.snapshot()
+    for label, sn in (("card", snap), ("sync-debug", dsnap),
+                      ("CPU", cpu_svc.snapshot())):
+        check(sn["device_gets"] == sn["ticks"],
+              f"{label}: {sn['device_gets']} copies in {sn['ticks']} ticks")
+        check(sn["recompiles_after_warmup"] == 0,
+              f"{label}: {sn['recompiles_after_warmup']} first calls in "
+              "ticks")
+    check(snap["ticks_by_lane"] == cpu_svc.snapshot()["ticks_by_lane"],
+          "card and CPU ticked different lanes")
+    led = snap["ledger"]
+    check(led["open"] == 0 and led["tick_residual_rel_max"] <= 0.05 and
+          led["unattributed_ms"] == 0.0, f"ledger: {led}")
+    check(all(r.trace_id and r.bill and r.bill["status"] == "ok"
+              for r in card), "a response lacks a trace id or closed bill")
+    agg = snap["rows_priced"] / wall
+    ratio = agg / single
+    lat = snap["latency_s"]
+    cpu_rate = cpu_svc.snapshot()["rows_priced"] / cpu_wall
+    winner = next(r for r in card if r.kind == "search").result.best.label
+    print(f"[13] service_bench's diet, {SERVICE_CLIENTS} clients, "
+          f"{len(card)} requests, {snap['rows_priced']} rows in "
+          f"{snap['ticks']} ticks {snap['ticks_by_lane']}: every response "
+          f"ok, card against CPU at 1e-5 (same search winner {winner} and "
+          f"history), bit-equal to the direct APIs on the card; "
+          f"{snap['device_gets']} copies, 0 first calls in ticks; "
+          f"{dsnap['ticks']} ticks of 5 clients under sync debug mode "
+          f"'error'")
+    print(f"[13] card: {agg:.6g} candidates/s aggregate over {wall:.4f} s "
+          f"(host clock), {ratio:.4f}x the single-client fused rate "
+          f"{single:.6g} at chunk {chunk}; latency p50 "
+          f"{lat['p50'] * 1e3:.3f} ms, p95 {lat['p95'] * 1e3:.3f} ms, p99 "
+          f"{lat['p99'] * 1e3:.3f} ms; padded-slot waste "
+          f"{snap['padded_waste_frac']:.4f}; busy in ticks "
+          f"{snap['busy_s']:.4f} s; CPU {cpu_rate:.6g} candidates/s "
+          f"({t_cpu:.1f} s); {smi}")
+    check(ratio >= 0.5, f"coalesced rate {agg:.0f} is {ratio:.3f}x the "
+          f"single-client rate {single:.0f} (service_bench needs >= 0.5x)")
+
+    # 2. the card's busy share of chunk ticks: 16 one-chunk price requests
+    #    in a row, device time (torch.profiler) over the ticks' wall
+    bsvc = S.PricingService(sp, service_config(S, result_cache_entries=0),
+                            device=card_dev)
+    bsvc.warmup()
+    rng = np.random.default_rng(seed + 1)
+
+    def sixteen_ticks():
+        async def main():
+            await bsvc.start()
+            for _ in range(16):
+                r = await bsvc.submit(S.PriceRequest(
+                    indices=rng.integers(0, size, chunk).tolist()))
+                check(r.ok, f"busy run: {r.error}")
+            await bsvc.stop()
+        asyncio.run(main())
+
+    sixteen_ticks()                                     # warm
+    busy0 = bsvc.metrics.per_lane["chunk"].busy_s
+    sixteen_ticks()                                     # unprofiled
+    tick_ms = (bsvc.metrics.per_lane["chunk"].busy_s - busy0) / 16 * 1e3
+    events, busy_ms, top = device_busy(sixteen_ticks)
+    busy_ms /= 16
+    share = busy_ms / tick_ms if tick_ms else 0.0
+    top = [(name[:48], round(ms / 16, 4)) for name, ms in top]
+    print(f"[13] 16 chunk ticks: {tick_ms:.4f} ms a tick on the host clock "
+          f"(unprofiled), the card busy {busy_ms:.4f} ms a tick "
+          f"({events // 16} device events; torch.profiler, 16 more ticks), "
+          f"a busy share of {share:.4f}; most busy ms a tick in {top}; "
+          f"{smi}")
+
+    # 3. a seeded chaos schedule on the card: typed envelopes, ok rows
+    #    bit-equal to the oracle their provenance names
+    chaos = ("seed=13;dispatch_error:p=0.4;poison:p=0.35,n=2;"
+             "flood:p=0.25,n=2;recompile:p=0.5,n=1")
+    ccfg = service_config(S, breaker_cooldown_s=0.05,
+                          result_cache_entries=0)
+    crng = np.random.default_rng(7)
+    batches = [crng.integers(0, size, 8).tolist() for _ in range(12)]
+
+    async def chaos_run():
+        s_ = S.PricingService(sp, ccfg, device=card_dev)
+        s_.faults = FaultInjector(chaos)
+        await s_.start()
+        out = await asyncio.gather(
+            *(s_.submit(S.PriceRequest(indices=b)) for b in batches))
+        await s_.stop()
+        return out, s_
+
+    resps, csvc = asyncio.run(chaos_run())
+    legacy = dse.ChunkedEvaluator(sp, chunk, fused=False, device=card_dev)
+    codes, n_ok = [], 0
+    for b, r in zip(batches, resps):
+        codes.append("ok" if r.ok else r.error.code)
+        if not r.ok:
+            check(r.error.code in (S.QUEUE_FULL, S.NUMERICAL_ERROR),
+                  f"chaos: untyped failure {r.error}")
+            continue
+        n_ok += 1
+        mask = r.degraded_rows if r.degraded else np.zeros(len(b), bool)
+        fused = ev.evaluate_indices(np.asarray(b))
+        old = legacy.evaluate_indices_legacy(np.asarray(b)) \
+            if mask.any() else None
+        for j in range(len(b)):
+            src = old if mask[j] else fused
+            check(np.array_equal(r.result.sku_unit_total[j],
+                                 src.sku_unit_total[j]),
+                  f"chaos: row {j} differs from its oracle")
+    cres = csvc.snapshot()["resilience"]
+    check(n_ok >= 1 and cres["loop_errors"] == 0 and
+          csvc.sched.pending_rows == 0, f"chaos: {cres}")
+    print(f"[13] chaos schedule '{chaos}': outcomes {codes}; faults fired "
+          f"{cres['faults']['fired']}; ok rows bit-equal to the fused or "
+          f"legacy oracle their provenance names")
+
+    # the poison fault writes NaN into a row of the tick's host copy: its
+    # owner alone fails, the coalesced sibling stays bit-equal
+    pair = [list(range(40)), list(range(1000, 1040))]
+
+    async def poison_run():
+        s_ = S.PricingService(sp, ccfg, device=card_dev)
+        s_.faults = FaultInjector("seed=3;poison:p=1.0,n=1")
+        await s_.start()
+        out = await asyncio.gather(
+            *(s_.submit(S.PriceRequest(indices=b)) for b in pair))
+        await s_.stop()
+        return out
+
+    poisoned = asyncio.run(poison_run())
+    check(sorted((r.ok, r.error.code if r.error else "") for r in poisoned)
+          == [(False, S.NUMERICAL_ERROR), (True, "")],
+          f"poison: {[r.error for r in poisoned]}")
+    for b, r in zip(pair, poisoned):
+        if r.ok:
+            same_arrays("poison's sibling", r.result,
+                        ev.evaluate_indices(np.asarray(b)))
+    print("[13] poison fault: its owner failed with numerical_error, the "
+          "coalesced sibling bit-equal to the direct sweep")
+
+    # 4. a crash and its journal replay, on the card
+    jdir = os.path.join(ROOT, "build", "service_journal")
+    shutil.rmtree(jdir, ignore_errors=True)
+    dcfg = service_config(S, durability=S.DurabilityConfig(
+        directory=jdir, checkpoint_every=2))
+    crash_reqs = [S.PriceRequest(indices=list(range(300))),
+                  S.MCRiskRequest(indices=[5, 50, 500], mc=S.McSpec(
+                      draws=64, quantiles=(0.5, 0.9), seed=3)),
+                  S.SearchRequest(seed=2, population=32, generations=8,
+                                  elite=8),
+                  S.RankRequest(indices=list(range(0, 2000, 7)), top_k=3)]
+    clean, _ = S.serve(sp, crash_reqs, service_config(S), device=card_dev)
+
+    async def crash_and_replay():
+        s_ = S.PricingService(sp, dcfg, device=card_dev)
+        await s_.start()
+        s_.faults = FaultInjector("seed=1;crash:p=0.3,n=1")
+        crashed = await asyncio.gather(*(s_.submit(r) for r in crash_reqs))
+        await s_.stop()
+        s_.faults = FaultInjector("")
+        await s_.start()
+        replayed = await s_.drain_replayed()
+        await s_.stop()
+        return crashed, replayed, s_
+
+    crashed, replayed, rsvc = asyncio.run(crash_and_replay())
+    dur = rsvc.snapshot()["durability"]
+    by_trace = {r.trace_id: r for r in replayed}
+    for c, want, req in zip(crashed, clean, crash_reqs):
+        got = c if c.ok else by_trace.get(c.trace_id)
+        check(got is not None and got.ok, f"crash: {req.kind} lost")
+        hold_response(f"crash replay ({req.kind})", got, want, rtol=0.0)
+    shutil.rmtree(jdir, ignore_errors=True)
+    print(f"[13] crash fault ({dur['crashes']} crash): "
+          f"{sum(not c.ok for c in crashed)} requests cut, "
+          f"{dur['journal_replayed']} replayed from the journal "
+          f"({dur['checkpoints_restored']} search restored from its "
+          f"checkpoint), every answer equal to an uncrashed run's")
+
+    launches = ops.launch_counts()
+    check(not any(launches.values()),
+          f"the service path launched kernels: {launches}")
+    print(f"[13] kernel launches on the service path: {launches}")
+    summary = {"agg_candidates_per_s": agg, "single_client_per_s": single,
+               "vs_single_client": ratio, "latency_s": lat,
+               "ticks_by_lane": snap["ticks_by_lane"],
+               "padded_waste_frac": snap["padded_waste_frac"],
+               "tick_ms": tick_ms, "tick_busy_ms": busy_ms,
+               "busy_share": share, "wall_s": wall,
+               "cpu_candidates_per_s": cpu_rate,
+               "chaos": codes, "card": smi}
+    print("[13] " + json.dumps({"service": summary}))
+    return summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -1722,6 +2159,8 @@ def main() -> int:
           smi)
     phase(12, "the design-space exploration, card against CPU", phase_dse,
           seed, smi)
+    phase(13, "the pricing service, card against CPU", phase_service, seed,
+          smi)
 
     timed = {"flash_attention": ("float32", "S=512"),
              "flash_decode": ("float32", "T=1024"),

@@ -25,6 +25,7 @@ from typing import Dict, List
 import torch
 
 from .. import resolve_device
+from ..obs import torchhooks
 from .batch import SystemBatch
 from .re_cost import REBreakdown
 from .yield_model import dies_per_wafer, raw_die_cost, yield_negative_binomial
@@ -219,6 +220,11 @@ def _total_impl(b: SystemBatch, flow: str) -> TotalCost:
     return TotalCost(re=_re_impl(b, flow), nre=_nre_impl(b))
 
 
+# The module-level probe every CostEngine.total and the pricing service's
+# raw lane call (see repro_torch.obs.torchhooks).
+_TOTAL_PROBE = torchhooks.instrument(_total_impl, "engine.total")
+
+
 def portfolio_totals(unit_totals, quantities):
     """Reduce per-unit totals to per-group portfolio costs.
 
@@ -336,7 +342,7 @@ class CostEngine:
 
     def total(self, batch: SystemBatch, flow: str = None) -> TotalCost:
         """RE + amortized NRE per unit for every system in the batch."""
-        return _total_impl(batch, self.flow if flow is None else flow)
+        return _TOTAL_PROBE(batch, self.flow if flow is None else flow)
 
     def as_rows(self, batch: SystemBatch, flow: str = None) -> List[Dict]:
         """Host-side list of per-system dicts (benchmark/report helper);

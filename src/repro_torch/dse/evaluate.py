@@ -30,6 +30,7 @@ from .. import random as prng
 from .. import resolve_device, upload
 from ..core.batch import SystemBatch, pad_batch
 from ..core.engine import CostEngine, _re_impl, finite_rows, portfolio_totals
+from ..obs import torchhooks
 from ..obs.trace import TRACER as _TRACER
 from .space import (Candidate, DesignSpace, EncoderMeta, candidate_systems,
                     encode_arrays, encoded_nre)
@@ -142,6 +143,41 @@ def _chunk_mc_impl(tables, idx, qty, key, sig, *, meta: EncoderMeta,
             finite_rows(unit, pf, *risk.values()))
 
 
+# Module-level probes: the direct APIs and the pricing service call these
+# same functions (that sharing is what makes service responses bit-exact
+# against the direct calls); each counts its first call of an argument
+# signature and, while tracing is on, times every call (see
+# repro_torch.obs.torchhooks).
+_CHUNK_PROBE = torchhooks.instrument(_chunk_impl, "dse.chunk")
+_CHUNK_MC_PROBE = torchhooks.instrument(_chunk_mc_impl, "dse.chunk_mc")
+
+
+def pack_rows(out) -> Tuple[torch.Tensor, Tuple[str, ...]]:
+    """One chunk's outputs as ``(K, 3S + 2 + R)`` float32 rows (unit, RE,
+    NRE, portfolio cost, R risk stats, finite) and the risk keys — the
+    layout :func:`unpack_rows` reads after the one copy back."""
+    unit, re_t, nre_t, pf, risk, finite = out
+    risk = risk or {}
+    cols = [unit, re_t, nre_t, pf[:, None]]
+    cols += [v[:, None] for v in risk.values()]
+    cols.append(finite.to(torch.float32)[:, None])
+    return torch.cat(cols, dim=1), tuple(risk)
+
+
+def unpack_rows(host: np.ndarray, n_skus: int,
+                risk_keys: Tuple[str, ...]) -> Tuple:
+    """Host views of packed rows: ``(unit, re, nre, pf, risk, finite)``
+    with ``risk`` a dict keyed as the reference's jitted chunk returns it
+    (sorted), or None."""
+    s = n_skus
+    risk = None
+    if risk_keys:
+        col = {kk: 3 * s + 1 + i for i, kk in enumerate(risk_keys)}
+        risk = {kk: host[:, col[kk]] for kk in sorted(col)}
+    return (host[:, :s], host[:, s:2 * s], host[:, 2 * s:3 * s],
+            host[:, 3 * s], risk, host[:, -1] > 0.0)
+
+
 @dataclasses.dataclass
 class EvalArrays:
     """Struct-of-arrays result of the fused pipeline: one row per
@@ -203,18 +239,13 @@ class PendingSweep:
 
 def _to_host(pending: PendingSweep) -> EvalArrays:
     """The sweep's one device-to-host copy, unpacked into an EvalArrays."""
-    host = pending.rows.cpu().numpy()
-    s = pending.n_skus
-    risk = None
-    if pending.risk_keys:
-        col = {kk: 3 * s + 1 + i for i, kk in enumerate(pending.risk_keys)}
-        # keys in the order the reference's jitted chunk returns them
-        risk = {kk: host[:, col[kk]].copy() for kk in sorted(col)}
-    return EvalArrays(idx=pending.idx, sku_unit_total=host[:, :s].copy(),
-                      sku_unit_re=host[:, s:2 * s].copy(),
-                      sku_unit_nre=host[:, 2 * s:3 * s].copy(),
-                      portfolio_cost=host[:, 3 * s].copy(), risk=risk,
-                      finite=host[:, -1] > 0.0)
+    unit, re_t, nre_t, pf, risk, finite = unpack_rows(
+        torchhooks.to_host(pending.rows), pending.n_skus, pending.risk_keys)
+    if risk is not None:
+        risk = {kk: v.copy() for kk, v in risk.items()}
+    return EvalArrays(idx=pending.idx, sku_unit_total=unit.copy(),
+                      sku_unit_re=re_t.copy(), sku_unit_nre=nre_t.copy(),
+                      portfolio_cost=pf.copy(), risk=risk, finite=finite)
 
 
 class ChunkedEvaluator:
@@ -310,21 +341,16 @@ class ChunkedEvaluator:
             with _TRACER.span("chunk", lo=lo):
                 chunk = dev_idx[lo:lo + k]
                 if mc_key is None:
-                    out = _chunk_impl(tables, chunk, self._qty32,
-                                      meta=self.encoder.meta, flow=self.flow)
+                    out = _CHUNK_PROBE(tables, chunk, self._qty32,
+                                       meta=self.encoder.meta, flow=self.flow)
                 else:
-                    out = _chunk_mc_impl(tables, chunk, self._qty32, key,
-                                         sig, meta=self.encoder.meta,
-                                         flow=self.flow,
-                                         n_draws=int(mc_draws),
-                                         quantiles=quantiles)
-                unit, re_t, nre_t, pf, risk, finite = out
-                risk = risk or {}
-                risk_keys = tuple(risk)
-                cols = [unit, re_t, nre_t, pf[:, None]]
-                cols += [v[:, None] for v in risk.values()]
-                cols.append(finite.to(torch.float32)[:, None])
-                rows.append(torch.cat(cols, dim=1))
+                    out = _CHUNK_MC_PROBE(tables, chunk, self._qty32, key,
+                                          sig, meta=self.encoder.meta,
+                                          flow=self.flow,
+                                          n_draws=int(mc_draws),
+                                          quantiles=quantiles)
+                packed, risk_keys = pack_rows(out)
+                rows.append(packed)
         return PendingSweep(idx=idx, rows=torch.cat(rows)[:idx.size],
                             risk_keys=risk_keys, n_skus=s)
 
@@ -449,8 +475,9 @@ class ChunkedEvaluator:
             # portfolio costs: (draws, len(chunk))
             dev.append(portfolio_draws(draws[:, :n], qty, s).reshape(-1))
         # every device->host transfer of the chunk in one copy
-        host = torch.cat([d.reshape(-1).to(torch.float32) for d in dev]
-                         ).cpu().numpy().astype(np.float64)
+        host = torchhooks.to_host(torch.cat(
+            [d.reshape(-1).to(torch.float32) for d in dev])
+        ).astype(np.float64)
         pf_draws = None
         if mc_key is not None:
             pf_draws = host[3 * batch.n_systems:].reshape(-1, len(chunk))
@@ -570,7 +597,8 @@ def evaluate_direct(space: DesignSpace, cand: Candidate,
     grp = candidate_systems(space, cand)
     tc = engine.total(SystemBatch.from_systems(grp, share_nre=True,
                                                device=device), flow=flow)
-    host = torch.stack([tc.total, tc.re.total, tc.nre.total]).cpu().numpy()
+    host = torchhooks.to_host(torch.stack([tc.total, tc.re.total,
+                                            tc.nre.total]))
     qty = np.asarray([sk.quantity for sk in space.skus], np.float64)
     unit = host[0].astype(np.float64)
     return CandidateResult(

@@ -35,6 +35,7 @@ from .. import resolve_device
 from ..checkpoint.store import CheckpointManager
 from ..core.engine import portfolio_totals
 from ..core.explorer import pareto_front
+from ..obs import torchhooks
 from ..obs.trace import TRACER as _TRACER
 from .evaluate import (CandidateResult, ChunkedEvaluator, _fused_risk_draws,
                        _fused_totals)
@@ -361,12 +362,19 @@ def _gen_step_impl(tables, key, pop, qty, mc_key, sig, *, meta: EncoderMeta,
     return pop, next_pop, elite_idx[0], elite_obj[0]
 
 
+# The one module-level probe of the generation step: portfolio_search and
+# the pricing service's search lane call it alike (see
+# repro_torch.obs.torchhooks).
+_GEN_STEP_PROBE = torchhooks.instrument(_gen_step_impl, "search.gen_step")
+
+
 def _read_generation(pop, gen_idx, gen_obj):
     """The priced population and the generation's best index and
     objective in one device-to-host copy (the objective rides as its
     float32 bits)."""
-    packed = torch.cat([pop, gen_idx[None].to(torch.int32),
-                        gen_obj[None].view(torch.int32)]).cpu().numpy()
+    packed = torchhooks.to_host(torch.cat(
+        [pop, gen_idx[None].to(torch.int32),
+         gen_obj[None].view(torch.int32)]))
     return packed[:-2], int(packed[-2]), \
         float(packed[-1:].view(np.float32)[0])
 
@@ -429,7 +437,7 @@ def portfolio_search(space: DesignSpace, key, *,
     for gen in range(state.gen, generations):
         with _TRACER.span("generation", gen=gen):
             state.k_loop, k_gen = prng.split(state.k_loop).unbind(0)
-            pop_out, pop_next, gen_idx, gen_obj = _gen_step_impl(
+            pop_out, pop_next, gen_idx, gen_obj = _GEN_STEP_PROBE(
                 tables, k_gen, state.pop, qty, state.mc_key, state.sig,
                 meta=enc.meta, flow=flow, population=population,
                 elite=elite, jump_prob=float(jump_prob), n_draws=n_draws,

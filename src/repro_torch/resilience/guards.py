@@ -1,20 +1,102 @@
-"""Host-side numerical guardrail of ``SystemBatch.from_systems``.
+"""Host-side numerical guardrails (the counterpart of
+``repro.resilience.guards``).
 
-:func:`validate_packed_arrays` range-checks the staged host arrays (all
-values finite, areas/costs/quantities non-negative, yields inside (0, 1],
-``package_area_factor`` strictly positive since the engine divides by it)
-before they are copied to the device.  Padded slots (zero areas, unit
-yields) are legal by construction.  numpy + stdlib only.
+Two validators, numpy + stdlib (and torch for tensor leaves) only:
+
+* :func:`nonfinite_paths` — walk an arbitrary request-shaped object
+  (dataclasses, dicts, sequences, numpy arrays, tensors, scalars) and
+  return human-readable paths of every NaN/Inf numeric leaf.  The service
+  protocol layer uses it to reject a request with ``invalid_request``
+  *before* the bad value can reach a fused chunk and contaminate
+  coalesced siblings.  A ``torch.Tensor`` leaf is scanned as an array
+  (on the host: validation runs at admission, off the tick loop), where
+  the reference lets an opaque object pass.
+* :func:`validate_packed_arrays` — range checks over the staged
+  ``SystemBatch.from_systems`` host arrays (all values finite,
+  areas/costs/quantities non-negative, yields inside (0, 1],
+  ``package_area_factor`` strictly positive since the engine divides by
+  it) before they are copied to the device.  Padded slots (zero areas,
+  unit yields) are legal by construction.
 """
 from __future__ import annotations
 
-from typing import List, Mapping, Sequence
+import dataclasses
+from typing import Any, List, Mapping, Sequence
 
 import numpy as np
+import torch
 
 # Stop after this many problems: error envelopes should name the first
 # offenders, not serialize a million-row array of NaNs.
 _MAX_PROBLEMS = 8
+
+
+def _scan_array(arr: np.ndarray, path: str, problems: List[str]):
+    if arr.dtype.kind not in "fc":
+        return
+    finite = np.isfinite(arr)
+    if finite.all():
+        return
+    flat_bad = np.flatnonzero(~finite.reshape(-1))
+    for pos in flat_bad[:2]:
+        idx = np.unravel_index(int(pos), arr.shape) if arr.ndim else ()
+        loc = "".join(f"[{int(i)}]" for i in idx)
+        problems.append(f"{path}{loc} = {arr.reshape(-1)[int(pos)]}")
+        if len(problems) >= _MAX_PROBLEMS:
+            return
+
+
+def nonfinite_paths(obj: Any, path: str = "value",
+                    _depth: int = 0) -> List[str]:
+    """Paths of non-finite numeric leaves in ``obj`` (empty = clean)."""
+    problems: List[str] = []
+    _walk_nonfinite(obj, path, problems, _depth)
+    return problems
+
+
+def _walk_nonfinite(obj: Any, path: str, problems: List[str], depth: int):
+    if len(problems) >= _MAX_PROBLEMS or depth > 8 or obj is None:
+        return
+    # bool is an int subclass; int/bool/str can't be non-finite.
+    if isinstance(obj, (bool, int, str, bytes, np.integer, np.bool_)):
+        return
+    if isinstance(obj, (float, np.floating, complex, np.complexfloating)):
+        if not np.isfinite(obj):
+            problems.append(f"{path} = {obj}")
+        return
+    if isinstance(obj, np.ndarray):
+        _scan_array(obj, path, problems)
+        return
+    if isinstance(obj, torch.Tensor):
+        t = obj.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        _scan_array(t.numpy(), path, problems)
+        return
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        for f in dataclasses.fields(obj):
+            _walk_nonfinite(getattr(obj, f.name), f"{path}.{f.name}",
+                            problems, depth + 1)
+        return
+    if isinstance(obj, Mapping):
+        for k, v in obj.items():
+            _walk_nonfinite(v, f"{path}[{k!r}]", problems, depth + 1)
+        return
+    if isinstance(obj, Sequence):
+        # Fast path: an all-numeric sequence vectorizes to one isfinite.
+        try:
+            arr = np.asarray(obj, dtype=np.float64)
+        except (TypeError, ValueError, RuntimeError):
+            arr = None
+        if arr is not None and arr.dtype.kind == "f":
+            _scan_array(arr, path, problems)
+            return
+        for i, v in enumerate(obj):
+            _walk_nonfinite(v, f"{path}[{i}]", problems, depth + 1)
+        return
+    # Opaque object: passes (Uncertainty et al. are dataclasses and
+    # recurse).
+
 
 # ---------------------------------------------------------------------------
 # SystemBatch staging-array validation

@@ -1262,3 +1262,110 @@ def test_uneven_split_on_card_matches_cpu(cuda_device):
     assert got["assignment"] == want["assignment"]
     for k in ("soft_cost", "hard_cost"):
         torch.testing.assert_close(got[k], want[k], rtol=1e-5, atol=0)
+
+
+def _service_script(S, size):
+    import numpy as np
+    rng = np.random.default_rng(11)
+    mc = S.McSpec(draws=64, quantiles=(0.5, 0.9), seed=4)
+    return [S.PriceRequest(indices=rng.integers(0, size, 700).tolist()),
+            S.PriceRequest(indices=rng.integers(0, size, 5).tolist()),
+            S.MCRiskRequest(indices=rng.integers(0, size, 40).tolist(),
+                            mc=mc),
+            S.RankRequest(indices=rng.integers(0, size, 200).tolist(),
+                          top_k=4),
+            S.WhatIfRequest(base=int(rng.integers(0, size))),
+            S.SearchRequest(seed=2, population=32, generations=4, elite=8),
+            S.PriceSystemsRequest(specs=(
+                {"kind": "soc", "name": "a", "area": 250.0,
+                 "process": "7nm", "quantity": 1e6},))]
+
+
+@pytest.mark.cuda
+def test_service_on_card_is_bit_exact_against_the_direct_apis(cuda_device):
+    """dse_bench's space served on the card at chunk 128: every response
+    equals the port's ChunkedEvaluator / portfolio_search on the card at
+    the same chunk shape, bit for bit, and one copy a tick."""
+    import numpy as np
+    from repro_torch import dse
+    from repro_torch import random as tr
+    from repro_torch import service as S
+    sp = _dse_bench_space()
+    cfg = S.ServiceConfig(chunk=128, split=32, warm_mc=((64, (0.5, 0.9)),))
+    reqs = _service_script(S, sp.size())
+    resps, svc = S.serve(sp, reqs, cfg, device=cuda_device)
+    assert all(r.ok for r in resps), [r.error for r in resps]
+    ev = dse.ChunkedEvaluator(sp, 128, device=cuda_device)
+    for req, r in zip(reqs[:3], resps[:3]):
+        kw = {} if req.mc is None else dict(
+            mc_key=tr.PRNGKey(req.mc.seed, cuda_device), mc_draws=64,
+            mc_quantiles=(0.5, 0.9))
+        d = ev.evaluate_indices(np.asarray(req.indices), **kw)
+        assert np.array_equal(r.result.sku_unit_total, d.sku_unit_total)
+        assert np.array_equal(r.result.portfolio_cost, d.portfolio_cost)
+        for k in (d.risk or {}):
+            assert np.array_equal(r.result.risk[k], d.risk[k])
+    d = ev.evaluate_indices(np.asarray(reqs[3].indices))
+    order = np.lexsort((d.idx, d.portfolio_cost))
+    assert np.array_equal(resps[3].result.order, d.idx[order])
+    grid = svc._what_if_grid(reqs[4])[0]
+    assert [row["portfolio_cost"] for row in resps[4].result.rows] == \
+        [float(x) for x in ev.evaluate_indices(grid).portfolio_cost[1:]]
+    ds = dse.portfolio_search(sp, tr.PRNGKey(2, cuda_device), population=32,
+                              generations=4, elite=8, evaluator=ev)
+    assert resps[5].result.history == ds.history
+    assert [x.portfolio_cost for x in resps[5].result.ranked] == \
+        [x.portfolio_cost for x in ds.ranked]
+    snap = svc.snapshot()
+    assert snap["device_gets"] == snap["ticks"]
+    assert snap["recompiles_after_warmup"] == 0
+    from repro_torch.obs import torchhooks
+    host = torchhooks.to_host(torch.ones(4, device=cuda_device))
+    assert host.flags.writeable
+
+
+@pytest.mark.cuda
+def test_service_ticks_run_without_a_sync_before_their_copy(cuda_device):
+    """Every tick of a mixed run (chunk, Monte Carlo, search and raw
+    lanes) under sync debug mode "error": only the one copy may sync."""
+    from repro_torch import service as S
+    from repro_torch.obs import torchhooks
+    sp = _dse_bench_space()
+    cfg = S.ServiceConfig(chunk=128, split=32, warm_mc=((64, (0.5, 0.9)),),
+                          warm_search=(S.SearchWarmup(population=32,
+                                                      elite=8),))
+    real = torchhooks.to_host
+
+    def copy(tree):
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            return real(tree)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    svc = S.PricingService(sp, cfg, device=cuda_device)
+    tick = svc._tick
+
+    def checked():
+        torch.cuda.set_sync_debug_mode("error")
+        torchhooks.to_host = copy
+        try:
+            return tick()
+        finally:
+            torchhooks.to_host = real
+            torch.cuda.set_sync_debug_mode("default")
+
+    svc._tick = checked
+    import asyncio
+
+    async def main():
+        await svc.start()
+        out = await asyncio.gather(*(svc.submit(r) for r in
+                                     _service_script(S, sp.size())))
+        await svc.stop()
+        return out
+
+    resps = asyncio.run(main())
+    assert all(r.ok for r in resps), [r.error for r in resps]
+    assert set(svc.snapshot()["ticks_by_lane"]) == {"chunk", "mc", "gen",
+                                                    "raw"}

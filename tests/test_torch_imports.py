@@ -158,3 +158,67 @@ def test_chip_smoke_phase_12_rehearses_on_the_cpu(monkeypatch, capsys):
     out = chip_smoke.phase_dse(0, "CPU rehearsal", card_dev="cpu")
     assert out["winner"] == "reuse[150mm2/12nm/MCM]"
     assert "history as on the CPU" in capsys.readouterr().out
+
+
+def _service_entry(name):
+    from repro_torch import dse, service
+    from repro_torch.launch import pricing_service as launch
+    space = dse.DesignSpace(skus=(dse.SKU("a", 100.0, 1e5),))
+    return {
+        "PricingService": lambda: service.PricingService(space),
+        "serve": lambda: service.serve(
+            space, [service.PriceRequest(indices=[0])]),
+        "launch.pricing_service": lambda: launch.main([]),
+    }[name]
+
+
+@pytest.mark.parametrize("entry", ["PricingService", "serve",
+                                   "launch.pricing_service"])
+def test_service_entry_points_raise_without_a_card(entry):
+    """The pricing service defaults to the GPU and raises without one."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour on a machine without a GPU")
+    with pytest.raises(RuntimeError, match="GPU"):
+        _service_entry(entry)()
+
+
+NEW_MODULES = [
+    "repro_torch.resilience.faults", "repro_torch.resilience.retry",
+    "repro_torch.resilience.watchdog", "repro_torch.resilience.guards",
+    "repro_torch.obs.registry", "repro_torch.obs.flight",
+    "repro_torch.obs.ledger", "repro_torch.obs.slo",
+    "repro_torch.obs.torchhooks", "repro_torch.service",
+    "repro_torch.service.protocol", "repro_torch.service.scheduler",
+    "repro_torch.service.cache", "repro_torch.service.durability",
+    "repro_torch.service.metrics", "repro_torch.service.server",
+    "repro_torch.launch.pricing_service"]
+
+
+def test_service_slice_modules_are_ported():
+    """Every module of the service slice exists and imports; that none of
+    them imports JAX is held by test_port_and_chip_smoke_import_no_jax,
+    which imports every module of the port in one fresh interpreter."""
+    import importlib
+    for mod in NEW_MODULES:
+        path = ROOT / "src" / (mod.replace(".", "/") + ".py")
+        assert path.exists() or (path.with_suffix("") / "__init__.py"
+                                 ).exists(), mod
+        importlib.import_module(mod)
+
+
+def test_chip_smoke_phase_13_rehearses_on_the_cpu(monkeypatch, capsys):
+    """chip_smoke.py's phase 13 with the CPU in the card's place (syncs,
+    sync debug mode and the profiler stubbed): the full diet, the direct
+    APIs, the chaos schedule and the crash replay all hold."""
+    import chip_smoke
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "set_sync_debug_mode", lambda *a: None)
+    monkeypatch.setattr(chip_smoke, "device_busy",
+                        lambda fn: (fn(), 0, 0.0, [])[1:])
+    out = chip_smoke.phase_service(0, "CPU rehearsal", card_dev="cpu")
+    assert out["vs_single_client"] >= 0.5
+    assert set(out["ticks_by_lane"]) == {"chunk", "mc", "gen", "raw"}
+    text = capsys.readouterr().out
+    assert "bit-equal to the direct APIs" in text
+    assert "every answer equal to an uncrashed run's" in text
