@@ -128,7 +128,26 @@ prints its seconds:
    (``torch.profiler``); then a seeded chaos schedule (typed envelopes,
    ok rows bit-equal to the fused or legacy oracle) and a crash replayed
    from its journal (answers equal to an uncrashed run's), on the card.
-   No kernel of the six launches.
+   No kernel of the six launches;
+14. training through the port's trainer (``parallel.steps``, the plain
+   route of the models with attention through the flash-attention kernel,
+   remat "full"), every earlier model's tensors freed: (a) full-width
+   glm4_9b cut to 2 layers, the same parameters and 1 x 128 batch on the
+   card and on the CPU: loss within 1e-4 relative, each gradient leaf
+   within 1e-3 of its max |g|, one AdamW update from the same gradient
+   tree within 1e-6 of each leaf's max, and 4 flash-attention launches
+   (forward and recompute) and no other; (b) full-width glm4_9b at 8 of
+   its 40 layers (2.2524 B parameters, 45 GB of fp32 state and gradient)
+   for 6 steps of 4 x 512 tokens at the launcher's lr, warmup and
+   schedule: every loss finite, exactly 16 flash-attention launches a step
+   and none of the other five kernels, the median step (host clock),
+   tokens/s, one more step under torch.profiler for the busy share, the
+   top device kernels and flash attention's share, peak memory, and the
+   model FLOPs over the step against the fp32 peak; (c)
+   ``launch.train.main`` for xlstm_125m (full width and depth) to step 30
+   with checkpoints at 20 and 30, then to step 60, resuming from 30, and
+   tests/test_substrate.py's resume property on the card (6 steps straight
+   against 3 + save + restore + 3 at 1e-6).
 
 Then a ``{"kernels": [...]}`` line and, last, the device line.  Exits
 nonzero without a CUDA device or without the repository around it.
@@ -2095,6 +2114,308 @@ def phase_service(seed: int, smi: str, card_dev: str = "cuda") -> dict:
     return summary
 
 
+# Phase 14, training: full-width glm4_9b at 8 of its 40 layers, 2.2524 B
+# parameters.  The fp32 param, master, m, v and gradient (20 bytes a
+# parameter, 45 GB) fit the 80 GB card beside the logits of a 4 x 512 batch
+# (1.24 GB each for the logits, their softmax and their gradient).
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 4, 512, 6
+
+
+def train_launches(cfg, steps: int) -> dict:
+    """Kernel launches ``steps`` train steps of a dense model imply: one
+    flash attention a block in the forward and one in its remat recompute
+    (``cfg.remat`` "full"); the norms, and every other kernel, are plain on
+    the training route."""
+    want = {k: 0 for k in ("flash_attention", "flash_decode", "mamba_scan",
+                           "moe_gmm", "rmsnorm", "slstm_seq")}
+    want["flash_attention"] = 2 * cfg.n_layers * steps
+    return want
+
+
+def to_dev(batch, dev):
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def train_cut(cfg, seed, card_dev) -> dict:
+    """14(a): the same parameters and batch (1 x 128) on the card and on
+    the CPU: loss within 1e-4 relative, each gradient leaf within 1e-3 of
+    its max |g|, and one AdamW update from the same gradient tree within
+    1e-6 of each leaf's max."""
+    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.kernels import ops
+    from repro_torch.models import api
+    from repro_torch.models.common import count_params, init_params
+    from repro_torch.optim import adamw_init, adamw_update
+    from repro_torch.parallel.steps import loss_and_grads
+    from repro_torch.tree import leaves, tree_map
+    loss_fn = api.loss_fn(cfg)
+    p_card = init_params(api.param_spec(cfg), torch.Generator(
+        device=card_dev).manual_seed(seed), card_dev)
+    p_cpu = tree_map(lambda t: t.to("cpu", copy=True), p_card)
+    batch = synthetic_batch(DataConfig(seq_len=128, global_batch=1,
+                                       vocab=cfg.vocab, seed=seed), 0)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    l_card, g_card = loss_and_grads(loss_fn, p_card, to_dev(batch, card_dev))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    launched = ops.launch_counts()
+    l_cpu, g_cpu = loss_and_grads(loss_fn, p_cpu, to_dev(batch, "cpu"))
+    t2 = time.perf_counter()
+    if card_dev == "cuda":
+        check(launched == train_launches(cfg, 1), f"a loss and its "
+              f"gradients launched {launched}, not {train_launches(cfg, 1)}")
+    rel = abs(float(l_card) - float(l_cpu)) / abs(float(l_cpu))
+    check(math.isfinite(float(l_card)) and rel <= 1e-4,
+          f"card loss {float(l_card)} against the CPU's {float(l_cpu)}")
+    g_worst = 0.0
+    for a, b in zip(leaves(g_card), leaves(g_cpu), strict=True):
+        err = ((a.cpu() - b).abs().max() / b.abs().max()).item()
+        g_worst = max(g_worst, err)
+        check(err <= 1e-3, f"a gradient leaf {tuple(b.shape)} is off the "
+                           f"CPU's by {err} of its max |g|")
+    # one AdamW update from the CPU's gradient tree, on both
+    outs = []
+    for dev, params in ((card_dev, p_card), ("cpu", p_cpu)):
+        grads = tree_map(lambda t: t.to(dev), g_cpu)
+        outs.append(adamw_update(grads, adamw_init(params), 3e-4,
+                                 param_dtype=torch.float32))
+    (np_card, st_card), (np_cpu, st_cpu) = outs
+    u_worst = 0.0
+    for a, b in zip(leaves((np_card, st_card.m, st_card.v)),
+                    leaves((np_cpu, st_cpu.m, st_cpu.v)), strict=True):
+        err = ((a.cpu() - b).abs().max() / b.abs().max()).item()
+        u_worst = max(u_worst, err)
+        check(err <= 1e-6, f"the AdamW update of a leaf {tuple(b.shape)} "
+                           f"is off the CPU's by {err} of its max")
+    print(f"  {cfg.n_layers}-layer {cfg.name} (d_model {cfg.d_model}, "
+          f"{count_params(api.param_spec(cfg)) / 1e9:.4f} B params), "
+          f"1 x 128 tokens: loss card {float(l_card):.6f} cpu "
+          f"{float(l_cpu):.6f} (rel {rel:.2e}); worst gradient leaf "
+          f"{g_worst:.2e} of its max |g|; one AdamW update, worst leaf "
+          f"{u_worst:.2e} of its max; launches {launched}; card "
+          f"{t1 - t0:.2f} s, cpu {t2 - t1:.2f} s")
+    return {"loss_rel": rel, "grad_worst": g_worst, "update_worst": u_worst}
+
+
+def train_flops(cfg, n_params: int, batch: int, seq: int) -> float:
+    """Model FLOPs of one train step (forward and backward, the remat
+    recompute not counted): 6 a token for each weight that multiplies (all
+    but the norm scales; the tied table once, as the output layer) and, a
+    layer, 3 x 2 causal-halved attention products of 2 B S^2 H D each."""
+    n_mult = n_params - (2 * cfg.n_layers + 1) * cfg.d_model
+    attn = 3 * cfg.n_layers * 2 * 2 * batch * seq * seq * cfg.n_heads \
+        * cfg.dh / 2
+    return 6 * n_mult * batch * seq + attn
+
+
+def train_full(cfg, seed, card_dev, batch, seq, steps) -> dict:
+    """14(b): ``steps`` train steps through ``parallel.steps`` at the
+    launcher's lr, warmup and schedule, each from launch counts of 0, on
+    the host clock (synchronised); then one more step under
+    torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.kernels import ops
+    from repro_torch.models import api
+    from repro_torch.models.common import count_params
+    from repro_torch.parallel import steps as st
+    n_params = count_params(api.param_spec(cfg))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = st.init_train_state(cfg, torch.Generator(
+        device=card_dev).manual_seed(seed), card_dev)
+    torch.cuda.synchronize()
+    print(f"  {cfg.name} (d_model {cfg.d_model}), {cfg.n_layers} layers: "
+          f"{n_params / 1e9:.4f} B params, {20 * n_params / 1e9:.1f} GB of "
+          f"fp32 param, master, m, v and gradient; state made in "
+          f"{time.perf_counter() - t0:.1f} s; batch {batch} x {seq}")
+    step_fn = st.make_train_step(cfg, base_lr=3e-4,
+                                 warmup=min(20, steps // 10 + 1),
+                                 total_steps=steps)
+    dc = DataConfig(seq_len=seq, global_batch=batch, vocab=cfg.vocab,
+                    seed=seed)
+    want = train_launches(cfg, 1)
+    times, losses, total = [], [], {k: 0 for k in want}
+    for i in range(steps):
+        b = to_dev(synthetic_batch(dc, i), card_dev)
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, b)
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        launched = ops.launch_counts()
+        total = {k: total[k] + launched[k] for k in total}
+        losses.append(loss)
+        print(f"  step {i + 1}: loss {loss:.6f}, lr "
+              f"{float(metrics['lr']):.3e}, {times[-1]:.1f} ms, launches "
+              f"{launched}")
+        check(math.isfinite(loss), f"step {i + 1}: loss {loss}")
+        if card_dev == "cuda":
+            check(launched == want, f"step {i + 1} launched {launched}, "
+                                    f"not {want}")
+    med = float(np.median(times))
+    tokens = batch * seq
+    b = to_dev(synthetic_batch(dc, steps), card_dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, metrics = step_fn(state, b)
+        check(math.isfinite(float(metrics["loss"])), "the profiled step's "
+                                                     "loss is not finite")
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n, us = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, us + e.device_time_total)
+    busy = sum(us for _, us in by_name.values()) / 1e3
+    fa = [(n, us) for name, (n, us) in by_name.items()
+          if DEVICE_NAMES["flash_attention"] in name]
+    fa_n, fa_ms = sum(n for n, _ in fa), sum(us for _, us in fa) / 1e3
+    flops = train_flops(cfg, n_params, batch, seq)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    share = 100 * busy / med if med else 0.0
+    print(f"  median step {med:.1f} ms of {steps} (host clock, "
+          f"synchronised; min {min(times):.1f}, max {max(times):.1f}), "
+          f"{tokens / med * 1e3:.1f} tokens/s")
+    print(f"  one more step under torch.profiler: device busy {busy:.1f} ms "
+          f"= {share:.1f}% of the median step, "
+          f"{sum(n for n, _ in by_name.values())} device events; "
+          f"flash_attention {fa_n} kernels, {fa_ms:.2f} ms = "
+          f"{100 * fa_ms / busy if busy else 0.0:.2f}% of the busy time")
+    for name, (n, us) in sorted(by_name.items(),
+                                key=lambda kv: -kv[1][1])[:10]:
+        print(f"    {us / 1e3:9.2f} ms  {n:6d}  {name[:90]}")
+    print(f"  peak memory {peak:.2f} GB (torch.cuda.max_memory_allocated); "
+          f"model FLOPs {flops / 1e12:.2f} T a step (6 a token a "
+          f"multiplying weight + causal attention, no recompute) over the "
+          f"median step = {flops / med / 1e9:.1f} TFLOP/s, "
+          f"{100 * flops / med / 1e9 / (PEAK_FLOPS[torch.float32] / 1e12):.1f}"
+          f"% of the card's fp32 (non-tensor-core) peak of 67 TFLOP/s "
+          f"(H100 SXM data sheet; TF32 is off)")
+    return {"losses": losses, "step_ms": times, "median_ms": med,
+            "tokens_per_s": tokens / med * 1e3, "busy_ms": busy,
+            "busy_share": share, "flash_attention_ms": fa_ms,
+            "flash_attention_kernels": fa_n, "peak_gb": peak,
+            "model_tflops": flops / 1e12, "launches": total}
+
+
+def train_launcher(seed, card_dev, smoke: bool) -> dict:
+    """14(c): ``launch.train.main`` for xlstm_125m with a checkpoint
+    directory: a first call to step 30 (checkpoints at 20 and 30), a
+    second to step 60, which must resume from step 30; both return 0."""
+    import contextlib
+    import io
+    import shutil
+    from repro_torch.launch import train
+    ckpt = os.path.join(ROOT, "build", "train_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    args = ["--arch", "xlstm_125m", "--ckpt-dir", ckpt, "--ckpt-every",
+            "20", "--device", card_dev, "--seed", str(seed)] + \
+        (["--smoke", "--batch", "2", "--seq", "32"] if smoke else [])
+    outs, rcs = [], []
+    for steps in (30, 60):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rcs.append(train.main(args + ["--steps", str(steps)]))
+        outs.append(buf.getvalue())
+        print("\n".join("    " + line for line in outs[-1].splitlines()))
+        print(f"  the call to step {steps} returned {rcs[-1]} in "
+              f"{time.perf_counter() - t0:.1f} s")
+        if steps == 30:
+            saved = sorted(p for p in os.listdir(ckpt)
+                           if p.startswith("step_"))
+            check(saved == ["step_00000020", "step_00000030"],
+                  f"checkpoints after the first call: {saved}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    check(rcs == [0, 0], f"the launcher returned {rcs}")
+    check(f"[resume] restored step 30 from {ckpt}" in outs[1],
+          "the second call did not resume from step 30")
+    return {"returns": rcs}
+
+
+def train_resume(cfg, seed, card_dev) -> float:
+    """14(c): tests/test_substrate.py's resume property on the card: 6 steps
+    straight equal 3, save, restore, 3, at 1e-6."""
+    import shutil
+    from repro_torch.checkpoint import restore, save
+    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.parallel import steps as st
+    from repro_torch.tree import leaves
+    step = st.make_train_step(cfg, total_steps=6)
+    dc = DataConfig(seq_len=64, global_batch=2, vocab=cfg.vocab, seed=seed)
+
+    def fresh():
+        return st.init_train_state(cfg, torch.Generator(
+            device=card_dev).manual_seed(seed), card_dev)
+
+    def run(state, lo, hi):
+        for s in range(lo, hi):
+            state, _ = step(state, to_dev(synthetic_batch(dc, s), card_dev))
+        return state
+    straight = run(fresh(), 0, 6)
+    half = run(fresh(), 0, 3)
+    ckpt = os.path.join(ROOT, "build", "train_resume")
+    save(ckpt, 3, half)
+    resumed = run(restore(ckpt, 3, fresh()), 3, 6)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    worst = 0.0
+    for a, b in zip(leaves(straight.params), leaves(resumed.params),
+                    strict=True):
+        worst = max(worst, (a - b).abs().max().item())
+        check(torch.allclose(a, b, atol=1e-6, rtol=1e-6),
+              f"a resumed leaf {tuple(a.shape)} is off the straight run by "
+              f"{(a - b).abs().max().item()}")
+    print(f"  resume property ({cfg.name}, 2 x 64 tokens): 6 steps straight "
+          f"against 3 + save + restore + 3, worst |diff| {worst:.3e} "
+          f"(atol = rtol = 1e-6)")
+    return worst
+
+
+def phase_train(seed: int, smi: str, card_dev: str = "cuda",
+                smoke: bool = False) -> dict:
+    """Phase 14: training through the port's trainer (``parallel.steps``,
+    ``launch.train``) on the card: (a) a full-width 2-layer glm4_9b against
+    the CPU, (b) full-width glm4_9b at 8 layers for 6 steps, (c) the
+    launcher's run and resume of xlstm_125m and the resume property.
+    ``card_dev`` is the card; naming the CPU with ``smoke`` rehearses the
+    phase's control flow on the reduced configs."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    glm = get_config("glm4_9b")
+    xl = get_config("xlstm_125m")
+    if smoke:
+        glm, xl = glm.reduced(), xl.reduced()
+    glm = glm.replace(dtype="float32", attn_impl="kernel")
+    xl = xl.replace(dtype="float32", attn_impl="kernel")
+    layers, batch, seq = (TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ) if not smoke \
+        else (glm.n_layers, 2, 64)
+    out = {"card": smi}
+    out["cut"] = train_cut(glm.replace(n_layers=2), seed, card_dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["full"] = train_full(glm.replace(n_layers=layers), seed, card_dev,
+                             batch, seq, TRAIN_STEPS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    out["launcher"] = train_launcher(seed, card_dev, smoke)
+    out["resume_worst"] = train_resume(xl, seed, card_dev)
+    launched = ops.launch_counts()
+    check(not any(launched.values()), f"the xlstm_125m runs launched "
+                                      f"{launched}")
+    summary = {k: v for k, v in out["full"].items() if k != "step_ms"}
+    print("[14] " + json.dumps({"train": {"cut": out["cut"],
+                                          "full": summary,
+                                          "resume_worst": out["resume_worst"],
+                                          "card": smi}}))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -2161,6 +2482,11 @@ def main() -> int:
           seed, smi)
     phase(13, "the pricing service, card against CPU", phase_service, seed,
           smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = phase(14, "training: full-width glm4_9b and the launcher",
+                  phase_train, seed, smi)
+    by_path["train"] = train["full"]["launches"]
 
     timed = {"flash_attention": ("float32", "S=512"),
              "flash_decode": ("float32", "T=1024"),

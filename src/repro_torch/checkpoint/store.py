@@ -8,11 +8,15 @@ format, so a checkpoint written by either package restores in the other:
       manifest.json                (tree structure, shapes, dtypes, hash)
       arrays.npz                   (flat leaves by index: a0, a1, ...)
 
-A tree is a nest of dicts, lists and tuples whose leaves are tensors or
-numpy arrays.  Leaves are flattened in JAX's order (dict keys sorted,
-sequences in order), and the manifest's ``treedef`` is the string JAX's
-``tree_structure`` prints for the same nest, e.g.
-``PyTreeDef({'a': *, 'b': [*, *]})``.
+A tree is a nest of dicts, lists, tuples and ``NamedTuple``s whose leaves
+are tensors or numpy arrays; ``None`` is an empty subtree.  Leaves are
+flattened in JAX's order (dict keys sorted, sequences and a
+``NamedTuple``'s fields in order), and the manifest's ``treedef`` is the
+string JAX's ``tree_structure`` prints for the same nest, e.g.
+``PyTreeDef({'a': *, 'b': [*, *]})``, or
+``PyTreeDef(CustomNode(namedtuple[OptState], [*, {...}, ...]))`` for a
+``NamedTuple``, so a training state saved by either package restores in
+the other.
 
 * save() is synchronous; AsyncCheckpointer runs it on a background
   thread (the caller never blocks on I/O) with a bounded queue.
@@ -32,55 +36,14 @@ import threading
 import time
 import uuid
 from pathlib import Path
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
-
-def _flatten(tree) -> Tuple[List[Any], str]:
-    """(leaves in JAX's flatten order, JAX's treedef string for the nest)."""
-    leaves: List[Any] = []
-
-    def walk(t) -> str:
-        if isinstance(t, dict):
-            keys = sorted(t)
-            return "{" + ", ".join(f"{k!r}: {walk(t[k])}"
-                                   for k in keys) + "}"
-        if isinstance(t, (list, tuple)):
-            inner = [walk(x) for x in t]
-            if isinstance(t, list):
-                return "[" + ", ".join(inner) + "]"
-            return "(" + ", ".join(inner) + ("," if len(inner) == 1 else "") \
-                + ")"
-        if t is None:
-            return "None"
-        leaves.append(t)
-        return "*"
-
-    return leaves, f"PyTreeDef({walk(tree)})"
-
-
-def _unflatten(like, leaves: List[Any]):
-    """``like``'s nest with its leaves replaced, in flatten order."""
-    it = iter(leaves)
-
-    def build(t):
-        if isinstance(t, dict):
-            return {k: build(t[k]) for k in sorted(t)}
-        if isinstance(t, (list, tuple)):
-            return type(t)(build(x) for x in t)
-        if t is None:
-            return None
-        return next(it)
-
-    return build(like)
-
-
-def tree_map(fn: Callable, tree):
-    """``fn`` applied to every leaf of a nest of dicts, lists and tuples."""
-    leaves, _ = _flatten(tree)
-    return _unflatten(tree, [fn(x) for x in leaves])
+from ..tree import flatten as _flatten
+from ..tree import tree_map
+from ..tree import unflatten as _unflatten
 
 
 def _host(x) -> np.ndarray:
@@ -88,6 +51,17 @@ def _host(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+def _snapshot(x) -> np.ndarray:
+    """A leaf as a host numpy array that shares no memory with ``x``.
+
+    ``_host`` of a CPU tensor is a view of it, and the training step
+    updates its state in place, so a checkpoint written in the background
+    must own its copy."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().to("cpu", copy=True).numpy()
+    return np.array(x, copy=True)
 
 
 def save(directory: Path, step: int, tree: Any,
@@ -245,8 +219,9 @@ class CheckpointManager:
 class AsyncCheckpointer:
     """Background-thread checkpoint writer with a bounded queue.
 
-    `submit` snapshots the (device) tree to host memory synchronously
-    (cheap) and enqueues the serialization; the caller continues while
+    `submit` copies the tree to host memory synchronously (a copy even of
+    a CPU tree, which the caller may go on updating in place) and
+    enqueues the serialization; the caller continues while
     the previous checkpoint is still being written.  `wait()` drains.
     """
 
@@ -272,7 +247,7 @@ class AsyncCheckpointer:
                 self.q.task_done()
 
     def submit(self, step: int, tree: Any, extra: Optional[Dict] = None):
-        self.q.put((step, tree_map(_host, tree), extra))
+        self.q.put((step, tree_map(_snapshot, tree), extra))
 
     def wait(self):
         self.q.join()

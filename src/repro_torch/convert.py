@@ -1,4 +1,5 @@
-"""Convert the JAX package's trees (parameters, caches) into the port's.
+"""Convert the JAX package's trees (parameters, caches, training states)
+into the port's.
 
 The port keeps the JAX package's names and layouts, so conversion is a
 key-for-key copy of leaves.  Leaves arrive as numpy arrays
@@ -11,6 +12,9 @@ from typing import Any
 
 import numpy as np
 import torch
+
+from .optim import OptState
+from .parallel.steps import TrainState
 
 
 def tensor_from_numpy(a, device) -> torch.Tensor:
@@ -26,3 +30,18 @@ def params_from_numpy(tree: Any, device) -> Any:
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     return tensor_from_numpy(tree, device)
+
+
+def train_state_from_numpy(state: Any, device) -> TrainState:
+    """The JAX package's ``TrainState`` with numpy leaves (params, opt.step,
+    opt.master, opt.m, opt.v, and ef_err or None) -> the port's, on
+    ``device``."""
+    opt = state.opt
+
+    def tree(t):
+        return None if t is None else params_from_numpy(t, device)
+    return TrainState(
+        params=tree(state.params),
+        opt=OptState(step=tensor_from_numpy(opt.step, device),
+                     master=tree(opt.master), m=tree(opt.m), v=tree(opt.v)),
+        ef_err=tree(state.ef_err))

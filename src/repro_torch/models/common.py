@@ -5,6 +5,15 @@ and layouts, so a JAX parameter tree converts key for key
 (``repro_torch.convert``).  Every model defines a *spec tree* of
 :class:`ParamSpec` leaves (shape, dtype, logical axes, init), from which
 :func:`init_params` makes random weights on a device.
+
+The model's pieces take two routes.  By default (the serving route) each
+norm, MoE expert product, SSD and sLSTM recurrence goes through its
+``ops`` wrapper: the kernel on the card, its plain version on the CPU.
+With ``plain=True`` (the plain route, which ``transformer.lm_loss``
+takes) they run in plain PyTorch on any device and are differentiable,
+as the JAX package's training forward computes them in plain jnp; the
+kernels have no backward.  Attention follows ``cfg.attn_impl`` on both
+routes.
 """
 from __future__ import annotations
 
@@ -15,7 +24,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..kernels import ops
+from ..kernels import ops, ref
 
 PyTree = Any
 
@@ -93,8 +102,11 @@ def rmsnorm_spec(dim: int) -> Dict[str, ParamSpec]:
     return {"scale": ParamSpec((dim,), ("embed",), init="ones")}
 
 
-def rmsnorm(params, x, eps: float = 1e-5):
-    """fp32-math RMSNorm through the RMSNorm kernel (plain on the CPU)."""
+def rmsnorm(params, x, eps: float = 1e-5, *, plain: bool = False):
+    """fp32-math RMSNorm: through the RMSNorm kernel (plain on the CPU), or
+    in plain PyTorch on the plain route."""
+    if plain:
+        return ref.rmsnorm_ref(x, params["scale"], eps)
     return ops.fused_rmsnorm(x, params["scale"], eps=eps)
 
 
@@ -166,3 +178,19 @@ def mask_padded_vocab(logits, vocab: int):
         return logits
     valid = torch.arange(logits.shape[-1], device=logits.device) < vocab
     return logits.masked_fill(~valid, -1e30)
+
+
+def cross_entropy(logits, labels, mask=None):
+    """Mean token-level CE in fp32; labels < 0 are ignored.
+
+    One ``F.cross_entropy`` sum over the valid tokens divided by their
+    count: its backward writes each row's gradient once, so it is the same
+    bits every run on the card (a gather's backward would scatter-add).
+    """
+    logits = logits.float()
+    valid = labels >= 0 if mask is None else mask & (labels >= 0)
+    target = torch.where(valid, labels, -100).long()
+    nll = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                          target.reshape(-1), ignore_index=-100,
+                          reduction="sum")
+    return nll / torch.clamp(valid.sum(), min=1)

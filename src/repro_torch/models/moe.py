@@ -10,7 +10,8 @@ softmax routing, with the JAX package's sort-based capacity dispatch:
   4. gather into an (E, C, D) buffer, batched expert SwiGLU whose three
      products go through the grouped-matmul kernel (``ops.moe_gmm``, given
      each expert's row count, so experts without rows read no weights),
-     scatter back, weighted combine.
+     or, on the plain route (``plain=True``, the training forward), are
+     the JAX package's einsums; scatter back, weighted combine.
 
 On the card ``moe_apply`` never waits for the host: the capacity comes
 from shapes, the counts per expert from ``scatter_add_``, and every index
@@ -66,7 +67,7 @@ def aux_load_balance_loss(probs, ids, n_experts: int):
 
 
 def moe_apply(params, x, top_k: int, capacity_factor: float = 1.25,
-              return_aux: bool = False):
+              return_aux: bool = False, *, plain: bool = False):
     """x: (B,S,D) -> (B,S,D).  Sort-based dispatch, see module docstring."""
     b, s, d = x.shape
     e = params["router"].shape[1]
@@ -99,13 +100,19 @@ def moe_apply(params, x, top_k: int, capacity_factor: float = 1.25,
     buf[s_ids, pos_c] = xf[s_tok]
     slots = buf[:, :cap]                                   # strided view
 
-    # The rows each expert holds, on the device: the kernel skips experts
-    # without rows and writes exact zeros past each count, so the down
-    # product's input there is silu(0) * 0 = 0.
-    rows = counts.clamp_max(cap).to(torch.int32)
-    g = ops.moe_gmm(slots, params["w_gate"], rows)
-    u = ops.moe_gmm(slots, params["w_up"], rows)
-    out_buf = ops.moe_gmm(F.silu(g) * u, params["w_down"], rows)  # (E,cap,D)
+    if plain:       # the rows past each count are zeros, as in JAX's buffer
+        g = torch.einsum("ecd,edf->ecf", slots, params["w_gate"])
+        u = torch.einsum("ecd,edf->ecf", slots, params["w_up"])
+        out_buf = torch.einsum("ecf,efd->ecd", F.silu(g) * u,
+                               params["w_down"])
+    else:
+        # The rows each expert holds, on the device: the kernel skips
+        # experts without rows and writes exact zeros past each count, so
+        # the down product's input there is silu(0) * 0 = 0.
+        rows = counts.clamp_max(cap).to(torch.int32)
+        g = ops.moe_gmm(slots, params["w_gate"], rows)
+        u = ops.moe_gmm(slots, params["w_up"], rows)
+        out_buf = ops.moe_gmm(F.silu(g) * u, params["w_down"], rows)
 
     # Weighted combine, added straight into the (N, D) output.
     slot_out = out_buf[s_ids, pos_c.clamp_max(cap - 1)]

@@ -142,12 +142,13 @@ def _project(params, x):
     return z, xbc, dt, (d_inner, h, headdim, state)
 
 
-def _gate_out(params, y, xh, z):
-    """Skip term, gated RMSNorm (through the RMSNorm kernel on the card) and
-    the output projection."""
+def _gate_out(params, y, xh, z, plain: bool = False):
+    """Skip term, gated RMSNorm (through the RMSNorm kernel on the card, or
+    plain on the plain route) and the output projection."""
     b, s = y.shape[0], y.shape[1]
     y = y + params["D"][None, None, :, None].to(y.dtype) * xh
-    y = rmsnorm({"scale": params["norm"]}, y.reshape(b, s, -1) * F.silu(z))
+    y = rmsnorm({"scale": params["norm"]}, y.reshape(b, s, -1) * F.silu(z),
+                plain=plain)
     return torch.einsum("bsk,kd->bsd", y, params["out_proj"])
 
 
@@ -157,7 +158,9 @@ def mamba_mixer(params, x, *, chunk: int = 128, impl: str = "chunked"):
     the final SSD state, which a prefill keeps as the layer's decode cache.
 
     ``impl``: "kernel" runs ``ops.mamba_scan`` (the kernel on the card, its
-    plain version on the CPU), "chunked" runs ``ssd_chunked``.
+    plain version on the CPU), "chunked" runs ``ssd_chunked``, and
+    "plain", the training forward's route, runs ``ssd_chunked`` and the
+    plain gated norm, as the JAX package trains.
     """
     b, s, _ = x.shape
     z, xbc, dt, (d_inner, h, headdim, state) = _project(params, x)
@@ -168,11 +171,12 @@ def mamba_mixer(params, x, *, chunk: int = 128, impl: str = "chunked"):
     dt = F.softplus(dt + params["dt_bias"][None, None, :])
     if impl == "kernel":
         y, ssm = ops.mamba_scan(xh, dt, params["A_log"], bm, cm, chunk=chunk)
-    elif impl == "chunked":
+    elif impl in ("chunked", "plain"):
         y, ssm = ssd_chunked(xh, dt, params["A_log"], bm, cm, chunk=chunk)
     else:
         raise ValueError(f"unknown SSD impl {impl!r}")
-    return _gate_out(params, y, xh, z), {"conv": conv_tail, "ssm": ssm}
+    return _gate_out(params, y, xh, z, impl == "plain"), {"conv": conv_tail,
+                                                          "ssm": ssm}
 
 
 def mamba_layer(params, x, *, chunk: int = 128, impl: str = "chunked"):

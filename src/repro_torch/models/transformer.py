@@ -3,6 +3,7 @@
 
   lm_spec(cfg)                                -> ParamSpec tree
   lm_forward(cfg, params, tokens)             -> logits
+  lm_loss(cfg, params, batch)                 -> scalar loss (training)
   lm_prefill(cfg, params, tokens, cache_len)  -> (last_logits, cache)
   lm_decode(cfg, params, token, cache, kv_len) -> (logits, cache)
 
@@ -21,17 +22,27 @@ attention blocks, then the rest layers; its SSD goes through
 recurrent state only, and its sLSTM recurrence goes through
 ``ops.slstm_seq``.  The other families (MLA, VLM, encoder-decoder) are
 later slices of the port (ROADMAP.md) and raise ``NotImplementedError``.
+
+Training (``lm_loss``, or ``lm_forward(..., plain=True)``) takes the
+plain route of ``models.common``: norms, MoE experts, SSD and sLSTM in
+plain PyTorch, as JAX trains, and attention through ``cfg.attn_impl``
+(the flash-attention kernel on the card under "kernel", whose backward
+differentiates the oracle).  Each layer runs under ``cfg.remat`` as JAX's
+``_remat`` sets it: the dense and MoE blocks, the Mamba2 layers and the
+mLSTM blocks are recomputed in the backward under "full".
 """
 from __future__ import annotations
 
 from typing import Dict, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from .attention import gqa_decode_layer, gqa_layer, gqa_spec
-from .common import (ParamSpec, embed, embed_spec, init_params,
-                     mask_padded_vocab, rmsnorm, rmsnorm_spec, spec_map,
-                     swiglu, swiglu_spec, unembed)
+from .common import (ParamSpec, cross_entropy, embed, embed_spec,
+                     init_params, mask_padded_vocab, rmsnorm, rmsnorm_spec,
+                     spec_map, swiglu, swiglu_spec, unembed)
 from .moe import moe_apply, moe_spec
 from .ssm import mamba_decode_layer, mamba_layer, mamba_mixer, mamba_spec
 from .xlstm import (mlstm_chunked, mlstm_decode, mlstm_spec, slstm_decode,
@@ -54,6 +65,34 @@ def stack_specs(tree, n: int):
                             dtype=s.dtype, init=s.init, scale=s.scale), tree)
 
 
+# the outputs of matmuls with no batch dimensions, which the "dots" policy
+# saves as JAX's checkpoint_dots_with_no_batch_dims does; batched ones
+# (bmm, baddbmm) are recomputed, as there
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(cfg):
+    """``run(fn, *args)`` calling ``fn(*args)`` under ``cfg.remat``, as
+    JAX's ``_remat`` wraps a layer: "full" recomputes the layer in the
+    backward (``torch.utils.checkpoint``), "dots" recomputes all but the
+    matmul outputs, "none" keeps every activation."""
+    if cfg.remat == "none":
+        return lambda fn, *args: fn(*args)
+    if cfg.remat == "full":
+        return lambda fn, *args: checkpoint(fn, *args, use_reentrant=False)
+    if cfg.remat == "dots":
+        def contexts():
+            return create_selective_checkpoint_contexts(_save_dots)
+        return lambda fn, *args: checkpoint(fn, *args, use_reentrant=False,
+                                            context_fn=contexts)
+    raise ValueError(f"unknown remat policy {cfg.remat!r}")
+
+
 def _layers(tree, n: int):
     """Views of layer i of a stacked tree, for i in range(n)."""
     def take(t, i):
@@ -72,24 +111,29 @@ def block_spec(cfg, moe_layer: bool = False) -> Dict:
             "ffn": ffn}
 
 
-def _ffn(cfg, p, h, capacity_factor: float):
+def _ffn(cfg, p, h, capacity_factor: float, plain: bool = False):
     """The block's FFN: the MoE where its params have a router, as in the
     JAX package, else the dense SwiGLU."""
     if "router" in p:
-        return moe_apply(p, h, cfg.top_k, capacity_factor)
+        return moe_apply(p, h, cfg.top_k, capacity_factor, plain=plain)
     return swiglu(p, h)
 
 
-def block_apply(cfg, p, x, positions):
+def block_apply(cfg, p, x, positions, plain: bool = False):
     """One pre-norm block over a sequence; returns ``(x, k, v)`` with the
     layer's rotated K/V for the prefill cache."""
-    h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    h = rmsnorm(p["ln1"], x, cfg.norm_eps, plain=plain)
     a, k, v = gqa_layer(p["attn"], h, positions, impl=cfg.attn_impl,
                         rope_theta=cfg.rope_theta, chunk=cfg.attn_chunk)
     x = x + a
-    x = x + _ffn(cfg, p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps),
-                 cfg.capacity_factor)
+    x = x + _ffn(cfg, p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps,
+                                        plain=plain),
+                 cfg.capacity_factor, plain)
     return x, k, v
+
+
+def _block(cfg, p, x, positions, plain):
+    return block_apply(cfg, p, x, positions, plain)[0]
 
 
 def block_decode(cfg, p, x, cache, position, kv_len):
@@ -208,16 +252,26 @@ def _xlstm_walk(cfg, params, cache=None):
         yield "slstm", sp, sc
 
 
-def _xlstm_trunk(cfg, params, x, cache=None):
-    """The xLSTM blocks over a sequence.  With a cache (the prefill), each
-    mLSTM block's carry (chunked at ``cfg.attn_chunk``, as in the JAX
-    prefill) and each sLSTM block's final state go into it."""
+def _mlstm_block(cfg, p, x, plain):
+    h = rmsnorm(p["ln"], x, cfg.norm_eps, plain=plain)
+    return x + mlstm_chunked(p["mixer"], h, chunk=cfg.attn_chunk,
+                             plain=plain)[0]
+
+
+def _xlstm_trunk(cfg, params, x, cache, plain, run):
+    """The xLSTM blocks over a sequence, chunked at ``cfg.attn_chunk`` as in
+    the JAX package.  With a cache (the prefill), each mLSTM block's carry
+    and each sLSTM block's final state go into it.  ``run`` calls each
+    mLSTM block without a cache (``_remat``'s runner)."""
     for kind, p, c in _xlstm_walk(cfg, params, cache):
-        h = rmsnorm(p["ln"], x, cfg.norm_eps)
+        if kind == "mlstm" and c is None:
+            x = run(_mlstm_block, cfg, p, x, plain)
+            continue
+        h = rmsnorm(p["ln"], x, cfg.norm_eps, plain=plain)
         if kind == "mlstm":
             y, state = mlstm_chunked(p["mixer"], h, chunk=cfg.attn_chunk)
         else:
-            y, state = slstm_mixer(p["mixer"], h)
+            y, state = slstm_mixer(p["mixer"], h, plain=plain)
         if c is not None:
             for k in c:
                 c[k].copy_(state[k])
@@ -290,56 +344,77 @@ def decode_cache_spec(cfg, batch: int, cache_len: int) -> Dict:
     return cache
 
 
-def _hybrid_trunk(cfg, params, x, positions, cache=None):
+def _mamba_block(cfg, p, x, plain):
+    h = rmsnorm(p["ln"], x, cfg.norm_eps, plain=plain)
+    return x + mamba_layer(p["mixer"], h, chunk=cfg.ssm_chunk,
+                           impl="plain" if plain else "kernel")
+
+
+def _hybrid_trunk(cfg, params, x, positions, cache, plain, run):
     """The Mamba2 groups, their shared attention blocks and the rest layers.
     With a cache (the prefill), each Mamba2 layer's conv tail and SSD state
     and each shared block's K/V go into it; the prompt length must then be
-    a multiple of min(ssm_chunk, S), as in the JAX prefill."""
+    a multiple of min(ssm_chunk, S), as in the JAX prefill.  ``run`` calls
+    each Mamba2 layer without a cache (``_remat``'s runner); the shared
+    attention blocks run as they are, as in JAX's ``group_body``."""
     s = x.shape[1]
     for kind, p, c in _hybrid_walk(cfg, params, cache):
         if kind == "attn":
-            x, k, v = block_apply(cfg, p, x, positions)
+            x, k, v = block_apply(cfg, p, x, positions, plain)
             if c is not None:
                 c["k"][:, :s] = k
                 c["v"][:, :s] = v
             continue
-        h = rmsnorm(p["ln"], x, cfg.norm_eps)
         if c is None:
-            y = mamba_layer(p["mixer"], h, chunk=cfg.ssm_chunk, impl="kernel")
+            x = run(_mamba_block, cfg, p, x, plain)
         else:
+            h = rmsnorm(p["ln"], x, cfg.norm_eps)
             y, state = mamba_mixer(p["mixer"], h, chunk=cfg.ssm_chunk,
                                    impl="kernel")
             c["conv"].copy_(state["conv"])
             c["ssm"].copy_(state["ssm"])
-        x = x + y
+            x = x + y
     return x
 
 
-def _trunk(cfg, params, tokens, cache=None):
+def _trunk(cfg, params, tokens, cache=None, plain=False):
     """Embedding and blocks; writes each layer's K/V (and, in the hybrid,
-    each Mamba2 layer's states) into ``cache`` when one is given."""
+    each Mamba2 layer's states) into ``cache`` when one is given.  On the
+    plain route the layers run under ``cfg.remat``."""
     x = embed(params["embed"], tokens).to(cfg.torch_dtype)
     b, s = x.shape[0], x.shape[1]
     positions = torch.arange(s, device=x.device).expand(b, s)
+    run = _remat(cfg) if plain else (lambda fn, *args: fn(*args))
     if cfg.family == "hybrid":
-        return _hybrid_trunk(cfg, params, x, positions, cache)
+        return _hybrid_trunk(cfg, params, x, positions, cache, plain, run)
     if cfg.family == "ssm":
-        return _xlstm_trunk(cfg, params, x, cache)
+        return _xlstm_trunk(cfg, params, x, cache, plain, run)
     for key, ckey, n in _stacks(cfg):
         for i, p in enumerate(_layers(params[key], n)):
+            if cache is None:
+                x = run(_block, cfg, p, x, positions, plain)
+                continue
             x, k, v = block_apply(cfg, p, x, positions)
-            if cache is not None:
-                cache[ckey]["k"][i, :, :s] = k
-                cache[ckey]["v"][i, :, :s] = v
+            cache[ckey]["k"][i, :, :s] = k
+            cache[ckey]["v"][i, :, :s] = v
     return x
 
 
-def lm_forward(cfg, params, tokens):
-    """Full-sequence logits. tokens:(B,S) -> (B,S,V)."""
+def lm_forward(cfg, params, tokens, *, plain: bool = False):
+    """Full-sequence logits. tokens:(B,S) -> (B,S,V).  ``plain=True`` is
+    the training forward (module docstring)."""
     _require_ported(cfg)
-    x = rmsnorm(params["final_norm"], _trunk(cfg, params, tokens),
-                cfg.norm_eps)
+    x = rmsnorm(params["final_norm"], _trunk(cfg, params, tokens,
+                                             plain=plain),
+                cfg.norm_eps, plain=plain)
     return mask_padded_vocab(unembed(params["embed"], x), cfg.vocab)
+
+
+def lm_loss(cfg, params, batch):
+    """batch: {'tokens', 'labels'} -> mean next-token cross-entropy over
+    the labels >= 0, through the training forward."""
+    logits = lm_forward(cfg, params, batch["tokens"], plain=True)
+    return cross_entropy(logits, batch["labels"])
 
 
 def lm_prefill(cfg, params, tokens, cache_len: int):

@@ -9,7 +9,10 @@ step.  The sLSTM recurrence of a prefill and of a decode step goes
 through ``ops.slstm_seq`` (the hand-written kernel on the card, its
 sequential plain version on the CPU), which starts from the cache's state
 and returns the final one; the JAX package runs it as a ``lax.scan`` of
-``_slstm_cell``, which stays here as the plain one-step function.
+``_slstm_cell``, which stays here as the plain one-step function.  On the
+plain route (``plain=True``, the training forward) the sLSTM is the
+kernel's plain version, the same step-by-step fp32 recurrence, and the
+head norms are plain.
 """
 from __future__ import annotations
 
@@ -18,17 +21,17 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
-from ..kernels import ops
+from ..kernels import ops, ref
 from .common import ParamSpec, rmsnorm
 
 NEG_INF = -1e30
 
 
-def _head_norm(params, hid):
+def _head_norm(params, hid, plain: bool = False):
     """RMSNorm over all heads of (..., H, Dh) with the (H, Dh) scale."""
     shape = hid.shape
     return rmsnorm({"scale": params["norm"].reshape(-1)},
-                   hid.reshape(*shape[:-2], -1)).reshape(shape)
+                   hid.reshape(*shape[:-2], -1), plain=plain).reshape(shape)
 
 
 # ---------------------------------------------------------------------------
@@ -101,7 +104,8 @@ def mlstm_init_cache(params, batch: int):
     }
 
 
-def mlstm_chunked(params, x, *, chunk: int = 1024, carry=None):
+def mlstm_chunked(params, x, *, chunk: int = 1024, carry=None,
+                  plain: bool = False):
     """Chunked mLSTM: quadratic only within L-token chunks, the (K,V)
     matrix memory carried across chunks.
 
@@ -157,7 +161,7 @@ def mlstm_chunked(params, x, *, chunk: int = 1024, carry=None):
             "bhs,bhsk,bhsv->bhkv", kw, kf, vf)
         n_s = decay[..., None] * n_s + torch.einsum("bhs,bhsk->bhk", kw, kf)
         m_s = m_new
-    hid = _head_norm(params, torch.cat(hids, dim=2).transpose(1, 2))
+    hid = _head_norm(params, torch.cat(hids, dim=2).transpose(1, 2), plain)
     out = torch.einsum("bshk,hkd->bsd", hid.to(x.dtype), params["wo"])
     return out, {"C": c_s, "n": n_s, "m": m_s}
 
@@ -239,12 +243,18 @@ def _gate_inputs(params, x):
         b, s, *wx.shape[1:])
 
 
-def slstm_mixer(params, x, state=None):
+def slstm_mixer(params, x, state=None, *, plain: bool = False):
     """The sLSTM over a sequence from ``state`` (zeros without one), through
-    ``ops.slstm_seq``. x:(B,S,D) -> (out (B,S,D), final state)."""
-    hs, state = ops.slstm_seq(_gate_inputs(params, x), params["rh"],
-                              params["b"], state)
-    hs = _head_norm(params, hs)                         # (B,S,H,Dh)
+    ``ops.slstm_seq``, or its plain version ``ref.slstm_seq_ref`` on the
+    plain route, given fp32 gates so that h stays fp32 as in JAX's scan.
+    x:(B,S,D) -> (out (B,S,D), final state)."""
+    xg = _gate_inputs(params, x)
+    if plain:
+        hs, state = ref.slstm_seq_ref(xg.float(), params["rh"],
+                                      params["b"], state)
+    else:
+        hs, state = ops.slstm_seq(xg, params["rh"], params["b"], state)
+    hs = _head_norm(params, hs, plain)                  # (B,S,H,Dh)
     return torch.einsum("bshk,hkd->bsd", hs.to(x.dtype), params["wo"]), state
 
 

@@ -2,6 +2,7 @@
 package's: the same on-disk format in both directions, and a search
 checkpointed by one package resumes in the other to the same result."""
 import json
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -120,6 +121,24 @@ def test_async_checkpointer_writes_in_the_background(tmp_path):
     equal(np.full(3, 2.0, np.float32), tree["w"])
 
 
+def test_async_checkpointer_owns_its_snapshot(tmp_path, monkeypatch):
+    """A CPU tensor updated in place after ``submit`` is saved as it was
+    at ``submit``: the worker is held until the caller has written."""
+    m = tstore.CheckpointManager(tmp_path, keep=5)
+    go = threading.Event()
+    save = m.save
+    monkeypatch.setattr(m, "save", lambda *a, **k: (go.wait(), save(*a, **k)))
+    ac = tstore.AsyncCheckpointer(m, max_pending=1)
+    w = torch.ones(4)
+    ac.submit(1, {"w": w})
+    w.mul_(5.0)
+    go.set()
+    ac.wait()
+    ac.close()
+    _, tree = m.restore_latest({"w": torch.zeros(4)})
+    equal(np.ones(4, np.float32), tree["w"])
+
+
 def _space(mod):
     return mod.DesignSpace(
         skus=(mod.SKU("laptop", 150.0, 2e6), mod.SKU("desktop", 300.0, 1e6),
@@ -193,3 +212,69 @@ def test_search_state_tree_is_the_reference_layout():
     for k, v in ref.tree().items():
         equal(np.asarray(v), tree[k], what=k)
         assert tree[k].dtype == like[k].dtype
+
+
+# -- NamedTuple trees: the training state --------------------------------
+
+
+def _train_states(compress, seed=0):
+    """The JAX package's TrainState of a reduced glm4_9b after init, and the
+    port's made from it (``convert.train_state_from_numpy``)."""
+    from repro.configs import get_config
+    from repro.parallel import steps as jst
+    from repro_torch.convert import train_state_from_numpy
+    cfg = get_config("glm4_9b").reduced().replace(n_layers=1,
+                                                  dtype="float32")
+    js = jst.init_train_state(cfg, jax.random.PRNGKey(seed),
+                              compress=compress)
+    return js, train_state_from_numpy(
+        jax.tree_util.tree_map(np.asarray, js), "cpu")
+
+
+@pytest.mark.parametrize("compress", [False, True])
+def test_train_state_round_trips_with_the_reference_treedef(tmp_path,
+                                                            compress):
+    """An OptState / TrainState (NamedTuples, with ef_err None or a tree)
+    saves and restores field for field, and the manifest's treedef is the
+    string JAX prints for the same nest."""
+    from repro.optim import OptState as JOpt
+    from repro_torch.optim import OptState
+    from repro_torch.parallel.steps import TrainState
+    js, ts = _train_states(compress)
+    path = tstore.save(tmp_path, 1, ts)
+    assert _manifest(path)["treedef"] == \
+        str(jax.tree_util.tree_structure(js))
+    like = tstore.tree_map(torch.zeros_like, ts)
+    got = tstore.restore(tmp_path, 1, like)
+    assert type(got) is TrainState and type(got.opt) is OptState
+    assert (got.ef_err is None) == (not compress)
+    for w, g in zip(tstore._flatten(ts)[0], tstore._flatten(got)[0]):
+        equal(w, g)
+    opt = JOpt(step=jnp.int32(3), master={"a": jnp.ones(2)},
+               m={"a": jnp.zeros(2)}, v={"a": jnp.zeros(2)})
+    topt = OptState(step=torch.tensor(3, dtype=torch.int32),
+                    master={"a": torch.ones(2)}, m={"a": torch.zeros(2)},
+                    v={"a": torch.zeros(2)})
+    path = tstore.save(tmp_path, 2, topt)
+    assert _manifest(path)["treedef"] == \
+        str(jax.tree_util.tree_structure(opt))
+    back = tstore.restore(tmp_path, 2, tstore.tree_map(torch.zeros_like,
+                                                       topt))
+    assert type(back) is OptState and int(back.step) == 3
+
+
+@pytest.mark.parametrize("compress", [False, True])
+def test_train_state_checkpoints_cross_both_ways(tmp_path, compress):
+    js, ts = _train_states(compress)
+    jstore.save(tmp_path / "j", 4, js)
+    got = tstore.restore(tmp_path / "j", 4,
+                         tstore.tree_map(torch.zeros_like, ts))
+    for w, g in zip(jax.tree_util.tree_leaves(js), tstore._flatten(got)[0]):
+        equal(np.asarray(w), g)
+    # the port's state, changed, restores into the reference's structure
+    ts = tstore.tree_map(lambda t: t + 1, ts)
+    tstore.save(tmp_path / "t", 5, ts)
+    back = jstore.restore(tmp_path / "t", 5, js)
+    assert type(back) is type(js)
+    for w, g in zip(tstore._flatten(ts)[0], jax.tree_util.tree_leaves(back)):
+        equal(w, np.asarray(g))

@@ -1369,3 +1369,49 @@ def test_service_ticks_run_without_a_sync_before_their_copy(cuda_device):
     assert all(r.ok for r in resps), [r.error for r in resps]
     assert set(svc.snapshot()["ticks_by_lane"]) == {"chunk", "mc", "gen",
                                                     "raw"}
+
+
+# -- training (repro_torch.parallel.steps) on the card ---------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["glm4_9b", "deepseek_moe_16b", "zamba2_7b",
+                                  "xlstm_125m"])
+def test_train_steps_on_card_match_cpu_and_count_launches(cuda_device, arch):
+    """Three train steps of a reduced model from the same state on the card
+    and on the CPU: losses at 1e-5 relative and params at 1e-5 relative
+    plus 1% of the lrs' sum (tests/test_torch_train_steps.py says why).
+    Each step on the card launches flash attention once a block in the
+    forward and once in its remat recompute (the hybrid's shared blocks
+    are not remat'd, as in JAX) and no other kernel: norms, MoE experts,
+    SSD and sLSTM take the plain route."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.parallel import steps as st
+    from repro_torch.tree import leaves, tree_map
+    cfg = get_config(arch).reduced().replace(attn_impl="kernel")
+    cpu = st.init_train_state(cfg, torch.Generator().manual_seed(0), "cpu")
+    card = tree_map(lambda t: t.to(cuda_device), cpu)
+    step = st.make_train_step(cfg, total_steps=3, warmup=1)
+    dc = DataConfig(seq_len=32, global_batch=2, vocab=cfg.vocab)
+    if cfg.family == "hybrid":
+        attn = cfg.n_layers // cfg.attn_every
+    else:
+        attn = 0 if cfg.family == "ssm" else 2 * cfg.n_layers
+    lr_sum = 0.0
+    for i in range(3):
+        batch = {k: torch.from_numpy(v) for k, v in
+                 synthetic_batch(dc, i).items()}
+        ops.reset_launch_counts()
+        card, m_card = step(card, {k: v.to(cuda_device)
+                                   for k, v in batch.items()})
+        torch.cuda.synchronize()
+        assert ops.launch_counts() == {
+            "flash_attention": attn, "flash_decode": 0, "mamba_scan": 0,
+            "moe_gmm": 0, "rmsnorm": 0, "slstm_seq": 0}
+        cpu, m_cpu = step(cpu, batch)
+        lr_sum += float(m_cpu["lr"])
+        torch.testing.assert_close(m_card["loss"].cpu(), m_cpu["loss"],
+                                   rtol=1e-5, atol=0.0)
+    for g, c in zip(leaves(card.params), leaves(cpu.params), strict=True):
+        torch.testing.assert_close(g.cpu(), c, rtol=1e-5,
+                                   atol=1e-2 * lr_sum)

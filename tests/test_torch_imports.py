@@ -222,3 +222,70 @@ def test_chip_smoke_phase_13_rehearses_on_the_cpu(monkeypatch, capsys):
     text = capsys.readouterr().out
     assert "bit-equal to the direct APIs" in text
     assert "every answer equal to an uncrashed run's" in text
+
+
+TRAIN_MODULES = [
+    "repro_torch.data", "repro_torch.data.pipeline", "repro_torch.optim",
+    "repro_torch.optim.adamw", "repro_torch.optim.schedule",
+    "repro_torch.optim.compression", "repro_torch.parallel",
+    "repro_torch.parallel.steps", "repro_torch.tree",
+    "repro_torch.launch.train"]
+
+
+def test_training_slice_modules_are_ported():
+    """Every module of the training slice exists and imports; the import
+    test above holds that none of them (nor the additions to models/,
+    convert.py and checkpoint/) imports JAX or the JAX package."""
+    import importlib
+    for mod in TRAIN_MODULES:
+        path = ROOT / "src" / (mod.replace(".", "/") + ".py")
+        assert path.exists() or (path.with_suffix("") / "__init__.py"
+                                 ).exists(), mod
+        importlib.import_module(mod)
+    from repro_torch.models import api, transformer
+    from repro_torch import convert
+    assert callable(api.loss_fn) and callable(api.input_spec)
+    assert callable(transformer.lm_loss)
+    assert callable(convert.train_state_from_numpy)
+
+
+def _train_entry(name):
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import train
+    from repro_torch.parallel import steps
+    cfg = get_config("glm4_9b").reduced()
+    return {
+        "launch.train": lambda: train.main(["--smoke", "--steps", "1"]),
+        "materialize_batch": lambda: steps.materialize_batch(
+            cfg, InputShape("x", 16, 2, "train")),
+    }[name]
+
+
+@pytest.mark.parametrize("entry", ["launch.train", "materialize_batch"])
+def test_training_entry_points_raise_without_a_card(entry):
+    """The trainer defaults to the GPU and raises without one."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour on a machine without a GPU")
+    with pytest.raises(RuntimeError, match="GPU"):
+        _train_entry(entry)()
+
+
+def test_chip_smoke_phase_14_rehearses_on_the_cpu(monkeypatch, capsys):
+    """chip_smoke.py's phase 14 with the CPU in the card's place and the
+    reduced configs (syncs and memory statistics stubbed): the cut against
+    the CPU, the training run, the launcher's run and resume and the resume
+    property all hold."""
+    import chip_smoke
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats",
+                        lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    out = chip_smoke.phase_train(0, "CPU rehearsal", card_dev="cpu",
+                                 smoke=True)
+    assert len(out["full"]["losses"]) == chip_smoke.TRAIN_STEPS
+    assert out["launcher"]["returns"] == [0, 0]
+    assert out["resume_worst"] <= 1e-6
+    text = capsys.readouterr().out
+    assert "[resume] restored step 30" in text
