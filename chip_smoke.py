@@ -37,7 +37,13 @@ prints its seconds:
    of a seeded top-6 routing (a 4-slot decode tick and a 512-token
    prefill), bounded by the active experts' bytes and rows; the sLSTM at
    xlstm_125m's prefill (S = 512, 300 and 17) and decode tick (4 slots, S
-   = 1, from a state), its final state compared too;
+   = 1, from a state), its final state compared too; and this slice's
+   shapes: flash attention at minicpm3_4b's MLA prefill (S 512, 40 heads,
+   D 96, Dv 64) and whisper_medium's encoder (S = T = 1500, non-causal,
+   16 heads of 64), flash decode at minicpm3_4b's latent decode (40 heads
+   on one KV head, key 288, value 256 a view of the key's rows, T 1024,
+   in both types and at a served fill) and whisper's cross (T 1500) and
+   self (T 448) decodes;
 3. full-width glm4_9b cut to 2 layers, same weights on the card
    (kernels) and on the CPU (plain versions): a 128-token prefill and 8
    greedy decode steps must give logits within 1e-3 of max |logit| and
@@ -45,9 +51,9 @@ prints its seconds:
 4. serve full glm4_9b (40 layers, fp32, random weights from a seed) with
    the continuous-batching engine: 4 slots, cache 1024, 8 requests of 32
    new tokens; every request must finish and every kernel must have run,
-   with the launch counts the model's structure implies; the same
-   requests are served three times, each on a fresh engine, so the
-   decode-step time is read over repeats; then 16 decode ticks of a full
+   with the launch counts the model's structure implies (served once, to
+   keep the run within its time limit; ``phase_serve``'s ``repeats``
+   serves them again, each on a fresh engine); then 16 decode ticks of a full
    pool on the host clock and 8 more under torch.profiler say how busy
    the card is and which kernels take its time; last, one 512-token
    prefill alone, timed on the host clock and profiled for the flash
@@ -144,10 +150,41 @@ prints its seconds:
    tokens/s, one more step under torch.profiler for the busy share, the
    top device kernels and flash attention's share, peak memory, and the
    model FLOPs over the step against the fp32 peak; (c)
-   ``launch.train.main`` for xlstm_125m (full width and depth) to step 30
-   with checkpoints at 20 and 30, then to step 60, resuming from 30, and
+   ``launch.train.main`` for xlstm_125m (full width and depth) to step 8
+   with checkpoints at 4 and 8, then to step 12, resuming from 8, and
    tests/test_substrate.py's resume property on the card (6 steps straight
-   against 3 + save + restore + 3 at 1e-6).
+   against 3 + save + restore + 3 at 1e-6);
+15. full-width minicpm3_4b (MLA: q_lora 768, kv_lora 256, qk 64 + 32, v
+   64, 40 heads) cut to 2 layers, card against CPU as in phase 3; its
+   prefill attention runs the flash-attention kernel at D 96 / Dv 64 and
+   its decode the latent flash decode at D 288 / Dv 256;
+16. serve all 62 layers of minicpm3_4b (fp32, 16.3 GB of random weights
+   from a seed) as in phase 4, every earlier model's tensors freed: each
+   layer runs a flash attention a prefill and a latent flash decode a
+   tick, and four norms (q_norm and kv_norm too), as the counts assert;
+   the tick p50 and the busy share as in phase 4;
+17. full-width llava_next_mistral_7b cut to 2 layers, card against CPU as
+   in phase 3, with 256 image-patch embeddings (drawn from the seed)
+   before a 256-token prompt (input_spec at seq 512);
+18. serve all 32 layers of llava_next_mistral_7b (fp32, 28.4 GB of random
+   weights), minicpm3_4b's freed first: one ``api.prefill_fn`` request
+   with all 2880 anyres patches and a 192-token prompt (S = 3072, cache
+   3328) and 32 greedy ``api.decode_fn`` steps, with their launch counts;
+   then the engine serves 8 text requests as in phase 4;
+19. full-width whisper_medium cut to 2 encoder and 2 decoder layers, card
+   against CPU: 1500 frames (30 s of audio, from the seed) through
+   ``api.prefill_fn`` (the encoder, cross K/V, a BOS step) and 8 greedy
+   decode steps, logits within 1e-3 of max |logit| and the same tokens;
+20. whisper_medium at full size (24 + 24 layers, 0.96 B parameters),
+   llava's weights freed first: B = 4 x 1500 frames through
+   ``api.prefill_fn`` and 64 greedy decode steps (a self flash decode over
+   the 448-row cache and a cross flash decode over 1500 frames a layer and
+   step), with launch counts, step p50 and the busy share of a step; then
+   training: a 2 + 2-layer cut (1 x 1500 frames, 448 decoder tokens) card
+   against CPU at phase 14(a)'s tolerances, and 2 AdamW steps of the full
+   model through ``parallel.steps`` on one batch of 2 x 1500 frames, the
+   loss finite and falling, 144 flash-attention launches a step and no
+   other kernel.
 
 Then a ``{"kernels": [...]}`` line and, last, the device line.  Exits
 nonzero without a CUDA device or without the repository around it.
@@ -319,7 +356,9 @@ def kernel_report() -> None:
               f"attention {fa.smem_bytes(dtype, 128, 128)} bytes; decode, "
               f"a block of glm4_9b (G = 16) "
               f"{fd.smem_bytes(dtype, 128, 128, 16)}, of G = 1 "
-              f"{fd.smem_bytes(dtype, 128, 128, 1)}; SSD scan at N = 64, "
+              f"{fd.smem_bytes(dtype, 128, 128, 1)}, of minicpm3_4b's "
+              f"latent decode (D 288, Dv 256, G = 40) "
+              f"{fd.smem_bytes(dtype, 288, 256, 40)}; SSD scan at N = 64, "
               f"P tile 64 {ms.smem_bytes(dtype, 64, 64)}, P tile 32 "
               f"{ms.smem_bytes(dtype, 64, 32)}")
 
@@ -353,45 +392,61 @@ def phase_kernels(gen):
                     library_kernels=device_kernels(lib) if sdpa else None,
                     bound=bound(nbytes, flops, dtype, peak), note=note)
 
-    def attention(s, h, hkv, d, dtype, tag):
+    def attention(s, h, hkv, d, dtype, tag, t=None, dv=None, causal=True):
+        """One prompt of ``s`` queries against ``t`` keys (``s`` unless
+        given), head widths ``d`` and ``dv`` (``d`` unless given), causal
+        (square) or not; the scale is D^-0.5."""
+        t, dv = t or s, dv or d
         q = rnd(1, s, h, d, dtype=dtype)
-        k, v = rnd(1, s, hkv, d, dtype=dtype), rnd(1, s, hkv, d, dtype=dtype)
+        k, v = rnd(1, t, hkv, d, dtype=dtype), rnd(1, t, hkv, dv, dtype=dtype)
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
         # SDPA on K and V expanded to every head before the timed call: one
         # MHA call, not its GQA path (the math kernel in fp32)
         ke = kt.repeat_interleave(h // hkv, dim=1)
         ve = vt.repeat_interleave(h // hkv, dim=1)
-        kern = lambda: ops.flash_attention(q, k, v, causal=True)
-        plain = lambda: ref.attention_ref(qt, kt, vt, causal=True)
+        kern = lambda: ops.flash_attention(q, k, v, causal=causal)
+        plain = lambda: ref.attention_ref(qt, kt, vt, causal=causal)
         lib = lambda: F.scaled_dot_product_attention(qt, ke, ve,
-                                                     is_causal=True)
-        err = compare(f"flash_attention S={s} D={d} {tag}", kern(),
-                      plain().transpose(1, 2), dtype)
-        pairs = h * s * (s + 1) // 2
-        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-        flops = 4 * d * pairs
+                                                     is_causal=causal)
+        err = compare(f"flash_attention S={s} T={t} D={d} Dv={dv} {tag}",
+                      kern(), plain().transpose(1, 2), dtype)
+        pairs = h * s * (s + 1) // 2 if causal else h * s * t
+        nbytes = (q.numel() + h * s * dv + k.numel() + v.numel()) \
+            * q.element_size()
+        flops = 2 * (d + dv) * pairs
         if dtype == torch.float32:      # 3xTF32 on tensor cores
             return timed(kern, plain, lib, err, nbytes, 3 * flops, dtype,
                          TF32_FLOPS, sdpa=True)
         return timed(kern, plain, lib, err, nbytes, flops, dtype, sdpa=True)
 
-    def decode(h, hkv, d, dtype, tag, lens=(1024, 700, 129, 1)):
-        """4 slots of a 1024-row cache, ragged fill; one call must run one
-        device kernel (the split keys merge in the same launch)."""
+    def decode(h, hkv, d, dtype, tag, lens=(1024, 700, 129, 1), t=1024,
+               latent=False):
+        """4 slots of a ``t``-row cache, ragged fill; one call must run one
+        device kernel (the split keys merge in the same launch).
+        ``latent``: MLA's decode, one KV head whose key is a (B, T, d) row
+        buffer and whose value the view of its first 256 columns, at the
+        model's scale (kv_lora 256 + qk_rope 32 of minicpm3_4b: 96^-0.5);
+        the rows are read once, since the value is a prefix of the key."""
         from repro_torch.kernels import flash_decode as fd
-        b, t = 4, 1024
+        b = 4
         q = rnd(b, 1, h, d, dtype=dtype)
-        k, v = rnd(b, t, hkv, d, dtype=dtype), rnd(b, t, hkv, d, dtype=dtype)
+        if latent:
+            k = rnd(b, t, hkv, d, dtype=dtype)
+            v, dv, scale = k[..., :256], 256, 96 ** -0.5
+        else:
+            k, v = rnd(b, t, hkv, d, dtype=dtype), rnd(b, t, hkv, d,
+                                                       dtype=dtype)
+            dv, scale = d, None
         kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
         mask = (torch.arange(t, device="cuda")[None, :]
                 < kv_len[:, None])[:, None, None, :]
-        kern = lambda: ops.flash_decode(q, k, v, kv_len)
-        plain = lambda: ref.decode_ref(q[:, 0], kt, vt, kv_len)
+        kern = lambda: ops.flash_decode(q, k, v, kv_len, scale=scale)
+        plain = lambda: ref.decode_ref(q[:, 0], kt, vt, kv_len, scale=scale)
         lib = lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, enable_gqa=True)
-        err = compare(f"flash_decode D={d} {tag}", kern()[:, 0], plain(),
-                      dtype)
+            qt, kt, vt, attn_mask=mask, enable_gqa=True, scale=scale)
+        err = compare(f"flash_decode T={t} D={d} Dv={dv} {tag}",
+                      kern()[:, 0], plain(), dtype)
         # a profiler pass now and then records no device event at all (as
         # after the plain SSD loops, above); a pass that records none says
         # nothing, so take up to three
@@ -402,13 +457,15 @@ def phase_kernels(gen):
               f"one flash_decode call ran {len(events)} device events: "
               f"{events}")
         n_kv = int(kv_len.sum())
-        nbytes = (2 * q.numel() + 2 * hkv * d * n_kv) * q.element_size() \
-            + 4 * b
+        rows = d if latent else d + dv
+        nbytes = (q.numel() + b * h * dv + hkv * rows * n_kv) \
+            * q.element_size() + 4 * b
         split = fd.split_count(t, fd.groups_of(b, h, hkv),
                                torch.cuda.get_device_properties(0)
                                .multi_processor_count)
-        return timed(kern, plain, lib, err, nbytes, 4 * d * h * n_kv, dtype,
-                     sdpa=True, note=f"{split} splits, 1 device kernel")
+        return timed(kern, plain, lib, err, nbytes, 2 * (d + dv) * h * n_kv,
+                     dtype, sdpa=True, note=f"{split} splits, 1 device "
+                                            f"kernel")
 
     def rmsnorm(n, dm, dtype, tag):
         x, s_ = rnd(n, dm, dtype=dtype), rnd(dm, dtype=torch.float32)
@@ -561,6 +618,26 @@ def phase_kernels(gen):
             16, 16, 128, dtype, tag)
     rows[("flash_decode", "float32", "T=1024 H=16 MHA fill 544/160/68/9")] \
         = decode(16, 16, 128, torch.float32, "float32", served)
+    # this slice's shapes: minicpm3_4b's MLA prefill (40 heads, q/k 96, v
+    # 64) and latent decode (40 heads on one KV head, key 288, value 256);
+    # whisper_medium's encoder (1500 frames, non-causal, 16 heads of 64)
+    # and its decoder's self (448 rows) and cross (1500 frames) decodes
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).replace("torch.", "")
+        rows[("flash_attention", tag, "S=512 H=40 D=96 Dv=64 MLA")] = \
+            attention(512, 40, 40, 96, dtype, tag, dv=64)
+        rows[("flash_attention", tag, "S=T=1500 H=16 D=64 encoder")] = \
+            attention(1500, 16, 16, 64, dtype, tag, causal=False)
+        rows[("flash_decode", tag, "T=1024 H=40 Hkv=1 D=288 Dv=256 latent")] \
+            = decode(40, 1, 288, dtype, tag, latent=True)
+    rows[("flash_decode", "float32",
+          "T=1024 H=40 Hkv=1 D=288 Dv=256 latent fill 544/160/68/9")] = \
+        decode(40, 1, 288, torch.float32, "float32", served, latent=True)
+    rows[("flash_decode", "float32", "T=1500 H=16 D=64 cross")] = decode(
+        16, 16, 64, torch.float32, "float32", (1500,) * 4, t=1500)
+    rows[("flash_decode", "float32", "T=448 H=16 D=64 self fill "
+                                     "448/300/65/1")] = decode(
+        16, 16, 64, torch.float32, "float32", (448, 300, 65, 1), t=448)
     for dtype in (torch.float32, torch.bfloat16):
         tag = str(dtype).replace("torch.", "")
         # RMSNorm: the decode step's 4 rows and a 512-token prefill, at
@@ -626,13 +703,19 @@ def routed_counts(n_tokens: int, n_experts: int, top_k: int, seed: int):
     return np.bincount(ids.ravel(), minlength=n_experts)
 
 
-def run_greedy(cfg, params, prompt, cache_len, steps):
+def run_greedy(cfg, params, prompt, cache_len, steps, img=None):
+    """A prefill of ``prompt`` (after the (1, P, D) numpy image patches
+    ``img``, for a VLM) and ``steps`` greedy decode steps; the logits of
+    each on the host and the tokens."""
     from repro_torch.models import transformer as tf
     dev = params["embed"]["embedding"].device
     tokens = torch.as_tensor(prompt[None, :], dtype=torch.long, device=dev)
-    logits, cache = tf.lm_prefill(cfg, params, tokens, cache_len)
+    img_t = None if img is None else torch.from_numpy(img).to(dev)
+    logits, cache = tf.lm_prefill(cfg, params, tokens, cache_len,
+                                  img_embeds=img_t)
     out_logits, out_tokens = [logits.cpu()], []
-    kv_len = torch.tensor([prompt.shape[0]], dtype=torch.int32, device=dev)
+    n = prompt.shape[0] + (0 if img is None else img.shape[1])
+    kv_len = torch.tensor([n], dtype=torch.int32, device=dev)
     for _ in range(steps):
         tok = logits.argmax(dim=-1, keepdim=True)
         out_tokens.append(int(tok))
@@ -671,12 +754,13 @@ def route_differences(card, cpu):
     return diff, sum(a.shape[0] for a in card)
 
 
-def phase_cut(arch, n_layers, seed, prompt_len=128):
-    """Phases 3, 5, 7 and 9: a full-width model cut to ``n_layers``, the
-    same weights on the card and on the CPU, a ``prompt_len``-token prefill
-    and 8 greedy decode steps.  For an MoE model it also counts
-    the (token, layer) top-k routes that differ between the two; a route
-    that flips on a near-tie is reported, not hidden."""
+def phase_cut(arch, n_layers, seed, prompt_len=128, n_img=0):
+    """Phases 3, 5, 7, 9, 15 and 17: a full-width model cut to
+    ``n_layers``, the same weights on the card and on the CPU, a
+    ``prompt_len``-token prefill (after ``n_img`` image patches drawn from
+    the seed, for a VLM) and 8 greedy decode steps.  For an MoE model it
+    also counts the (token, layer) top-k routes that differ between the
+    two; a route that flips on a near-tie is reported, not hidden."""
     from repro_torch.configs import get_config
     from repro_torch.models import api
     from repro_torch.models.common import init_params
@@ -689,13 +773,17 @@ def phase_cut(arch, n_layers, seed, prompt_len=128):
         return t.cpu() if isinstance(t, torch.Tensor) else \
             {k: to_cpu(v) for k, v in t.items()}
     p_cpu = to_cpu(p_gpu)
-    prompt = np.random.default_rng(seed).integers(0, cfg.vocab, prompt_len)
+    rng = np.random.default_rng(seed)
+    prompt = rng.integers(0, cfg.vocab, prompt_len)
+    img = rng.standard_normal((1, n_img, cfg.d_model)).astype(np.float32) \
+        if n_img else None
+    cache_len = 2 * (prompt_len + n_img)
     t0 = time.perf_counter()
     with RouteLog() as card_routes:
-        gl, gt = run_greedy(cfg, p_gpu, prompt, 2 * prompt_len, 8)
+        gl, gt = run_greedy(cfg, p_gpu, prompt, cache_len, 8, img)
     t1 = time.perf_counter()
     with RouteLog() as cpu_routes:
-        cl, ct = run_greedy(cfg, p_cpu, prompt, 2 * prompt_len, 8)
+        cl, ct = run_greedy(cfg, p_cpu, prompt, cache_len, 8, img)
     t2 = time.perf_counter()
     if cfg.family == "moe":
         diff, total = route_differences(card_routes.calls, cpu_routes.calls)
@@ -712,7 +800,8 @@ def phase_cut(arch, n_layers, seed, prompt_len=128):
         check(rel <= 1e-3, f"step {i}: card logits off the CPU's by {rel} of "
                            f"max |logit|")
     check(gt == ct, f"greedy tokens differ: card {gt} cpu {ct}")
-    print(f"  {n_layers}-layer full-width {arch}: prefill {prompt_len} + 8 "
+    print(f"  {n_layers}-layer full-width {arch}: prefill "
+          f"{f'{n_img} patches + ' if n_img else ''}{prompt_len} + 8 "
           f"decode steps, worst |card - cpu| / max|logit| = {worst:.3e}, "
           f"tokens equal ({gt}); card {t1 - t0:.2f} s, cpu "
           f"{t2 - t1:.2f} s")
@@ -725,10 +814,21 @@ def structure_launches(cfg, n_prefill, n_steps):
     prefills and ``n_steps`` decode ticks.  Two norms a block: a dense, MoE
     or shared attention block, a Mamba2 layer (the block's and the gated
     one) and an xLSTM block (the block's and the heads'), and one final
-    norm.  One attention a dense, MoE or shared attention block; one SSD
-    scan a Mamba2 layer; three grouped matmuls (gate, up, down) an MoE
-    layer; one sLSTM recurrence an sLSTM block."""
+    norm; an MLA block adds its kv_norm and, with a query compression, its
+    q_norm.  One attention a dense, MoE or shared attention block (MLA's
+    latent decode too); one SSD scan a Mamba2 layer; three grouped matmuls
+    (gate, up, down) an MoE layer; one sLSTM recurrence an sLSTM block.
+    The encoder-decoder's prefill (``api.prefill_fn``) is the encoder (an
+    attention and two norms a layer, and its final norm) and a BOS decode
+    step; a decode step is three norms, a self and a cross flash decode a
+    decoder layer and the final norm."""
     calls = n_prefill + n_steps
+    if cfg.family == "encdec":
+        n, nd = cfg.n_layers, cfg.n_dec_layers
+        return {"flash_attention": n * n_prefill,
+                "flash_decode": 2 * nd * calls, "mamba_scan": 0,
+                "moe_gmm": 0, "slstm_seq": 0,
+                "rmsnorm": (2 * n + 1) * n_prefill + (3 * nd + 1) * calls}
     attn = mamba = moe = slstm = 0
     if cfg.family == "hybrid":
         mamba, attn = cfg.n_layers, cfg.n_layers // cfg.attn_every
@@ -739,10 +839,12 @@ def structure_launches(cfg, n_prefill, n_steps):
     if cfg.family == "moe":
         moe = cfg.n_layers - cfg.first_dense
     blocks = cfg.n_layers + (attn if cfg.family == "hybrid" else 0)
+    mla = (1 + (cfg.q_lora > 0)) * cfg.n_layers if cfg.attn == "mla" else 0
     return {"flash_attention": attn * n_prefill,
             "flash_decode": attn * n_steps,
             "mamba_scan": mamba * n_prefill, "moe_gmm": 3 * moe * calls,
-            "rmsnorm": (2 * blocks + 1) * calls, "slstm_seq": slstm * calls}
+            "rmsnorm": (2 * blocks + mla + 1) * calls,
+            "slstm_seq": slstm * calls}
 
 
 def serve_once(cfg, params, prompts, new_tokens):
@@ -807,12 +909,14 @@ def tick_cache_bytes(cfg, slots, fill):
     return total
 
 
-def phase_serve(arch, seed, max_prompt, repeats: int = 3, then=None,
-                long=(256, 512)):
-    """Phases 4, 6, 8 and 10: a full model through the serving engine, the
-    same 8 requests ``repeats`` times, each on a fresh engine.  Six prompts
-    are drawn in [4, max_prompt], two have the ``long`` lengths.
-    ``then(cfg, params)`` runs last, on the same weights."""
+def phase_serve(arch, seed, max_prompt, repeats: int = 1, then=None,
+                long=(256, 512), before=None):
+    """Phases 4, 6, 8, 10, 16 and 18: a full model through the serving
+    engine, the same 8 requests ``repeats`` times, each on a fresh engine.
+    Six prompts are drawn in [4, max_prompt], two have the ``long``
+    lengths.  ``before(cfg, params)`` runs before the engine and
+    ``then(cfg, params)`` last, on the same weights; the launches of the
+    engine's first run are returned, plus those ``before`` returns."""
     from repro_torch.configs import get_config
     from repro_torch.models import api
     from repro_torch.models.common import count_params, init_params
@@ -840,6 +944,7 @@ def phase_serve(arch, seed, max_prompt, repeats: int = 3, then=None,
           f"written at a mean fill of {fill:.1f} positions, over HBM)")
     print(f"  launches per prefill {structure_launches(cfg, 1, 0)}, per tick "
           f"{structure_launches(cfg, 0, 1)}")
+    extra = None if before is None else before(cfg, params)
     first, all_steps, engine = None, [], None
     for run in range(repeats):
         engine = None       # one pool's cache at a time
@@ -878,6 +983,8 @@ def phase_serve(arch, seed, max_prompt, repeats: int = 3, then=None,
               f" ms ({(n_tick - unread) / 1e9:.3f} B fp32 weights a tick)")
     if then is not None:
         then(cfg, params)
+    if extra is not None:
+        first = {k: first[k] + extra[k] for k in first}
     return first
 
 
@@ -2124,11 +2231,14 @@ TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 4, 512, 6
 def train_launches(cfg, steps: int) -> dict:
     """Kernel launches ``steps`` train steps of a dense model imply: one
     flash attention a block in the forward and one in its remat recompute
-    (``cfg.remat`` "full"); the norms, and every other kernel, are plain on
-    the training route."""
+    (``cfg.remat`` "full"); the encoder-decoder's are its encoder layers'
+    self-attention and its decoder layers' self- and cross-attention.  The
+    norms, and every other kernel, are plain on the training route."""
     want = {k: 0 for k in ("flash_attention", "flash_decode", "mamba_scan",
                            "moe_gmm", "rmsnorm", "slstm_seq")}
-    want["flash_attention"] = 2 * cfg.n_layers * steps
+    attn = cfg.n_layers + 2 * cfg.n_dec_layers if cfg.family == "encdec" \
+        else cfg.n_layers
+    want["flash_attention"] = 2 * attn * steps
     return want
 
 
@@ -2136,11 +2246,12 @@ def to_dev(batch, dev):
     return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
 
 
-def train_cut(cfg, seed, card_dev) -> dict:
-    """14(a): the same parameters and batch (1 x 128) on the card and on
-    the CPU: loss within 1e-4 relative, each gradient leaf within 1e-3 of
-    its max |g|, and one AdamW update from the same gradient tree within
-    1e-6 of each leaf's max."""
+def train_cut(cfg, seed, card_dev, batch=None) -> dict:
+    """14(a), and 20's 2 + 2-layer whisper_medium: the same parameters and
+    batch (1 x 128 tokens unless ``batch``, a dict of numpy arrays, is
+    given) on the card and on the CPU: loss within 1e-4 relative, each
+    gradient leaf within 1e-3 of its max |g|, and one AdamW update from the
+    same gradient tree within 1e-6 of each leaf's max."""
     from repro_torch.data import DataConfig, synthetic_batch
     from repro_torch.kernels import ops
     from repro_torch.models import api
@@ -2152,8 +2263,9 @@ def train_cut(cfg, seed, card_dev) -> dict:
     p_card = init_params(api.param_spec(cfg), torch.Generator(
         device=card_dev).manual_seed(seed), card_dev)
     p_cpu = tree_map(lambda t: t.to("cpu", copy=True), p_card)
-    batch = synthetic_batch(DataConfig(seq_len=128, global_batch=1,
-                                       vocab=cfg.vocab, seed=seed), 0)
+    if batch is None:
+        batch = synthetic_batch(DataConfig(seq_len=128, global_batch=1,
+                                           vocab=cfg.vocab, seed=seed), 0)
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     l_card, g_card = loss_and_grads(loss_fn, p_card, to_dev(batch, card_dev))
@@ -2190,7 +2302,7 @@ def train_cut(cfg, seed, card_dev) -> dict:
                            f"is off the CPU's by {err} of its max")
     print(f"  {cfg.n_layers}-layer {cfg.name} (d_model {cfg.d_model}, "
           f"{count_params(api.param_spec(cfg)) / 1e9:.4f} B params), "
-          f"1 x 128 tokens: loss card {float(l_card):.6f} cpu "
+          f"batch {({k: v.shape for k, v in batch.items()})}: loss card {float(l_card):.6f} cpu "
           f"{float(l_cpu):.6f} (rel {rel:.2e}); worst gradient leaf "
           f"{g_worst:.2e} of its max |g|; one AdamW update, worst leaf "
           f"{u_worst:.2e} of its max; launches {launched}; card "
@@ -2305,8 +2417,8 @@ def train_full(cfg, seed, card_dev, batch, seq, steps) -> dict:
 
 def train_launcher(seed, card_dev, smoke: bool) -> dict:
     """14(c): ``launch.train.main`` for xlstm_125m with a checkpoint
-    directory: a first call to step 30 (checkpoints at 20 and 30), a
-    second to step 60, which must resume from step 30; both return 0."""
+    directory: a first call to step 8 (checkpoints at 4 and 8), a second
+    to step 12, which must resume from step 8; both return 0."""
     import contextlib
     import io
     import shutil
@@ -2314,10 +2426,10 @@ def train_launcher(seed, card_dev, smoke: bool) -> dict:
     ckpt = os.path.join(ROOT, "build", "train_ckpt")
     shutil.rmtree(ckpt, ignore_errors=True)
     args = ["--arch", "xlstm_125m", "--ckpt-dir", ckpt, "--ckpt-every",
-            "20", "--device", card_dev, "--seed", str(seed)] + \
+            "4", "--device", card_dev, "--seed", str(seed)] + \
         (["--smoke", "--batch", "2", "--seq", "32"] if smoke else [])
     outs, rcs = [], []
-    for steps in (30, 60):
+    for steps in (8, 12):
         buf = io.StringIO()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
@@ -2326,15 +2438,15 @@ def train_launcher(seed, card_dev, smoke: bool) -> dict:
         print("\n".join("    " + line for line in outs[-1].splitlines()))
         print(f"  the call to step {steps} returned {rcs[-1]} in "
               f"{time.perf_counter() - t0:.1f} s")
-        if steps == 30:
+        if steps == 8:
             saved = sorted(p for p in os.listdir(ckpt)
                            if p.startswith("step_"))
-            check(saved == ["step_00000020", "step_00000030"],
+            check(saved == ["step_00000004", "step_00000008"],
                   f"checkpoints after the first call: {saved}")
     shutil.rmtree(ckpt, ignore_errors=True)
     check(rcs == [0, 0], f"the launcher returned {rcs}")
-    check(f"[resume] restored step 30 from {ckpt}" in outs[1],
-          "the second call did not resume from step 30")
+    check(f"[resume] restored step 8 from {ckpt}" in outs[1],
+          "the second call did not resume from step 8")
     return {"returns": rcs}
 
 
@@ -2416,6 +2528,234 @@ def phase_train(seed: int, smi: str, card_dev: str = "cuda",
     return out
 
 
+# this slice's served paths: the MLA dense model, the VLM, the
+# encoder-decoder
+VLM_TEXT, VLM_STEPS = 192, 32
+WHISPER_BATCH, WHISPER_STEPS = 4, 64
+
+
+def vlm_image_request(cfg, params, text=VLM_TEXT) -> dict:
+    """Phase 18's first part: one ``api.prefill_fn`` request with all
+    ``n_img_patches`` patch embeddings (drawn from a seed) and a
+    ``text``-token prompt, then ``VLM_STEPS`` greedy ``api.decode_fn``
+    steps, from launch counts of 0, on the device of ``params``; every
+    logit finite and the launches what the structure implies (on the
+    card).  Returns the launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import api
+    dev = params["embed"]["embedding"].device
+    rng = np.random.default_rng(11)
+    img = torch.from_numpy(rng.standard_normal(
+        (1, cfg.n_img_patches, cfg.d_model)).astype(np.float32)).to(dev)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (1, text)),
+                             device=dev)
+    s = cfg.n_img_patches + text
+    prefill = api.prefill_fn(cfg, s + 256)
+    decode = api.decode_fn(cfg)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, {"tokens": tokens, "img_embeds": img})
+    torch.cuda.synchronize()
+    t_prefill = (time.perf_counter() - t0) * 1e3
+    check(bool(torch.isfinite(logits[:, :cfg.vocab]).all()),
+          "the image prefill's logits are not finite")
+    kv = torch.tensor([s], dtype=torch.int32, device=dev)
+    times, out = [], []
+    for _ in range(VLM_STEPS):
+        tok = logits.argmax(dim=-1, keepdim=True)
+        out.append(int(tok))
+        t0 = time.perf_counter()
+        logits, cache = decode(params, tok, cache, kv)
+        kv += 1
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        check(bool(torch.isfinite(logits[:, :cfg.vocab]).all()),
+              "a decode step's logits are not finite")
+    launched = ops.launch_counts()
+    want = structure_launches(cfg, 1, VLM_STEPS)
+    check(dev.type != "cuda" or launched == want,
+          f"the image request launched {launched}, the structure implies "
+          f"{want}")
+    check(all(0 <= t < cfg.vocab for t in out), f"bad tokens {out}")
+    print(f"  one request of {cfg.n_img_patches} image patches + "
+          f"{text} tokens (S = {s}, cache {s + 256}): prefill "
+          f"{t_prefill:.1f} ms (host clock, synchronised), {VLM_STEPS} "
+          f"decode steps p50 {sorted(times)[len(times) // 2]:.2f} ms; "
+          f"tokens {out[:8]}...; launches {launched}")
+    return launched
+
+
+def greedy_api(cfg, params, batch, steps, kv0):
+    """``api.prefill_fn`` of ``batch`` and ``steps`` greedy
+    ``api.decode_fn`` steps from a fill of ``kv0``: the logits of each on
+    the host, the tokens, and each step's host ms (synchronised)."""
+    from repro_torch.models import api
+    dev = params["embed"]["embedding"].device
+    logits, cache = api.prefill_fn(cfg, cfg.dec_len)(params, batch)
+    b = logits.shape[0]
+    kv = torch.full((b,), kv0, dtype=torch.int32, device=dev)
+    decode = api.decode_fn(cfg)
+    out_logits, out_tokens, times = [logits.cpu()], [], []
+    for _ in range(steps):
+        tok = logits.argmax(dim=-1, keepdim=True)
+        out_tokens.append(tok[:, 0].tolist())
+        t0 = time.perf_counter()
+        logits, cache = decode(params, tok, cache, kv)
+        kv += 1
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        out_logits.append(logits.cpu())
+    return out_logits, out_tokens, times, cache
+
+
+def whisper_cfg(smoke=False, **kw):
+    """whisper_medium in fp32 through the kernels (``smoke``: the reduced
+    config, for a rehearsal on the CPU); its frames: 1500, 30 s of audio
+    (32 for the reduced config)."""
+    from repro_torch.configs import get_config
+    cfg = get_config("whisper_medium")
+    cfg = cfg.reduced() if smoke else cfg
+    return cfg.replace(dtype="float32", attn_impl="kernel", **kw), \
+        32 if smoke else 1500
+
+
+def phase_whisper_cut(seed, card_dev="cuda", smoke=False):
+    """Phase 19: whisper_medium at full width cut to 2 + 2 layers, the
+    same weights and 1500 frames on the card and on the CPU: a BOS
+    prefill and 8 greedy decode steps through the API.  ``card_dev``
+    "cpu" with ``smoke`` rehearses it on the reduced config."""
+    from repro_torch.models import api
+    from repro_torch.models.common import init_params
+    from repro_torch.tree import tree_map
+    cfg, n_frames = whisper_cfg(smoke, n_layers=2, n_dec_layers=2)
+    p_gpu = init_params(api.param_spec(cfg), torch.Generator(
+        device=card_dev).manual_seed(seed), card_dev)
+    p_cpu = tree_map(lambda t: t.to("cpu", copy=True), p_gpu)
+    frames = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (1, n_frames, cfg.d_model)).astype(np.float32))
+    t0 = time.perf_counter()
+    gl, gt, _, _ = greedy_api(cfg, p_gpu, {"frames": frames.to(card_dev)},
+                              8, 1)
+    t1 = time.perf_counter()
+    cl, ct, _, _ = greedy_api(cfg, p_cpu, {"frames": frames}, 8, 1)
+    t2 = time.perf_counter()
+    worst = 0.0
+    for i, (g, c) in enumerate(zip(gl, cl)):
+        g, c = g[..., :cfg.vocab], c[..., :cfg.vocab]
+        check(bool(torch.isfinite(g).all()), f"step {i}: non-finite logits")
+        rel = ((g - c).abs().max() / c.abs().max()).item()
+        worst = max(worst, rel)
+        check(rel <= 1e-3, f"step {i}: card logits off the CPU's by {rel} of "
+                           f"max |logit|")
+    check(gt == ct, f"greedy tokens differ: card {gt} cpu {ct}")
+    print(f"  2 + 2-layer full-width whisper_medium: {n_frames} frames, BOS "
+          f"prefill + 8 decode steps, worst |card - cpu| / max|logit| = "
+          f"{worst:.3e}, tokens equal ({[t[0] for t in gt]}); card "
+          f"{t1 - t0:.2f} s, cpu {t2 - t1:.2f} s")
+    del p_gpu, p_cpu
+    torch.cuda.empty_cache()
+
+
+def phase_whisper(seed, smi, card_dev="cuda", smoke=False) -> dict:
+    """Phase 20: whisper_medium served at full size through the API, then
+    trained (the 2 + 2-layer cut against the CPU, 2 AdamW steps of the
+    full model).  ``card_dev`` "cpu" with ``smoke`` rehearses it on the
+    reduced config (launch counts are checked on the card only)."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.kernels import ops
+    from repro_torch.models import api
+    from repro_torch.models.common import count_params, init_params
+    from repro_torch.parallel import steps as st
+    cfg, n_frames = whisper_cfg(smoke)
+    n_steps = min(WHISPER_STEPS, cfg.dec_len - 2)
+    on_card = card_dev == "cuda"
+    spec = api.param_spec(cfg)
+    n_params = count_params(spec)
+    params = init_params(spec, torch.Generator(device=card_dev).manual_seed(
+        seed), card_dev)
+    frames = torch.randn(WHISPER_BATCH, n_frames, cfg.d_model,
+                         device=card_dev, generator=torch.Generator(
+                             device=card_dev).manual_seed(seed + 1))
+    print(f"  {cfg.name}: {n_params / 1e9:.4f} B params fp32; "
+          f"B = {WHISPER_BATCH} x {n_frames} frames, {n_steps} decode steps")
+    greedy_api(cfg, params, {"frames": frames[:1]}, 2, 1)      # warm
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, tokens, times, cache = greedy_api(
+        cfg, params, {"frames": frames}, n_steps, 1)
+    wall = time.perf_counter() - t0
+    served = ops.launch_counts()
+    want = structure_launches(cfg, 1, n_steps)
+    check(not on_card or served == want, f"whisper launched {served}, the "
+                                         f"structure implies {want}")
+    for i, g in enumerate(logits):
+        check(bool(torch.isfinite(g[..., :cfg.vocab]).all()),
+              f"step {i}: non-finite logits")
+    check(all(0 <= t < cfg.vocab for row in tokens for t in row),
+          "tokens out of the vocab")
+    kv = torch.full((WHISPER_BATCH,), 1 + n_steps, dtype=torch.int32,
+                    device=card_dev)
+    tok = torch.zeros(WHISPER_BATCH, 1, dtype=torch.long, device=card_dev)
+    events, busy, top = device_busy(
+        lambda: api.decode_fn(cfg)(params, tok, cache, kv))
+    p50 = sorted(times)[len(times) // 2]
+    print(f"  {n_steps} decode steps of {WHISPER_BATCH} rows in "
+          f"{wall:.2f} s with the prefill; step p50 {p50:.2f} ms (min "
+          f"{min(times):.2f}, max {max(times):.2f}); one more step profiled: "
+          f"device busy {busy:.2f} ms = {100 * busy / p50:.1f}% of the p50 "
+          f"step, {events} device events, top "
+          f"{[(n[:50], round(ms, 3)) for n, ms in top]}; launches {served}")
+    del params, cache, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"served": served, "step_p50_ms": p50, "busy_ms": busy}
+    # training: the 2 + 2-layer cut against the CPU, then the full model
+    cut, _ = whisper_cfg(smoke, n_layers=2, n_dec_layers=2)
+    batch = st.materialize_batch(cut, InputShape("t", n_frames, 1, "train"),
+                                 seed=seed, device="cpu")
+    out["cut"] = train_cut(cut, seed, card_dev,
+                           {k: v.numpy() for k, v in batch.items()})
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = st.init_train_state(cfg, torch.Generator(
+        device=card_dev).manual_seed(seed), card_dev)
+    step = st.make_train_step(cfg, base_lr=3e-4, warmup=0, total_steps=2)
+    batch = st.materialize_batch(cfg, InputShape("t", n_frames, 2, "train"),
+                                 seed=seed, device=card_dev)
+    losses, step_ms, total = [], [], {}
+    for i in range(2):
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        launched = ops.launch_counts()
+        total = {k: total.get(k, 0) + v for k, v in launched.items()}
+        check(not on_card or launched == train_launches(cfg, 1),
+              f"train step {i + 1} launched {launched}, not "
+              f"{train_launches(cfg, 1)}")
+    check(all(math.isfinite(x) for x in losses) and losses[1] < losses[0],
+          f"whisper's losses on one batch {losses} are not finite and "
+          f"falling")
+    print(f"  2 AdamW steps of the full {cfg.name}, 2 x {n_frames} frames and "
+          f"2 x {cfg.dec_len} tokens, one batch: losses {losses}, "
+          f"{step_ms[0]:.1f} / {step_ms[1]:.1f} ms (host clock, "
+          f"synchronised; the first includes first calls), peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches a "
+          f"step {launched}")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    out.update(losses=losses, train_step_ms=step_ms, train_launches=total)
+    print("[20] " + json.dumps({"whisper": {**out, "card": smi}}))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -2450,7 +2790,7 @@ def main() -> int:
     phase(3, "full-width 2-layer glm4_9b, card against CPU", phase_cut,
           "glm4_9b", 2, seed)
     by_path = {"glm4_9b": phase(4, "serving full glm4_9b", phase_serve,
-                                "glm4_9b", seed, 128, 3,
+                                "glm4_9b", seed, 128, 1,
                                 functools.partial(lone_prefill,
                                                   ("flash_attention",)))}
     gc.collect()
@@ -2458,7 +2798,7 @@ def main() -> int:
     phase(5, "full-width 13-layer zamba2_7b, card against CPU", phase_cut,
           "zamba2_7b", 13, seed)
     by_path["zamba2_7b"] = phase(
-        6, "serving full zamba2_7b", phase_serve, "zamba2_7b", seed, 64, 3,
+        6, "serving full zamba2_7b", phase_serve, "zamba2_7b", seed, 64, 1,
         functools.partial(lone_prefill, ("mamba_scan", "flash_attention")))
     gc.collect()
     torch.cuda.empty_cache()        # zamba2_7b's weights are gone
@@ -2466,14 +2806,14 @@ def main() -> int:
           phase_cut, "deepseek_moe_16b", 3, seed)
     by_path["deepseek_moe_16b"] = phase(
         8, "serving full deepseek_moe_16b", phase_serve, "deepseek_moe_16b",
-        seed, 128, 3, moe_decode_without_sync)
+        seed, 128, 1, moe_decode_without_sync)
     gc.collect()
     torch.cuda.empty_cache()        # deepseek_moe_16b's weights are gone
     phase(9, "full 12-layer xlstm_125m, card against CPU", phase_cut,
           "xlstm_125m", 12, seed, 300)
     by_path["xlstm_125m"] = phase(
         10, "serving full xlstm_125m", phase_serve, "xlstm_125m", seed, 128,
-        3, functools.partial(lone_prefill, ("slstm_seq",)), (300, 512))
+        1, functools.partial(lone_prefill, ("slstm_seq",)), (300, 512))
     gc.collect()
     torch.cuda.empty_cache()        # xlstm_125m's weights are gone
     phase(11, "the cost model, card against CPU", phase_cost_model, seed,
@@ -2487,6 +2827,29 @@ def main() -> int:
     train = phase(14, "training: full-width glm4_9b and the launcher",
                   phase_train, seed, smi)
     by_path["train"] = train["full"]["launches"]
+    del train
+    gc.collect()
+    torch.cuda.empty_cache()        # glm4_9b's training state is gone
+    phase(15, "full-width 2-layer minicpm3_4b (MLA), card against CPU",
+          phase_cut, "minicpm3_4b", 2, seed)
+    by_path["minicpm3_4b"] = phase(16, "serving full minicpm3_4b",
+                                   phase_serve, "minicpm3_4b", seed, 128, 1)
+    gc.collect()
+    torch.cuda.empty_cache()        # minicpm3_4b's weights are gone
+    phase(17, "full-width 2-layer llava_next_mistral_7b, card against CPU",
+          phase_cut, "llava_next_mistral_7b", 2, seed, 256, 256)
+    by_path["llava_next_mistral_7b"] = phase(
+        18, "serving full llava_next_mistral_7b", phase_serve,
+        "llava_next_mistral_7b", seed, 128, 1, None, (256, 512),
+        vlm_image_request)
+    gc.collect()
+    torch.cuda.empty_cache()        # llava's weights are gone
+    phase(19, "full-width 2 + 2-layer whisper_medium, card against CPU",
+          phase_whisper_cut, seed)
+    whisper = phase(20, "whisper_medium served and trained at full size",
+                    phase_whisper, seed, smi)
+    by_path["whisper_medium"] = whisper["served"]
+    by_path["whisper_train"] = whisper["train_launches"]
 
     timed = {"flash_attention": ("float32", "S=512"),
              "flash_decode": ("float32", "T=1024"),
@@ -2519,7 +2882,13 @@ def main() -> int:
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": r["library_ms"],
-            "library_kernels": r["library_kernels"]})
+            "library_kernels": r["library_kernels"],
+            # every phase-2 row of the kernel, this slice's shapes too
+            "rows": [{"dtype": t, "shape": sz, "max_abs_err": x["err"],
+                      "ms": x["ms"], "plain_ms": x["plain_ms"],
+                      "bound_ms": x["bound"][0], "bound_by": x["bound"][1],
+                      "library_ms": x["library_ms"]}
+                     for (n, t, sz), x in rows.items() if n == name]})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

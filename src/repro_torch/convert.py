@@ -2,7 +2,8 @@
 into the port's.
 
 The port keeps the JAX package's names and layouts, so conversion is a
-key-for-key copy of leaves.  Leaves arrive as numpy arrays
+key-for-key copy of leaves; a decode cache goes through
+``cache_from_numpy``, which lays MLA's latent pair out as the port does.  Leaves arrive as numpy arrays
 (``np.asarray`` of a JAX array); bfloat16 arrives as the ``ml_dtypes``
 numpy type, which torch cannot read directly, and goes over as its bits.
 """
@@ -30,6 +31,21 @@ def params_from_numpy(tree: Any, device) -> Any:
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     return tensor_from_numpy(tree, device)
+
+
+def cache_from_numpy(tree: Any, device) -> Any:
+    """A JAX decode cache with numpy leaves -> the port's, key for key;
+    each MLA {"ckv", "krope"} pair becomes two views of one buffer, as
+    ``models.transformer.init_cache`` lays it out."""
+    if not isinstance(tree, dict):
+        return tensor_from_numpy(tree, device)
+    if tree.keys() == {"ckv", "krope"}:
+        ckv = tensor_from_numpy(tree["ckv"], device)
+        buf = torch.cat([ckv, tensor_from_numpy(tree["krope"], device)],
+                        dim=-1)
+        return {"ckv": buf[..., :ckv.shape[-1]],
+                "krope": buf[..., ckv.shape[-1]:]}
+    return {k: cache_from_numpy(v, device) for k, v in tree.items()}
 
 
 def train_state_from_numpy(state: Any, device) -> TrainState:

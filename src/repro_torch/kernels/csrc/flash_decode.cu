@@ -40,6 +40,13 @@
 //   splits of a ragged batch are empty.
 // K/V are read through the strides of the model's (B, T, Hkv, D) cache.
 // kv_len = 0 gives 0, as the TPU kernel does.
+// Widths: a value row of at most 256 (a lane's NC = 2 chunks of 4 dims),
+// a key row of at most 288, MLA's latent decode (minicpm3_4b: key
+// [c_kv | k_rope] of 256 + 32, value c_kv, 40 query heads on one KV head,
+// so two blocks of 32 and 8 heads a split).  There a fp32 block of 32
+// heads with two ring stages takes 220,672 bytes of shared memory: one
+// block an SM, where narrower rows fit two.  The value is a prefix of the
+// key's row in that cache; each is loaded on its own.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -52,6 +59,8 @@ constexpr int kTile = 32;         // keys a tile: one a lane
 constexpr int kMaxHeads = 32;     // query heads a block
 constexpr int kHeadsPerWarp = kMaxHeads / kWarps;
 constexpr int kMaxSplit = 32;     // key splits of a group
+constexpr int kMaxD = 288;        // key row
+constexpr int kMaxDv = 256;       // value row: NC = 2 chunks of 4 a lane
 constexpr int kMaxSmem = 232448;  // 227 KB, a block's most on sm_90
 constexpr int kPStride = kTile + 8;  // floats a row of P: conflict-free
                                      // 8-byte reads of 8 rows
@@ -823,7 +832,8 @@ int launch(const void* q, const void* k, const void* v, const void* kv_len,
   const int* len = static_cast<const int*>(kv_len);
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
   if (B * H == 0) return static_cast<int>(cudaGetLastError());
-  if (Hkv <= 0 || H % Hkv || nsplit < 1 || nsplit > kMaxSplit || dmax > 256)
+  if (Hkv <= 0 || H % Hkv || nsplit < 1 || nsplit > kMaxSplit ||
+      D > kMaxD || Dv > kMaxDv)
     return static_cast<int>(cudaErrorInvalidValue);
   const int group = H / Hkv;
   if (dmax <= 128)

@@ -25,7 +25,10 @@ _ENTRY = {torch.float32: "flash_decode_f32",
 _ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
          + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p])
-MAX_HEAD_DIM = 256
+# widest rows: a key of MLA's latent decode (minicpm3_4b's kv_lora 256 +
+# qk_rope 32) and a value of 256, which fit the fp32 block's shared memory
+MAX_KEY_DIM = 288
+MAX_VALUE_DIM = 256
 MAX_SPLIT = 32          # key splits of a group
 MIN_SPLIT_KEYS = 32     # keys a split keeps at least: one tile
 MAX_BLOCK_HEADS = 32    # query heads a block serves; larger groups take more
@@ -126,8 +129,9 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or hkv == 0 or h % hkv:
         raise ValueError(f"shapes q{tuple(q.shape)} k{tuple(k.shape)} "
                          f"v{tuple(v.shape)} do not form GQA decode")
-    if max(d, dv) > MAX_HEAD_DIM:
-        raise ValueError(f"head dim {d}/{dv} over {MAX_HEAD_DIM}")
+    if d > MAX_KEY_DIM or dv > MAX_VALUE_DIM:
+        raise ValueError(f"head dims D={d}, Dv={dv} over the kernel's "
+                         f"{MAX_KEY_DIM}/{MAX_VALUE_DIM}")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("the head dimension must be contiguous")
     scale = d ** -0.5 if scale is None else float(scale)

@@ -77,18 +77,16 @@ class _FlashAttention(torch.autograd.Function):
 def flash_attention(q, k, v, *, causal: bool = True, scale=None):
     """q:(B,S,H,D) k/v:(B,T,Hkv,D) -> (B,S,H,Dv).
 
-    Block contract of ``flash_attention_fwd``: S a multiple of min(128, S)
-    and T of min(128, T).  Causal attention needs S == T, where the
-    kernel's top-left and the oracle's bottom-right alignment agree.
+    Any S and T: the CUDA kernel masks its ragged last tiles (the TPU
+    kernel's 128-row blocks are a VMEM blocking detail, which JAX's
+    ``attend_chunked`` pads around).  Causal attention needs S == T, where
+    the kernel's top-left and the oracle's bottom-right alignment agree.
 
     On the card the result carries a ``grad_fn`` when an input requires
     grad: the backward differentiates the oracle, as the JAX package's
     custom VJP does.
     """
     s, t = q.shape[1], k.shape[1]
-    if s % min(128, s) or t % min(128, t):
-        raise ValueError(f"flash attention takes S, T that are multiples of "
-                         f"their 128-row block, got S={s}, T={t}")
     if causal and s != t:
         raise ValueError(f"causal flash attention needs S == T, got "
                          f"S={s}, T={t}")
@@ -108,12 +106,9 @@ def flash_attention(q, k, v, *, causal: bool = True, scale=None):
 def flash_decode(q, k, v, kv_len, *, scale=None):
     """q:(B,1,H,D) k/v:(B,T,Hkv,D) kv_len:(B,) int32 -> (B,1,H,Dv).
 
-    Block contract of the TPU ``flash_decode``: T a multiple of min(256, T).
+    Any cache length T: the CUDA kernel runs a partial last tile (the TPU
+    kernel's 256-key blocks are a VMEM blocking detail).
     """
-    t = k.shape[1]
-    if t % min(256, t):
-        raise ValueError(f"flash decode takes a cache length that is a "
-                         f"multiple of its 256-key block, got T={t}")
     kt, vt = k.transpose(1, 2), v.transpose(1, 2)
     if _on_card(q, k, v, kv_len):
         out = _fd.flash_decode(q[:, 0], kt, vt, kv_len, scale=scale)

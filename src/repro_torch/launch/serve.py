@@ -9,10 +9,17 @@ synthetic request trace; reports throughput, TTFT and decode-step time.
       --arch deepseek_moe_16b --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm_125m \
       --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch minicpm3_4b \
+      --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch llava_next_mistral_7b --smoke --device cpu
 
 Runs on the GPU (``--device cuda``, the default) and raises when there is
 none; ``--device cpu`` runs the plain PyTorch versions of the kernels.
-Weights are random, drawn from ``--seed``; nothing is downloaded.
+Weights are random, drawn from ``--seed``; nothing is downloaded.  The
+engine serves decoder-only models (a VLM with text prompts); an
+encoder-decoder (whisper_medium) is refused, as in the JAX launcher, and
+runs through ``api.prefill_fn`` / ``api.decode_fn``.
 """
 from __future__ import annotations
 
@@ -49,6 +56,8 @@ def main(argv=None) -> int:
     if args.smoke:
         cfg = cfg.reduced()
     cfg = cfg.replace(dtype="float32", attn_impl=args.attn_impl)
+    if cfg.family == "encdec":
+        raise SystemExit("serve drives decoder-only archs")
 
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = init_params(api.param_spec(cfg), gen, device)

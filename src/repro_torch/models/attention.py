@@ -161,8 +161,8 @@ def gqa_decode_layer(params, x, cache_k, cache_v, position, kv_len,
 
 
 def _scatter_kv(cache, new, kv_len):
-    """Write (B,1,N,D) ``new`` at row ``kv_len[b]`` of (B,T,N,D) ``cache``,
-    in place.
+    """Write (B,1,...) ``new`` at row ``kv_len[b]`` of (B,T,...) ``cache``
+    (a K/V cache (B,T,N,D), or MLA's latent (B,T,R)), in place.
 
     A row with ``kv_len >= T`` is not written (``mode="drop"`` in the JAX
     package): its index is clamped and the old value written back, so the
@@ -171,6 +171,6 @@ def _scatter_kv(cache, new, kv_len):
     b, t = cache.shape[0], cache.shape[1]
     rows = torch.arange(b, device=cache.device)
     idx = kv_len.long().clamp(max=t - 1)
-    keep = (kv_len >= t)[:, None, None]
+    keep = (kv_len >= t).view(b, *(1,) * (cache.dim() - 2))
     cache[rows, idx] = torch.where(keep, cache[rows, idx],
                                    new[:, 0].to(cache.dtype))

@@ -1,10 +1,11 @@
-"""Decoder-only LM for the dense, MoE, hybrid and xLSTM families, after
-``repro/models/transformer.py``.
+"""Decoder-only LM for the dense, VLM, MoE, hybrid and xLSTM families,
+with GQA or MLA attention, after ``repro/models/transformer.py``.
 
   lm_spec(cfg)                                -> ParamSpec tree
-  lm_forward(cfg, params, tokens)             -> logits
+  lm_forward(cfg, params, tokens[, img_embeds]) -> logits
   lm_loss(cfg, params, batch)                 -> scalar loss (training)
-  lm_prefill(cfg, params, tokens, cache_len)  -> (last_logits, cache)
+  lm_prefill(cfg, params, tokens, cache_len[, img_embeds])
+                                              -> (last_logits, cache)
   lm_decode(cfg, params, token, cache, kv_len) -> (logits, cache)
 
 Layers are stacked on a leading "layers" axis as in the JAX package; the
@@ -20,8 +21,13 @@ attention blocks, then the rest layers; its SSD goes through
 ``ops.mamba_scan``.  The xLSTM family ("ssm") runs groups of
 ``slstm_every - 1`` mLSTM blocks and one sLSTM block; its cache is
 recurrent state only, and its sLSTM recurrence goes through
-``ops.slstm_seq``.  The other families (MLA, VLM, encoder-decoder) are
-later slices of the port (ROADMAP.md) and raise ``NotImplementedError``.
+``ops.slstm_seq``.  MLA attention (``cfg.attn == "mla"``: minicpm3_4b,
+and deepseek_v2_236b's MoE) runs ``mla.mla_layer`` in prefill and the
+latent decode ``mla.mla_decode_layer``, its cache {"ckv", "krope"} two
+views of one buffer (``init_cache``).  The VLM (llava_next_mistral_7b) is
+the dense decoder with precomputed image-patch embeddings before the
+text (``img_embeds``); its image positions take no loss.  The
+encoder-decoder family is ``encdec.py``.
 
 Training (``lm_loss``, or ``lm_forward(..., plain=True)``) takes the
 plain route of ``models.common``: norms, MoE experts, SSD and sLSTM in
@@ -43,19 +49,11 @@ from .attention import gqa_decode_layer, gqa_layer, gqa_spec
 from .common import (ParamSpec, cross_entropy, embed, embed_spec,
                      init_params, mask_padded_vocab, rmsnorm, rmsnorm_spec,
                      spec_map, swiglu, swiglu_spec, unembed)
+from .mla import latent_cache, mla_decode_layer, mla_layer, mla_spec
 from .moe import moe_apply, moe_spec
 from .ssm import mamba_decode_layer, mamba_layer, mamba_mixer, mamba_spec
 from .xlstm import (mlstm_chunked, mlstm_decode, mlstm_spec, slstm_decode,
                     slstm_mixer, slstm_spec)
-
-
-def _require_ported(cfg) -> None:
-    if cfg.family not in ("dense", "moe", "hybrid", "ssm") \
-            or cfg.attn != "gqa":
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} with {cfg.attn!r} attention "
-            f"is not ported yet (see ROADMAP.md); the port runs the dense, "
-            f"MoE and hybrid GQA decoders and the xLSTM")
 
 
 def stack_specs(tree, n: int):
@@ -101,14 +99,20 @@ def _layers(tree, n: int):
     return [take(tree, i) for i in range(n)]
 
 
+def _attn_spec(cfg):
+    if cfg.attn == "mla":
+        return mla_spec(cfg.d_model, cfg.n_heads, q_lora=cfg.q_lora,
+                        kv_lora=cfg.kv_lora, qk_nope=cfg.qk_nope,
+                        qk_rope=cfg.qk_rope, v_head=cfg.v_head)
+    return gqa_spec(cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.dh)
+
+
 def block_spec(cfg, moe_layer: bool = False) -> Dict:
     ffn = moe_spec(cfg.d_model, cfg.n_experts, cfg.d_ff_expert,
                    cfg.n_shared) if moe_layer \
         else swiglu_spec(cfg.d_model, cfg.d_ff)
     return {"ln1": rmsnorm_spec(cfg.d_model), "ln2": rmsnorm_spec(cfg.d_model),
-            "attn": gqa_spec(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                             cfg.dh),
-            "ffn": ffn}
+            "attn": _attn_spec(cfg), "ffn": ffn}
 
 
 def _ffn(cfg, p, h, capacity_factor: float, plain: bool = False):
@@ -121,10 +125,16 @@ def _ffn(cfg, p, h, capacity_factor: float, plain: bool = False):
 
 def block_apply(cfg, p, x, positions, plain: bool = False):
     """One pre-norm block over a sequence; returns ``(x, k, v)`` with the
-    layer's rotated K/V for the prefill cache."""
+    layer's cache rows for the prefill: the rotated K/V, or under MLA the
+    latent c_kv and the rope key."""
     h = rmsnorm(p["ln1"], x, cfg.norm_eps, plain=plain)
-    a, k, v = gqa_layer(p["attn"], h, positions, impl=cfg.attn_impl,
-                        rope_theta=cfg.rope_theta, chunk=cfg.attn_chunk)
+    if cfg.attn == "mla":
+        a, k, v = mla_layer(p["attn"], h, positions,
+                            rope_theta=cfg.rope_theta, impl=cfg.attn_impl,
+                            chunk=cfg.attn_chunk, plain=plain)
+    else:
+        a, k, v = gqa_layer(p["attn"], h, positions, impl=cfg.attn_impl,
+                            rope_theta=cfg.rope_theta, chunk=cfg.attn_chunk)
     x = x + a
     x = x + _ffn(cfg, p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps,
                                         plain=plain),
@@ -137,13 +147,46 @@ def _block(cfg, p, x, positions, plain):
 
 
 def block_decode(cfg, p, x, cache, position, kv_len):
-    """One block for one token; updates ``cache`` ({"k","v"}) in place.
-    The MoE FFN runs at capacity factor 4.0, as JAX's decode does."""
+    """One block for one token; updates ``cache`` ({"k","v"}, or MLA's
+    {"ckv","krope"}) in place.  The MoE FFN runs at capacity factor 4.0,
+    as JAX's decode does."""
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-    a, _, _ = gqa_decode_layer(p["attn"], h, cache["k"], cache["v"],
-                               position, kv_len, cfg.rope_theta)
+    if cfg.attn == "mla":
+        a, _, _ = mla_decode_layer(p["attn"], h, cache["ckv"],
+                                   cache["krope"], position, kv_len,
+                                   cfg.rope_theta)
+    else:
+        a, _, _ = gqa_decode_layer(p["attn"], h, cache["k"], cache["v"],
+                                   position, kv_len, cfg.rope_theta)
     x = x + a
     return x + _ffn(cfg, p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps), 4.0)
+
+
+def _attn_cache_spec(cfg, batch: int, cache_len: int) -> Dict:
+    """One attention layer's decode cache: K/V, or MLA's latent and rope
+    key."""
+    dt = cfg.torch_dtype
+    if cfg.attn == "mla":
+        return {
+            "ckv": ParamSpec((batch, cache_len, cfg.kv_lora),
+                             ("batch", "kv_seq", None), dt, init="zeros"),
+            "krope": ParamSpec((batch, cache_len, cfg.qk_rope),
+                               ("batch", "kv_seq", None), dt, init="zeros"),
+        }
+    kv = ParamSpec((batch, cache_len, cfg.n_kv_heads, cfg.dh),
+                   ("batch", "kv_seq", "kv", None), dt, init="zeros")
+    return {"k": kv, "v": kv}
+
+
+def init_cache(spec, device):
+    """A zero cache from its spec tree, each MLA {"ckv", "krope"} pair as
+    two views of one buffer (``mla.latent_cache``), so the latent decode
+    reads its key without a copy."""
+    if isinstance(spec, ParamSpec):
+        return init_params(spec, None, device)
+    if spec.keys() == {"ckv", "krope"}:
+        return latent_cache(spec["ckv"], spec["krope"], device)
+    return {k: init_cache(v, device) for k, v in spec.items()}
 
 
 def _stacks(cfg):
@@ -285,10 +328,11 @@ def _xlstm_trunk(cfg, params, x, cache, plain, run):
 
 
 def lm_spec(cfg) -> Dict:
-    _require_ported(cfg)
+    if cfg.family not in ("dense", "vlm", "moe", "hybrid", "ssm"):
+        raise ValueError(f"lm_spec does not handle family {cfg.family!r}")
     sp = {"embed": embed_spec(cfg.padded_vocab, cfg.d_model),
           "final_norm": rmsnorm_spec(cfg.d_model)}
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "vlm", "moe"):
         for key, _, n in _stacks(cfg):
             sp[key] = stack_specs(block_spec(
                 cfg, cfg.family == "moe" and key == "blocks"), n)
@@ -313,12 +357,8 @@ def lm_spec(cfg) -> Dict:
 
 
 def decode_cache_spec(cfg, batch: int, cache_len: int) -> Dict:
-    _require_ported(cfg)
-    kv = ParamSpec((batch, cache_len, cfg.n_kv_heads, cfg.dh),
-                   ("batch", "kv_seq", "kv", None), cfg.torch_dtype,
-                   init="zeros")
-    if cfg.family in ("dense", "moe"):
-        return {ckey: stack_specs({"k": kv, "v": kv}, n)
+    if cfg.family in ("dense", "vlm", "moe"):
+        return {ckey: stack_specs(_attn_cache_spec(cfg, batch, cache_len), n)
                 for _, ckey, n in _stacks(cfg)}
     if cfg.family == "ssm":
         # recurrent state only, in fp32; the mLSTM "m" starts at 0 here,
@@ -335,10 +375,13 @@ def decode_cache_spec(cfg, batch: int, cache_len: int) -> Dict:
         return {"mlstm": stack_specs(stack_specs(mlstm, group - 1),
                                      n_groups),
                 "slstm": stack_specs(slstm, n_groups)}
+    if cfg.family != "hybrid":
+        raise ValueError(cfg.family)
     n_groups, group, rest = _hybrid_layout(cfg)
     mamba = _mamba_cache_spec(cfg, batch)
     cache = {"groups": stack_specs(stack_specs(mamba, group), n_groups),
-             "attn": stack_specs({"k": kv, "v": kv}, n_groups)}
+             "attn": stack_specs(_attn_cache_spec(cfg, batch, cache_len),
+                                 n_groups)}
     if rest:
         cache["rest"] = stack_specs(mamba, rest)
     return cache
@@ -377,11 +420,20 @@ def _hybrid_trunk(cfg, params, x, positions, cache, plain, run):
     return x
 
 
-def _trunk(cfg, params, tokens, cache=None, plain=False):
-    """Embedding and blocks; writes each layer's K/V (and, in the hybrid,
-    each Mamba2 layer's states) into ``cache`` when one is given.  On the
-    plain route the layers run under ``cfg.remat``."""
+def _embed_inputs(cfg, params, tokens, img_embeds=None):
+    """Token embeddings, after the image-patch embeddings (B,P,D) where a
+    VLM is given them, as in the JAX package."""
     x = embed(params["embed"], tokens).to(cfg.torch_dtype)
+    if img_embeds is not None:
+        x = torch.cat([img_embeds.to(cfg.torch_dtype), x], dim=1)
+    return x
+
+
+def _trunk(cfg, params, x, cache=None, plain=False):
+    """The blocks over the embedded sequence ``x``; writes each layer's
+    K/V (MLA's latent, and in the hybrid each Mamba2 layer's states) into
+    ``cache`` when one is given.  On the plain route the layers run under
+    ``cfg.remat``."""
     b, s = x.shape[0], x.shape[1]
     positions = torch.arange(s, device=x.device).expand(b, s)
     run = _remat(cfg) if plain else (lambda fn, *args: fn(*args))
@@ -389,49 +441,58 @@ def _trunk(cfg, params, tokens, cache=None, plain=False):
         return _hybrid_trunk(cfg, params, x, positions, cache, plain, run)
     if cfg.family == "ssm":
         return _xlstm_trunk(cfg, params, x, cache, plain, run)
+    names = ("ckv", "krope") if cfg.attn == "mla" else ("k", "v")
     for key, ckey, n in _stacks(cfg):
         for i, p in enumerate(_layers(params[key], n)):
             if cache is None:
                 x = run(_block, cfg, p, x, positions, plain)
                 continue
-            x, k, v = block_apply(cfg, p, x, positions)
-            cache[ckey]["k"][i, :, :s] = k
-            cache[ckey]["v"][i, :, :s] = v
+            x, *rows = block_apply(cfg, p, x, positions)
+            for name, r in zip(names, rows):
+                cache[ckey][name][i, :, :s] = r
     return x
 
 
-def lm_forward(cfg, params, tokens, *, plain: bool = False):
-    """Full-sequence logits. tokens:(B,S) -> (B,S,V).  ``plain=True`` is
-    the training forward (module docstring)."""
-    _require_ported(cfg)
-    x = rmsnorm(params["final_norm"], _trunk(cfg, params, tokens,
-                                             plain=plain),
-                cfg.norm_eps, plain=plain)
+def lm_forward(cfg, params, tokens, img_embeds=None, *,
+               plain: bool = False):
+    """Full-sequence logits. tokens:(B,S_text) [+ img (B,P,D)] ->
+    (B,P+S_text,V).  ``plain=True`` is the training forward (module
+    docstring)."""
+    x = _trunk(cfg, params, _embed_inputs(cfg, params, tokens, img_embeds),
+               plain=plain)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps, plain=plain)
     return mask_padded_vocab(unembed(params["embed"], x), cfg.vocab)
 
 
 def lm_loss(cfg, params, batch):
-    """batch: {'tokens', 'labels'} -> mean next-token cross-entropy over
-    the labels >= 0, through the training forward."""
-    logits = lm_forward(cfg, params, batch["tokens"], plain=True)
-    return cross_entropy(logits, batch["labels"])
+    """batch: {'tokens', 'labels'[, 'img_embeds']} -> mean next-token
+    cross-entropy over the labels >= 0, through the training forward; the
+    image positions get the label -1."""
+    img = batch.get("img_embeds")
+    logits = lm_forward(cfg, params, batch["tokens"], img, plain=True)
+    labels = batch["labels"]
+    if img is not None:
+        labels = torch.cat([labels.new_full(img.shape[:2], -1), labels],
+                           dim=1)
+    return cross_entropy(logits, labels)
 
 
-def lm_prefill(cfg, params, tokens, cache_len: int):
-    """Process the prompt; return (last-token logits (B,V), cache).
+def lm_prefill(cfg, params, tokens, cache_len: int, img_embeds=None):
+    """Process the prompt (after the image patches, for a VLM given them);
+    return (last-token logits (B,V), cache).
 
-    Each layer's K/V is computed once, in the attention, and written into
-    a zero cache of ``cache_len`` rows; in the hybrid, each Mamba2 layer's
-    final states come from the same SSD launch as its output, and in the
-    xLSTM each sLSTM layer's from the same ``slstm_seq`` launch.
+    Each layer's K/V (MLA's latent) is computed once, in the attention,
+    and written into a zero cache of ``cache_len`` rows; in the hybrid,
+    each Mamba2 layer's final states come from the same SSD launch as its
+    output, and in the xLSTM each sLSTM layer's from the same
+    ``slstm_seq`` launch.
     """
-    _require_ported(cfg)
-    b, s = tokens.shape
+    x = _embed_inputs(cfg, params, tokens, img_embeds)
+    b, s = x.shape[0], x.shape[1]
     if s > cache_len:
         raise ValueError(f"prompt of {s} tokens over cache_len {cache_len}")
-    cache = init_params(decode_cache_spec(cfg, b, cache_len), None,
-                        tokens.device)
-    x = _trunk(cfg, params, tokens, cache)
+    cache = init_cache(decode_cache_spec(cfg, b, cache_len), x.device)
+    x = _trunk(cfg, params, x, cache)
     x = rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
     logits = mask_padded_vocab(unembed(params["embed"], x)[:, 0], cfg.vocab)
     return logits, cache
@@ -442,7 +503,6 @@ def lm_decode(cfg, params, token, cache, kv_len):
 
     Returns (logits (B,V), cache); the cache is updated in place.
     """
-    _require_ported(cfg)
     x = embed(params["embed"], token).to(cfg.torch_dtype)
     if cfg.family == "hybrid":
         for kind, p, c in _hybrid_walk(cfg, params, cache):

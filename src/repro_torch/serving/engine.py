@@ -19,6 +19,14 @@ independent in the MoE family: its decode dispatch gives every row of the
 pool, a free one too, a share of one capacity per expert (JAX's
 ``capacity_factor=4.0``), so free and finished rows are fed exactly what
 the JAX engine feeds them.
+
+The engine serves the decoder-only families: the dense, MoE, hybrid and
+xLSTM models, MLA's (its latent cache rows are views of one buffer, which
+``transformer.init_cache`` makes and ``_put_row`` writes through) and the VLM,
+whose requests are text prompts as in the JAX engine (an image prefill is
+``api.prefill_fn`` with ``img_embeds``).  It raises for the
+encoder-decoder, as the JAX engine does: Whisper is driven through
+``api.prefill_fn`` / ``api.decode_fn``.
 """
 from __future__ import annotations
 
@@ -32,7 +40,8 @@ import torch
 
 from ..configs.base import ArchConfig, InputShape
 from ..models import api
-from ..models.common import init_params, spec_map
+from ..models.common import spec_map
+from ..models.transformer import init_cache
 
 
 @dataclasses.dataclass
@@ -68,6 +77,10 @@ class ServingEngine:
     """Serves decoder-only LMs on the device that ``params`` live on."""
 
     def __init__(self, cfg: ArchConfig, params, serve_cfg: ServeConfig):
+        if cfg.family == "encdec":
+            raise NotImplementedError(
+                "the engine drives decoder-only LMs; an encoder-decoder is "
+                "served through api.prefill_fn / api.decode_fn")
         self.cfg = cfg
         self.params = params
         self.sc = serve_cfg
@@ -75,7 +88,7 @@ class ServingEngine:
         shape = InputShape("engine", serve_cfg.cache_len,
                            serve_cfg.n_slots, "decode")
         spec = api.cache_spec(cfg, shape)
-        self.cache = init_params(spec, None, self.device)
+        self.cache = init_cache(spec, self.device)
         # the slot axis of every leaf is where its spec says "batch"; the
         # hybrid and xLSTM caches nest it under one or two stacking axes
         self._slot_axes = spec_map(lambda s: s.axes.index("batch"), spec)

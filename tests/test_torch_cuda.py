@@ -28,6 +28,10 @@ ATTN_CASES = [  # (b, h, hkv, s, t, d), causal; causal only at S == T
     ((1, 4, 2, 192, 192, 128), True),     # a ragged number of 128-row blocks
     ((1, 8, 8, 512, 512, 64), True),      # D = 64
     ((1, 4, 2, 64, 320, 32), False),      # T of five 64-key tiles, S of one
+    # whisper_medium: the encoder's 1500 frames (off the 64-row tiles), its
+    # training decoder's 448 causal rows and their cross-attention
+    ((1, 16, 16, 1500, 1500, 64), False), ((1, 16, 16, 448, 448, 64), True),
+    ((1, 16, 16, 448, 1500, 64), False),
 ]
 SSD_TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
 # the kernel against its own plan (ref.ssd_plan): the same products in
@@ -76,6 +80,26 @@ def test_flash_attention_kernel(cuda_device, shape, causal, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [9, 128, 512])
+def test_flash_attention_kernel_at_mla_prefill_widths(cuda_device, s, dtype):
+    """minicpm3_4b's MLA prefill: q and k [nope | rope] of 96, v of 64, 40
+    heads, scale 96^-0.5; k's rope part broadcast to every head and v a
+    slice of the decompressed K/V, read through their strides."""
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    q = _rnd(g, dtype, 1, s, 40, 96)
+    kv = _rnd(g, dtype, 1, s, 40, 128)
+    rope = _rnd(g, dtype, 1, s, 1, 32)
+    k = torch.cat([kv[..., :64], rope.expand(1, s, 40, 32)], dim=-1)
+    v = kv[..., 64:]
+    assert not v.is_contiguous()
+    want = ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                             v.transpose(1, 2), scale=96 ** -0.5)
+    _close(ops.flash_attention(q, k, v, scale=96 ** -0.5),
+           want.transpose(1, 2), dtype)
+
+
+@pytest.mark.cuda
 def test_flash_attention_refuses_misaligned_input(cuda_device):
     """A bf16 q one element into its storage is 2 bytes off TMA's 16-byte
     alignment: the kernel wrapper raises rather than compute or fall back."""
@@ -102,6 +126,9 @@ def test_flash_attention_refuses_misaligned_input(cuda_device):
     (2, 4, 2, 32, 32),          # T = 32: one split, merged in the block
     (1, 64, 1, 512, 64),        # G = 64: two blocks of 32 heads a split
     (2, 4, 2, 128, 20),         # D = 20: bf16 rows off 16 bytes
+    (4, 16, 16, 448, 64),       # whisper_medium's self cache: T = 448
+    (4, 16, 16, 1500, 64),      # its cross cache: 1500 frames
+    (2, 4, 2, 100, 288),        # the widest key and value rows over 256
 ])
 def test_flash_decode_kernel(cuda_device, b, h, hkv, t, d, dtype):
     g = torch.Generator(device=cuda_device).manual_seed(1)
@@ -111,7 +138,102 @@ def test_flash_decode_kernel(cuda_device, b, h, hkv, t, d, dtype):
                            dtype=torch.int32)
     want = ref.decode_ref(q[:, 0], k.transpose(1, 2), v.transpose(1, 2),
                           kv_len)
+    if d > 256:                  # the value row takes at most 256
+        v = v[..., :256]
+        want = ref.decode_ref(q[:, 0], k.transpose(1, 2), v.transpose(1, 2),
+                              kv_len)
     _close(ops.flash_decode(q, k, v, kv_len)[:, 0], want, dtype)
+
+
+def _latent_decode_inputs(dev, dtype, b=4, t=1024, h=40, seed=7):
+    """minicpm3_4b's latent decode: a (B, T, 288) cache of [c_kv | k_rope]
+    rows as the model lays it out, the key that buffer and the value its
+    first 256 columns (a view), and a query of 40 heads."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rows = _rnd(g, dtype, b, t, 288)
+    q = _rnd(g, dtype, b, 1, h, 288)
+    return q, rows[:, :, None, :], rows[:, :, None, :256]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lens", [(1024, 700, 129, 1), (544, 160, 68, 9),
+                                  (32, 33, 64, 1000)])
+def test_flash_decode_kernel_at_the_latent_width(cuda_device, lens, dtype):
+    """D = 288, Dv = 256, 40 query heads on one KV head (two blocks a
+    split, of 32 and 8 heads), the value a view of the key's buffer,
+    against ``ref.decode_ref`` at the latent decode's scale (96^-0.5)."""
+    from repro_torch.kernels import flash_decode as fd
+    q, k, v = _latent_decode_inputs(cuda_device, dtype)
+    assert v.data_ptr() == k.data_ptr() and not v.is_contiguous()
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    before = fd.launches
+    got = ops.flash_decode(q, k, v, kv_len, scale=96 ** -0.5)
+    assert fd.launches == before + 1
+    want = ref.decode_ref(q[:, 0], k.transpose(1, 2), v.transpose(1, 2),
+                          kv_len, scale=96 ** -0.5)
+    assert got.shape == (4, 1, 40, 256)
+    _close(got[:, 0], want, dtype)
+
+
+@pytest.mark.cuda
+def test_flash_decode_refuses_rows_over_its_widths(cuda_device):
+    """A key row over 288 or a value row over 256 is refused before a
+    launch."""
+    from repro_torch.kernels import flash_decode as fd
+    kv_len = torch.ones(1, dtype=torch.int32, device=cuda_device)
+    before = fd.launches
+    for d, dv in ((296, 256), (288, 264)):
+        q = torch.zeros(1, 1, 4, d, device=cuda_device)
+        k = torch.zeros(1, 32, 1, d, device=cuda_device)
+        v = torch.zeros(1, 32, 1, dv, device=cuda_device)
+        with pytest.raises(ValueError, match="288/256"):
+            ops.flash_decode(q, k, v, kv_len)
+    assert fd.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_at_the_latent_width_is_one_kernel_and_replays(
+        cuda_device, dtype):
+    """One ``ops.flash_decode`` call at the latent shape runs one device
+    kernel, and replays in a CUDA graph after kv_len and the cache change
+    in place."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    q, k, v = _latent_decode_inputs(cuda_device, dtype)
+    kv_len = torch.tensor([1024, 700, 129, 1], dtype=torch.int32,
+                          device=cuda_device)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.flash_decode(q, k, v, kv_len, scale=96 ** -0.5)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    events = []
+    for _ in range(3):      # a pass may record no device event at all
+        if events:
+            break
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            ops.flash_decode(q, k, v, kv_len, scale=96 ** -0.5)
+            torch.cuda.synchronize()
+        events = [e.name for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+    assert len(events) == 1 and "flash_decode" in events[0], events
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ops.flash_decode(q, k, v, kv_len, scale=96 ** -0.5)
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    for lens in ([9, 68, 160, 544], [1024, 1, 32, 33]):
+        kv_len.copy_(torch.tensor(lens, dtype=torch.int32))
+        k.copy_(_rnd(g, dtype, *k.shape))
+        q.copy_(_rnd(g, dtype, *q.shape))
+        graph.replay()
+        torch.cuda.synchronize()
+        _close(out[:, 0], ref.decode_ref(q[:, 0], k.transpose(1, 2),
+                                         v.transpose(1, 2), kv_len,
+                                         scale=96 ** -0.5), dtype)
 
 
 def _decode_inputs(dev, dtype, b, h, hkv, t, d, seed=1):
@@ -933,6 +1055,66 @@ def test_moe_decode_ffn_does_not_sync(cuda_device):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["minicpm3_4b", "llava_next_mistral_7b",
+                                  "whisper_medium"])
+def test_new_families_on_card_match_cpu_and_count_launches(cuda_device,
+                                                           arch):
+    """The reduced MLA, VLM (with image patches) and encoder-decoder models:
+    a prefill and 4 greedy decode steps through ``api`` on the card
+    against the same weights on the CPU, at 1e-4, with each kernel launched
+    as often as the structure says: an MLA block's four norms (its two and
+    q_norm, kv_norm), one flash attention a block in prefill and one latent
+    flash decode a block a step; Whisper's encoder self-attention, two
+    flash decodes (self and cross) a decoder block a step, the BOS step
+    included in the prefill."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.models import api
+    from repro_torch.models.common import init_params
+    from repro_torch.parallel.steps import materialize_batch
+    cfg = get_config(arch).reduced().replace(dtype="float32",
+                                             attn_impl="kernel")
+    cpu = init_params(api.param_spec(cfg), torch.Generator().manual_seed(0),
+                      "cpu")
+    batch = materialize_batch(cfg, InputShape("p", 32, 2, "prefill"),
+                              seed=1, device="cpu")
+    kv0 = 1 if cfg.family == "encdec" else 32
+    runs = []
+    for dev in ("cpu", cuda_device):
+        params = _to(cpu, dev)
+        ops.reset_launch_counts()
+        logits, cache = api.prefill_fn(cfg, 48)(params, _to(batch, dev))
+        pre = ops.launch_counts()
+        kv = torch.full((2,), kv0, dtype=torch.int32, device=dev)
+        out = [logits.cpu()]
+        for _ in range(4):
+            logits, cache = api.decode_fn(cfg)(
+                params, logits.argmax(-1, keepdim=True), cache, kv)
+            kv += 1
+            out.append(logits.cpu())
+        runs.append((out, pre, ops.launch_counts()))
+    (cpu_out, _, _), (gpu_out, pre, total) = runs
+    for c, g in zip(cpu_out, gpu_out):
+        torch.testing.assert_close(g, c, atol=1e-4, rtol=1e-4)
+        assert np.array_equal(g.argmax(-1).numpy(), c.argmax(-1).numpy())
+    zero = {"mamba_scan": 0, "moe_gmm": 0, "slstm_seq": 0}
+    if cfg.family == "encdec":
+        n, nd = cfg.n_layers, cfg.n_dec_layers
+        assert pre == {"flash_attention": n, "flash_decode": 2 * nd,
+                       "rmsnorm": 2 * n + 1 + 3 * nd + 1, **zero}
+        assert total == {"flash_attention": n, "flash_decode": 10 * nd,
+                         "rmsnorm": 2 * n + 1 + 5 * (3 * nd + 1), **zero}
+        return
+    n = cfg.n_layers
+    norms = (4 if cfg.attn == "mla" else 2) * n + 1
+    assert pre == {"flash_attention": n, "flash_decode": 0,
+                   "rmsnorm": norms, **zero}
+    assert total == {"flash_attention": n, "flash_decode": 4 * n,
+                     "rmsnorm": 5 * norms, **zero}
 
 
 @pytest.mark.cuda

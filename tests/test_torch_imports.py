@@ -288,4 +288,38 @@ def test_chip_smoke_phase_14_rehearses_on_the_cpu(monkeypatch, capsys):
     assert out["launcher"]["returns"] == [0, 0]
     assert out["resume_worst"] <= 1e-6
     text = capsys.readouterr().out
-    assert "[resume] restored step 30" in text
+    assert "[resume] restored step 8" in text
+
+
+def test_chip_smoke_new_family_phases_rehearse_on_the_cpu(monkeypatch,
+                                                          capsys):
+    """chip_smoke.py's phases 17-20 on the CPU at the reduced configs
+    (syncs and memory statistics stubbed): the VLM cut with image patches
+    (both sides on the CPU), the image request through the API, and
+    Whisper's cut, served run and training; phase 15's MLA cut is phase
+    3's code on another config."""
+    import chip_smoke
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.models.common import init_params
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats",
+                        lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    cfg = get_config("llava_next_mistral_7b").reduced().replace(
+        dtype="float32", attn_impl="kernel")
+    params = init_params(api.param_spec(cfg), torch.Generator().manual_seed(
+        0), "cpu")
+    prompt = torch.randint(0, cfg.vocab, (12,)).numpy()
+    img = torch.randn(1, cfg.n_img_patches, cfg.d_model).numpy()
+    logits, tokens = chip_smoke.run_greedy(cfg, params, prompt, 40, 3, img)
+    assert len(logits) == 4 and len(tokens) == 3
+    launched = chip_smoke.vlm_image_request(cfg, params, text=12)
+    assert launched == chip_smoke.structure_launches(cfg, 0, 0)  # CPU: none
+    chip_smoke.phase_whisper_cut(0, card_dev="cpu", smoke=True)
+    out = chip_smoke.phase_whisper(0, "CPU rehearsal", card_dev="cpu",
+                                   smoke=True)
+    assert len(out["losses"]) == 2 and out["losses"][1] < out["losses"][0]
+    text = capsys.readouterr().out
+    assert "tokens equal" in text and "AdamW" in text

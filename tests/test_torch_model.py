@@ -127,7 +127,9 @@ def _shapes(tree):
 
 @pytest.mark.parametrize("arch", ["glm4_9b", "deepseek_7b",
                                   "mistral_large_123b", "zamba2_7b",
-                                  "deepseek_moe_16b", "xlstm_125m"])
+                                  "deepseek_moe_16b", "xlstm_125m",
+                                  "minicpm3_4b", "deepseek_v2_236b",
+                                  "llava_next_mistral_7b", "whisper_medium"])
 def test_full_param_spec_matches_jax(arch):
     """Full-size configs: same names, shapes, axes and init (nothing is
     allocated)."""
@@ -137,21 +139,23 @@ def test_full_param_spec_matches_jax(arch):
     assert tcommon.count_params(tspec) == jcommon.count_params(jspec)
 
 
-def test_cache_spec_matches_jax():
+@pytest.mark.parametrize("arch", ["glm4_9b", "minicpm3_4b",
+                                  "deepseek_v2_236b",
+                                  "llava_next_mistral_7b", "whisper_medium"])
+def test_cache_spec_matches_jax(arch):
+    """Key for key, axis for axis and in dtype; MLA's latent cache
+    ("ckv", "krope"), the VLM's K/V and the encoder-decoder's self and
+    cross caches too."""
     from repro.configs.base import InputShape as JShape
     from repro_torch.configs.base import InputShape as TShape
-    jc, tc = jax_config("glm4_9b"), torch_config("glm4_9b")
+    jc, tc = jax_config(arch), torch_config(arch)
     js = japi.cache_spec(jc, JShape("e", 1024, 4, "decode"))
     ts = tapi.cache_spec(tc, TShape("e", 1024, 4, "decode"))
     assert _shapes(ts) == _shapes(js)
-
-
-@pytest.mark.parametrize("arch", ["deepseek_v2_236b",
-                                  "minicpm3_4b",
-                                  "whisper_medium", "llava_next_mistral_7b"])
-def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tapi.param_spec(torch_config(arch))
+    assert jax.tree_util.tree_leaves(jax.tree_util.tree_map(
+        lambda s: jnp.dtype(s.dtype).name, js, is_leaf=jcommon.is_spec)) == \
+        [str(s.dtype).removeprefix("torch.") for s in
+         tcommon.spec_leaves(ts)]
 
 
 @pytest.mark.parametrize("shape", [(1024, 4), (64, 1)])

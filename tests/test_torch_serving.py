@@ -156,6 +156,21 @@ def test_moe_engine_matches_jax_engine(slots):
                 arch="deepseek_moe_16b", n_experts=16)
 
 
+@pytest.mark.parametrize("slots", [1, 3])
+@pytest.mark.parametrize("arch", ["minicpm3_4b", "llava_next_mistral_7b",
+                                  "deepseek_v2_236b"])
+def test_mla_and_vlm_engines_match_jax_engine(arch, slots):
+    """Reduced minicpm3_4b and deepseek_v2_236b (MLA: the slot row of the
+    latent cache is written through its two views of one buffer) and the
+    reduced VLM serving text prompts, as the JAX engine does: 5 requests of
+    ragged prompts and lengths."""
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, 512, n).astype(np.int32)
+               for n in (5, 16, 9, 30, 7)]
+    _serve_both(prompts, max_new=[3, 7, 4, 6, 5], slots=slots, cache_len=64,
+                arch=arch)
+
+
 def test_engine_matches_jax_engine_until_cache_full():
     """Requests that outlive the cache stop at cache_len - 1 in both."""
     rng = np.random.default_rng(2)

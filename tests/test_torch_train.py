@@ -33,7 +33,8 @@ from torch_parity import close, equal
 
 torch.set_num_threads(1)
 TOL = dict(atol=1e-4, rtol=1e-4)
-FAMILIES = ["glm4_9b", "deepseek_moe_16b", "zamba2_7b", "xlstm_125m"]
+FAMILIES = ["glm4_9b", "deepseek_moe_16b", "zamba2_7b", "xlstm_125m",
+            "minicpm3_4b", "deepseek_v2_236b"]
 # the four wrappers the plain route must not reach, and flash decode
 OTHER_OPS = ("fused_rmsnorm", "moe_gmm", "mamba_scan", "slstm_seq",
              "flash_decode")
@@ -188,22 +189,20 @@ def test_loss_fn_input_spec_and_batches_match_jax():
           what="loss_fn")
     close(japi.loss_fn(jc)(jp, jbatch), tst.make_eval_step(tc)(tp, batch),
           **TOL, what="eval step")
-    with pytest.raises(NotImplementedError):
-        tapi.loss_fn(torch_config("whisper_medium"))
-    with pytest.raises(NotImplementedError):
-        tapi.input_spec(torch_config("llava_next_mistral_7b"),
-                        InputShape("x", 32, 4, "train"))
-
-
-@pytest.mark.parametrize("arch", ["minicpm3_4b", "whisper_medium",
-                                  "llava_next_mistral_7b"])
-def test_unported_families_do_not_train(arch):
-    """MLA, encoder-decoder and VLM keep raising, as they do in serving."""
-    cfg = torch_config(arch).reduced()
-    with pytest.raises(NotImplementedError):
-        tapi.loss_fn(cfg)({}, {"tokens": torch.zeros(1, 8, dtype=torch.long),
-                               "labels": torch.zeros(1, 8,
-                                                     dtype=torch.long)})
+    # the encoder-decoder's loss_fn and the VLM's input_spec, which raised
+    # before those families were ported, against the JAX package's
+    for arch in ("whisper_medium", "llava_next_mistral_7b"):
+        jc, jp, tc, tp = _models(arch)
+        shape = ("x", 32, 2, "train")
+        jspec, tspec = japi.input_spec(jc, JShape(*shape)), \
+            tapi.input_spec(tc, InputShape(*shape))
+        assert {k: (s.shape, s.axes) for k, s in jspec.items()} == \
+            {k: (s.shape, s.axes) for k, s in tspec.items()}
+        jb = jst.materialize_batch(jc, JShape(*shape), seed=2)
+        tb = tst.materialize_batch(tc, InputShape(*shape), seed=2,
+                                   device="cpu")
+        close(japi.loss_fn(jc)(jp, jb), tapi.loss_fn(tc)(tp, tb), **TOL,
+              what=f"{arch} loss_fn")
 
 
 def test_launcher_trains_and_resumes_on_the_cpu(tmp_path, capsys):
