@@ -184,7 +184,22 @@ prints its seconds:
    against CPU at phase 14(a)'s tolerances, and 2 AdamW steps of the full
    model through ``parallel.steps`` on one batch of 2 x 1500 frames, the
    loss finite and falling, 144 flash-attention launches a step and no
-   other kernel.
+   other kernel;
+21. the mesh layer, every earlier model's tensors freed, on a one-rank
+   (1, 1) ("data", "model") mesh over NCCL started on a file store under a
+   temporary directory: (a) full-width glm4_9b cut to 2 layers, 1 x 128
+   tokens, fp32: one step of ``make_train_step(mesh=...)`` (parameters
+   all-gathered, gradients reduce-scattered, AdamW on the blocks) against
+   phase 14(a)'s unsharded step from the same state and batch: the loss
+   and every updated leaf within 1e-6 of the leaf's max (bit-equal but
+   for the clipping norm, which sums the leaves' blocks in another
+   order), 4 flash-attention launches and no other kernel, and the device
+   events the collectives add (a profiled step of each); (b) ``flash_decode_shardmap``, ``compressed_psum`` at
+   k = 1.0 and a one-stage ``pipeline_forward`` on the card against their
+   plain results on the CPU; (c) the dry run's trace of that cut cell on
+   fake tensors: its FLOPs and collective bytes must equal the op
+   counter's for the step (a) ran on the card, and the step's time (CUDA
+   events, median of 5) is printed beside the H100 roofline's t_bound.
 
 Then a ``{"kernels": [...]}`` line and, last, the device line.  Exits
 nonzero without a CUDA device or without the repository around it.
@@ -2756,6 +2771,223 @@ def phase_whisper(seed, smi, card_dev="cuda", smoke=False) -> dict:
     return out
 
 
+# phase 21: the mesh layer on a one-rank (1, 1) mesh, full-width glm4_9b
+# cut to 2 layers, 1 x 128 tokens, fp32
+MESH_LAYERS, MESH_SEQ = 2, 128
+
+
+def _host_tree(tree):
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: t.detach().to("cpu", copy=True), tree)
+
+
+def mesh_step(cfg, seed, card_dev, mesh) -> dict:
+    """21(a): one step of ``make_train_step(mesh=...)`` against phase 14(a)'s
+    unsharded step, from the same state (drawn from ``seed`` twice, the
+    unsharded run's result kept on the host) and batch; then one more
+    profiled step of each, whose device events differ by what the
+    collectives add."""
+    from repro_torch.analysis import hlo
+    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.kernels import ops
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel import steps as st
+    from repro_torch.tree import leaves
+    batch = to_dev(synthetic_batch(DataConfig(
+        seq_len=MESH_SEQ, global_batch=1, vocab=cfg.vocab, seed=seed), 0),
+        card_dev)
+    gen = lambda: torch.Generator(device=card_dev).manual_seed(seed)
+    profiled = (lambda fn: device_events(fn)) if card_dev == "cuda" \
+        else (lambda fn: [fn()][:0])
+    plain = st.make_train_step(cfg, total_steps=10, warmup=2)
+    state = st.init_train_state(cfg, gen(), card_dev)
+    state, m1 = plain(state, batch)
+    want, l1 = _host_tree(state), float(m1["loss"])
+    ev_plain = profiled(lambda: plain(state, batch))
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    rules = shd.default_rules()
+    lay = st.state_layouts(cfg, mesh, rules)
+    state = st.shard_state(st.init_train_state(cfg, gen(), card_dev), lay)
+    gc.collect()
+    torch.cuda.empty_cache()
+    sharded = st.make_train_step(cfg, total_steps=10, warmup=2, mesh=mesh,
+                                 rules=rules)
+    ops.reset_launch_counts()
+    (state, m2), rep = hlo.count(sharded, state, batch)
+    torch.cuda.synchronize()
+    launched = ops.launch_counts()
+    l2 = float(m2["loss"])
+    if card_dev == "cuda":
+        check(launched == train_launches(cfg, 1), f"the sharded step "
+              f"launched {launched}, not {train_launches(cfg, 1)}")
+    check(l1 == l2 or abs(l1 - l2) <= 1e-6 * abs(l1),
+          f"sharded loss {l2} against the unsharded {l1}")
+    worst, equal = 0.0, 0
+    for a, b in zip(leaves(state), leaves(want), strict=True):
+        a = a.cpu()
+        equal += bool(torch.equal(a, b))
+        if not b.is_floating_point():
+            check(torch.equal(a, b), f"an integer leaf {a} != {b}")
+            continue
+        err = (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+        worst = max(worst, err)
+        check(err <= 1e-6, f"a sharded leaf {tuple(b.shape)} is off the "
+                           f"unsharded step's by {err} of its max")
+    n_leaves = len(leaves(want))
+    del want
+    ev_sharded = profiled(lambda: sharded(state, batch))
+    del state
+    added = {}
+    for name in ev_sharded:
+        added[name] = added.get(name, 0) + 1
+    for name in ev_plain:
+        added[name] = added.get(name, 0) - 1
+    # the collectives' own events, and the count of all others that moved
+    # (the clipping norm's sums are other kernels in the sharded step)
+    added = {k: v for k, v in added.items() if v}
+    comm_events = {k: v for k, v in added.items()
+                   if "nccl" in k.lower() or "memcpy" in k.lower()}
+    added = {**comm_events, "other kernels": sum(
+        v for k, v in added.items() if k not in comm_events)}
+    print(f"  {cfg.name} {cfg.n_layers} layers, 1 x {MESH_SEQ} tokens, "
+          f"mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}: loss "
+          f"{l2!r} (unsharded {l1!r}); {equal} of {n_leaves} state leaves "
+          f"bit-equal, worst {worst:.2e} of its leaf's max (the clipping "
+          f"norm sums the leaves' blocks in another order); launches "
+          f"{launched}; collectives {rep.collective_counts} moving "
+          f"{rep.collective_bytes} bytes; device events of a sharded step "
+          f"less an unsharded one's: {added}")
+    return {"loss": l2, "loss_unsharded": l1, "worst": worst,
+            "equal_leaves": equal, "leaves": n_leaves, "launches": launched,
+            "flops": rep.flops, "collective_bytes": rep.collective_bytes,
+            "events_added": added, "step": sharded, "layouts": lay,
+            "batch": batch}
+
+
+def mesh_collectives(card_dev, mesh) -> dict:
+    """21(b): ``flash_decode_shardmap``, ``compressed_psum`` (k = 1.0) and
+    a one-stage ``pipeline_forward`` on the mesh against their plain
+    results on the CPU, with md_programs.py's inputs."""
+    from repro_torch.kernels import ref
+    from repro_torch.parallel.collectives import (_topk_int8_wire,
+                                                  compressed_psum,
+                                                  flash_decode_shardmap)
+    from repro_torch.parallel.pipeline import mlp_stage, pipeline_forward
+    f32 = dict(dtype=torch.float32)
+    rng = np.random.default_rng(1)
+    q, k, v = (torch.as_tensor(rng.standard_normal(s), **f32) for s in
+               ((2, 4, 16), (2, 64, 4, 16), (2, 64, 4, 16)))
+    got = flash_decode_shardmap(mesh, "model")(
+        q.to(card_dev), k.to(card_dev), v.to(card_dev)).cpu()
+    want = ref.decode_ref(q, k.transpose(1, 2), v.transpose(1, 2))
+    e_fd = (got - want).abs().max().item()
+    check(e_fd <= 2e-5, f"flash_decode_shardmap is off by {e_fd}")
+    g = torch.as_tensor(np.random.default_rng(2).standard_normal(64), **f32)
+    out, err = compressed_psum(mesh, pod_axis="model", inner_axes=("data",),
+                               k_fraction=1.0)(
+        {"g": g.to(card_dev)}, {"g": torch.zeros(64, device=card_dev)})
+    qv, idx, scale = _topk_int8_wire(g, 1.0)
+    recon = torch.zeros(64)
+    recon[idx] = qv.float() * scale
+    e_ps = max((out["g"].cpu() - recon).abs().max().item(),
+               (err["g"].cpu() - (g - recon)).abs().max().item())
+    check(e_ps <= 1e-6, f"compressed_psum is off by {e_ps}")
+    rng = np.random.default_rng(0)
+    w1, w2 = (torch.as_tensor(rng.standard_normal((1, 16, 16)) * 0.3, **f32)
+              for _ in range(2))
+    xs = torch.as_tensor(rng.standard_normal((6, 8, 16)), **f32)
+    got = pipeline_forward(mlp_stage, mesh, "data")(
+        {"w1": w1.to(card_dev), "w2": w2.to(card_dev)}, xs.to(card_dev))
+    want = mlp_stage({"w1": w1[0], "w2": w2[0]}, xs)
+    e_pp = (got.cpu() - want).abs().max().item()
+    check(e_pp <= 2e-5, f"the one-stage pipeline is off by {e_pp}")
+    print(f"  flash_decode_shardmap |diff| {e_fd:.2e}, compressed_psum (k 1.0)"
+          f" {e_ps:.2e}, pipeline_forward (1 stage, 6 microbatches) "
+          f"{e_pp:.2e}, against the CPU's plain results")
+    return {"flash_decode": e_fd, "compressed_psum": e_ps,
+            "pipeline": e_pp}
+
+
+def phase_mesh(seed: int, smi: str, card_dev: str = "cuda",
+               smoke: bool = False) -> dict:
+    """Phase 21: the mesh layer (``parallel.sharding``, ``comm``,
+    ``collectives``, ``pipeline``, the sharded ``parallel.steps``) on a
+    one-rank (1, 1) ("data", "model") mesh over NCCL, started on a file
+    store under a temporary directory, and the dry run's counter against
+    the step the card runs.  ``card_dev="cpu"`` with ``smoke`` rehearses
+    it on gloo with the reduced config and chunked attention (the CPU's
+    attention is the oracle's, whose backward the card's does not
+    share)."""
+    import datetime
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel import steps as st
+    from repro_torch.parallel.comm import AbstractMesh
+    cfg = get_config("glm4_9b")
+    if smoke:
+        cfg = cfg.reduced()
+    cfg = cfg.replace(n_layers=MESH_LAYERS, dtype="float32",
+                      attn_impl="chunked" if smoke else "kernel")
+    tmp = tempfile.mkdtemp(prefix="mesh_store_")
+    dist.init_process_group("nccl" if card_dev == "cuda" else "gloo",
+                            init_method=f"file://{tmp}/store", rank=0,
+                            world_size=1,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), card_dev)
+        out = mesh_step(cfg, seed, card_dev, mesh)
+        out["collectives"] = mesh_collectives(card_dev, mesh)
+        # (c) the dry run's count of this cell against the card's step
+        cell = dryrun.trace_cell(cfg, InputShape("cut", MESH_SEQ, 1,
+                                                 "train"),
+                                 AbstractMesh((1, 1), ("data", "model")))
+        check(cell["hlo_analysis"]["flops"] == out["flops"],
+              f"the dry run counts {cell['hlo_analysis']['flops']} FLOPs, "
+              f"the card's step {out['flops']}")
+        check(cell["hlo_analysis"]["collective_bytes"]
+              == out["collective_bytes"], "the dry run's collective bytes "
+              f"{cell['hlo_analysis']['collective_bytes']} differ from the "
+              f"card step's {out['collective_bytes']}")
+        step, lay, batch = out.pop("step"), out.pop("layouts"), \
+            out.pop("batch")
+        state = st.shard_state(st.init_train_state(cfg, torch.Generator(
+            device=card_dev).manual_seed(seed), card_dev), lay)
+        if card_dev == "cuda":
+            ms = median_event_ms(lambda: step(state, batch), iters=5,
+                                 warmup=1)
+        else:
+            ms = float(np.median([cpu_ms(lambda: step(state, batch))
+                                  for _ in range(3)]))
+        del state
+        h = cell["roofline_h100"]
+        print(f"  dry run of the cut cell: {cell['hlo_analysis']['flops']} "
+              f"FLOPs = the card step's count; step {ms:.3f} ms (median of "
+              f"5) against the H100 roofline's t_bound "
+              f"{h['t_bound'] * 1e3:.3f} ms ({h['bound']}-bound at "
+              f"{h['peak_flops']:.3g} FLOP/s, {h['hbm_bytes_per_device']:.4g}"
+              f" HBM bytes); peak estimate "
+              f"{cell['memory']['peak_estimate_gb']} GB; card {smi}")
+        out.update(step_ms=ms, t_bound_ms=h["t_bound"] * 1e3,
+                   bound=h["bound"], dryrun_flops=cell["hlo_analysis"]
+                   ["flops"], peak_estimate_gb=cell["memory"]
+                   ["peak_estimate_gb"])
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("[21] " + json.dumps({"mesh": {**{k: v for k, v in out.items()
+                                            if k != "events_added"},
+                                         "card": smi}}))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -2850,6 +3082,12 @@ def main() -> int:
                     phase_whisper, seed, smi)
     by_path["whisper_medium"] = whisper["served"]
     by_path["whisper_train"] = whisper["train_launches"]
+    del whisper
+    gc.collect()
+    torch.cuda.empty_cache()        # whisper's tensors are gone
+    mesh = phase(21, "the mesh layer on a one-rank NCCL mesh and the dry "
+                     "run's counter", phase_mesh, seed, smi)
+    by_path["mesh"] = mesh["launches"]
 
     timed = {"flash_attention": ("float32", "S=512"),
              "flash_decode": ("float32", "T=1024"),

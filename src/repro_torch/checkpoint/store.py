@@ -21,7 +21,13 @@ the other.
 * save() is synchronous; AsyncCheckpointer runs it on a background
   thread (the caller never blocks on I/O) with a bounded queue.
 * restore() validates the manifest and the digest, and puts every leaf
-  on the device (and in the dtype) of the matching leaf of ``like``.
+  on the device (and in the dtype) of the matching leaf of ``like``; with
+  ``shardings`` (a tree of ``parallel.sharding.Layout``) each device
+  keeps its block in the layout of a mesh that may differ from the one
+  that wrote it (elastic restore).
+* save() of a sharded state (``shardings``) gathers every leaf and
+  writes whole leaves from the device at the mesh's origin, so the
+  checkpoint is the one-device format either package reads.
 * retention keeps the newest K checkpoints; incomplete .tmp dirs are
   ignored by latest_step() => crash-safe.
 """
@@ -65,7 +71,20 @@ def _snapshot(x) -> np.ndarray:
 
 
 def save(directory: Path, step: int, tree: Any,
-         extra: Optional[Dict] = None) -> Path:
+         extra: Optional[Dict] = None, shardings: Any = None) -> Path:
+    """Write ``tree`` as ``step``.  With ``shardings`` (a tree of
+    ``Layout`` like ``tree``, whose leaves are a device's blocks) every
+    device of the mesh must call: the leaves are gathered, the device at
+    the origin writes them, and all wait for it."""
+    if shardings is not None:
+        import torch.distributed as dist
+        whole = tree_map(lambda x, lay: lay.gather(x), tree, shardings)
+        mesh = _leaves_of(shardings)[0].mesh
+        path = Path(directory) / f"step_{step:08d}"
+        if not any(mesh.get_coordinate()):
+            save(directory, step, whole, extra)
+        dist.barrier()
+        return path
     directory = Path(directory)
     directory.mkdir(parents=True, exist_ok=True)
     final = directory / f"step_{step:08d}"
@@ -113,13 +132,20 @@ def _like_dtype(ref) -> np.dtype:
     return np.asarray(ref).dtype
 
 
-def restore(directory: Path, step: int, like: Any,
+def _leaves_of(tree) -> List[Any]:
+    return _flatten(tree)[0]
+
+
+def restore(directory: Path, step: int, like: Any, shardings: Any = None,
             validate_hash: bool = True) -> Any:
     """Load ``step`` into the structure of ``like``.
 
     Each leaf is checked against the shape of ``like``'s leaf, cast to its
     dtype and, for a tensor leaf, put on its device (a numpy leaf stays a
-    numpy array).
+    numpy array).  With ``shardings`` (a tree of ``parallel.sharding.
+    Layout`` like ``like``, whose leaves give the whole shapes, e.g. meta
+    tensors) each leaf is this device's block of the layout, on the
+    mesh's device unless ``like``'s leaf has a real one.
     """
     d = Path(directory) / f"step_{step:08d}"
     manifest = json.loads((d / "manifest.json").read_text())
@@ -134,17 +160,29 @@ def restore(directory: Path, step: int, like: Any,
             digest.update(np.asarray(data[f"a{i}"]).tobytes())
         if digest.hexdigest() != manifest["sha256"]:
             raise ValueError("checkpoint hash mismatch (corrupt?)")
+    lays = _leaves_of(shardings) if shardings is not None \
+        else [None] * len(leaves)
     out = []
-    for i, ref in enumerate(leaves):
+    for i, (ref, lay) in enumerate(zip(leaves, lays, strict=True)):
         arr = np.asarray(data[f"a{i}"])
         if list(arr.shape) != list(ref.shape):
             raise ValueError(f"leaf {i}: shape {arr.shape} != {ref.shape}")
         arr = arr.astype(_like_dtype(ref))
-        if isinstance(ref, torch.Tensor):
+        if lay is not None:
+            dev = ref.device if isinstance(ref, torch.Tensor) \
+                and ref.device.type != "meta" else _mesh_device(lay.mesh)
+            out.append(lay.shard(torch.from_numpy(arr)).to(dev))
+        elif isinstance(ref, torch.Tensor):
             out.append(torch.from_numpy(arr).to(ref.device))
         else:
             out.append(arr)
     return _unflatten(like, out)
+
+
+def _mesh_device(mesh) -> torch.device:
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
 
 
 class CheckpointManager:
@@ -161,9 +199,14 @@ class CheckpointManager:
         self.keep = keep
         self.corrupt_fallbacks = 0
 
-    def save(self, step: int, tree: Any, extra: Optional[Dict] = None):
-        path = save(self.directory, step, tree, extra)
-        self._gc()
+    def save(self, step: int, tree: Any, extra: Optional[Dict] = None,
+             shardings: Any = None):
+        """``save`` and retention; with ``shardings`` every device calls
+        and the one at the mesh's origin prunes."""
+        path = save(self.directory, step, tree, extra, shardings)
+        if shardings is None \
+                or not any(_leaves_of(shardings)[0].mesh.get_coordinate()):
+            self._gc()
         return path
 
     def _gc(self):

@@ -1,1 +1,2 @@
-from .base import ARCH_IDS, ArchConfig, InputShape, all_configs, get_config
+from .base import (ARCH_IDS, SHAPES, ArchConfig, InputShape, all_configs,
+                   cell_supported, get_config)

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -121,6 +121,13 @@ class InputShape:
     kind: str                    # train | prefill | decode
 
 
+SHAPES: Dict[str, InputShape] = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}
+
 ARCH_IDS = [
     "llava_next_mistral_7b", "minicpm3_4b", "glm4_9b", "mistral_large_123b",
     "deepseek_7b", "deepseek_moe_16b", "deepseek_v2_236b", "whisper_medium",
@@ -136,3 +143,10 @@ def get_config(name: str) -> ArchConfig:
 
 def all_configs() -> Dict[str, ArchConfig]:
     return {a: get_config(a) for a in ARCH_IDS}
+
+
+def cell_supported(cfg: ArchConfig, shape: InputShape) -> Tuple[bool, str]:
+    """Is (arch x shape) a runnable dry-run cell? (brief's skip rules)."""
+    if shape.name == "long_500k" and not cfg.subquadratic:
+        return False, "pure full-attention arch: 500k decode is quadratic-cost; skipped per brief"
+    return True, ""

@@ -12,13 +12,24 @@ inputs picks the implementation, and nothing else does:
 
 Both paths check the same shape contract as the TPU kernels, so the two
 packages accept the same shapes.
+
+Under the op counter (``analysis.hlo``) each call counts as one kernel
+call by the formula of its row in ``chip_smoke.py``'s bound column, from
+shapes alone (the full cache for a decode, every row of every expert for
+the grouped matmul), and the ops inside it are not counted.  Fake tensors
+(the dry run's) take the card's route, with the plain version in the
+kernel's place (for the SSD scan and the sLSTM, whose plain versions loop
+over the sequence, empty outputs of the kernel's shapes) and nothing
+launched, so a traced step and the card's count the same.
 """
 from __future__ import annotations
 
 from typing import Dict
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
+from ..analysis import hlo
 from . import flash_attention as _fa
 from . import flash_decode as _fd
 from . import mamba_scan as _ms
@@ -41,14 +52,42 @@ def reset_launch_counts() -> None:
         mod.launches = 0
 
 
-def _on_card(*tensors: torch.Tensor) -> bool:
+def _fake(*tensors: torch.Tensor) -> bool:
+    return any(isinstance(t, FakeTensor) for t in tensors)
+
+
+def _route(*tensors: torch.Tensor) -> str:
+    """"kernel" for CUDA tensors, "plain" for CPU ones, and "traced" for
+    fake tensors: the card's route with the plain version in the kernel's
+    place."""
+    if _fake(*tensors):
+        return "traced"
     kinds = {t.device.type for t in tensors}
     if kinds == {"cpu"}:
-        return False
+        return "plain"
     if kinds == {"cuda"}:
-        return True
+        return "kernel"
     raise ValueError(f"tensors on {sorted(kinds)}: the kernels run on CUDA "
                      f"and their plain versions on the CPU")
+
+
+def _attention_fwd(q, k, v, causal, scale):
+    """(B,H,S,D) views: the kernel, or on fake tensors its plain version."""
+    if _fake(q, k, v):
+        return ref.attention_ref(q, k, v, causal=causal, scale=scale)
+    return _fa.flash_attention_fwd(q, k, v, causal=causal, scale=scale)
+
+
+def _attention_cost(q, k, v, causal):
+    """(flops, bytes) of (B,S,H,D) attention: 2 (D + Dv) a (query, key)
+    pair, the causal triangle's pairs; q, k, v read and the output written
+    once."""
+    b, s, h, d = q.shape
+    t, dv = k.shape[1], v.shape[-1]
+    pairs = b * h * s * (s + 1) // 2 if causal else b * h * s * t
+    nbytes = (q.numel() + b * s * h * dv + k.numel() + v.numel()) \
+        * q.element_size()
+    return 2 * (d + dv) * pairs, nbytes
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -61,8 +100,7 @@ class _FlashAttention(torch.autograd.Function):
         ctx.save_for_backward(q, k, v)
         ctx.causal, ctx.scale = causal, scale
         with torch.no_grad():
-            return _fa.flash_attention_fwd(q, k, v, causal=causal,
-                                           scale=scale)
+            return _attention_fwd(q, k, v, causal, scale)
 
     @staticmethod
     def backward(ctx, g):
@@ -91,15 +129,15 @@ def flash_attention(q, k, v, *, causal: bool = True, scale=None):
         raise ValueError(f"causal flash attention needs S == T, got "
                          f"S={s}, T={t}")
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    if _on_card(q, k, v):
-        if torch.is_grad_enabled() and any(
+    with hlo.kernel("flash_attention",
+                    lambda: _attention_cost(q, k, v, causal)):
+        if _route(q, k, v) == "plain":
+            out = ref.attention_ref(qt, kt, vt, causal=causal, scale=scale)
+        elif torch.is_grad_enabled() and any(
                 x.requires_grad for x in (q, k, v)):
             out = _FlashAttention.apply(qt, kt, vt, causal, scale)
         else:
-            out = _fa.flash_attention_fwd(qt, kt, vt, causal=causal,
-                                          scale=scale)
-    else:
-        out = ref.attention_ref(qt, kt, vt, causal=causal, scale=scale)
+            out = _attention_fwd(qt, kt, vt, causal, scale)
     return out.transpose(1, 2)
 
 
@@ -110,10 +148,19 @@ def flash_decode(q, k, v, kv_len, *, scale=None):
     kernel's 256-key blocks are a VMEM blocking detail).
     """
     kt, vt = k.transpose(1, 2), v.transpose(1, 2)
-    if _on_card(q, k, v, kv_len):
-        out = _fd.flash_decode(q[:, 0], kt, vt, kv_len, scale=scale)
-    else:
-        out = ref.decode_ref(q[:, 0], kt, vt, kv_len, scale=scale)
+
+    def cost():
+        b, _, h, d = q.shape
+        t, hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
+        nbytes = (q.numel() + b * h * dv + hkv * (d + dv) * b * t) \
+            * q.element_size() + 4 * b
+        return 2 * (d + dv) * h * b * t, nbytes
+
+    with hlo.kernel("flash_decode", cost):
+        if _route(q, k, v, kv_len) == "kernel":
+            out = _fd.flash_decode(q[:, 0], kt, vt, kv_len, scale=scale)
+        else:
+            out = ref.decode_ref(q[:, 0], kt, vt, kv_len, scale=scale)
     return out[:, None]
 
 
@@ -129,9 +176,26 @@ def mamba_scan(xh, dt, a_log, bm, cm, *, chunk: int = 128):
     if s % chunk:
         raise ValueError(f"mamba_scan takes S a multiple of its chunk, got "
                          f"S={s}, chunk={chunk}")
-    if _on_card(xh, dt, a_log, bm, cm):
-        return _ms.mamba_scan(xh, dt, a_log, bm, cm, chunk=chunk)
-    return ref.ssd_ref(xh, dt, a_log, bm, cm)
+
+    def cost():
+        b, _, h, p = xh.shape
+        n, el = bm.shape[-1], xh.element_size()
+        nc, pairs = s // chunk, chunk * (chunk + 1) // 2
+        nbytes = el * (2 * xh.numel() + 2 * b * s * n + dt.numel()) \
+            + 4 * h + 4 * b * h * n * p
+        return (b * nc * (2 * n * pairs + h * (2 * p * pairs
+                                               + 4 * chunk * n * p)),
+                nbytes)
+
+    with hlo.kernel("mamba_scan", cost):
+        route = _route(xh, dt, a_log, bm, cm)
+        if route == "kernel":
+            return _ms.mamba_scan(xh, dt, a_log, bm, cm, chunk=chunk)
+        if route == "traced":       # the oracle is a loop over S
+            b, _, h, p = xh.shape
+            return xh.new_empty(xh.shape), xh.new_empty(
+                (b, h, bm.shape[-1], p), dtype=torch.float32)
+        return ref.ssd_ref(xh, dt, a_log, bm, cm)
 
 
 def moe_gmm(x, w, rows=None):
@@ -156,9 +220,18 @@ def moe_gmm(x, w, rows=None):
                              or tuple(rows.shape) != (x.shape[0],)):
         raise ValueError(f"moe_gmm takes rows as an ({x.shape[0]},) int32 "
                          f"tensor, got {tuple(rows.shape)} {rows.dtype}")
-    if _on_card(x, w, *(() if rows is None else (rows,))):
-        return _gmm.moe_gmm(x, w, rows)
-    return ref.gmm_ref(x, w, rows)
+
+    def cost():
+        e, c = x.shape[0], x.shape[1]
+        nbytes = (e * c * d + e * d * f + e * c * f) * x.element_size() \
+            + (0 if rows is None else 4 * e)
+        return 2 * e * c * d * f, nbytes
+
+    ins = (x, w, *(() if rows is None else (rows,)))
+    with hlo.kernel("moe_gmm", cost):
+        if _route(*ins) == "kernel":
+            return _gmm.moe_gmm(x, w, rows)
+        return ref.gmm_ref(x, w, rows)
 
 
 def slstm_seq(xg, r, bias, state=None):
@@ -173,17 +246,35 @@ def slstm_seq(xg, r, bias, state=None):
         raise ValueError(f"slstm_seq takes xg (B, S, 4, H, Dh) with S >= 1, "
                          f"got {tuple(xg.shape)}")
     leaves = [] if state is None else [state[k] for k in _sl.STATE_KEYS]
-    if _on_card(xg, r, bias, *leaves):
-        return _sl.slstm_seq(xg, r, bias, state)
-    return ref.slstm_seq_ref(xg, r, bias, state)
+
+    def cost():
+        b, s, _, h, dh = xg.shape
+        n_state = 4 * 4 * b * h * dh * (1 if state is None else 2)
+        nbytes = xg.element_size() * (xg.numel() + b * s * h * dh) \
+            + 4 * (r.numel() + bias.numel()) + n_state
+        return 2 * b * s * 4 * h * dh * dh, nbytes
+
+    with hlo.kernel("slstm_seq", cost):
+        route = _route(xg, r, bias, *leaves)
+        if route == "kernel":
+            return _sl.slstm_seq(xg, r, bias, state)
+        if route == "traced":       # the oracle is a loop over S
+            b, s, _, h, dh = xg.shape
+            return xg.new_empty((b, s, h, dh)), {
+                k: xg.new_empty((b, h, dh), dtype=torch.float32)
+                for k in _sl.STATE_KEYS}
+        return ref.slstm_seq_ref(xg, r, bias, state)
 
 
 def fused_rmsnorm(x, scale, *, eps: float = 1e-5):
     """RMSNorm over the last axis of any (..., D) tensor, fp32 math."""
     shape = x.shape
     x2 = x.reshape(-1, shape[-1])
-    if _on_card(x, scale):
-        out = _rms.rmsnorm(x2.contiguous(), scale, eps)
-    else:
-        out = ref.rmsnorm_ref(x2, scale, eps)
+    cost = lambda: (4 * x.numel(),
+                    2 * x.numel() * x.element_size() + 4 * shape[-1])
+    with hlo.kernel("rmsnorm", cost):
+        if _route(x, scale) == "kernel":
+            out = _rms.rmsnorm(x2.contiguous(), scale, eps)
+        else:
+            out = ref.rmsnorm_ref(x2, scale, eps)
     return out.reshape(shape)

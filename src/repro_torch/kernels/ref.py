@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from ..analysis import hlo
+
 NEG_INF = -1e30
 
 
@@ -264,19 +266,21 @@ def slstm_seq_ref(xg, r, bias, state=None):
     c, n, hp, m = (state[k].float() for k in "cnhm")
     r32, b32 = r.float(), bias.float()[None]
     hs = []
-    for t in range(s):
-        g = xg[:, t].float() + torch.einsum("bhd,ghde->bghe", hp, r32) + b32
-        zt = torch.tanh(g[:, 0])
-        it = g[:, 1]
-        ft = torch.nn.functional.logsigmoid(g[:, 2])
-        ot = torch.sigmoid(g[:, 3])
-        m_new = torch.maximum(ft + m, it)
-        i_ = torch.exp(it - m_new)
-        f_ = torch.exp(ft + m - m_new)
-        c = f_ * c + i_ * zt
-        n = f_ * n + i_
-        hp = ot * c / torch.clamp(n, min=1.0)
-        m = m_new
-        hs.append(hp)
+    with hlo.recurrence(s):         # the op counter's recurrent buffers
+        for t in range(s):
+            g = xg[:, t].float() + torch.einsum("bhd,ghde->bghe", hp,
+                                                r32) + b32
+            zt = torch.tanh(g[:, 0])
+            it = g[:, 1]
+            ft = torch.nn.functional.logsigmoid(g[:, 2])
+            ot = torch.sigmoid(g[:, 3])
+            m_new = torch.maximum(ft + m, it)
+            i_ = torch.exp(it - m_new)
+            f_ = torch.exp(ft + m - m_new)
+            c = f_ * c + i_ * zt
+            n = f_ * n + i_
+            hp = ot * c / torch.clamp(n, min=1.0)
+            m = m_new
+            hs.append(hp)
     out = torch.stack(hs, dim=1) if hs else xg.new_zeros((b, 0, h, dh))
     return out.to(xg.dtype), {"c": c, "n": n, "h": hp, "m": m}

@@ -1,6 +1,11 @@
 """Training launcher of the port, after ``repro/launch/train.py``: the same
 flags, loop, jsonl log, heartbeat file, async checkpoints and resume from
-the newest step, on one device.
+the newest step.  Under a job of several processes (``WORLD_SIZE`` > 1,
+as torchrun sets it) it trains on the (world, 1) ("data", "model") mesh,
+as the JAX launcher does over its devices: each process holds its blocks
+of the state and its rows of each batch, checkpoints are written whole by
+the first process (synchronously) and restored into each process's
+blocks, and only the first process prints and logs.
 
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
       --steps 20
@@ -18,6 +23,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 from pathlib import Path
 
@@ -26,8 +32,11 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.checkpoint import AsyncCheckpointer, CheckpointManager
+from repro_torch.checkpoint import store
 from repro_torch.configs.base import ARCH_IDS, get_config
 from repro_torch.data import DataConfig, synthetic_batch
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.parallel import sharding as shd
 from repro_torch.parallel import steps as st
 
 
@@ -56,11 +65,23 @@ def main(argv=None) -> int:
         cfg = cfg.reduced()
     cfg = cfg.replace(dtype="float32", attn_impl=args.attn_impl)
 
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    mesh = make_mesh((world, 1), ("data", "model"), device) \
+        if world > 1 else None
+    rules = shd.default_rules() if mesh else None
+    lead = mesh is None or not any(mesh.get_coordinate())
+    if mesh is not None and device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+
     gen = torch.Generator(device=device).manual_seed(args.seed)
     state = st.init_train_state(cfg, gen, device)
+    lay = None
+    if mesh is not None:
+        lay = st.state_layouts(cfg, mesh, rules)
+        state = st.shard_state(state, lay)
     step_fn = st.make_train_step(
         cfg, base_lr=args.lr, warmup=min(20, args.steps // 10 + 1),
-        total_steps=args.steps, accum=args.accum)
+        total_steps=args.steps, accum=args.accum, mesh=mesh, rules=rules)
 
     dc = DataConfig(seq_len=args.seq, global_batch=args.batch,
                     vocab=cfg.vocab, seed=args.seed)
@@ -72,13 +93,25 @@ def main(argv=None) -> int:
         args.ckpt_dir.mkdir(parents=True, exist_ok=True)
         ckpt = CheckpointManager(args.ckpt_dir, keep=3)
         latest = ckpt.latest()
-        if latest is not None:
+        if latest is not None and mesh is not None:
+            state = store.restore(args.ckpt_dir, latest,
+                                  st.abstract_state(cfg), shardings=lay)
+            start = latest
+        elif latest is not None:
             _, state = ckpt.restore_latest(state)
             start = latest
+        if latest is not None and lead:
             print(f"[resume] restored step {start} from {args.ckpt_dir}")
-        writer = AsyncCheckpointer(ckpt)
+        if mesh is None:
+            writer = AsyncCheckpointer(ckpt)
 
-    logf = open(args.log, "a") if args.log else None
+    def checkpoint(step: int) -> None:
+        if writer:
+            writer.submit(step, state)
+        elif ckpt:
+            ckpt.save(step, state, shardings=lay)
+
+    logf = open(args.log, "a") if args.log and lead else None
     losses = []
     t0 = time.time()
     for step in range(start, args.steps):
@@ -87,6 +120,8 @@ def main(argv=None) -> int:
         if args.accum > 1:
             batch = {k: v.reshape((args.accum, v.shape[0] // args.accum)
                                   + v.shape[1:]) for k, v in batch.items()}
+        if mesh is not None:
+            batch = st.batch_rows(batch, mesh, rules, args.accum)
         state, metrics = step_fn(state, batch)
         loss = float(metrics["loss"])
         losses.append(loss)
@@ -95,23 +130,25 @@ def main(argv=None) -> int:
                                    "lr": float(metrics["lr"]),
                                    "t": time.time() - t0}) + "\n")
             logf.flush()
-        if step % 10 == 0 or step == args.steps - 1:
+        if lead and (step % 10 == 0 or step == args.steps - 1):
             print(f"step {step+1:5d}  loss {loss:.4f}  "
                   f"({(time.time()-t0)/(step-start+1):.3f}s/step)")
-        if writer and (step + 1) % args.ckpt_every == 0:
-            writer.submit(step + 1, state)
-        if args.ckpt_dir:
+        if ckpt and (step + 1) % args.ckpt_every == 0:
+            checkpoint(step + 1)
+        if args.ckpt_dir and lead:
             (args.ckpt_dir / "heartbeat").write_text(str(time.time()))
+    if ckpt:
+        checkpoint(args.steps)
     if writer:
-        writer.submit(args.steps, state)
         writer.wait()
         writer.close()
     if logf:
         logf.close()
     first, last = losses[0], float(np.mean(losses[-10:]))
     floor = float(np.log(cfg.vocab))     # random-stream entropy floor
-    print(f"done: loss {first:.4f} -> {last:.4f} "
-          f"(uniform-token floor ~{floor:.3f})")
+    if lead:
+        print(f"done: loss {first:.4f} -> {last:.4f} "
+              f"(uniform-token floor ~{floor:.3f})")
     # success = finite and not diverging; synthetic random tokens sit AT
     # the entropy floor, so "improvement" is only meaningful vs blow-up
     ok = np.isfinite(last) and last < max(first * 1.05, floor * 1.1)

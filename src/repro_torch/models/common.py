@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops, ref
+from ..tree import tree_map
 
 PyTree = Any
 
@@ -91,6 +92,28 @@ def init_params(spec_tree: PyTree, generator: Optional[torch.Generator],
                                     generator=generator)
         return w.mul_(scale).to(s.dtype)
     return spec_map(one, spec_tree)
+
+
+def abstract_params(spec_tree: PyTree, placement_fn=None,
+                    device="meta") -> PyTree:
+    """Tensors without storage for a spec tree, where JAX's package has
+    ``ShapeDtypeStruct`` leaves with a ``NamedSharding``.
+
+    ``placement_fn(axes, shape)`` gives a leaf's per-device shard shape
+    (the whole shape without one).  Leaves are meta tensors, or the fake
+    tensors of an active ``FakeTensorMode`` on ``device``.
+    """
+    def one(s: ParamSpec):
+        shape = s.shape if placement_fn is None \
+            else tuple(placement_fn(s.axes, s.shape))
+        return torch.empty(shape, dtype=s.dtype, device=device)
+    return tree_map(one, spec_tree)
+
+
+def param_axes(spec_tree: PyTree) -> PyTree:
+    """The logical axes of every leaf (a tuple a leaf), in the spec tree's
+    nest; a dict of specs gives a dict of tuples, as JAX's does."""
+    return spec_map(lambda s: s.axes, spec_tree)
 
 
 # ---------------------------------------------------------------------------

@@ -25,6 +25,7 @@ from __future__ import annotations
 from typing import Dict
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from ..kernels import ops
 from .attention import _scatter_kv, attend_chunked, attend_full
@@ -118,6 +119,14 @@ def latent_cache(ckv_spec: ParamSpec, krope_spec: ParamSpec,
     return {"ckv": buf[..., :r], "krope": buf[..., r:]}
 
 
+def _same_storage(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether two tensors view one storage; a fake tensor (the dry run's)
+    has no data pointer to compare, and passes."""
+    if isinstance(a, FakeTensor) or isinstance(b, FakeTensor):
+        return True
+    return a.untyped_storage().data_ptr() == b.untyped_storage().data_ptr()
+
+
 def latent_rows(cache_ckv, cache_krope) -> torch.Tensor:
     """The (..., T, kv_lora + qk_rope) buffer of which ``cache_ckv`` and
     ``cache_krope`` are views (:func:`latent_cache`); raises if they are
@@ -127,8 +136,7 @@ def latent_rows(cache_ckv, cache_krope) -> torch.Tensor:
             or cache_ckv.stride() != cache_krope.stride()
             or cache_ckv.stride(-1) != 1
             or cache_ckv.stride(-2) < r + p
-            or cache_krope.untyped_storage().data_ptr()
-            != cache_ckv.untyped_storage().data_ptr()
+            or not _same_storage(cache_ckv, cache_krope)
             or cache_krope.storage_offset()
             != cache_ckv.storage_offset() + r):
         raise ValueError("the MLA cache's ckv and krope must be views of "

@@ -80,7 +80,7 @@ def adamw_update(grads, state: OptState, lr, *, b1: float = 0.9,
                  b2: float = 0.95, eps: float = 1e-8,
                  weight_decay: float = 0.1, max_norm: float = 1.0,
                  param_dtype=torch.bfloat16,
-                 out=None) -> Tuple[Any, OptState]:
+                 out=None, gnorm=None) -> Tuple[Any, OptState]:
     """One AdamW step. Returns (new params in ``param_dtype``, new state).
 
     Global-norm clipping is a scalar scale fused into the moment update,
@@ -88,9 +88,11 @@ def adamw_update(grads, state: OptState, lr, *, b1: float = 0.9,
     tensor.  ``state``'s master, m and v are updated in place and the new
     state holds the same tensors; with ``out`` (a params tree) the new
     params are written into its tensors and it is returned, else they are
-    new tensors.
+    new tensors.  ``gnorm``, when given, is the global norm to clip by (a
+    sharded step's, summed over the mesh), else that of ``grads``.
     """
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     step = state.step + 1
     b1c = 1.0 - b1 ** step.float()

@@ -1,1 +1,3 @@
-"""Steps of the port: ``steps`` (one device); the mesh waits (ROADMAP.md)."""
+"""Steps and the mesh layer of the port: ``steps`` (one device or a
+mesh), ``sharding`` (rules and layouts), ``comm`` (meshes and the
+collectives they issue), ``collectives`` and ``pipeline``."""

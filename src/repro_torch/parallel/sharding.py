@@ -1,0 +1,296 @@
+"""Logical-axis sharding of the port, after ``repro/parallel/sharding.py``.
+
+Parameters and activations are annotated with *logical* axis names
+("embed", "mlp", "heads", "vocab", "experts", "batch", "seq", ...).  An
+:class:`AxisRules` table maps those to mesh axes, and :meth:`AxisRules.spec`
+gives the same partition spec as the JAX package's for the same leaf and
+mesh.  Where JAX hands the spec to GSPMD, the port places tensors by it
+itself: :func:`placements_for` turns it into DTensor placements on a
+``DeviceMesh``, :func:`shard_of` cuts a device's block out of a whole
+tensor, :func:`gather` joins the blocks again, and :func:`reduce_into`
+sums a whole-size tensor over the mesh into a device's block (a gradient
+reduce-scattered into its parameter's layout).
+
+A block is the one ``NamedSharding`` gives the device at the same mesh
+coordinates: a dimension split over the mesh axes (a1, a2, ...) is cut
+into size(a1) * size(a2) * ... blocks with a1 the major index.
+
+Default rules implement FSDP("data") x TP("model") with EP on "model"
+and the batch spread over ("pod","data") when a pod axis exists.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import math
+import threading
+from typing import Optional, Sequence, Tuple, Union
+
+import torch
+
+from . import comm
+
+MeshAxes = Union[None, str, Tuple[str, ...]]
+
+
+class PartitionSpec(tuple):
+    """One entry a dimension: None (replicated), a mesh axis, or a tuple
+    of mesh axes (major first), as ``jax.sharding.PartitionSpec``."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return "P(" + ", ".join(repr(e) for e in self) + ")"
+
+
+P = PartitionSpec
+
+
+def _sizes(mesh) -> dict:
+    """{axis: size} of a port mesh or of anything with JAX's
+    ``axis_names`` and ``devices.shape``."""
+    if mesh is None:
+        return {}
+    if hasattr(mesh, "mesh_dim_names"):
+        return comm.axis_sizes(mesh)
+    return dict(zip(mesh.axis_names, mesh.devices.shape))
+
+
+@dataclasses.dataclass(frozen=True)
+class AxisRules:
+    """logical axis name -> mesh axis (or tuple of mesh axes, or None)."""
+
+    table: Tuple[Tuple[str, MeshAxes], ...]
+
+    def get(self, logical: Optional[str]) -> MeshAxes:
+        if logical is None:
+            return None
+        for k, v in self.table:
+            if k == logical:
+                return v
+        return None
+
+    def spec(self, axes: Sequence[Optional[str]],
+             shape: Optional[Sequence[int]] = None,
+             mesh=None) -> PartitionSpec:
+        """PartitionSpec for logical `axes`.
+
+        With `shape` and `mesh` given, any mapping whose mesh-axis product
+        does not evenly divide the dimension falls back to replication
+        (dropping mesh axes from the left, e.g. ("pod","data")->("data",))
+        — tiny dims (4 heads, batch 1) must not break lowering.
+        """
+        sizes = _sizes(mesh)
+        phys, used = [], set()
+        for i, a in enumerate(axes):
+            m = self.get(a)
+            if m is None:
+                phys.append(None)
+                continue
+            ms = (m,) if isinstance(m, str) else tuple(m)
+            ms = tuple(x for x in ms if x not in used)
+            if shape is not None and sizes:
+                dim = shape[i]
+                while ms:
+                    prod = 1
+                    for x in ms:
+                        prod *= sizes[x]
+                    if prod and dim % prod == 0:
+                        break
+                    ms = ms[1:]
+            used.update(ms)
+            phys.append(ms if len(ms) > 1 else (ms[0] if ms else None))
+        return P(*phys)
+
+
+def default_rules(multi_pod: bool = False, *, seq_shard_decode: bool = True,
+                  act_shard: str = "seq") -> AxisRules:
+    """FSDP(data) x TP(model); pod axis extends the data/batch dimension.
+
+    act_shard="seq": Megatron-SP — the residual stream is sharded along
+    sequence over the tensor axis.  act_shard="batch2d": the batch axis
+    spreads over BOTH mesh axes instead (needs global_batch % 256 == 0).
+    The port's steps use the rules for the layout of the state and the
+    rows of the batch (``parallel.steps``).
+    """
+    if act_shard == "batch2d":
+        batch = ("pod", "data", "model") if multi_pod \
+            else ("data", "model")
+        seq = None
+    else:
+        batch = ("pod", "data") if multi_pod else ("data",)
+        seq = "model"
+    table = [
+        ("batch", batch),
+        ("seq", seq),
+        ("embed", "data"),          # FSDP: weight d_model axis over data
+        ("mlp", "model"),
+        ("heads", "model"),
+        # kv heads: when batch occupies "data" (or kv doesn't divide) the
+        # per-tensor fallback replicates, as before; for batch=1 decode
+        # (long_500k) the idle data axis shards the kv heads instead.
+        ("kv", "data"),
+        ("vocab", "model"),
+        ("experts", "model"),
+        ("layers", None),
+        ("kv_seq", "model" if seq_shard_decode else None),  # decode cache seq
+        ("act_embed", None),        # activations' d_model axis
+    ]
+    return AxisRules(table=tuple(table))
+
+
+# --------------------------------------------------------------------------
+# Thread-local active (mesh, rules) context used by `constrain`.
+# --------------------------------------------------------------------------
+
+_ctx = threading.local()
+
+
+@contextlib.contextmanager
+def use_mesh(mesh, rules: Optional[AxisRules]):
+    prev = getattr(_ctx, "state", None)
+    _ctx.state = (mesh, rules) if mesh is not None else None
+    try:
+        yield
+    finally:
+        _ctx.state = prev
+
+
+def active():
+    return getattr(_ctx, "state", None)
+
+
+def constrain(x, *logical: Optional[str]):
+    """``x`` unchanged: a sharding constraint changes no value in JAX.
+    Under an active mesh the spec is computed, so a logical name mapped
+    to an axis the mesh lacks raises."""
+    st = active()
+    if st is not None:
+        mesh, rules = st
+        rules.spec(logical, shape=x.shape, mesh=mesh)
+    return x
+
+
+def _entries(e) -> Tuple[str, ...]:
+    return () if e is None else (e,) if isinstance(e, str) else tuple(e)
+
+
+def placements_for(axes: Sequence[Optional[str]], mesh, rules: AxisRules,
+                   shape: Sequence[int]) -> tuple:
+    """DTensor placements of a leaf, one a mesh dimension: ``Shard(d)``
+    where the spec splits tensor dimension d over that mesh axis, else
+    ``Replicate()``.  A dimension split over several axes is sharded on
+    each of them, the major first, which is the block order of
+    :func:`shard_of` when the axes come in the mesh's order (as the
+    default rules' do)."""
+    from torch.distributed.tensor import Replicate, Shard
+    spec = rules.spec(axes, shape=shape, mesh=mesh)
+    where = {a: d for d, e in enumerate(spec) for a in _entries(e)}
+    return tuple(Shard(where[a]) if a in where else Replicate()
+                 for a in mesh.mesh_dim_names)
+
+
+def local_shape(spec: PartitionSpec, shape: Sequence[int], mesh
+                ) -> Tuple[int, ...]:
+    """Shape of one device's block of a ``shape`` tensor under ``spec``."""
+    sizes = _sizes(mesh)
+    return tuple(n // math.prod(sizes[a] for a in _entries(e))
+                 for n, e in zip(shape, spec))
+
+
+def shard_of(x: torch.Tensor, axes: Sequence[Optional[str]], mesh,
+             rules: AxisRules) -> torch.Tensor:
+    """This device's block of the whole tensor ``x`` (a copy)."""
+    spec = rules.spec(axes, shape=x.shape, mesh=mesh)
+    sizes = _sizes(mesh)
+    for d, e in enumerate(spec):
+        for a in _entries(e):
+            n = x.shape[d] // sizes[a]
+            x = x.narrow(d, comm.coordinate(mesh, a) * n, n)
+    return x.clone()
+
+
+def gather(local: torch.Tensor, axes: Sequence[Optional[str]], mesh,
+           rules: AxisRules, shape: Sequence[int]) -> torch.Tensor:
+    """The whole ``shape`` tensor from every device's block (all-gathers
+    over the spec's axes, the minor axis of a dimension first)."""
+    spec = rules.spec(axes, shape=shape, mesh=mesh)
+    x = local
+    for d, e in enumerate(spec):
+        for a in reversed(_entries(e)):
+            x = comm.all_gather(x, mesh, a, d)
+    return x
+
+
+def reduce_into(g: torch.Tensor, axes: Sequence[Optional[str]], mesh,
+                rules: AxisRules) -> torch.Tensor:
+    """This device's block, in the layout of ``axes``, of the sum of the
+    whole-size ``g`` over every device of the mesh: reduce-scatters over
+    the axes that split the leaf (the major axis of a dimension first),
+    then all-reduces over the axes that replicate it."""
+    spec = rules.spec(axes, shape=g.shape, mesh=mesh)
+    split = set()
+    for d, e in enumerate(spec):
+        for a in _entries(e):
+            g = comm.reduce_scatter(g, mesh, a, d)
+            split.add(a)
+    rest = tuple(a for a in mesh.mesh_dim_names if a not in split)
+    if rest:
+        g = comm.all_reduce(g.contiguous(), mesh, rest)
+    return g
+
+
+def rows_axes(axes: Sequence[Optional[str]]) -> Tuple[Optional[str], ...]:
+    """``axes`` with every name but "batch" dropped: the port's steps
+    split a batch, a cache or an activation by rows only (each device
+    computes whole sequences)."""
+    return tuple(a if a == "batch" else None for a in axes)
+
+
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """Where one leaf of ``shape`` with logical ``axes`` lives on
+    ``mesh`` under ``rules``: the counterpart of a ``NamedSharding``."""
+
+    mesh: object
+    rules: AxisRules
+    axes: Tuple[Optional[str], ...]
+    shape: Tuple[int, ...]
+
+    @property
+    def spec(self) -> PartitionSpec:
+        return self.rules.spec(self.axes, shape=self.shape, mesh=self.mesh)
+
+    @property
+    def local_shape(self) -> Tuple[int, ...]:
+        return local_shape(self.spec, self.shape, self.mesh)
+
+    @property
+    def placements(self) -> tuple:
+        return placements_for(self.axes, self.mesh, self.rules, self.shape)
+
+    @property
+    def copies(self) -> int:
+        """Devices that hold the same block."""
+        blocks = math.prod(self.shape[i] // n for i, n in
+                           enumerate(self.local_shape)) if self.shape else 1
+        return self.mesh.size() // blocks
+
+    def shard(self, x: torch.Tensor) -> torch.Tensor:
+        return shard_of(x, self.axes, self.mesh, self.rules)
+
+    def gather(self, local: torch.Tensor) -> torch.Tensor:
+        return gather(local, self.axes, self.mesh, self.rules, self.shape)
+
+    def reduce(self, g: torch.Tensor) -> torch.Tensor:
+        return reduce_into(g, self.axes, self.mesh, self.rules)
+
+
+def layouts(spec_tree, mesh, rules: AxisRules, rows_only: bool = False):
+    """A :class:`Layout` for every ``ParamSpec`` of ``spec_tree`` (by rows
+    only with ``rows_only``), in its nest."""
+    from ..tree import tree_map
+    return tree_map(lambda s: Layout(
+        mesh, rules, rows_axes(s.axes) if rows_only else tuple(s.axes),
+        tuple(s.shape)), spec_tree)

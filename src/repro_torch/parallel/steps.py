@@ -1,11 +1,21 @@
-"""Train and eval steps on one device, after ``repro/parallel/steps.py``.
+"""Step functions (train / eval / prefill / serve) of the port, after
+``repro/parallel/steps.py``, on one device or on a mesh.
 
-The single-device part of the JAX module: the training state, its spec,
-its initialisation, the train step (value and grad, microbatch
-accumulation, error-feedback gradient compression, warmup-cosine lr,
-AdamW) and the eval step.  The mesh, sharding constraints and the
-``abstract_*`` dry-run helpers are later work (ROADMAP.md); on one device
-the JAX package's constraints are no-ops.
+On one device: the training state, its spec, its initialisation, the
+train step (value and grad, microbatch accumulation, error-feedback
+gradient compression, warmup-cosine lr, AdamW), the eval, prefill and
+serve steps.
+
+On a mesh (``mesh=``, ``rules=``; ``sharding``'s layouts) each device
+holds the block of every state leaf that JAX's ``NamedSharding`` gives
+it, and a step is data parallel with FSDP state: it all-gathers the
+parameters, runs the one-device loss on this device's rows of the batch,
+reduce-scatters the gradients into the parameters' layout and updates its
+blocks with AdamW.  Tensor-parallel compute (column and row splits of the
+matmuls over "model") and gathering one layer at a time are not here:
+every device computes with whole weights (ROADMAP.md).  The
+``abstract_*`` helpers give a device's arguments without storage, for
+the dry run.
 
 The train step updates the state in place, as the JAX trainer donates it
 (``donate_argnums=(0,)``), and returns it with its metrics as 0-d
@@ -21,10 +31,13 @@ import torch
 from .. import resolve_device
 from ..configs.base import ArchConfig, InputShape
 from ..models import api
-from ..models.common import ParamSpec, init_params, spec_map
+from ..models.transformer import init_cache
+from ..models.common import ParamSpec, abstract_params, init_params, spec_map
 from ..optim import (adamw_init, adamw_init_spec, adamw_update,
                      error_feedback_update, linear_warmup_cosine)
 from ..tree import leaves, tree_map, unflatten
+from . import comm
+from . import sharding as shd
 
 
 class TrainState(NamedTuple):
@@ -70,34 +83,48 @@ def loss_and_grads(loss_fn: Callable, params, batch):
     return loss.detach(), unflatten(params, list(grads))
 
 
+def _accumulated(loss_fn: Callable, params, batch, accum: int):
+    """(loss, gradients) of one batch, or the means over its ``accum``
+    microbatches (leading axis), accumulated in fp32 in order."""
+    if accum == 1:
+        return loss_and_grads(loss_fn, params, batch)
+    grads = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                     params)
+    loss = 0.0
+    for i in range(accum):
+        l, g = loss_and_grads(loss_fn, params,
+                              {k: v[i] for k, v in batch.items()})
+        torch._foreach_add_(leaves(grads), leaves(g))
+        loss = loss + l
+    torch._foreach_div_(leaves(grads), accum)
+    return loss / accum, grads
+
+
 def make_train_step(cfg: ArchConfig, *, base_lr: float = 3e-4,
                     warmup: int = 100, total_steps: int = 10_000,
-                    accum: int = 1, compress_fraction: Optional[float] = None
+                    accum: int = 1, compress_fraction: Optional[float] = None,
+                    mesh=None, rules: Optional[shd.AxisRules] = None
                     ) -> Callable:
     """(TrainState, batch) -> (TrainState, metrics).
 
     ``accum`` > 1 expects batch leaves with a leading microbatch axis and
     accumulates their gradients in fp32 in order, as JAX's ``lax.scan``
     does.  ``compress_fraction`` enables error-feedback top-k + int8
-    gradient compression (``optim.compression``).
+    gradient compression (``optim.compression``), on one device only.
+
+    With ``mesh`` (and ``rules``, the default rules of ``cfg.act_shard``
+    unless given) the state is this device's blocks (:func:`shard_state`)
+    and the batch its rows (:func:`batch_rows`): see the module docstring.
     """
     loss_fn = api.loss_fn(cfg)
+    if mesh is not None:
+        return _sharded_train_step(cfg, loss_fn, mesh, rules, base_lr,
+                                   warmup, total_steps, accum,
+                                   compress_fraction)
 
     def step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
         params = state.params
-        if accum > 1:
-            grads = tree_map(lambda p: torch.zeros_like(
-                p, dtype=torch.float32), params)
-            loss = 0.0
-            for i in range(accum):
-                l, g = loss_and_grads(loss_fn, params,
-                                      {k: v[i] for k, v in batch.items()})
-                torch._foreach_add_(leaves(grads), leaves(g))
-                loss = loss + l
-            torch._foreach_div_(leaves(grads), accum)
-            loss = loss / accum
-        else:
-            loss, grads = loss_and_grads(loss_fn, params, batch)
+        loss, grads = _accumulated(loss_fn, params, batch, accum)
 
         new_ef = state.ef_err
         if compress_fraction is not None and state.ef_err is not None:
@@ -119,6 +146,83 @@ def make_train_step(cfg: ArchConfig, *, base_lr: float = 3e-4,
     return step
 
 
+def shard_like_params(grads, layouts):
+    """This device's block of every gradient leaf summed over the mesh:
+    reduce-scattered into the parameter layout (all-reduced over the axes
+    that replicate a leaf), as JAX's constraint to the parameter sharding
+    makes GSPMD do."""
+    return tree_map(lambda g, lay: lay.reduce(g), grads, layouts)
+
+
+def state_layouts(cfg: ArchConfig, mesh, rules: shd.AxisRules,
+                  compress: bool = False) -> TrainState:
+    """The :class:`sharding.Layout` of every leaf of the training state."""
+    return shd.layouts(train_state_spec(cfg, compress), mesh, rules)
+
+
+def shard_state(state, layouts):
+    """This device's blocks of a whole state (a copy of each)."""
+    return tree_map(lambda x, lay: lay.shard(x), state, layouts)
+
+
+def gather_state(state, layouts):
+    """The whole state from every device's blocks."""
+    return tree_map(lambda x, lay: lay.gather(x), state, layouts)
+
+
+def _rules(cfg: ArchConfig, mesh, rules):
+    if rules is not None:
+        return rules
+    return shd.default_rules(multi_pod="pod" in mesh.mesh_dim_names,
+                             act_shard=cfg.act_shard)
+
+
+def batch_rows(batch: Dict[str, Any], mesh, rules: shd.AxisRules,
+               accum: int = 1) -> Dict[str, Any]:
+    """This device's rows of a whole batch: each leaf's batch dimension
+    (0, or 1 under ``accum``'s leading microbatch axis) cut as JAX's batch
+    sharding cuts it; the devices off the batch axes hold the same rows."""
+    lead = (None,) if accum > 1 else ()
+    return {k: shd.shard_of(v, lead + ("batch",) + (None,) * (
+        v.dim() - 1 - len(lead)), mesh, rules) for k, v in batch.items()}
+
+
+def _sharded_train_step(cfg, loss_fn, mesh, rules, base_lr, warmup,
+                        total_steps, accum, compress_fraction):
+    if compress_fraction is not None:
+        raise ValueError("gradient compression on a mesh is not ported "
+                         "(ROADMAP.md)")
+    rules = _rules(cfg, mesh, rules)
+    lays = state_layouts(cfg, mesh, rules).params
+    world = mesh.size()
+
+    def step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
+        params = tree_map(lambda x, lay: lay.gather(x), state.params, lays)
+        loss, grads = _accumulated(loss_fn, params, batch, accum)
+        del params
+        # every device's rows weigh 1/world: the sum over the mesh is the
+        # mean over the global batch (each row set repeats world/n times)
+        torch._foreach_div_(leaves(grads), world)
+        grads = shard_like_params(grads, lays)
+        # the clipping norm: each block's squares once over the mesh
+        sq = sum(g.float().square().sum() / lay.copies
+                 for g, lay in zip(leaves(grads), leaves(lays), strict=True))
+        gnorm = comm.all_reduce(sq.reshape(1), mesh,
+                                mesh.mesh_dim_names)[0].sqrt()
+        loss = comm.all_reduce((loss / world).reshape(1), mesh,
+                               mesh.mesh_dim_names)[0]
+        lr = linear_warmup_cosine(state.opt.step, base_lr, warmup,
+                                  total_steps)
+        new_params, new_opt = adamw_update(grads, state.opt, lr,
+                                           param_dtype=cfg.torch_dtype,
+                                           out=state.params, gnorm=gnorm)
+        metrics = {"loss": loss, "lr": lr, "step": new_opt.step}
+        return TrainState(params=new_params, opt=new_opt,
+                          ef_err=state.ef_err), metrics
+
+    return step
+
+
 def make_eval_step(cfg: ArchConfig) -> Callable:
     loss_fn = api.loss_fn(cfg)
 
@@ -126,6 +230,96 @@ def make_eval_step(cfg: ArchConfig) -> Callable:
         with torch.no_grad():
             return loss_fn(params, batch)
     return step
+
+
+def make_prefill_step(cfg: ArchConfig, cache_len: int, mesh=None,
+                      rules: Optional[shd.AxisRules] = None) -> Callable:
+    """(params, batch) -> (last logits, cache); on a mesh the params are
+    this device's blocks and the batch its rows."""
+    fn = api.prefill_fn(cfg, cache_len)
+    gather = _param_gather(cfg, mesh, rules)
+
+    def step(params, batch):
+        with torch.no_grad():
+            return fn(gather(params), batch)
+    return step
+
+
+def make_serve_step(cfg: ArchConfig, mesh=None,
+                    rules: Optional[shd.AxisRules] = None) -> Callable:
+    """One decode tick: greedy-sample next token and advance the cache;
+    on a mesh the params are this device's blocks, the batch and the
+    cache its rows."""
+    fn = api.decode_fn(cfg)
+    gather = _param_gather(cfg, mesh, rules)
+
+    def step(params, batch, cache):
+        with torch.no_grad():
+            logits, new_cache = fn(gather(params), batch["token"], cache,
+                                   batch["kv_len"])
+        next_tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+        return {"token": next_tok, "kv_len": batch["kv_len"] + 1}, new_cache
+
+    return step
+
+
+def _param_gather(cfg, mesh, rules) -> Callable:
+    if mesh is None:
+        return lambda params: params
+    lays = state_layouts(cfg, mesh, _rules(cfg, mesh, rules)).params
+    return lambda params: tree_map(lambda x, lay: lay.gather(x), params,
+                                   lays)
+
+
+# ---------------------------------------------------------------------------
+# A device's step arguments without storage (the dry run's)
+# ---------------------------------------------------------------------------
+
+
+def batch_axes(cfg: ArchConfig, shape: InputShape):
+    """Logical axes tree for one batch (matches api.input_spec)."""
+    return {k: v.axes for k, v in api.input_spec(cfg, shape).items()}
+
+
+def _placed(spec, mesh, rules, rows_only: bool, device):
+    fn = None
+    if mesh is not None and rules is not None:
+        fn = lambda axes, shape: shd.Layout(
+            mesh, rules, shd.rows_axes(axes) if rows_only else tuple(axes),
+            tuple(shape)).local_shape
+    return abstract_params(spec, fn, device)
+
+
+def abstract_batch(cfg: ArchConfig, shape: InputShape, mesh=None,
+                   rules: Optional[shd.AxisRules] = None, accum: int = 1,
+                   device="meta"):
+    """This device's rows of a batch (whole rows: the port splits no
+    sequence), with a leading microbatch axis under ``accum``."""
+    spec = api.input_spec(cfg, shape)
+    if accum > 1:
+        spec = {k: ParamSpec((accum, v.shape[0] // accum) + v.shape[1:],
+                             (None,) + v.axes, v.dtype)
+                for k, v in spec.items()}
+    return _placed(spec, mesh, rules, True, device)
+
+
+def abstract_state(cfg: ArchConfig, mesh=None,
+                   rules: Optional[shd.AxisRules] = None, device="meta"):
+    """This device's blocks of the training state."""
+    return _placed(train_state_spec(cfg), mesh, rules, False, device)
+
+
+def abstract_cache(cfg: ArchConfig, shape: InputShape, mesh=None,
+                   rules: Optional[shd.AxisRules] = None, device="meta"):
+    """This device's rows of the decode cache, made as the models make a
+    cache (``transformer.init_cache``: MLA's two leaves views of one
+    buffer)."""
+    spec = api.cache_spec(cfg, shape)
+    if mesh is not None and rules is not None:
+        spec = tree_map(lambda s: ParamSpec(shd.Layout(
+            mesh, rules, shd.rows_axes(s.axes), tuple(s.shape)).local_shape,
+            s.axes, s.dtype, init=s.init), spec)
+    return init_cache(spec, device)
 
 
 def materialize_batch(cfg: ArchConfig, shape: InputShape, seed: int = 0,

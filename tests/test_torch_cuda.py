@@ -1597,3 +1597,124 @@ def test_train_steps_on_card_match_cpu_and_count_launches(cuda_device, arch):
     for g, c in zip(leaves(card.params), leaves(cpu.params), strict=True):
         torch.testing.assert_close(g.cpu(), c, rtol=1e-5,
                                    atol=1e-2 * lr_sum)
+
+
+# -- the mesh layer (repro_torch.parallel) on a one-rank NCCL mesh ----------
+
+@pytest.fixture
+def nccl_mesh(cuda_device, tmp_path):
+    """A (1, 1) ("data", "model") mesh over a one-rank NCCL group started
+    on a file store under the test's directory."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        yield make_mesh((1, 1), ("data", "model"))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["glm4_9b", "deepseek_7b"])
+def test_sharded_step_on_nccl_matches_unsharded(nccl_mesh, arch):
+    """Phase 21(a) and (c) at the reduced config: a sharded step on the
+    card equals the unsharded one within 1e-6 of each leaf's max, launches
+    flash attention twice a layer and nothing else, and its op count (FLOPs
+    and collective bytes) is the dry run's for the same cell."""
+    from repro_torch.analysis import hlo
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.launch import dryrun
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel import steps as st
+    from repro_torch.parallel.comm import AbstractMesh
+    from repro_torch.tree import leaves, tree_map
+    cfg = get_config(arch).reduced().replace(dtype="float32",
+                                             attn_impl="kernel")
+    state = st.init_train_state(cfg, torch.Generator("cuda").manual_seed(0),
+                                "cuda")
+    copy = tree_map(lambda t: t.clone(), state)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in synthetic_batch(
+        DataConfig(seq_len=64, global_batch=2, vocab=cfg.vocab), 0).items()}
+    plain, m1 = st.make_train_step(cfg, total_steps=5, warmup=1)(copy, batch)
+    rules = shd.default_rules()
+    lay = st.state_layouts(cfg, nccl_mesh, rules)
+    step = st.make_train_step(cfg, total_steps=5, warmup=1, mesh=nccl_mesh,
+                              rules=rules)
+    ops.reset_launch_counts()
+    (got, m2), rep = hlo.count(step, st.shard_state(state, lay), batch)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == {
+        "flash_attention": 2 * cfg.n_layers, "flash_decode": 0,
+        "mamba_scan": 0, "moe_gmm": 0, "rmsnorm": 0, "slstm_seq": 0}
+    torch.testing.assert_close(m2["loss"], m1["loss"], rtol=1e-6, atol=0.0)
+    for a, b in zip(leaves(got), leaves(plain), strict=True):
+        if b.is_floating_point():
+            assert (a - b).abs().max() <= 1e-6 * b.abs().max()
+        else:
+            assert torch.equal(a, b)
+    cell = dryrun.trace_cell(cfg, InputShape("t", 64, 2, "train"),
+                             AbstractMesh((1, 1), ("data", "model")))
+    assert cell["hlo_analysis"]["flops"] == rep.flops
+    assert cell["hlo_analysis"]["collective_bytes"] == rep.collective_bytes
+    assert rep.kernel_calls == {"flash_attention": 2 * cfg.n_layers}
+
+
+@pytest.mark.cuda
+def test_mesh_collectives_on_nccl_match_the_cpu(nccl_mesh):
+    """Phase 21(b): flash_decode_shardmap, compressed_psum at k = 1.0 and a
+    one-stage pipeline on the card against the plain results on the CPU."""
+    import numpy as np
+    from repro_torch.parallel.collectives import (_topk_int8_wire,
+                                                  compressed_psum,
+                                                  flash_decode_shardmap)
+    from repro_torch.parallel.pipeline import mlp_stage, pipeline_forward
+    rng = np.random.default_rng(1)
+    q, k, v = (torch.as_tensor(rng.standard_normal(s), dtype=torch.float32)
+               for s in ((2, 4, 16), (2, 64, 4, 16), (2, 64, 4, 16)))
+    got = flash_decode_shardmap(nccl_mesh, "model")(q.cuda(), k.cuda(),
+                                                     v.cuda())
+    torch.testing.assert_close(got.cpu(), ref.decode_ref(
+        q, k.transpose(1, 2), v.transpose(1, 2)), rtol=2e-5, atol=2e-5)
+    g = torch.randn(64)
+    out, err = compressed_psum(nccl_mesh, pod_axis="model",
+                               k_fraction=1.0)({"g": g.cuda()},
+                                               {"g": torch.zeros(64).cuda()})
+    qv, idx, scale = _topk_int8_wire(g, 1.0)
+    recon = torch.zeros(64)
+    recon[idx] = qv.float() * scale
+    torch.testing.assert_close(out["g"].cpu(), recon, rtol=1e-6, atol=1e-7)
+    torch.testing.assert_close(err["g"].cpu(), g - recon, rtol=1e-6,
+                               atol=1e-7)
+    w = {"w1": torch.randn(1, 16, 16) * 0.3, "w2": torch.randn(1, 16, 16) * .3}
+    xs = torch.randn(6, 8, 16)
+    got = pipeline_forward(mlp_stage, nccl_mesh, "data")(
+        {n: t.cuda() for n, t in w.items()}, xs.cuda())
+    torch.testing.assert_close(got.cpu(), mlp_stage(
+        {n: t[0] for n, t in w.items()}, xs), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_counter_on_the_card_counts_the_traced_route(cuda_device):
+    """The op counter over flash attention's kernel forward and its backward
+    on the card (run on autograd's device thread) counts what the fake
+    tensors' trace counts."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.analysis import hlo
+
+    def fwd_bwd(q, k, v):
+        out = ops.flash_attention(q, k, v)
+        torch.autograd.grad(out, (q, k, v), torch.ones_like(out))
+
+    shape = (2, 128, 4, 32)
+    q, k, v = (torch.randn(shape, device="cuda", requires_grad=True)
+               for _ in range(3))
+    _, card = hlo.count(fwd_bwd, q, k, v)
+    with FakeTensorMode():
+        q, k, v = (torch.empty(shape, requires_grad=True) for _ in range(3))
+        _, fake = hlo.count(fwd_bwd, q, k, v)
+    assert card.flops == fake.flops > 0
+    assert card.kernel_calls == fake.kernel_calls == {"flash_attention": 1}

@@ -323,3 +323,87 @@ def test_chip_smoke_new_family_phases_rehearse_on_the_cpu(monkeypatch,
     assert len(out["losses"]) == 2 and out["losses"][1] < out["losses"][0]
     text = capsys.readouterr().out
     assert "tokens equal" in text and "AdamW" in text
+
+
+MESH_MODULES = [
+    "repro_torch.parallel.comm", "repro_torch.parallel.sharding",
+    "repro_torch.parallel.collectives", "repro_torch.parallel.pipeline",
+    "repro_torch.launch.mesh", "repro_torch.launch.dryrun",
+    "repro_torch.analysis", "repro_torch.analysis.hlo",
+    "repro_torch.analysis.roofline"]
+
+
+def test_mesh_slice_modules_are_ported():
+    """Every module of the mesh slice exists and imports;
+    test_port_and_chip_smoke_import_no_jax holds that none of them (nor the
+    additions to configs/, models/common.py, parallel/steps.py,
+    checkpoint/ and launch/train.py) imports JAX or the JAX package."""
+    import importlib
+    for mod in MESH_MODULES:
+        path = ROOT / "src" / (mod.replace(".", "/") + ".py")
+        assert path.exists() or (path.with_suffix("") / "__init__.py"
+                                 ).exists(), mod
+        importlib.import_module(mod)
+    from repro_torch.configs import SHAPES, cell_supported
+    from repro_torch.models.common import abstract_params, param_axes
+    assert set(SHAPES) == {"train_4k", "prefill_32k", "decode_32k",
+                           "long_500k"}
+    assert callable(cell_supported) and callable(abstract_params) \
+        and callable(param_axes)
+
+
+_DRYRUN_NO_JAX = r"""
+import sys
+sys.path[:0] = [{src!r}]
+from repro_torch.launch import dryrun
+rc = dryrun.main(["--arch", "xlstm_125m", "--shape", "decode_32k",
+                  "--out", {out!r}])
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print("BAD", bad)
+sys.exit(rc or (1 if bad else 0))
+"""
+
+
+def test_dryrun_entry_point_runs_without_jax(tmp_path):
+    """The dry run's entry point traces a cell in a fresh interpreter and
+    loads no JAX module on the way; it needs no card (fake tensors)."""
+    code = _DRYRUN_NO_JAX.format(src=str(ROOT / "src"),
+                                 out=str(tmp_path / "dr.json"))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_make_mesh_raises_without_a_card():
+    """A mesh is on the card (NCCL) unless device="cpu" names gloo."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour on a machine without a GPU")
+    from repro_torch.launch.mesh import make_mesh
+    with pytest.raises(RuntimeError, match="GPU"):
+        make_mesh((1, 1), ("data", "model"))
+
+
+def test_production_mesh_is_abstract_without_its_ranks():
+    from repro_torch.launch.mesh import describe, make_production_mesh
+    single = make_production_mesh()
+    multi = make_production_mesh(multi_pod=True)
+    assert (single.shape, single.mesh_dim_names) == ((16, 16),
+                                                     ("data", "model"))
+    assert multi.size() == 512
+    assert describe(multi) == \
+        "mesh {'pod': 2, 'data': 16, 'model': 16} (512 devices)"
+
+
+def test_chip_smoke_phase_21_rehearses_on_the_cpu(monkeypatch, capsys):
+    """chip_smoke.py's phase 21 on a one-rank gloo group with the reduced
+    config and chunked attention (syncs stubbed): the sharded step equals
+    the unsharded one, the collectives equal their plain results, and the
+    dry run counts the step's FLOPs and collective bytes."""
+    import chip_smoke
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    out = chip_smoke.phase_mesh(0, "CPU rehearsal", card_dev="cpu",
+                                smoke=True)
+    assert out["worst"] <= 1e-6 and out["dryrun_flops"] == out["flops"]
+    assert max(out["collectives"].values()) <= 2e-5
+    assert "= the card step's count" in capsys.readouterr().out

@@ -1,0 +1,231 @@
+"""The port's mesh layer on gloo ranks on the CPU, against the JAX package.
+
+Each test runs one subprocess (``tests/torch_mesh_programs.py``) that
+spawns its ranks; they meet through a file store under the test's
+``tmp_path`` (so parallel test workers share no port) with a 60 s
+timeout, and the subprocess has a time limit, so a hang fails one test.
+
+* ``flash_decode_shardmap``, ``compressed_psum`` (k = 1.0) and
+  ``pipeline_forward`` on md_programs.py's inputs and meshes (8, 8 and 4
+  ranks) against the JAX package's programs on 8 fake devices
+  (``tests/jax_mesh_reference.py``) and against their references
+  (``ref.decode_ref``, the plain sum, the stages in order), at
+  md_programs.py's tolerances.
+* The sharded train step of reduced deepseek_7b (fp32, 4 x 16 tokens, two
+  steps) on a (4, 2) mesh in both ``act_shard`` modes and on (2, 4):
+  against JAX's single-device jitted step at test_torch_train_steps.py's
+  tolerances, against the port's unsharded step at 1e-6, every block the
+  layout's slice of the whole state; the first step's collective bytes,
+  collective counts and FLOPs, as each rank's op counter records them,
+  equal the dry run's trace of the same cell on an abstract mesh.
+* Elastic restore: a state sharded on (4, 2) and saved whole restores onto
+  (2, 4) exactly; that checkpoint restores in JAX, and JAX's restores in
+  the port's (2, 4) layout, exactly; each block is also what DTensor's
+  ``distribute_tensor`` gives for the layout's placements.
+* ``launch.train.main`` on 2 ranks, checkpointed and resumed, against 1
+  rank at 1e-5.
+"""
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.checkpoint import store as jstore
+from repro.configs import get_config as jax_config
+from repro.data import DataConfig, synthetic_batch
+from repro.parallel import steps as jst
+from repro_torch.configs import InputShape
+from repro_torch.configs import get_config as torch_config
+from repro_torch.kernels import ref as tref
+from repro_torch.launch import dryrun
+from repro_torch.parallel import steps as tst
+from repro_torch.parallel.comm import AbstractMesh
+from repro_torch.tree import leaves, unflatten
+from torch_parity import close
+
+ROOT = Path(__file__).resolve().parents[1]
+LOSS_RTOL = 1e-5          # test_torch_train_steps.py's
+torch.set_num_threads(1)
+
+
+def _env():
+    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+    env["PYTHONPATH"] = f"{ROOT}/src:{ROOT}/tests"
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+              "MASTER_PORT"):
+        env.pop(k, None)
+    return env
+
+
+def run_ranks(prog: str, world: int, d: Path, timeout: int = 240):
+    """``prog`` on ``world`` gloo ranks; (out.npz, out.json) of rank 0."""
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "tests" / "torch_mesh_programs.py"),
+         prog, str(world), str(d)], capture_output=True, text=True,
+        timeout=timeout, env=_env(), cwd=ROOT)
+    assert proc.returncode == 0, f"{prog}:\n{proc.stdout}\n{proc.stderr}"
+    arrays = np.load(d / "out.npz") if (d / "out.npz").exists() else None
+    info = json.loads((d / "out.json").read_text()) \
+        if (d / "out.json").exists() else None
+    return arrays, info
+
+
+@pytest.fixture(scope="module")
+def jax_programs(tmp_path_factory):
+    out = tmp_path_factory.mktemp("jax") / "ref.npz"
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "tests" / "jax_mesh_reference.py"),
+         str(out)], capture_output=True, text=True, timeout=300,
+        env={**_env(), "JAX_PLATFORMS": "cpu"}, cwd=ROOT)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    return np.load(out)
+
+
+def test_flash_decode_shardmap_on_8_ranks(tmp_path, jax_programs):
+    got, _ = run_ranks("flash_decode", 8, tmp_path)
+    assert float(got["spread"]) == 0.0      # every rank holds the result
+    rng = np.random.default_rng(1)
+    q = torch.as_tensor(rng.standard_normal((2, 4, 16)), dtype=torch.float32)
+    k = torch.as_tensor(rng.standard_normal((2, 64, 4, 16)),
+                        dtype=torch.float32)
+    v = torch.as_tensor(rng.standard_normal((2, 64, 4, 16)),
+                        dtype=torch.float32)
+    want = tref.decode_ref(q, k.transpose(1, 2), v.transpose(1, 2))
+    # md_programs.flash_decode_sm's bound
+    assert np.abs(got["out"] - want.numpy()).max() < 1e-4
+    assert np.abs(got["out"] - jax_programs["flash_decode"]).max() < 1e-5
+
+
+def test_compressed_psum_on_2_pods_of_4(tmp_path, jax_programs):
+    got, _ = run_ranks("compressed_psum", 8, tmp_path)
+    rng = np.random.default_rng(2)
+    g = rng.standard_normal((2, 4, 64)).astype(np.float32)
+    want = g.sum(axis=(0, 1))
+    # md_programs.compressed_psum's int8 tolerance
+    tol = float(np.abs(want).max()) / 127 * 2 + 1e-5
+    assert np.abs(got["out"] - want).max() < tol
+    # the same quantization as JAX's, up to one step of the int8 grid
+    assert np.abs(got["out"] - jax_programs["psum"][0, 0]).max() < tol
+    assert np.abs(got["err"] - jax_programs["psum_err"][0, 0]).max() < tol
+
+
+def test_pipeline_forward_on_4_stages(tmp_path, jax_programs):
+    got, _ = run_ranks("pipeline", 4, tmp_path)
+    assert float(got["spread"]) == 0.0
+    rng = np.random.default_rng(0)
+    s, m, mb, d = 4, 6, 8, 16
+    w1 = rng.standard_normal((s, d, d)) * 0.3
+    w2 = rng.standard_normal((s, d, d)) * 0.3
+    xs = rng.standard_normal((m, mb, d))
+    want = torch.as_tensor(xs, dtype=torch.float32)
+    for i in range(s):
+        want = torch.tanh(want @ torch.as_tensor(w1[i], dtype=torch.float32)
+                          ) @ torch.as_tensor(w2[i], dtype=torch.float32)
+    assert np.abs(got["out"] - want.numpy()).max() < 1e-5
+    assert np.abs(got["out"] - jax_programs["pipeline"]).max() < 1e-5
+
+
+def _write_state(d: Path, jstate) -> None:
+    np.savez(d / "state.npz", **{
+        f"a{i}": np.asarray(x)
+        for i, x in enumerate(jax.tree_util.tree_leaves(jstate))})
+
+
+def _torch_state(jstate, cfg):
+    return unflatten(tst.abstract_state(cfg), [
+        torch.from_numpy(np.array(x))
+        for x in jax.tree_util.tree_leaves(jstate)])
+
+
+@pytest.mark.parametrize("mesh,act_shard", [((4, 2), "seq"),
+                                            ((4, 2), "batch2d"),
+                                            ((2, 4), "seq")])
+def test_sharded_train_step_matches_single_device(tmp_path, mesh,
+                                                  act_shard):
+    arch, steps, kw = "deepseek_7b", 2, dict(total_steps=5, warmup=2)
+    jc = jax_config(arch).reduced().replace(dtype="float32",
+                                            act_shard=act_shard)
+    tc = torch_config(arch).reduced().replace(dtype="float32",
+                                              act_shard=act_shard)
+    dc = DataConfig(seq_len=16, global_batch=4, vocab=jc.vocab)
+    batches = [synthetic_batch(dc, s) for s in range(steps)]
+    js = jst.init_train_state(jc, jax.random.PRNGKey(0))
+    _write_state(tmp_path, js)
+    np.savez(tmp_path / "batches.npz", **{
+        f"{i}/{k}": v for i, b in enumerate(batches) for k, v in b.items()})
+    (tmp_path / "info.json").write_text(json.dumps(dict(
+        arch=arch, act_shard=act_shard, mesh=list(mesh), steps=steps,
+        **kw)))
+    ts = _torch_state(js, tc)
+    # JAX's single-device jitted step and the port's unsharded one
+    jstep, tstep = jax.jit(jst.make_train_step(jc, **kw)), \
+        tst.make_train_step(tc, **kw)
+    jl, tl, lrs = [], [], []
+    for b in batches:
+        js, jm = jstep(js, {k: jnp.asarray(v) for k, v in b.items()})
+        ts, tm = tstep(ts, {k: torch.from_numpy(v) for k, v in b.items()})
+        jl.append(float(jm["loss"]))
+        tl.append(float(tm["loss"]))
+        lrs.append(float(jm["lr"]))
+    got, info = run_ranks("sharded_train", 8, tmp_path)
+    assert float(got["block_diff"]) == 0.0
+    # the dry run of this cell predicts the step's collectives and FLOPs
+    pred = dryrun.trace_cell(tc, InputShape("t", 16, 4, "train"),
+                             AbstractMesh(mesh, ("data", "model")))
+    counts = info["counts"]
+    assert counts["collective_bytes"] == \
+        pred["hlo_analysis"]["collective_bytes"]
+    assert counts["collective_counts"] == \
+        pred["hlo_analysis"]["collective_counts"]
+    assert counts["flops"] == pred["hlo_analysis"]["flops"]
+    close(jl, info["losses"], rtol=LOSS_RTOL, what="losses against JAX")
+    close(tl, info["losses"], rtol=1e-6, what="losses against unsharded")
+    sharded = [got[f"a{i}"] for i in range(len(leaves(ts)))]
+    for j, t, s in zip(jax.tree_util.tree_leaves(js), leaves(ts), sharded,
+                       strict=True):
+        close(j, s, rtol=1e-5, atol=1e-2 * sum(lrs), what="state vs JAX")
+        scale = max(float(np.abs(t.numpy()).max()), 1e-30)
+        assert np.abs(s - t.numpy()).max() <= 1e-6 * scale, \
+            "state vs the unsharded step"
+
+
+def test_elastic_restore_between_meshes_and_packages(tmp_path):
+    cfg = jax_config("glm4_9b").reduced().replace(dtype="float32")
+    js = jst.init_train_state(cfg, jax.random.PRNGKey(0))
+    _write_state(tmp_path, js)
+    jstore.save(tmp_path / "jax", 1, js)
+    _, info = run_ranks("elastic", 8, tmp_path)
+    assert info["worst"] == 0.0
+    assert info["moved"] > 0            # some leaves change layout
+    # the port's sharded checkpoint restores in JAX, exactly
+    back = jstore.restore(tmp_path / "port", 1, js)
+    for a, b in zip(jax.tree_util.tree_leaves(js),
+                    jax.tree_util.tree_leaves(back), strict=True):
+        assert np.array_equal(np.asarray(a), np.asarray(b))
+
+
+def test_launcher_on_two_ranks_matches_one(tmp_path):
+    """Two ranks to step 2 with a checkpoint, then resumed to step 4 from
+    it: the losses of the one-rank run at 1e-5."""
+    from repro_torch.launch import train
+    argv = ["--smoke", "--device", "cpu", "--batch", "4", "--seq", "32",
+            "--attn-impl", "chunked"]
+    one, two = tmp_path / "one.jsonl", tmp_path / "two.jsonl"
+    assert train.main(argv + ["--steps", "4", "--log", str(one)]) == 0
+    for steps in ("2", "4"):
+        (tmp_path / "argv.json").write_text(json.dumps(argv + [
+            "--steps", steps, "--log", str(two), "--ckpt-dir",
+            str(tmp_path / "ckpt"), "--ckpt-every", "2"]))
+        (tmp_path / "store").unlink(missing_ok=True)
+        run_ranks("launcher", 2, tmp_path)
+    l1 = [json.loads(x)["loss"] for x in one.read_text().splitlines()]
+    l2 = [json.loads(x)["loss"] for x in two.read_text().splitlines()]
+    assert len(l1) == len(l2) == 4
+    close(l1, l2, rtol=1e-5, what="2-rank losses, resumed at step 2")

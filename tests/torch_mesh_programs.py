@@ -1,0 +1,215 @@
+"""Programs of the port's mesh layer, run on gloo ranks on the CPU.
+
+  python tests/torch_mesh_programs.py <program> <world> <dir>
+
+starts ``world`` processes (``torch.multiprocessing.spawn``) at a low
+CPU priority (nice 15), each joins
+a gloo process group through the file store ``<dir>/store`` with a 60 s
+timeout, and runs ``<program>(rank, dir)``.  Inputs the test wrote are
+read from ``<dir>``, and rank 0 writes its results to ``<dir>/out.npz``
+(and ``<dir>/out.json``).  The programs import torch and the port only.
+"""
+import datetime
+import json
+import os
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path[:0] = [str(ROOT / "src"), str(ROOT / "tests")]
+
+
+def _mesh(shape, axes):
+    from repro_torch.launch.mesh import make_mesh
+    return make_mesh(shape, axes, device="cpu")
+
+
+def _save(d, arrays=None, info=None):
+    if dist.get_rank() == 0:
+        if arrays is not None:
+            np.savez(Path(d) / "out.npz", **arrays)
+        if info is not None:
+            (Path(d) / "out.json").write_text(json.dumps(info))
+
+
+def flash_decode(rank, d):
+    """md_programs.flash_decode_sm's inputs on an (8,) "model" mesh."""
+    from repro_torch.parallel.collectives import flash_decode_shardmap
+    mesh = _mesh((8,), ("model",))
+    rng = np.random.default_rng(1)
+    b, h, t, dh = 2, 4, 64, 16
+    q = torch.as_tensor(rng.standard_normal((b, h, dh)), dtype=torch.float32)
+    k = torch.as_tensor(rng.standard_normal((b, t, h, dh)),
+                        dtype=torch.float32)
+    v = torch.as_tensor(rng.standard_normal((b, t, h, dh)),
+                        dtype=torch.float32)
+    blk = t // 8
+    sl = slice(rank * blk, (rank + 1) * blk)
+    out = flash_decode_shardmap(mesh, "model")(q, k[:, sl], v[:, sl])
+    outs = [torch.empty_like(out) for _ in range(8)]
+    dist.all_gather(outs, out)
+    _save(d, {"out": out.numpy(), "spread": max(
+        (o - out).abs().max().item() for o in outs)})
+
+
+def compressed_psum(rank, d):
+    """md_programs.compressed_psum's inputs on a (2, 4) pod x data mesh."""
+    from repro_torch.parallel.collectives import compressed_psum as cp
+    mesh = _mesh((2, 4), ("pod", "data"))
+    rng = np.random.default_rng(2)
+    g = torch.as_tensor(rng.standard_normal((2, 4, 64)), dtype=torch.float32)
+    p, i = mesh.get_coordinate()
+    reducer = cp(mesh, pod_axis="pod", inner_axes=("data",), k_fraction=1.0)
+    out, err = reducer({"g": g[p, i]}, {"g": torch.zeros(64)})
+    _save(d, {"out": out["g"].numpy(), "err": err["g"].numpy()})
+
+
+def pipeline(rank, d):
+    """md_programs.pipeline's inputs on a (4,) "stage" mesh."""
+    from repro_torch.parallel.pipeline import mlp_stage, pipeline_forward
+    mesh = _mesh((4,), ("stage",))
+    rng = np.random.default_rng(0)
+    s, m, mb, dm = 4, 6, 8, 16
+    w1 = torch.as_tensor(rng.standard_normal((s, dm, dm)) * 0.3,
+                         dtype=torch.float32)
+    w2 = torch.as_tensor(rng.standard_normal((s, dm, dm)) * 0.3,
+                         dtype=torch.float32)
+    xs = torch.as_tensor(rng.standard_normal((m, mb, dm)),
+                         dtype=torch.float32)
+    c = mesh.get_coordinate()[0]
+    run = pipeline_forward(mlp_stage, mesh, "stage")
+    got = run({"w1": w1[c:c + 1], "w2": w2[c:c + 1]}, xs)
+    outs = [torch.empty_like(got) for _ in range(4)]
+    dist.all_gather(outs, got)
+    _save(d, {"out": got.numpy(), "spread": max(
+        (o - got).abs().max().item() for o in outs)})
+
+
+def _state_from(d, cfg):
+    """The whole training state whose leaves (flatten order) the test
+    wrote to ``d/state.npz``."""
+    from repro_torch.parallel import steps as st
+    from repro_torch.tree import leaves, unflatten
+    data = np.load(Path(d) / "state.npz")
+    like = st.abstract_state(cfg)
+    return unflatten(like, [torch.from_numpy(data[f"a{i}"])
+                            for i in range(len(leaves(like)))])
+
+
+def sharded_train(rank, d):
+    """The sharded train step from the state and batches in ``d``, on the
+    mesh ``info.json`` names; rank 0 writes the gathered state after each
+    step, the losses, and the first step's op counts."""
+    from repro_torch.analysis import hlo
+    from repro_torch.configs import get_config
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel import steps as st
+    from repro_torch.tree import leaves
+    info = json.loads((Path(d) / "info.json").read_text())
+    cfg = get_config(info["arch"]).reduced().replace(
+        dtype="float32", act_shard=info["act_shard"])
+    mesh = _mesh(info["mesh"], ("data", "model"))
+    rules = shd.default_rules(act_shard=info["act_shard"])
+    lay = st.state_layouts(cfg, mesh, rules)
+    state = st.shard_state(_state_from(d, cfg), lay)
+    step = st.make_train_step(cfg, total_steps=info["total_steps"],
+                              warmup=info["warmup"], mesh=mesh, rules=rules)
+    batches = np.load(Path(d) / "batches.npz")
+    losses, counts, arrays = [], None, {}
+    for i in range(info["steps"]):
+        batch = {k.split("/")[1]: torch.from_numpy(batches[k])
+                 for k in batches.files if k.startswith(f"{i}/")}
+        batch = st.batch_rows(batch, mesh, rules)
+        if i == 0:
+            (state, m), rep = hlo.count(step, state, batch)
+            counts = {"flops": rep.flops,
+                      "collective_bytes": rep.collective_bytes,
+                      "collective_counts": rep.collective_counts}
+        else:
+            state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+    # every block is the layout's slice of the gathered state
+    whole = st.gather_state(state, lay)
+    worst = 0.0
+    for x, w, l in zip(leaves(state), leaves(whole), leaves(lay),
+                       strict=True):
+        worst = max(worst, (l.shard(w) - x).abs().max().item())
+    arrays = {f"a{i}": x.numpy() for i, x in enumerate(leaves(whole))}
+    arrays["block_diff"] = np.float64(worst)
+    _save(d, arrays, {"losses": losses, "counts": counts})
+
+
+def elastic(rank, d):
+    """A state sharded on (4, 2) saved whole; restored onto (2, 4) from
+    that checkpoint and from the JAX package's one in ``d/jax``; each
+    device's blocks held against the layout's slice of the whole state."""
+    from repro_torch.checkpoint import store
+    from repro_torch.configs import get_config
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel import steps as st
+    from repro_torch.tree import leaves
+    cfg = get_config("glm4_9b").reduced().replace(dtype="float32")
+    rules = shd.default_rules()
+    whole = _state_from(d, cfg)
+    mesh_a = _mesh((4, 2), ("data", "model"))
+    lay_a = st.state_layouts(cfg, mesh_a, rules)
+    store.save(Path(d) / "port", 1, st.shard_state(whole, lay_a),
+               shardings=lay_a)
+    from torch.distributed.device_mesh import init_device_mesh
+    mesh_b = init_device_mesh("cpu", (2, 4), mesh_dim_names=("data",
+                                                             "model"))
+    lay_b = st.state_layouts(cfg, mesh_b, rules)
+    like = st.abstract_state(cfg)
+    from torch.distributed.tensor import distribute_tensor
+    worst, moved = 0.0, 0
+    for w, lb in zip(leaves(whole), leaves(lay_b), strict=True):
+        dt = distribute_tensor(w, mesh_b, lb.placements).to_local()
+        worst = max(worst, (dt - lb.shard(w)).abs().max().item())
+    for src in ("port", "jax"):
+        got = store.restore(Path(d) / src, 1, like, shardings=lay_b)
+        for x, w, la, lb in zip(leaves(got), leaves(whole), leaves(lay_a),
+                                leaves(lay_b), strict=True):
+            want = lb.shard(w)
+            assert x.shape == want.shape == lb.local_shape
+            worst = max(worst, (x - want).abs().max().item())
+            moved += la.spec != lb.spec or la.local_shape != lb.local_shape
+    worsts = [None] * dist.get_world_size()
+    dist.all_gather_object(worsts, (worst, moved))
+    _save(d, info={"worst": max(w for w, _ in worsts),
+                   "moved": min(m for _, m in worsts)})
+
+
+def launcher(rank, d):
+    """launch.train.main on every rank (WORLD_SIZE set), as torchrun runs
+    it; rank 0 writes the jsonl log."""
+    from repro_torch.launch import train
+    argv = json.loads((Path(d) / "argv.json").read_text())
+    rc = train.main(argv)
+    assert rc == 0, rc
+
+
+def _rank(rank, prog, world, d):
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank))
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{d}/store",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        globals()[prog](rank, d)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    prog, world, d = sys.argv[1], int(sys.argv[2]), sys.argv[3]
+    # the ranks yield the CPU to the tests running beside them (some of
+    # which time themselves)
+    os.nice(15)
+    torch.multiprocessing.spawn(_rank, args=(prog, world, d), nprocs=world)
+    print("DONE", prog)
