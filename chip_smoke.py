@@ -15,8 +15,9 @@ prints its seconds:
    grouped-matmul, flash-decode and SSD-scan kernels in the SASS
    (``cuobjdump -sass``): none in an attention, tiled, bf16 decode or scan
    kernel would mean a CUDA-core path (the fp32 decode kernels must have
-   none); ptxas's lines of the twelve sLSTM instantiations, and the sLSTM
-   kernel's cluster plan at xlstm_125m's heads;
+   none); ptxas's lines of the twelve sLSTM instantiations and of the
+   twenty RMSNorm ones (9 served widths x 2 types, and the general path),
+   and the sLSTM kernel's cluster plan at xlstm_125m's heads;
 2. hold each kernel against its plain PyTorch version on the card at the
    serving paths' shapes, in fp32 (atol = rtol = 2e-5; 2e-4 for the SSD
    scan, whose chunked and sequential sums differ in order) and bf16
@@ -43,7 +44,12 @@ prints its seconds:
    16 heads of 64), flash decode at minicpm3_4b's latent decode (40 heads
    on one KV head, key 288, value 256 a view of the key's rows, T 1024,
    in both types and at a served fill) and whisper's cross (T 1500) and
-   self (T 448) decodes;
+   self (T 448) decodes; RMSNorm first fails unless one call runs exactly
+   one device kernel, the port's, then runs the decode tick's 4 rows at
+   every served width (256 to 12288) and a 512-token prefill at 4096 and
+   7168, in both types, and glm4_9b's decode chain in fp32 (the residual
+   added in place, the norm, the 4096 x 4608 projection), the library row
+   with ``F.rms_norm`` in the norm's place;
 3. full-width glm4_9b cut to 2 layers, same weights on the card
    (kernels) and on the CPU (plain versions): a 128-token prefill and 8
    greedy decode steps must give logits within 1e-3 of max |logit| and
@@ -55,7 +61,8 @@ prints its seconds:
    keep the run within its time limit; ``phase_serve``'s ``repeats``
    serves them again, each on a fresh engine); then 16 decode ticks of a full
    pool on the host clock and 8 more under torch.profiler say how busy
-   the card is and which kernels take its time; last, one 512-token
+   the card is and which kernels take its time, and the norm's device ms
+   a tick (likewise in every later serving phase); last, one 512-token
    prefill alone, timed on the host clock and profiled for the flash
    attention kernel's share of the device time;
 5. full-width zamba2_7b cut to 13 layers (two groups of 6 Mamba2 layers,
@@ -286,7 +293,8 @@ def kernel_report() -> None:
     def ours(name):
         return "flash_attn" in name or "gmm_tiled" in name \
             or "gmm_stream" in name or "flash_decode" in name \
-            or "mamba_scan" in name or "slstm_seq" in name
+            or "mamba_scan" in name or "slstm_seq" in name \
+            or "rmsnorm" in name
     ptxas, fn = {}, None
     for line in _build.build_log().splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -360,6 +368,15 @@ def kernel_report() -> None:
         j4, nb = re.findall(r"Li(\d+)E", fn)
         print(f"  slstm_seq_kernel<{dtype(fn)}, h span {32 * int(j4)}, row "
               f"slots {nb}>: ptxas: {'; '.join(ptxas[fn])}")
+    norms = sorted(f for f in ptxas if "rmsnorm" in f)
+    check(len(norms) == 20, f"expected 20 rmsnorm kernels (9 widths x 2 "
+                            f"types and the general path), found {norms}")
+    for fn in norms:
+        shape = re.findall(r"Li(\d+)E", fn)
+        what = (f"{shape[0]} threads a row, {shape[1]} vectors a thread"
+                if "rmsnorm_vec" in fn else "general path")
+        print(f"  rmsnorm<{dtype(fn)}, {what}>: ptxas: "
+              f"{'; '.join(ptxas[fn])}")
     for b in (1, 4):
         plan = sl.cluster_plan(b, 4, 192, torch.float32)
         print(f"  slstm_seq at xlstm_125m's heads, B = {b}: clusters of "
@@ -491,6 +508,33 @@ def phase_kernels(gen):
         nbytes = 2 * x.numel() * x.element_size() + 4 * dm
         return timed(kern, plain, lib, err, nbytes, 4 * n * dm, dtype)
 
+    def norm_chain(dtype, tag):
+        """glm4_9b's decode at 4 rows: the residual added in place, the
+        norm reading it right after, the q/k/v projection (4096 x 4608);
+        plain and library rows swap the norm for ``ref.rmsnorm_ref`` and
+        ``F.rms_norm``.  The bound counts the three steps' bytes (each
+        read once, the weight's 75.5 MB in fp32 above all) and FLOPs."""
+        n, dm, k = 4, 4096, 4608
+        h, r = rnd(n, dm, dtype=dtype), rnd(n, dm, dtype=dtype) * 1e-3
+        s_ = rnd(dm, dtype=torch.float32)
+        w = (rnd(dm, k, dtype=torch.float32) * dm ** -0.5).to(dtype)
+
+        def step(norm):
+            h.add_(r)
+            return norm(h) @ w
+        kern = lambda: step(lambda v: ops.fused_rmsnorm(v, s_, eps=1e-5))
+        plain = lambda: step(lambda v: ref.rmsnorm_ref(v, s_, 1e-5))
+        lib = lambda: step(lambda v: F.rms_norm(v, (dm,), s_.to(dtype),
+                                                eps=1e-5))
+        got = kern()
+        err = compare(f"rmsnorm chain N={n} D={dm} {tag}", got,
+                      ref.rmsnorm_ref(h, s_, 1e-5) @ w, dtype)
+        el = h.element_size()
+        nbytes = el * (5 * n * dm + dm * k + n * k) + 4 * dm
+        flops = 5 * n * dm + 2 * n * dm * k
+        return timed(kern, plain, lib, err, nbytes, flops, dtype,
+                     note=f"add + norm + {dm}x{k} projection")
+
     def scan(b, s, h, p, n, chunk, dtype, tag):
         """y and the final state; x, B and C are strided slices of one
         tensor, as the model hands them over.  The fp32 kernel computes its
@@ -595,6 +639,21 @@ def phase_kernels(gen):
                          TF32_FLOPS, note=note + ", 3xTF32 accounting")
         return timed(kern, plain, lib, err, nbytes, flops, dtype, note=note)
 
+    # One norm call is one device kernel, the port's, in both types:
+    # checked first, since later profiler passes of this phase may record
+    # no device event at all (one run lost every pass from the attention
+    # rows on, SDPA's included).
+    for dtype in (torch.float32, torch.bfloat16):
+        x, s_ = rnd(4, 4096, dtype=dtype), rnd(4096, dtype=torch.float32)
+        kern = functools.partial(ops.fused_rmsnorm, x, s_, eps=1e-5)
+        kern()
+        events = []
+        for _ in range(3):
+            events = events or device_events(kern)
+        check(len(events) == 1 and "rmsnorm" in events[0],
+              f"one rmsnorm call ran {len(events)} device events: {events}")
+        print(f"  rmsnorm N=4 D=4096 {dtype}: one device kernel a call, "
+              f"{events[0][:72]}")
     # The attention rows come first: profiler passes that followed the
     # plain SSD and sLSTM loops (~10^5 launches each) recorded no device
     # kernel for SDPA.
@@ -656,11 +715,21 @@ def phase_kernels(gen):
     for dtype in (torch.float32, torch.bfloat16):
         tag = str(dtype).replace("torch.", "")
         # RMSNorm: the decode step's 4 rows and a 512-token prefill, at
-        # glm4_9b's d_model and zamba2's gated-norm width
+        # glm4_9b's d_model and zamba2's gated-norm width; the decode step
+        # at every served width (MLA's kv_norm 256 and q_norm 768,
+        # xlstm_125m 768, whisper_medium 1024, deepseek_moe_16b 2048,
+        # minicpm3_4b 2560, zamba2_7b 3584, 12288); and glm4_9b's decode
+        # chain around the norm
         for n in (4, 512):
             for dm in (4096, 7168):
                 rows[("rmsnorm", tag, f"N={n} D={dm}")] = rmsnorm(
                     n, dm, dtype, tag)
+        for dm in (256, 768, 1024, 2048, 2560, 3584, 12288):
+            rows[("rmsnorm", tag, f"N=4 D={dm}")] = rmsnorm(4, dm, dtype,
+                                                            tag)
+        if dtype == torch.float32:
+            rows[("rmsnorm", tag, "chain N=4 D=4096")] = norm_chain(dtype,
+                                                                   tag)
         # the SSD scan at zamba2's prefill (a ragged chunk, one chunk, the
         # served long prompts of four and eight chunks) and at one shape of
         # tests/test_kernels.py
@@ -1167,6 +1236,13 @@ def phase_profile(cfg, params, seed, plain_ticks: int = 16,
     for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]:
         print(f"    {us / ticks / 1e3:8.3f} ms/tick  {n // ticks:4d}/tick  "
               f"{name[:90]}")
+    norm = [(n, us) for name, (n, us) in by_name.items() if "rmsnorm" in name]
+    n_norm = sum(n for n, _ in norm)
+    if n_norm:
+        us_norm = sum(us for _, us in norm)
+        print(f"  rmsnorm: {us_norm / ticks / 1e3:.4f} ms/tick in "
+              f"{n_norm // ticks} launches/tick, {us_norm / n_norm:.2f} us a "
+              f"launch")
     if cfg.family == "moe":
         gmm = [(n, us) for name, (n, us) in by_name.items()
                if "gmm_stream" in name or "gmm_tiled" in name]

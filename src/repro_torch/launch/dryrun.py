@@ -60,17 +60,18 @@ def build_cell(cfg, shape, mesh, rules):
     dev = "cpu"
     if shape.kind == "train":
         fn = st.make_train_step(cfg, accum=cfg.accum, mesh=mesh,
-                                rules=rules)
+                                rules=rules, global_batch=shape.global_batch)
         return fn, (st.abstract_state(cfg, mesh, rules, dev),
                     st.abstract_batch(cfg, shape, mesh, rules,
                                       accum=cfg.accum, device=dev))
     params = st.abstract_state(cfg, mesh, rules, dev).params
     batch = st.abstract_batch(cfg, shape, mesh, rules, device=dev)
     if shape.kind == "prefill":
-        return st.make_prefill_step(cfg, shape.seq_len, mesh, rules), \
+        return st.make_prefill_step(cfg, shape.seq_len, mesh, rules,
+                                    shape.global_batch), \
             (params, batch)
     if shape.kind == "decode":
-        return st.make_serve_step(cfg, mesh, rules), \
+        return st.make_serve_step(cfg, mesh, rules, shape.global_batch), \
             (params, batch, st.abstract_cache(cfg, shape, mesh, rules, dev))
     raise ValueError(shape.kind)
 

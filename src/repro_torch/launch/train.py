@@ -81,7 +81,8 @@ def main(argv=None) -> int:
         state = st.shard_state(state, lay)
     step_fn = st.make_train_step(
         cfg, base_lr=args.lr, warmup=min(20, args.steps // 10 + 1),
-        total_steps=args.steps, accum=args.accum, mesh=mesh, rules=rules)
+        total_steps=args.steps, accum=args.accum, mesh=mesh, rules=rules,
+        global_batch=args.batch)
 
     dc = DataConfig(seq_len=args.seq, global_batch=args.batch,
                     vocab=cfg.vocab, seed=args.seed)

@@ -13,11 +13,21 @@ softmax routing, with the JAX package's sort-based capacity dispatch:
      or, on the plain route (``plain=True``, the training forward), are
      the JAX package's einsums; scatter back, weighted combine.
 
+Inside a mesh step (``parallel.sharding.row_groups()``) the dispatch is
+the one GSPMD gives JAX's code over the global batch: the capacity counts
+every row group's tokens, and a slot's position in its expert is its
+local one plus that expert's slots in the lower row groups (an all-gather
+of the E counts), which is JAX's stable sort of the global batch, since
+tokens are flattened b-major and a group's rows are contiguous.  The
+expert buffer stays sized by the local tokens; a slot drops by its global
+position.
+
 On the card ``moe_apply`` never waits for the host: the capacity comes
-from shapes, the counts per expert from ``scatter_add_``, and every index
-is a device tensor (no boolean-mask indexing, no ``bincount``, no
-``.item()``).  ``moe_ref`` (dense every-expert evaluation) is the oracle
-for tests; with a generous capacity factor the two agree.
+from shapes, the counts per expert from ``scatter_add_`` (and stay on the
+device through the all-gather), and every index is a device tensor (no
+boolean-mask indexing, no ``bincount``, no ``.item()``).  ``moe_ref``
+(dense every-expert evaluation) is the oracle for tests; with a generous
+capacity factor the two agree.
 """
 from __future__ import annotations
 
@@ -27,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
+from ..parallel.sharding import row_groups
 from .common import ParamSpec, swiglu, swiglu_spec
 
 
@@ -77,7 +88,9 @@ def moe_apply(params, x, top_k: int, capacity_factor: float = 1.25,
     weights, ids, probs = route(params, xf, top_k)
 
     nk = n * top_k
-    cap = int(max(1, (n * top_k / e) * capacity_factor))
+    groups = row_groups()
+    n_all = n if groups is None else n * groups.count
+    cap = int(max(1, (n_all * top_k / e) * capacity_factor))
     flat_ids = ids.reshape(nk)
     flat_w = weights.reshape(nk)
     tok = torch.arange(nk, device=dev) // top_k            # token of a pair
@@ -90,15 +103,23 @@ def moe_apply(params, x, top_k: int, capacity_factor: float = 1.25,
         0, flat_ids, torch.ones_like(flat_ids))
     starts = torch.cumsum(counts, 0) - counts              # exclusive prefix
     pos = torch.arange(nk, device=dev) - starts[s_ids]
-    keep = pos < cap
+    if groups is None:
+        below, width = None, cap
+        keep = pos < cap
+    else:
+        # the expert's slots in the lower row groups come first in JAX's
+        # global sort; local positions past nk never occur
+        below = groups.below(counts.to(torch.int32))
+        width = min(cap, nk)
+        keep = pos + below[s_ids] < cap
     # JAX writes with mode="drop" and reads with mode="fill": here an
-    # over-capacity slot goes to row ``cap``, a sink row of the
-    # (E, cap + 1, D) buffer that the expert products never see, and its
+    # over-capacity slot goes to row ``width``, a sink row of the
+    # (E, width + 1, D) buffer that the expert products never see, and its
     # combine weight is 0.
-    pos_c = torch.where(keep, pos, cap)
-    buf = torch.zeros((e, cap + 1, d), dtype=x.dtype, device=dev)
+    pos_c = torch.where(keep, pos, width)
+    buf = torch.zeros((e, width + 1, d), dtype=x.dtype, device=dev)
     buf[s_ids, pos_c] = xf[s_tok]
-    slots = buf[:, :cap]                                   # strided view
+    slots = buf[:, :width]                                 # strided view
 
     if plain:       # the rows past each count are zeros, as in JAX's buffer
         g = torch.einsum("ecd,edf->ecf", slots, params["w_gate"])
@@ -109,13 +130,15 @@ def moe_apply(params, x, top_k: int, capacity_factor: float = 1.25,
         # The rows each expert holds, on the device: the kernel skips
         # experts without rows and writes exact zeros past each count, so
         # the down product's input there is silu(0) * 0 = 0.
-        rows = counts.clamp_max(cap).to(torch.int32)
+        rows = counts.clamp_max(cap) if below is None else torch.minimum(
+            counts, (cap - below).clamp_min(0))
+        rows = rows.to(torch.int32)
         g = ops.moe_gmm(slots, params["w_gate"], rows)
         u = ops.moe_gmm(slots, params["w_up"], rows)
         out_buf = ops.moe_gmm(F.silu(g) * u, params["w_down"], rows)
 
     # Weighted combine, added straight into the (N, D) output.
-    slot_out = out_buf[s_ids, pos_c.clamp_max(cap - 1)]
+    slot_out = out_buf[s_ids, pos_c.clamp_max(width - 1)]
     s_w = torch.where(keep, s_w, 0.0).to(x.dtype)
     y = torch.zeros((n, d), dtype=x.dtype, device=dev).index_add_(
         0, s_tok, slot_out * s_w[:, None])

@@ -176,6 +176,76 @@ def _entries(e) -> Tuple[str, ...]:
     return () if e is None else (e,) if isinstance(e, str) else tuple(e)
 
 
+# --------------------------------------------------------------------------
+# The row groups of a mesh step (the MoE dispatch's global capacity).
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class RowGroups:
+    """The devices of a mesh step that hold distinct rows of the batch:
+    one group a block of the batch axes that the rules cut the rows over
+    (``axes``, major first), numbered in the order
+    :func:`steps.batch_rows` cuts the rows, so group g holds rows
+    [g * b, (g + 1) * b) of the global batch.  The devices of a group
+    (along the other axes) hold the same rows."""
+
+    mesh: object
+    axes: Tuple[str, ...]
+
+    @classmethod
+    def of(cls, mesh, rules: AxisRules, rows: int) -> Optional["RowGroups"]:
+        """The groups of a batch of ``rows`` rows on ``mesh``: the rules'
+        "batch" axes less those they drop because they do not divide
+        ``rows``; None where one group holds every row."""
+        groups = cls(mesh, _entries(rules.spec(("batch",), (rows,), mesh)[0]))
+        return groups if groups.count > 1 else None
+
+    @property
+    def count(self) -> int:
+        sizes = comm.axis_sizes(self.mesh)
+        return math.prod(sizes[a] for a in self.axes)
+
+    @property
+    def index(self) -> int:
+        """This device's group."""
+        sizes, g = comm.axis_sizes(self.mesh), 0
+        for a in self.axes:
+            g = g * sizes[a] + comm.coordinate(self.mesh, a)
+        return g
+
+    def below(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of ``x`` over the groups before this one (one
+        all-gather an axis of the groups)."""
+        every = x[None]
+        for a in reversed(self.axes):
+            every = comm.all_gather(every, self.mesh, a, 0)
+        return every[:self.index].sum(0)
+
+
+# A module global, not a thread-local: on the card autograd runs the
+# backward, and the forward that remat recomputes in it, on its own thread.
+_row_groups: Optional[RowGroups] = None
+
+
+@contextlib.contextmanager
+def use_row_groups(groups: Optional[RowGroups]):
+    """Set the row groups that :func:`row_groups` returns, for the span of
+    one mesh step."""
+    global _row_groups
+    prev, _row_groups = _row_groups, groups
+    try:
+        yield
+    finally:
+        _row_groups = prev
+
+
+def row_groups() -> Optional[RowGroups]:
+    """The row groups of the mesh step running now; None off a mesh or
+    where one group holds every row."""
+    return _row_groups
+
+
 def placements_for(axes: Sequence[Optional[str]], mesh, rules: AxisRules,
                    shape: Sequence[int]) -> tuple:
     """DTensor placements of a leaf, one a mesh dimension: ``Shard(d)``

@@ -10,8 +10,15 @@ On a mesh (``mesh=``, ``rules=``; ``sharding``'s layouts) each device
 holds the block of every state leaf that JAX's ``NamedSharding`` gives
 it, and a step is data parallel with FSDP state: it all-gathers the
 parameters, runs the one-device loss on this device's rows of the batch,
-reduce-scatters the gradients into the parameters' layout and updates its
-blocks with AdamW.  Tensor-parallel compute (column and row splits of the
+weighs each microbatch's loss by this device's share of the global
+count of valid labels (so the sum over the mesh is JAX's one global mean,
+however the masked labels fall), reduce-scatters the gradients into the
+parameters' layout and updates its blocks with AdamW.  Inside every mesh
+step of a MoE model the dispatch sees the step's row groups
+(``sharding.row_groups``: the blocks of devices that the rules cut the
+``global_batch=`` rows over) and takes JAX's global capacity and
+positions.
+Tensor-parallel compute (column and row splits of the
 matmuls over "model") and gathering one layer at a time are not here:
 every device computes with whole weights (ROADMAP.md).  The
 ``abstract_*`` helpers give a device's arguments without storage, for
@@ -83,16 +90,26 @@ def loss_and_grads(loss_fn: Callable, params, batch):
     return loss.detach(), unflatten(params, list(grads))
 
 
-def _accumulated(loss_fn: Callable, params, batch, accum: int):
+def _accumulated(loss_fn: Callable, params, batch, accum: int,
+                 weights: Optional[torch.Tensor] = None):
     """(loss, gradients) of one batch, or the means over its ``accum``
-    microbatches (leading axis), accumulated in fp32 in order."""
+    microbatches (leading axis), accumulated in fp32 in order.
+
+    ``weights`` (``accum``,) scales each microbatch's loss before its
+    backward: on a mesh, a device's share of that microbatch's global
+    mean.  (Scaled there, each token's gradient seed is the global mean's
+    to an ulp, as it would not be if the gradients were scaled after.)"""
+    def weighted(i):
+        if weights is None:
+            return loss_fn
+        return lambda p, b: loss_fn(p, b) * weights[i]
     if accum == 1:
-        return loss_and_grads(loss_fn, params, batch)
+        return loss_and_grads(weighted(0), params, batch)
     grads = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
                      params)
     loss = 0.0
     for i in range(accum):
-        l, g = loss_and_grads(loss_fn, params,
+        l, g = loss_and_grads(weighted(i), params,
                               {k: v[i] for k, v in batch.items()})
         torch._foreach_add_(leaves(grads), leaves(g))
         loss = loss + l
@@ -103,8 +120,8 @@ def _accumulated(loss_fn: Callable, params, batch, accum: int):
 def make_train_step(cfg: ArchConfig, *, base_lr: float = 3e-4,
                     warmup: int = 100, total_steps: int = 10_000,
                     accum: int = 1, compress_fraction: Optional[float] = None,
-                    mesh=None, rules: Optional[shd.AxisRules] = None
-                    ) -> Callable:
+                    mesh=None, rules: Optional[shd.AxisRules] = None,
+                    global_batch: Optional[int] = None) -> Callable:
     """(TrainState, batch) -> (TrainState, metrics).
 
     ``accum`` > 1 expects batch leaves with a leading microbatch axis and
@@ -115,12 +132,14 @@ def make_train_step(cfg: ArchConfig, *, base_lr: float = 3e-4,
     With ``mesh`` (and ``rules``, the default rules of ``cfg.act_shard``
     unless given) the state is this device's blocks (:func:`shard_state`)
     and the batch its rows (:func:`batch_rows`): see the module docstring.
+    ``global_batch``, the rows of the whole batch before they are cut,
+    is needed there for a MoE model (:func:`_row_groups`).
     """
     loss_fn = api.loss_fn(cfg)
     if mesh is not None:
         return _sharded_train_step(cfg, loss_fn, mesh, rules, base_lr,
                                    warmup, total_steps, accum,
-                                   compress_fraction)
+                                   compress_fraction, global_batch)
 
     def step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
         params = state.params
@@ -187,29 +206,47 @@ def batch_rows(batch: Dict[str, Any], mesh, rules: shd.AxisRules,
         v.dim() - 1 - len(lead)), mesh, rules) for k, v in batch.items()}
 
 
+def _row_groups(cfg: ArchConfig, mesh, rules: shd.AxisRules,
+                global_batch: Optional[int],
+                accum: int = 1) -> Optional[shd.RowGroups]:
+    """The row groups that a MoE model's dispatch counts in a mesh step
+    (``sharding.RowGroups``): those the rules cut a microbatch of
+    ``global_batch // accum`` rows into, as :func:`batch_rows` cuts it.
+    None for a model without MoE layers.  The rows must be given: the
+    rules drop a batch axis that does not divide them, and a device sees
+    only its own rows, so it cannot tell its group's rows from copies."""
+    if cfg.family != "moe":
+        return None
+    if global_batch is None:
+        raise ValueError(f"a mesh step of {cfg.name} (MoE) needs "
+                         f"global_batch=: its dispatch takes the global "
+                         f"batch's capacity")
+    return shd.RowGroups.of(mesh, rules, global_batch // accum)
+
+
 def _sharded_train_step(cfg, loss_fn, mesh, rules, base_lr, warmup,
-                        total_steps, accum, compress_fraction):
+                        total_steps, accum, compress_fraction, global_batch):
     if compress_fraction is not None:
         raise ValueError("gradient compression on a mesh is not ported "
                          "(ROADMAP.md)")
     rules = _rules(cfg, mesh, rules)
     lays = state_layouts(cfg, mesh, rules).params
-    world = mesh.size()
+    groups = _row_groups(cfg, mesh, rules, global_batch, accum)
 
     def step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
+        weights = _label_weights(batch["labels"], accum, mesh)
         params = tree_map(lambda x, lay: lay.gather(x), state.params, lays)
-        loss, grads = _accumulated(loss_fn, params, batch, accum)
+        with shd.use_row_groups(groups):
+            loss, grads = _accumulated(loss_fn, params, batch, accum,
+                                       weights)
         del params
-        # every device's rows weigh 1/world: the sum over the mesh is the
-        # mean over the global batch (each row set repeats world/n times)
-        torch._foreach_div_(leaves(grads), world)
         grads = shard_like_params(grads, lays)
         # the clipping norm: each block's squares once over the mesh
         sq = sum(g.float().square().sum() / lay.copies
                  for g, lay in zip(leaves(grads), leaves(lays), strict=True))
         gnorm = comm.all_reduce(sq.reshape(1), mesh,
                                 mesh.mesh_dim_names)[0].sqrt()
-        loss = comm.all_reduce((loss / world).reshape(1), mesh,
+        loss = comm.all_reduce(loss.reshape(1), mesh,
                                mesh.mesh_dim_names)[0]
         lr = linear_warmup_cosine(state.opt.step, base_lr, warmup,
                                   total_steps)
@@ -223,6 +260,18 @@ def _sharded_train_step(cfg, loss_fn, mesh, rules, base_lr, warmup,
     return step
 
 
+def _label_weights(labels: torch.Tensor, accum: int, mesh) -> torch.Tensor:
+    """Each microbatch's weight on this device, (``accum``,): its count of
+    labels >= 0 (what ``cross_entropy`` divides by) over that count summed
+    over the mesh, at least 1, as JAX's global mean divides by
+    ``max(valid.sum(), 1)``.  Devices off the batch axes hold the same
+    rows, so they add to the sum and the count alike and the weighted sum
+    over the mesh is the global mean.  On one rank every weight is 1."""
+    valid = (labels >= 0).reshape(accum, -1).sum(1).float()
+    total = comm.all_reduce(valid.clone(), mesh, mesh.mesh_dim_names)
+    return valid / total.clamp_min(1)
+
+
 def make_eval_step(cfg: ArchConfig) -> Callable:
     loss_fn = api.loss_fn(cfg)
 
@@ -233,28 +282,32 @@ def make_eval_step(cfg: ArchConfig) -> Callable:
 
 
 def make_prefill_step(cfg: ArchConfig, cache_len: int, mesh=None,
-                      rules: Optional[shd.AxisRules] = None) -> Callable:
+                      rules: Optional[shd.AxisRules] = None,
+                      global_batch: Optional[int] = None) -> Callable:
     """(params, batch) -> (last logits, cache); on a mesh the params are
-    this device's blocks and the batch its rows."""
+    this device's blocks and the batch its rows (``global_batch`` of them
+    in all; needed for a MoE model)."""
     fn = api.prefill_fn(cfg, cache_len)
-    gather = _param_gather(cfg, mesh, rules)
+    gather, groups = _param_gather(cfg, mesh, rules, global_batch)
 
     def step(params, batch):
-        with torch.no_grad():
+        with torch.no_grad(), shd.use_row_groups(groups):
             return fn(gather(params), batch)
     return step
 
 
 def make_serve_step(cfg: ArchConfig, mesh=None,
-                    rules: Optional[shd.AxisRules] = None) -> Callable:
+                    rules: Optional[shd.AxisRules] = None,
+                    global_batch: Optional[int] = None) -> Callable:
     """One decode tick: greedy-sample next token and advance the cache;
     on a mesh the params are this device's blocks, the batch and the
-    cache its rows."""
+    cache its rows (``global_batch`` of them in all; needed for a MoE
+    model)."""
     fn = api.decode_fn(cfg)
-    gather = _param_gather(cfg, mesh, rules)
+    gather, groups = _param_gather(cfg, mesh, rules, global_batch)
 
     def step(params, batch, cache):
-        with torch.no_grad():
+        with torch.no_grad(), shd.use_row_groups(groups):
             logits, new_cache = fn(gather(params), batch["token"], cache,
                                    batch["kv_len"])
         next_tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
@@ -263,12 +316,15 @@ def make_serve_step(cfg: ArchConfig, mesh=None,
     return step
 
 
-def _param_gather(cfg, mesh, rules) -> Callable:
+def _param_gather(cfg, mesh, rules, global_batch) -> Tuple[Callable, Any]:
+    """(params -> whole params, the step's row groups)."""
     if mesh is None:
-        return lambda params: params
-    lays = state_layouts(cfg, mesh, _rules(cfg, mesh, rules)).params
-    return lambda params: tree_map(lambda x, lay: lay.gather(x), params,
-                                   lays)
+        return (lambda params: params), None
+    rules = _rules(cfg, mesh, rules)
+    lays = state_layouts(cfg, mesh, rules).params
+    return (lambda params: tree_map(lambda x, lay: lay.gather(x), params,
+                                    lays)), _row_groups(cfg, mesh, rules,
+                                                        global_batch)
 
 
 # ---------------------------------------------------------------------------

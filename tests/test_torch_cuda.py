@@ -341,14 +341,83 @@ def test_flash_decode_replays_in_a_cuda_graph(cuda_device, dtype):
         _close(out[:, 0], want, dtype)
 
 
+# the widths with a vector instantiation in csrc/rmsnorm.cu: MLA's kv_norm
+# and q_norm, xlstm_125m, whisper_medium, deepseek_moe_16b, minicpm3_4b,
+# zamba2_7b, glm4_9b and llava, zamba2's gated norm, 12288
+RMSNORM_WIDTHS = (256, 768, 1024, 2048, 2560, 3584, 4096, 7168, 12288)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,d", [(1, 32), (100, 256), (4, 4096),
-                                 (512, 4096), (3, 12288)])
+@pytest.mark.parametrize("n,d", sorted(
+    {(1, 32), (100, 256), (4, 4096), (512, 4096), (3, 12288), (4, 4100),
+     (13, 4100), (3, 768), (9, 256)}
+    | {(n, d) for d in RMSNORM_WIDTHS for n in (4, 512)}))
 def test_rmsnorm_kernel(cuda_device, n, d, dtype):
     g = torch.Generator(device=cuda_device).manual_seed(2)
     x, s = _rnd(g, dtype, n, d), _rnd(g, torch.float32, d)
     _close(ops.fused_rmsnorm(x, s), ref.rmsnorm_ref(x, s), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["columns", "offset", "transposed"])
+def test_rmsnorm_kernel_off_the_vector_layout(cuda_device, layout, dtype):
+    """``fused_rmsnorm`` on a non-contiguous (4, 4096) view (a column
+    slice, a transpose) and on a contiguous one whose storage starts one
+    element off a 16-byte boundary (the kernel's general path)."""
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    s = _rnd(g, torch.float32, 4096)
+    if layout == "columns":
+        x = _rnd(g, dtype, 4, 4096 + 64)[:, 32:4096 + 32]
+    elif layout == "transposed":
+        x = _rnd(g, dtype, 4096, 4).t()
+    else:
+        x = _rnd(g, dtype, 4 * 4096 + 1)[1:].view(4, 4096)
+        assert x.is_contiguous() and x.data_ptr() % 16
+    _close(ops.fused_rmsnorm(x, s), ref.rmsnorm_ref(x, s), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_replays_in_a_cuda_graph(cuda_device, dtype):
+    """The kernel captured in a CUDA graph (after the in-place write that
+    feeds it), replayed on new inputs."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    x = _rnd(g, dtype, 4, 4096)
+    src, s = torch.empty_like(x), _rnd(g, torch.float32, 4096)
+    ops.fused_rmsnorm(x, s)             # built and loaded outside capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        x.copy_(src)
+        out = ops.fused_rmsnorm(x, s)
+    for _ in range(4):
+        src.copy_(_rnd(g, dtype, 4, 4096))
+        s.copy_(_rnd(g, torch.float32, 4096))
+        graph.replay()
+        torch.cuda.synchronize()
+        _close(out, ref.rmsnorm_ref(src, s), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d", [(4, 4096), (512, 7168), (4, 4100)])
+def test_rmsnorm_after_an_in_place_write(cuda_device, n, d):
+    """An in-place op writes x on the stream and the norm reads it right
+    after: every result equals the plain version of the written x."""
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    x, s = _rnd(g, torch.float32, n, d), _rnd(g, torch.float32, d)
+    big = _rnd(g, torch.float32, 16, n, d)   # a long write before the norm
+    outs, wants = [], []
+    for i in range(8):
+        x.copy_(big[i])
+        x.mul_(1.0 + i).add_(big[i + 8])
+        outs.append(ops.fused_rmsnorm(x, s))
+        wants.append(ref.rmsnorm_ref(
+            big[i] * (1.0 + i) + big[i + 8], s))
+    torch.cuda.synchronize()
+    for got, want in zip(outs, wants):
+        _close(got, want, torch.float32)
 
 
 def _scan_inputs(gen, dtype, b, s, h, p, n):

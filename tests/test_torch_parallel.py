@@ -40,6 +40,7 @@ import torch
 from repro.checkpoint import store as jstore
 from repro.configs import get_config as jax_config
 from repro.data import DataConfig, synthetic_batch
+from repro.models import api as japi
 from repro.parallel import steps as jst
 from repro_torch.configs import InputShape
 from repro_torch.configs import get_config as torch_config
@@ -144,29 +145,96 @@ def _torch_state(jstate, cfg):
         for x in jax.tree_util.tree_leaves(jstate)])
 
 
-@pytest.mark.parametrize("mesh,act_shard", [((4, 2), "seq"),
-                                            ((4, 2), "batch2d"),
-                                            ((2, 4), "seq")])
-def test_sharded_train_step_matches_single_device(tmp_path, mesh,
-                                                  act_shard):
-    arch, steps, kw = "deepseek_7b", 2, dict(total_steps=5, warmup=2)
+# labels masked (-1) at the start of each row of a microbatch: the data
+# shards of a (4, 2) mesh hold one row each, so they hold 4, 16, 11 and 0
+# valid labels, then 16, 7, 0 and 13
+MASKED = ((12, 0, 5, 16), (0, 9, 16, 3))
+
+
+def _masked(batch, accum):
+    """``batch`` with a leading microbatch axis under ``accum`` and
+    MASKED's labels set to -1."""
+    b = {k: v.reshape(accum, -1, v.shape[-1]).copy()
+         for k, v in batch.items()}
+    for i in range(accum):
+        for r, m in enumerate(MASKED[i]):
+            b["labels"][i, r, :m] = -1
+    return {k: v if accum > 1 else v[0] for k, v in b.items()}
+
+
+def _jax_drops(monkeypatch, jc, fn, *args) -> int:
+    """The slots JAX's MoE dispatch drops over every MoE layer of
+    ``fn(*args)`` (jitted): each layer's routing over the whole batch,
+    counted per expert against that batch's capacity at ``jc``'s
+    capacity factor."""
+    from repro.models import moe as jmoe
+    seen, route = [], jmoe.route
+
+    def spy(params, x, top_k):
+        out = route(params, x, top_k)
+        jax.debug.callback(lambda ids: seen.append(np.asarray(ids)), out[1])
+        return out
+    with monkeypatch.context() as m:
+        m.setattr(jmoe, "route", spy)
+        jax.block_until_ready(jax.jit(fn)(*args))
+    dropped = 0
+    for ids in seen:
+        n, k = ids.shape
+        e = jc.n_experts
+        cap = int(max(1, (n * k / e) * jc.capacity_factor))
+        dropped += int(np.maximum(np.bincount(ids.ravel(), minlength=e)
+                                  - cap, 0).sum())
+    assert seen, "no MoE layer routed"
+    return dropped
+
+
+@pytest.mark.parametrize("mesh,act_shard,case", [
+    pytest.param((4, 2), "seq", {}, id="mesh0-seq"),
+    pytest.param((4, 2), "batch2d", {}, id="mesh1-batch2d"),
+    pytest.param((2, 4), "seq", {}, id="mesh2-seq"),
+    # the loss is one global mean, however the masked labels fall
+    pytest.param((4, 2), "seq", dict(masked=True), id="masked-accum1"),
+    pytest.param((4, 2), "seq", dict(masked=True, accum=2),
+                 id="masked-accum2"),
+    # the MoE dispatch takes the global batch's capacity and positions
+    pytest.param((4, 2), "seq", dict(arch="deepseek_moe_16b"),
+                 id="moe-mesh0"),
+    pytest.param((2, 4), "seq", dict(arch="deepseek_moe_16b"),
+                 id="moe-mesh2"),
+    # 4 rows over batch2d's 8 devices: the rules cut them over "model"
+    # only, so 2 row groups, each held by the 4 data shards
+    pytest.param((4, 2), "batch2d", dict(arch="deepseek_moe_16b"),
+                 id="moe-batch2d"),
+])
+def test_sharded_train_step_matches_single_device(tmp_path, monkeypatch,
+                                                  mesh, act_shard, case):
+    arch = case.get("arch", "deepseek_7b")
+    accum, steps, kw = case.get("accum", 1), 2, dict(total_steps=5,
+                                                     warmup=2)
     jc = jax_config(arch).reduced().replace(dtype="float32",
                                             act_shard=act_shard)
     tc = torch_config(arch).reduced().replace(dtype="float32",
-                                              act_shard=act_shard)
-    dc = DataConfig(seq_len=16, global_batch=4, vocab=jc.vocab)
+                                              act_shard=act_shard,
+                                              accum=accum)
+    dc = DataConfig(seq_len=16, global_batch=4 * accum, vocab=jc.vocab)
     batches = [synthetic_batch(dc, s) for s in range(steps)]
+    if case.get("masked"):
+        batches = [_masked(b, accum) for b in batches]
     js = jst.init_train_state(jc, jax.random.PRNGKey(0))
+    if arch == "deepseek_moe_16b":      # the case reaches the capacity
+        assert jc.capacity_factor == 1.25
+        assert _jax_drops(monkeypatch, jc, japi.loss_fn(jc), js.params, {
+            k: jnp.asarray(v) for k, v in batches[0].items()}) > 0
     _write_state(tmp_path, js)
     np.savez(tmp_path / "batches.npz", **{
         f"{i}/{k}": v for i, b in enumerate(batches) for k, v in b.items()})
     (tmp_path / "info.json").write_text(json.dumps(dict(
         arch=arch, act_shard=act_shard, mesh=list(mesh), steps=steps,
-        **kw)))
+        accum=accum, **kw)))
     ts = _torch_state(js, tc)
     # JAX's single-device jitted step and the port's unsharded one
-    jstep, tstep = jax.jit(jst.make_train_step(jc, **kw)), \
-        tst.make_train_step(tc, **kw)
+    jstep = jax.jit(jst.make_train_step(jc, accum=accum, **kw))
+    tstep = tst.make_train_step(tc, accum=accum, **kw)
     jl, tl, lrs = [], [], []
     for b in batches:
         js, jm = jstep(js, {k: jnp.asarray(v) for k, v in b.items()})
@@ -177,7 +245,7 @@ def test_sharded_train_step_matches_single_device(tmp_path, mesh,
     got, info = run_ranks("sharded_train", 8, tmp_path)
     assert float(got["block_diff"]) == 0.0
     # the dry run of this cell predicts the step's collectives and FLOPs
-    pred = dryrun.trace_cell(tc, InputShape("t", 16, 4, "train"),
+    pred = dryrun.trace_cell(tc, InputShape("t", 16, 4 * accum, "train"),
                              AbstractMesh(mesh, ("data", "model")))
     counts = info["counts"]
     assert counts["collective_bytes"] == \
@@ -194,6 +262,61 @@ def test_sharded_train_step_matches_single_device(tmp_path, mesh,
         scale = max(float(np.abs(t.numpy()).max()), 1e-30)
         assert np.abs(s - t.numpy()).max() <= 1e-6 * scale, \
             "state vs the unsharded step"
+
+
+@pytest.mark.parametrize("mesh", [(4, 2), (2, 4)])
+def test_sharded_moe_prefill_matches_single_device(tmp_path, monkeypatch,
+                                                   mesh):
+    """The mesh prefill of reduced deepseek_moe_16b (4 x 16 tokens, at
+    the capacity factor of 1.25, where JAX's dispatch drops slots) against
+    JAX's single-device prefill logits; its op counts are the dry run's."""
+    arch, act_shard = "deepseek_moe_16b", "seq"
+    jc = jax_config(arch).reduced().replace(dtype="float32",
+                                            act_shard=act_shard)
+    tc = torch_config(arch).reduced().replace(dtype="float32",
+                                              act_shard=act_shard)
+    tokens = synthetic_batch(DataConfig(seq_len=16, global_batch=4,
+                                        vocab=jc.vocab), 0)["tokens"]
+    js = jst.init_train_state(jc, jax.random.PRNGKey(0))
+    prefill = japi.prefill_fn(jc, 16)
+    batch = {"tokens": jnp.asarray(tokens)}
+    assert jc.capacity_factor == 1.25
+    assert _jax_drops(monkeypatch, jc, prefill, js.params, batch) > 0
+    want = np.asarray(jax.jit(prefill)(js.params, batch)[0])
+    _write_state(tmp_path, js)
+    np.save(tmp_path / "tokens.npy", tokens)
+    (tmp_path / "info.json").write_text(json.dumps(dict(
+        arch=arch, act_shard=act_shard, mesh=list(mesh))))
+    got, info = run_ranks("sharded_prefill", 8, tmp_path)
+    close(want, got["logits"], rtol=1e-4, atol=1e-4,
+          what="mesh prefill logits against JAX")
+    pred = dryrun.trace_cell(tc, InputShape("t", 16, 4, "prefill"),
+                             AbstractMesh(mesh, ("data", "model")))
+    for key in ("collective_bytes", "collective_counts", "flops"):
+        assert info["counts"][key] == pred["hlo_analysis"][key], key
+
+
+@pytest.mark.parametrize("act_shard,rows,axes", [
+    ("seq", 4, ("data",)), ("seq", 2, None), ("seq", 1, None),
+    ("batch2d", 8, ("data", "model")), ("batch2d", 4, ("model",)),
+    ("batch2d", 2, ("model",))])
+def test_row_groups_follow_the_batch_cut(act_shard, rows, axes):
+    """The row groups a MoE mesh step counts on (4, 2) are the batch axes
+    the rules cut its rows over (they drop those that do not divide the
+    rows, from the left), and a MoE mesh step needs the global batch to
+    know them."""
+    from repro_torch.parallel import sharding as shd
+    mesh = AbstractMesh((4, 2), ("data", "model"))
+    rules = shd.default_rules(act_shard=act_shard)
+    groups = shd.RowGroups.of(mesh, rules, rows)
+    assert (groups and groups.axes) == axes
+    tc = torch_config("deepseek_moe_16b").reduced().replace(
+        act_shard=act_shard)
+    for make in (lambda: tst.make_train_step(tc, mesh=mesh, rules=rules),
+                 lambda: tst.make_prefill_step(tc, 16, mesh, rules),
+                 lambda: tst.make_serve_step(tc, mesh, rules)):
+        with pytest.raises(ValueError, match="global_batch"):
+            make()
 
 
 def test_elastic_restore_between_meshes_and_packages(tmp_path):

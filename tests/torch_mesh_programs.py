@@ -110,20 +110,23 @@ def sharded_train(rank, d):
     from repro_torch.parallel import steps as st
     from repro_torch.tree import leaves
     info = json.loads((Path(d) / "info.json").read_text())
+    accum = info.get("accum", 1)
     cfg = get_config(info["arch"]).reduced().replace(
         dtype="float32", act_shard=info["act_shard"])
     mesh = _mesh(info["mesh"], ("data", "model"))
     rules = shd.default_rules(act_shard=info["act_shard"])
     lay = st.state_layouts(cfg, mesh, rules)
     state = st.shard_state(_state_from(d, cfg), lay)
-    step = st.make_train_step(cfg, total_steps=info["total_steps"],
-                              warmup=info["warmup"], mesh=mesh, rules=rules)
     batches = np.load(Path(d) / "batches.npz")
+    step = st.make_train_step(cfg, total_steps=info["total_steps"],
+                              warmup=info["warmup"], accum=accum, mesh=mesh,
+                              rules=rules, global_batch=int(np.prod(
+                                  batches["0/tokens"].shape[:-1])))
     losses, counts, arrays = [], None, {}
     for i in range(info["steps"]):
         batch = {k.split("/")[1]: torch.from_numpy(batches[k])
                  for k in batches.files if k.startswith(f"{i}/")}
-        batch = st.batch_rows(batch, mesh, rules)
+        batch = st.batch_rows(batch, mesh, rules, accum)
         if i == 0:
             (state, m), rep = hlo.count(step, state, batch)
             counts = {"flops": rep.flops,
@@ -141,6 +144,34 @@ def sharded_train(rank, d):
     arrays = {f"a{i}": x.numpy() for i, x in enumerate(leaves(whole))}
     arrays["block_diff"] = np.float64(worst)
     _save(d, arrays, {"losses": losses, "counts": counts})
+
+
+def sharded_prefill(rank, d):
+    """The mesh prefill step from the parameters in ``d`` on this rank's
+    rows of ``d/tokens.npy``; rank 0 writes the gathered last logits and
+    the step's op counts."""
+    from repro_torch.analysis import hlo
+    from repro_torch.configs import get_config
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel import steps as st
+    info = json.loads((Path(d) / "info.json").read_text())
+    cfg = get_config(info["arch"]).reduced().replace(
+        dtype="float32", act_shard=info["act_shard"])
+    mesh = _mesh(info["mesh"], ("data", "model"))
+    rules = shd.default_rules(act_shard=info["act_shard"])
+    lay = st.state_layouts(cfg, mesh, rules)
+    params = st.shard_state(_state_from(d, cfg), lay).params
+    tokens = torch.from_numpy(np.load(Path(d) / "tokens.npy"))
+    step = st.make_prefill_step(cfg, tokens.shape[1], mesh, rules,
+                                tokens.shape[0])
+    batch = st.batch_rows({"tokens": tokens}, mesh, rules)
+    (logits, _), rep = hlo.count(step, params, batch)
+    whole = shd.gather(logits, ("batch", None), mesh, rules,
+                       (tokens.shape[0], logits.shape[-1]))
+    _save(d, {"logits": whole.numpy()},
+          {"counts": {"flops": rep.flops,
+                      "collective_bytes": rep.collective_bytes,
+                      "collective_counts": rep.collective_counts}})
 
 
 def elastic(rank, d):
