@@ -44,7 +44,10 @@ prints its seconds:
    16 heads of 64), flash decode at minicpm3_4b's latent decode (40 heads
    on one KV head, key 288, value 256 a view of the key's rows, T 1024,
    in both types and at a served fill) and whisper's cross (T 1500) and
-   self (T 448) decodes; RMSNorm first fails unless one call runs exactly
+   self (T 448) decodes; flash attention (S 512, causal) and flash decode
+   (T 1024) at D 128 with the (query, KV) heads one device computes in a
+   tensor-parallel mesh step (``TP_HEADS``: 2/1, 8/1, 6/1 and 2/2), in
+   both types; RMSNorm first fails unless one call runs exactly
    one device kernel, the port's, then runs the decode tick's 4 rows at
    every served width (256 to 12288) and a 512-token prefill at 4096 and
    7168, in both types, and glm4_9b's decode chain in fp32 (the residual
@@ -235,6 +238,10 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 TF32_FLOPS = 495e12
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 SSD_TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
+# (query, KV) heads of a device in a tensor-parallel mesh step
+# (parallel/tensor.py): glm4_9b and llava_next_mistral_7b on a model axis
+# of 16, glm4_9b on 4, mistral_large_123b on 16, deepseek_7b on 16
+TP_HEADS = ((2, 1), (8, 1), (6, 1), (2, 2))
 
 
 def check(cond: bool, msg: str) -> None:
@@ -707,6 +714,14 @@ def phase_kernels(gen):
     rows[("flash_decode", "float32",
           "T=1024 H=40 Hkv=1 D=288 Dv=256 latent fill 544/160/68/9")] = \
         decode(40, 1, 288, torch.float32, "float32", served, latent=True)
+    # the (query, KV) heads of a tensor-parallel mesh step (TP_HEADS)
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).replace("torch.", "")
+        for h, hkv in TP_HEADS:
+            rows[("flash_attention", tag, f"S=512 H={h} Hkv={hkv} TP")] = \
+                attention(512, h, hkv, 128, dtype, tag)
+            rows[("flash_decode", tag, f"T=1024 H={h} Hkv={hkv} TP")] = \
+                decode(h, hkv, 128, dtype, tag)
     rows[("flash_decode", "float32", "T=1500 H=16 D=64 cross")] = decode(
         16, 16, 64, torch.float32, "float32", (1500,) * 4, t=1500)
     rows[("flash_decode", "float32", "T=448 H=16 D=64 self fill "

@@ -5,6 +5,12 @@ matrix), ``attend_chunked`` (online softmax over KV chunks) and
 ``attend_decode`` (one query token against a cache).  The model's own
 path goes through the kernels: ``gqa_layer(impl="kernel")`` through
 flash attention and ``gqa_decode_layer`` always through flash decode.
+
+In a tensor-parallel mesh step (``parallel.tensor``) whose wq and wo are
+this device's block of the heads, a layer computes those query heads,
+the KV heads they read (a slice of the whole wk and wv) and the partial
+output of its wo block, summed over the blocks; the decode takes a
+cache of those KV heads, and raises on any other count.
 """
 from __future__ import annotations
 
@@ -13,21 +19,48 @@ from typing import Dict, Optional
 import torch
 
 from ..kernels import ops
+from ..parallel import tensor
 from .common import ParamSpec, apply_rope
 
 NEG_INF = -1e30
+WQ_AXES = ("embed", "heads", None)
+WKV_AXES = ("embed", "kv", None)
+WO_AXES = ("heads", None, "embed")
 
 
 def gqa_spec(d_model: int, n_heads: int, n_kv: int, head_dim: int,
              qk_head_dim: Optional[int] = None) -> Dict[str, ParamSpec]:
     qk = qk_head_dim or head_dim
     return {
-        "wq": ParamSpec((d_model, n_heads, qk), ("embed", "heads", None)),
-        "wk": ParamSpec((d_model, n_kv, qk), ("embed", "kv", None)),
-        "wv": ParamSpec((d_model, n_kv, head_dim), ("embed", "kv", None)),
-        "wo": ParamSpec((n_heads, head_dim, d_model),
-                        ("heads", None, "embed")),
+        "wq": ParamSpec((d_model, n_heads, qk), WQ_AXES),
+        "wk": ParamSpec((d_model, n_kv, qk), WKV_AXES),
+        "wv": ParamSpec((d_model, n_kv, head_dim), WKV_AXES),
+        "wo": ParamSpec((n_heads, head_dim, d_model), WO_AXES),
     }
+
+
+def head_split(params) -> Optional[tensor.TensorParallel]:
+    """The tensor-parallel context where wq and wo are this device's block
+    of the heads, else None (off a mesh step, or heads that do not divide
+    the axis: the layer runs whole)."""
+    tp = tensor.active()
+    if tp is None or tp.split_dim(params["wq"], WQ_AXES) is None:
+        return None
+    tp.split_dim(params["wo"], WO_AXES)
+    for w in ("wk", "wv"):
+        if tp.split_dim(params[w], WKV_AXES) is not None:
+            raise NotImplementedError("wk and wv split over the model axis")
+    return tp
+
+
+def local_kv_heads(tp: Optional[tensor.TensorParallel], n_heads: int,
+                   n_kv: int) -> int:
+    """KV heads of a layer's cache in a mesh step of context ``tp``: those
+    this device's query heads read where the heads are split, else
+    ``n_kv``."""
+    if tp is None or tp.dim_of(WQ_AXES) is None:
+        return n_kv
+    return len(tp.kv_heads(n_heads, n_kv))
 
 
 def _repeat_kv(k, n_heads):
@@ -109,16 +142,36 @@ def attend_decode(q, k_cache, v_cache, kv_len=None,
 # ---------------------------------------------------------------------------
 
 
-def gqa_project_qkv(params, x, positions, rope_theta: float = 10000.0):
+def _project(params, x):
+    """Unrotated (q, k, v) of ``x``: every head, or under a head split
+    (:func:`head_split`) this device's query heads and the KV heads they
+    read (``TensorParallel.kv_heads``)."""
+    wk, wv = params["wk"], params["wv"]
+    tp = head_split(params)
+    if tp is not None:
+        heads = tp.kv_heads(params["wq"].shape[1] * tp.size, wk.shape[1])
+        x = tensor.into_split(x, tp)
+        wk, wv = (tensor.into_split(w, tp).narrow(1, heads.start,
+                                                  len(heads))
+                  for w in (wk, wv))
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
-    k = torch.einsum("bsd,dnk->bsnk", x, params["wk"])
-    v = torch.einsum("bsd,dnk->bsnk", x, params["wv"])
+    k = torch.einsum("bsd,dnk->bsnk", x, wk)
+    v = torch.einsum("bsd,dnk->bsnk", x, wv)
+    return q, k, v
+
+
+def gqa_project_qkv(params, x, positions, rope_theta: float = 10000.0):
+    q, k, v = _project(params, x)
     return (apply_rope(q, positions, rope_theta),
             apply_rope(k, positions, rope_theta), v)
 
 
 def gqa_output(params, attn_out):
-    return torch.einsum("bshd,hdm->bsm", attn_out, params["wo"])
+    """The output projection; under a head split, this device's heads'
+    partial sums summed over the blocks."""
+    y = torch.einsum("bshd,hdm->bsm", attn_out, params["wo"])
+    tp = head_split(params)
+    return y if tp is None else tensor.out_of_split(y, tp)
 
 
 def gqa_layer(params, x, positions, *, impl: str = "chunked",
@@ -148,9 +201,10 @@ def gqa_decode_layer(params, x, cache_k, cache_v, position, kv_len,
     JAX package returns new caches) and returns ``(out, cache_k,
     cache_v)`` with the same tensors.
     """
-    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
-    k = torch.einsum("bsd,dnk->bsnk", x, params["wk"])
-    v = torch.einsum("bsd,dnk->bsnk", x, params["wv"])
+    q, k, v = _project(params, x)
+    if cache_k.shape[2] != k.shape[2]:
+        raise ValueError(f"a cache of {cache_k.shape[2]} KV heads for a "
+                         f"layer that computes {k.shape[2]}")
     pos = position[:, None] if position.dim() == 1 else position
     q = apply_rope(q, pos, rope_theta)
     k = apply_rope(k, pos, rope_theta)

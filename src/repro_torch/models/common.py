@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops, ref
+from ..parallel import tensor
 from ..tree import tree_map
 
 PyTree = Any
@@ -133,18 +134,55 @@ def rmsnorm(params, x, eps: float = 1e-5, *, plain: bool = False):
     return ops.fused_rmsnorm(x, params["scale"], eps=eps)
 
 
+EMBED_AXES = ("vocab", "embed")
+
+
 def embed_spec(vocab: int, dim: int) -> Dict[str, ParamSpec]:
-    return {"embedding": ParamSpec((vocab, dim), ("vocab", "embed"),
+    return {"embedding": ParamSpec((vocab, dim), EMBED_AXES,
                                    init="embed", scale=0.02)}
 
 
+def vocab_split(params) -> Optional[tensor.TensorParallel]:
+    """The tensor-parallel context where the embedding is this device's
+    vocab block (``parallel.tensor``), else None."""
+    tp = tensor.active()
+    if tp is None or tp.split_dim(params["embedding"], EMBED_AXES) is None:
+        return None
+    return tp
+
+
+def vocab_start(params) -> int:
+    """The first vocab row of the embedding this device holds."""
+    tp = vocab_split(params)
+    return 0 if tp is None else tp.index * params["embedding"].shape[0]
+
+
 def embed(params, tokens):
-    return params["embedding"][tokens]
+    """The tokens' rows; from a vocab block, the rows it holds (zeros for
+    the others) summed over the blocks."""
+    table = params["embedding"]
+    tp = vocab_split(params)
+    if tp is None:
+        return table[tokens]
+    local = tokens - vocab_start(params)
+    own = (local >= 0) & (local < table.shape[0])
+    rows = table[torch.where(own, local, 0)]
+    return tensor.out_of_split(torch.where(own[..., None], rows, 0), tp)
 
 
 def unembed(params, x):
-    """Logits via the tied output table: (..., D) -> (..., V)."""
+    """Logits via the tied output table: (..., D) -> (..., V), or this
+    device's vocab block of them (..., V/m) from a vocab block."""
+    tp = vocab_split(params)
+    if tp is not None:
+        x = tensor.into_split(x, tp)
     return x @ params["embedding"].T
+
+
+def whole_vocab(params, logits):
+    """The logits over the whole vocab: a vocab block's gathered."""
+    tp = vocab_split(params)
+    return logits if tp is None else tensor.gather_vocab(logits, tp)
 
 
 def dense_spec(d_in: int, d_out: int,
@@ -153,17 +191,30 @@ def dense_spec(d_in: int, d_out: int,
     return ParamSpec((d_in, d_out), axes, init=init)
 
 
+MLP_IN, MLP_OUT = ("embed", "mlp"), ("mlp", "embed")
+
+
 def swiglu_spec(d_model: int, d_ff: int) -> Dict[str, ParamSpec]:
     return {
-        "w_gate": dense_spec(d_model, d_ff, ("embed", "mlp")),
-        "w_up": dense_spec(d_model, d_ff, ("embed", "mlp")),
-        "w_down": dense_spec(d_ff, d_model, ("mlp", "embed")),
+        "w_gate": dense_spec(d_model, d_ff, MLP_IN),
+        "w_up": dense_spec(d_model, d_ff, MLP_IN),
+        "w_down": dense_spec(d_ff, d_model, MLP_OUT),
     }
 
 
 def swiglu(params, x):
+    """SwiGLU; from blocks of the hidden width (``parallel.tensor``), gate
+    and up split by columns and down by rows, summed over the blocks."""
+    tp = tensor.active()
+    if tp is not None and tp.split_dim(params["w_gate"], MLP_IN) is None:
+        tp = None
+    if tp is not None:
+        tp.split_dim(params["w_up"], MLP_IN)
+        tp.split_dim(params["w_down"], MLP_OUT)
+        x = tensor.into_split(x, tp)
     h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
-    return h @ params["w_down"]
+    y = h @ params["w_down"]
+    return y if tp is None else tensor.out_of_split(y, tp)
 
 
 # ---------------------------------------------------------------------------
@@ -195,21 +246,29 @@ def apply_rope(x, positions, theta: float = 10000.0):
     return out.to(x.dtype)
 
 
-def mask_padded_vocab(logits, vocab: int):
-    """-1e30 on the padded tail of the vocab axis."""
-    if logits.shape[-1] == vocab:
+def mask_padded_vocab(logits, vocab: int, start: int = 0):
+    """-1e30 on the padded tail of the vocab axis; ``logits`` are the
+    vocab rows from ``start`` on (a vocab block's)."""
+    n = logits.shape[-1]
+    if start + n <= vocab:
         return logits
-    valid = torch.arange(logits.shape[-1], device=logits.device) < vocab
+    valid = start + torch.arange(n, device=logits.device) < vocab
     return logits.masked_fill(~valid, -1e30)
 
 
-def cross_entropy(logits, labels, mask=None):
+def cross_entropy(logits, labels, mask=None, *, split=None):
     """Mean token-level CE in fp32; labels < 0 are ignored.
 
     One ``F.cross_entropy`` sum over the valid tokens divided by their
     count: its backward writes each row's gradient once, so it is the same
     bits every run on the card (a gather's backward would scatter-add).
+    With ``split`` (a ``parallel.tensor`` context) the logits are this
+    device's vocab block, and the loss is ``tensor.vocab_cross_entropy``.
     """
+    if split is not None:
+        if mask is not None:
+            labels = torch.where(mask, labels, -1)
+        return tensor.vocab_cross_entropy(logits, labels, split)
     logits = logits.float()
     valid = labels >= 0 if mask is None else mask & (labels >= 0)
     target = torch.where(valid, labels, -100).long()

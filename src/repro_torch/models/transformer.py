@@ -29,6 +29,14 @@ the dense decoder with precomputed image-patch embeddings before the
 text (``img_embeds``); its image positions take no loss.  The
 encoder-decoder family is ``encdec.py``.
 
+Inside a tensor-parallel mesh step (``parallel.tensor``; the dense and
+VLM families) the embedding, the attention and the SwiGLU take their
+"model" blocks of the weights and sum over the axis, the logits stay cut
+by vocab through the loss (``cross_entropy(split=...)``), and the
+prefill's and the decode's logits are gathered whole.  The step passes
+the cache's KV-head count (``kv_heads=``: those this device's query
+heads read); the models do not take shapes from the context.
+
 Training (``lm_loss``, or ``lm_forward(..., plain=True)``) takes the
 plain route of ``models.common``: norms, MoE experts, SSD and sLSTM in
 plain PyTorch, as JAX trains, and attention through ``cfg.attn_impl``
@@ -39,7 +47,7 @@ mLSTM blocks are recomputed in the backward under "full".
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
@@ -48,7 +56,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from .attention import gqa_decode_layer, gqa_layer, gqa_spec
 from .common import (ParamSpec, cross_entropy, embed, embed_spec,
                      init_params, mask_padded_vocab, rmsnorm, rmsnorm_spec,
-                     spec_map, swiglu, swiglu_spec, unembed)
+                     spec_map, swiglu, swiglu_spec, unembed, vocab_split,
+                     vocab_start, whole_vocab)
 from .mla import latent_cache, mla_decode_layer, mla_layer, mla_spec
 from .moe import moe_apply, moe_spec
 from .ssm import mamba_decode_layer, mamba_layer, mamba_mixer, mamba_spec
@@ -162,9 +171,10 @@ def block_decode(cfg, p, x, cache, position, kv_len):
     return x + _ffn(cfg, p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps), 4.0)
 
 
-def _attn_cache_spec(cfg, batch: int, cache_len: int) -> Dict:
-    """One attention layer's decode cache: K/V, or MLA's latent and rope
-    key."""
+def _attn_cache_spec(cfg, batch: int, cache_len: int,
+                     kv_heads: Optional[int] = None) -> Dict:
+    """One attention layer's decode cache: K/V (of ``kv_heads`` heads,
+    every KV head where not given), or MLA's latent and rope key."""
     dt = cfg.torch_dtype
     if cfg.attn == "mla":
         return {
@@ -173,7 +183,8 @@ def _attn_cache_spec(cfg, batch: int, cache_len: int) -> Dict:
             "krope": ParamSpec((batch, cache_len, cfg.qk_rope),
                                ("batch", "kv_seq", None), dt, init="zeros"),
         }
-    kv = ParamSpec((batch, cache_len, cfg.n_kv_heads, cfg.dh),
+    n = cfg.n_kv_heads if kv_heads is None else kv_heads
+    kv = ParamSpec((batch, cache_len, n, cfg.dh),
                    ("batch", "kv_seq", "kv", None), dt, init="zeros")
     return {"k": kv, "v": kv}
 
@@ -356,9 +367,14 @@ def lm_spec(cfg) -> Dict:
     return sp
 
 
-def decode_cache_spec(cfg, batch: int, cache_len: int) -> Dict:
+def decode_cache_spec(cfg, batch: int, cache_len: int,
+                      kv_heads: Optional[int] = None) -> Dict:
+    """The decode cache of ``batch`` rows; its attention layers' K/V hold
+    ``kv_heads`` heads (a tensor-parallel device's, ``parallel.steps``),
+    every KV head where not given."""
     if cfg.family in ("dense", "vlm", "moe"):
-        return {ckey: stack_specs(_attn_cache_spec(cfg, batch, cache_len), n)
+        return {ckey: stack_specs(_attn_cache_spec(cfg, batch, cache_len,
+                                                   kv_heads), n)
                 for _, ckey, n in _stacks(cfg)}
     if cfg.family == "ssm":
         # recurrent state only, in fp32; the mLSTM "m" starts at 0 here,
@@ -380,8 +396,8 @@ def decode_cache_spec(cfg, batch: int, cache_len: int) -> Dict:
     n_groups, group, rest = _hybrid_layout(cfg)
     mamba = _mamba_cache_spec(cfg, batch)
     cache = {"groups": stack_specs(stack_specs(mamba, group), n_groups),
-             "attn": stack_specs(_attn_cache_spec(cfg, batch, cache_len),
-                                 n_groups)}
+             "attn": stack_specs(_attn_cache_spec(cfg, batch, cache_len,
+                                                  kv_heads), n_groups)}
     if rest:
         cache["rest"] = stack_specs(mamba, rest)
     return cache
@@ -461,7 +477,8 @@ def lm_forward(cfg, params, tokens, img_embeds=None, *,
     x = _trunk(cfg, params, _embed_inputs(cfg, params, tokens, img_embeds),
                plain=plain)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps, plain=plain)
-    return mask_padded_vocab(unembed(params["embed"], x), cfg.vocab)
+    return mask_padded_vocab(unembed(params["embed"], x), cfg.vocab,
+                             vocab_start(params["embed"]))
 
 
 def lm_loss(cfg, params, batch):
@@ -474,12 +491,14 @@ def lm_loss(cfg, params, batch):
     if img is not None:
         labels = torch.cat([labels.new_full(img.shape[:2], -1), labels],
                            dim=1)
-    return cross_entropy(logits, labels)
+    return cross_entropy(logits, labels, split=vocab_split(params["embed"]))
 
 
-def lm_prefill(cfg, params, tokens, cache_len: int, img_embeds=None):
+def lm_prefill(cfg, params, tokens, cache_len: int, img_embeds=None,
+               kv_heads: Optional[int] = None):
     """Process the prompt (after the image patches, for a VLM given them);
-    return (last-token logits (B,V), cache).
+    return (last-token logits (B,V), cache), the cache's K/V of
+    ``kv_heads`` heads (``decode_cache_spec``).
 
     Each layer's K/V (MLA's latent) is computed once, in the attention,
     and written into a zero cache of ``cache_len`` rows; in the hybrid,
@@ -491,11 +510,12 @@ def lm_prefill(cfg, params, tokens, cache_len: int, img_embeds=None):
     b, s = x.shape[0], x.shape[1]
     if s > cache_len:
         raise ValueError(f"prompt of {s} tokens over cache_len {cache_len}")
-    cache = init_cache(decode_cache_spec(cfg, b, cache_len), x.device)
+    cache = init_cache(decode_cache_spec(cfg, b, cache_len, kv_heads),
+                       x.device)
     x = _trunk(cfg, params, x, cache)
     x = rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
-    logits = mask_padded_vocab(unembed(params["embed"], x)[:, 0], cfg.vocab)
-    return logits, cache
+    return _whole_logits(cfg, params, unembed(params["embed"], x)[:, 0]), \
+        cache
 
 
 def lm_decode(cfg, params, token, cache, kv_len):
@@ -527,5 +547,13 @@ def lm_decode(cfg, params, token, cache, kv_len):
                             _layers(cache[ckey], n)):
                 x = block_decode(cfg, p, x, c, kv_len, kv_len)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    logits = mask_padded_vocab(unembed(params["embed"], x[:, 0]), cfg.vocab)
-    return logits, cache
+    return _whole_logits(cfg, params, unembed(params["embed"], x[:, 0])), \
+        cache
+
+
+def _whole_logits(cfg, params, logits):
+    """``unembed``'s (B, V) logits with the padded vocab masked, over the
+    whole vocab (a vocab block's gathered)."""
+    logits = mask_padded_vocab(logits, cfg.vocab,
+                               vocab_start(params["embed"]))
+    return whole_vocab(params["embed"], logits)

@@ -282,28 +282,38 @@ def shard_of(x: torch.Tensor, axes: Sequence[Optional[str]], mesh,
 
 
 def gather(local: torch.Tensor, axes: Sequence[Optional[str]], mesh,
-           rules: AxisRules, shape: Sequence[int]) -> torch.Tensor:
+           rules: AxisRules, shape: Sequence[int],
+           keep: Tuple[str, ...] = ()) -> torch.Tensor:
     """The whole ``shape`` tensor from every device's block (all-gathers
-    over the spec's axes, the minor axis of a dimension first)."""
+    over the spec's axes, the minor axis of a dimension first); a
+    dimension that an axis in ``keep`` splits (alone) stays cut."""
     spec = rules.spec(axes, shape=shape, mesh=mesh)
     x = local
     for d, e in enumerate(spec):
+        if e in keep:
+            continue
         for a in reversed(_entries(e)):
             x = comm.all_gather(x, mesh, a, d)
     return x
 
 
 def reduce_into(g: torch.Tensor, axes: Sequence[Optional[str]], mesh,
-                rules: AxisRules) -> torch.Tensor:
+                rules: AxisRules, keep: Tuple[str, ...] = (),
+                shape: Optional[Sequence[int]] = None) -> torch.Tensor:
     """This device's block, in the layout of ``axes``, of the sum of the
     whole-size ``g`` over every device of the mesh: reduce-scatters over
     the axes that split the leaf (the major axis of a dimension first),
-    then all-reduces over the axes that replicate it."""
-    spec = rules.spec(axes, shape=g.shape, mesh=mesh)
-    split = set()
+    then all-reduces over the axes that replicate it.  Along the axes in
+    ``keep`` the devices hold parts of one computation, not copies: ``g``
+    is already cut there as :func:`gather` with the same ``keep`` leaves
+    the leaf (of whole ``shape``), and is not summed over them."""
+    spec = rules.spec(axes, shape=g.shape if shape is None else shape,
+                      mesh=mesh)
+    split = set(keep)
     for d, e in enumerate(spec):
         for a in _entries(e):
-            g = comm.reduce_scatter(g, mesh, a, d)
+            if a not in keep:
+                g = comm.reduce_scatter(g, mesh, a, d)
             split.add(a)
     rest = tuple(a for a in mesh.mesh_dim_names if a not in split)
     if rest:
@@ -350,11 +360,15 @@ class Layout:
     def shard(self, x: torch.Tensor) -> torch.Tensor:
         return shard_of(x, self.axes, self.mesh, self.rules)
 
-    def gather(self, local: torch.Tensor) -> torch.Tensor:
-        return gather(local, self.axes, self.mesh, self.rules, self.shape)
+    def gather(self, local: torch.Tensor, keep: Tuple[str, ...] = ()
+               ) -> torch.Tensor:
+        return gather(local, self.axes, self.mesh, self.rules, self.shape,
+                      keep)
 
-    def reduce(self, g: torch.Tensor) -> torch.Tensor:
-        return reduce_into(g, self.axes, self.mesh, self.rules)
+    def reduce(self, g: torch.Tensor, keep: Tuple[str, ...] = ()
+               ) -> torch.Tensor:
+        return reduce_into(g, self.axes, self.mesh, self.rules, keep,
+                           self.shape)
 
 
 def layouts(spec_tree, mesh, rules: AxisRules, rows_only: bool = False):

@@ -18,9 +18,19 @@ step of a MoE model the dispatch sees the step's row groups
 (``sharding.row_groups``: the blocks of devices that the rules cut the
 ``global_batch=`` rows over) and takes JAX's global capacity and
 positions.
-Tensor-parallel compute (column and row splits of the
-matmuls over "model") and gathering one layer at a time are not here:
-every device computes with whole weights (ROADMAP.md).  The
+
+The dense and VLM decoders (GQA attention) compute tensor parallel over
+"model" where the rules do not cut the batch over it (``act_shard="seq"``;
+``parallel.tensor``): the step gathers each leaf over every other axis,
+the layers take each leaf's "model" block (query heads, MLP columns and
+rows, vocab rows) and sum their partial results over the axis, the
+gradients stay those blocks (reduced over the other axes only), and the
+label count and the reported loss sum over the other axes only, since
+the devices of a model axis are parts of one computation, not copies.
+Everywhere else (the MoE, hybrid, xLSTM, MLA and encoder-decoder
+families, ``act_shard="batch2d"``, a model axis of one device) every
+device gathers and computes with whole weights.  Sequence parallelism
+and gathering one layer at a time are not here (ROADMAP.md).  The
 ``abstract_*`` helpers give a device's arguments without storage, for
 the dry run.
 
@@ -37,7 +47,7 @@ import torch
 
 from .. import resolve_device
 from ..configs.base import ArchConfig, InputShape
-from ..models import api
+from ..models import api, attention
 from ..models.transformer import init_cache
 from ..models.common import ParamSpec, abstract_params, init_params, spec_map
 from ..optim import (adamw_init, adamw_init_spec, adamw_update,
@@ -45,6 +55,7 @@ from ..optim import (adamw_init, adamw_init_spec, adamw_update,
 from ..tree import leaves, tree_map, unflatten
 from . import comm
 from . import sharding as shd
+from . import tensor
 
 
 class TrainState(NamedTuple):
@@ -165,12 +176,13 @@ def make_train_step(cfg: ArchConfig, *, base_lr: float = 3e-4,
     return step
 
 
-def shard_like_params(grads, layouts):
+def shard_like_params(grads, layouts, keep: Tuple[str, ...] = ()):
     """This device's block of every gradient leaf summed over the mesh:
     reduce-scattered into the parameter layout (all-reduced over the axes
     that replicate a leaf), as JAX's constraint to the parameter sharding
-    makes GSPMD do."""
-    return tree_map(lambda g, lay: lay.reduce(g), grads, layouts)
+    makes GSPMD do; along ``keep`` (a tensor-parallel step's "model") the
+    gradients are already the blocks and are not summed."""
+    return tree_map(lambda g, lay: lay.reduce(g, keep), grads, layouts)
 
 
 def state_layouts(cfg: ArchConfig, mesh, rules: shd.AxisRules,
@@ -224,6 +236,19 @@ def _row_groups(cfg: ArchConfig, mesh, rules: shd.AxisRules,
     return shd.RowGroups.of(mesh, rules, global_batch // accum)
 
 
+def _tensor_parallel(cfg, mesh, rules, lays, global_batch, accum: int = 1
+                     ) -> Optional[tensor.TensorParallel]:
+    """The tensor-parallel context of a mesh step (``parallel.tensor``),
+    or None where the step gathers whole weights: off the dense and VLM
+    families with GQA attention, on a "model" axis of one device, and
+    where the rules cut the batch (a microbatch of ``global_batch //
+    accum`` rows, the rules' table where not given) over "model"."""
+    rows = None if global_batch is None else global_batch // accum
+    if not tensor.applies(cfg, mesh, rules, rows):
+        return None
+    return tensor.TensorParallel.of(mesh, lays)
+
+
 def _sharded_train_step(cfg, loss_fn, mesh, rules, base_lr, warmup,
                         total_steps, accum, compress_fraction, global_batch):
     if compress_fraction is not None:
@@ -232,22 +257,27 @@ def _sharded_train_step(cfg, loss_fn, mesh, rules, base_lr, warmup,
     rules = _rules(cfg, mesh, rules)
     lays = state_layouts(cfg, mesh, rules).params
     groups = _row_groups(cfg, mesh, rules, global_batch, accum)
+    tp = _tensor_parallel(cfg, mesh, rules, lays, global_batch, accum)
+    keep = () if tp is None else (tp.axis,)
+    # the axes whose devices hold copies or other rows (those of "model"
+    # under tensor parallelism are parts of one computation)
+    axes = tuple(a for a in mesh.mesh_dim_names if a not in keep)
 
     def step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
-        weights = _label_weights(batch["labels"], accum, mesh)
-        params = tree_map(lambda x, lay: lay.gather(x), state.params, lays)
-        with shd.use_row_groups(groups):
+        weights = _label_weights(batch["labels"], accum, mesh, axes)
+        params = tree_map(lambda x, lay: lay.gather(x, keep), state.params,
+                          lays)
+        with shd.use_row_groups(groups), tensor.use(tp):
             loss, grads = _accumulated(loss_fn, params, batch, accum,
                                        weights)
         del params
-        grads = shard_like_params(grads, lays)
+        grads = shard_like_params(grads, lays, keep)
         # the clipping norm: each block's squares once over the mesh
         sq = sum(g.float().square().sum() / lay.copies
                  for g, lay in zip(leaves(grads), leaves(lays), strict=True))
         gnorm = comm.all_reduce(sq.reshape(1), mesh,
                                 mesh.mesh_dim_names)[0].sqrt()
-        loss = comm.all_reduce(loss.reshape(1), mesh,
-                               mesh.mesh_dim_names)[0]
+        loss = comm.all_reduce(loss.reshape(1), mesh, axes)[0]
         lr = linear_warmup_cosine(state.opt.step, base_lr, warmup,
                                   total_steps)
         new_params, new_opt = adamw_update(grads, state.opt, lr,
@@ -260,15 +290,18 @@ def _sharded_train_step(cfg, loss_fn, mesh, rules, base_lr, warmup,
     return step
 
 
-def _label_weights(labels: torch.Tensor, accum: int, mesh) -> torch.Tensor:
+def _label_weights(labels: torch.Tensor, accum: int, mesh,
+                   axes: Tuple[str, ...]) -> torch.Tensor:
     """Each microbatch's weight on this device, (``accum``,): its count of
     labels >= 0 (what ``cross_entropy`` divides by) over that count summed
-    over the mesh, at least 1, as JAX's global mean divides by
-    ``max(valid.sum(), 1)``.  Devices off the batch axes hold the same
-    rows, so they add to the sum and the count alike and the weighted sum
-    over the mesh is the global mean.  On one rank every weight is 1."""
+    over ``axes``, at least 1, as JAX's global mean
+    divides by ``max(valid.sum(), 1)``.  Devices off the batch axes hold
+    the same rows, so they add to the sum and the count alike and the
+    weighted sum over ``axes`` is the global mean; the devices of a
+    tensor-parallel axis each compute the whole loss of their rows, and
+    are not summed over.  On one rank every weight is 1."""
     valid = (labels >= 0).reshape(accum, -1).sum(1).float()
-    total = comm.all_reduce(valid.clone(), mesh, mesh.mesh_dim_names)
+    total = comm.all_reduce(valid.clone(), mesh, axes)
     return valid / total.clamp_min(1)
 
 
@@ -287,11 +320,11 @@ def make_prefill_step(cfg: ArchConfig, cache_len: int, mesh=None,
     """(params, batch) -> (last logits, cache); on a mesh the params are
     this device's blocks and the batch its rows (``global_batch`` of them
     in all; needed for a MoE model)."""
-    fn = api.prefill_fn(cfg, cache_len)
-    gather, groups = _param_gather(cfg, mesh, rules, global_batch)
+    gather, groups, tp = _param_gather(cfg, mesh, rules, global_batch)
+    fn = api.prefill_fn(cfg, cache_len, _cache_kv_heads(cfg, tp))
 
     def step(params, batch):
-        with torch.no_grad(), shd.use_row_groups(groups):
+        with torch.no_grad(), shd.use_row_groups(groups), tensor.use(tp):
             return fn(gather(params), batch)
     return step
 
@@ -304,10 +337,10 @@ def make_serve_step(cfg: ArchConfig, mesh=None,
     cache its rows (``global_batch`` of them in all; needed for a MoE
     model)."""
     fn = api.decode_fn(cfg)
-    gather, groups = _param_gather(cfg, mesh, rules, global_batch)
+    gather, groups, tp = _param_gather(cfg, mesh, rules, global_batch)
 
     def step(params, batch, cache):
-        with torch.no_grad(), shd.use_row_groups(groups):
+        with torch.no_grad(), shd.use_row_groups(groups), tensor.use(tp):
             logits, new_cache = fn(gather(params), batch["token"], cache,
                                    batch["kv_len"])
         next_tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
@@ -316,15 +349,29 @@ def make_serve_step(cfg: ArchConfig, mesh=None,
     return step
 
 
-def _param_gather(cfg, mesh, rules, global_batch) -> Tuple[Callable, Any]:
-    """(params -> whole params, the step's row groups)."""
+def _cache_kv_heads(cfg, tp: Optional[tensor.TensorParallel]
+                    ) -> Optional[int]:
+    """The KV heads of a decode cache in a step of context ``tp``: those
+    this device's query heads read, or None (every one)."""
+    if tp is None:
+        return None
+    return attention.local_kv_heads(tp, cfg.n_heads, cfg.n_kv_heads)
+
+
+def _param_gather(cfg, mesh, rules, global_batch
+                  ) -> Tuple[Callable, Any, Optional[tensor.TensorParallel]]:
+    """(params -> the params the layers take, the step's row groups, its
+    tensor-parallel context): whole params, or under tensor parallelism
+    each leaf's block of the "model" axis."""
     if mesh is None:
-        return (lambda params: params), None
+        return (lambda params: params), None, None
     rules = _rules(cfg, mesh, rules)
     lays = state_layouts(cfg, mesh, rules).params
-    return (lambda params: tree_map(lambda x, lay: lay.gather(x), params,
-                                    lays)), _row_groups(cfg, mesh, rules,
-                                                        global_batch)
+    tp = _tensor_parallel(cfg, mesh, rules, lays, global_batch)
+    keep = () if tp is None else (tp.axis,)
+    return (lambda params: tree_map(lambda x, lay: lay.gather(x, keep),
+                                    params, lays)), \
+        _row_groups(cfg, mesh, rules, global_batch), tp
 
 
 # ---------------------------------------------------------------------------
@@ -367,10 +414,16 @@ def abstract_state(cfg: ArchConfig, mesh=None,
 
 def abstract_cache(cfg: ArchConfig, shape: InputShape, mesh=None,
                    rules: Optional[shd.AxisRules] = None, device="meta"):
-    """This device's rows of the decode cache, made as the models make a
+    """This device's rows of the decode cache (under tensor parallelism,
+    of the KV heads its query heads read), made as the models make a
     cache (``transformer.init_cache``: MLA's two leaves views of one
     buffer)."""
-    spec = api.cache_spec(cfg, shape)
+    tp = None
+    if mesh is not None and rules is not None:
+        tp = _tensor_parallel(cfg, mesh, rules,
+                              state_layouts(cfg, mesh, rules).params,
+                              shape.global_batch)
+    spec = api.cache_spec(cfg, shape, _cache_kv_heads(cfg, tp))
     if mesh is not None and rules is not None:
         spec = tree_map(lambda s: ParamSpec(shd.Layout(
             mesh, rules, shd.rows_axes(s.axes), tuple(s.shape)).local_shape,

@@ -236,6 +236,34 @@ def test_flash_decode_at_the_latent_width_is_one_kernel_and_replays(
                                          scale=96 ** -0.5), dtype)
 
 
+# (query, KV) heads of a device in a tensor-parallel mesh step
+# (parallel/tensor.py): glm4_9b and llava_next_mistral_7b on a model axis
+# of 16, glm4_9b on 4, mistral_large_123b on 16 (a group of 6), deepseek_7b
+# on 16
+TP_HEADS = [(2, 1), (8, 1), (6, 1), (2, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,hkv", TP_HEADS)
+def test_attention_kernels_at_tensor_parallel_heads(cuda_device, h, hkv,
+                                                    dtype):
+    """``ops.flash_attention`` (causal, S = 512) and ``ops.flash_decode``
+    (T = 1024, ragged fill) at glm4_9b's D = 128 with the heads a device
+    computes in a tensor-parallel step, against the plain versions."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    q, k, v = (_rnd(g, dtype, 2, 512, n, 128) for n in (h, hkv, hkv))
+    want = ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                             v.transpose(1, 2), causal=True)
+    _close(ops.flash_attention(q, k, v, causal=True), want.transpose(1, 2),
+           dtype)
+    q, k, v = _decode_inputs(cuda_device, dtype, 4, h, hkv, 1024, 128)
+    kv_len = torch.tensor([1024, 700, 129, 1], dtype=torch.int32,
+                          device=cuda_device)
+    _close(ops.flash_decode(q, k, v, kv_len)[:, 0],
+           _decode_want(q, k, v, kv_len), dtype)
+
+
 def _decode_inputs(dev, dtype, b, h, hkv, t, d, seed=1):
     g = torch.Generator(device=dev).manual_seed(seed)
     q = _rnd(g, dtype, b, 1, h, d)

@@ -49,6 +49,7 @@ from repro_torch.launch import dryrun
 from repro_torch.parallel import steps as tst
 from repro_torch.parallel.comm import AbstractMesh
 from repro_torch.tree import leaves, unflatten
+from torch_mesh_programs import Float64, double
 from torch_parity import close
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -188,6 +189,20 @@ def _jax_drops(monkeypatch, jc, fn, *args) -> int:
     return dropped
 
 
+def _split_leaves(tc, mesh, act_shard, rows) -> int:
+    """The parameter leaves a mesh step of ``tc`` hands the layer code as
+    their "model" blocks: those whose spec splits them over "model" where
+    the step is tensor parallel (``parallel.tensor.applies``), else 0."""
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel import tensor
+    am = AbstractMesh(mesh, ("data", "model"))
+    rules = shd.default_rules(act_shard=act_shard)
+    if not tensor.applies(tc, am, rules, rows):
+        return 0
+    return sum("model" in lay.spec for lay in leaves(
+        tst.state_layouts(tc, am, rules).params))
+
+
 @pytest.mark.parametrize("mesh,act_shard,case", [
     pytest.param((4, 2), "seq", {}, id="mesh0-seq"),
     pytest.param((4, 2), "batch2d", {}, id="mesh1-batch2d"),
@@ -205,9 +220,28 @@ def _jax_drops(monkeypatch, jc, fn, *args) -> int:
     # only, so 2 row groups, each held by the 4 data shards
     pytest.param((4, 2), "batch2d", dict(arch="deepseek_moe_16b"),
                  id="moe-batch2d"),
+    # tensor parallel: the VLM, its 8 image patches entering whole; in
+    # fp32 its first moments land up to 1.08e-6 of a leaf's largest value
+    # from the unsharded step's, which are themselves up to 1.46e-6 from
+    # the float64 step's, so they are held in float64 only
+    pytest.param((2, 4), "seq", dict(arch="llava_next_mistral_7b",
+                                     fp32_moments=False), id="vlm-mesh2"),
+    # 4 heads do not divide 8: the attention stays whole, the MLP and
+    # the vocab are split
+    pytest.param((1, 8), "seq", {}, id="heads-whole-1x8"),
 ])
 def test_sharded_train_step_matches_single_device(tmp_path, monkeypatch,
                                                   mesh, act_shard, case):
+    """Two steps of the mesh train step against JAX's single-device step
+    and the port's unsharded one, the state at 1e-6 of each leaf's
+    largest value.  Where the step is tensor parallel (dense and VLM
+    families, "model" not a batch axis) its split sums round otherwise:
+    the parameters (and, but for the VLM, the first moments) are held at
+    1e-6 in fp32, and every leaf in float64 (``Float64``: the mesh step
+    and the unsharded step both run again in float64), where the two
+    agree to 1e-12, rounding's scale there.  In fp32 the second moments
+    land up to 1.24e-6 from the unsharded step's, which is itself up to
+    1.4e-6 from the float64 step's (PERF.md)."""
     arch = case.get("arch", "deepseek_7b")
     accum, steps, kw = case.get("accum", 1), 2, dict(total_steps=5,
                                                      warmup=2)
@@ -216,8 +250,15 @@ def test_sharded_train_step_matches_single_device(tmp_path, monkeypatch,
     tc = torch_config(arch).reduced().replace(dtype="float32",
                                               act_shard=act_shard,
                                               accum=accum)
-    dc = DataConfig(seq_len=16, global_batch=4 * accum, vocab=jc.vocab)
+    # a VLM cell of 16 positions is 8 image patches and 8 tokens
+    text = 8 if jc.family == "vlm" else 16
+    dc = DataConfig(seq_len=text, global_batch=4 * accum, vocab=jc.vocab)
     batches = [synthetic_batch(dc, s) for s in range(steps)]
+    if jc.family == "vlm":
+        rng = np.random.default_rng(5)
+        for b in batches:
+            b["img_embeds"] = rng.standard_normal(
+                (4 * accum, 16 - text, jc.d_model)).astype(np.float32)
     if case.get("masked"):
         batches = [_masked(b, accum) for b in batches]
     js = jst.init_train_state(jc, jax.random.PRNGKey(0))
@@ -228,10 +269,13 @@ def test_sharded_train_step_matches_single_device(tmp_path, monkeypatch,
     _write_state(tmp_path, js)
     np.savez(tmp_path / "batches.npz", **{
         f"{i}/{k}": v for i, b in enumerate(batches) for k, v in b.items()})
+    # the leaves the layer code gets as their "model" blocks (0: no
+    # tensor parallelism)
+    split = _split_leaves(tc, mesh, act_shard, 4)
     (tmp_path / "info.json").write_text(json.dumps(dict(
         arch=arch, act_shard=act_shard, mesh=list(mesh), steps=steps,
-        accum=accum, **kw)))
-    ts = _torch_state(js, tc)
+        accum=accum, float64=split > 0, **kw)))
+    js0, ts = js, _torch_state(js, tc)
     # JAX's single-device jitted step and the port's unsharded one
     jstep = jax.jit(jst.make_train_step(jc, accum=accum, **kw))
     tstep = tst.make_train_step(tc, accum=accum, **kw)
@@ -242,26 +286,54 @@ def test_sharded_train_step_matches_single_device(tmp_path, monkeypatch,
         jl.append(float(jm["loss"]))
         tl.append(float(tm["loss"]))
         lrs.append(float(jm["lr"]))
-    got, info = run_ranks("sharded_train", 8, tmp_path)
+    got, info_out = run_ranks("sharded_train", 8, tmp_path)
     assert float(got["block_diff"]) == 0.0
+    # the layer code got each model-split leaf as its block, no other
+    assert info_out["split_leaves"] == split
+    assert (split > 0) == (tc.family != "moe" and act_shard == "seq")
     # the dry run of this cell predicts the step's collectives and FLOPs
     pred = dryrun.trace_cell(tc, InputShape("t", 16, 4 * accum, "train"),
                              AbstractMesh(mesh, ("data", "model")))
-    counts = info["counts"]
+    counts = info_out["counts"]
     assert counts["collective_bytes"] == \
         pred["hlo_analysis"]["collective_bytes"]
     assert counts["collective_counts"] == \
         pred["hlo_analysis"]["collective_counts"]
     assert counts["flops"] == pred["hlo_analysis"]["flops"]
-    close(jl, info["losses"], rtol=LOSS_RTOL, what="losses against JAX")
-    close(tl, info["losses"], rtol=1e-6, what="losses against unsharded")
+    close(jl, info_out["losses"], rtol=LOSS_RTOL, what="losses against JAX")
+    close(tl, info_out["losses"], rtol=1e-6,
+          what="losses against unsharded")
     sharded = [got[f"a{i}"] for i in range(len(leaves(ts)))]
     for j, t, s in zip(jax.tree_util.tree_leaves(js), leaves(ts), sharded,
                        strict=True):
         close(j, s, rtol=1e-5, atol=1e-2 * sum(lrs), what="state vs JAX")
+    n = len(leaves(ts.params))
+    group = ["params"] * n + ["step"] + ["master"] * n + ["m"] * n + \
+        ["v"] * n
+    fp32 = {"params", "step", "master", "m", "v"}
+    if split:
+        fp32 -= {"v"} if case.get("fp32_moments", True) else {"m", "v"}
+    for g, t, s in zip(group, leaves(ts), sharded, strict=True):
         scale = max(float(np.abs(t.numpy()).max()), 1e-30)
-        assert np.abs(s - t.numpy()).max() <= 1e-6 * scale, \
-            "state vs the unsharded step"
+        assert g not in fp32 or np.abs(s - t.numpy()).max() <= 1e-6 * scale, \
+            f"{g}: state vs the unsharded step"
+    if not split:
+        return
+    with Float64():
+        tstep = tst.make_train_step(tc, accum=accum, **kw)
+        ts, tl = double(_torch_state(js0, tc)), []
+        for b in batches:
+            ts, tm = tstep(ts, double(b))
+            tl.append(float(tm["loss"]))
+    close(tl, info_out["losses64"], rtol=1e-12,
+          what="float64 losses against unsharded")
+    for i, t in enumerate(leaves(ts)):
+        s, t = got[f"d{i}"], t.numpy()
+        assert s.dtype == t.dtype and (s.dtype == np.float64
+                                       or group[i] == "step")
+        scale = max(float(np.abs(t).max()), 1e-30)
+        assert np.abs(s - t).max() <= 1e-12 * scale, \
+            f"{group[i]}: float64 state vs the unsharded step"
 
 
 @pytest.mark.parametrize("mesh", [(4, 2), (2, 4)])
@@ -292,6 +364,53 @@ def test_sharded_moe_prefill_matches_single_device(tmp_path, monkeypatch,
           what="mesh prefill logits against JAX")
     pred = dryrun.trace_cell(tc, InputShape("t", 16, 4, "prefill"),
                              AbstractMesh(mesh, ("data", "model")))
+    for key in ("collective_bytes", "collective_counts", "flops"):
+        assert info["counts"][key] == pred["hlo_analysis"][key], key
+
+
+@pytest.mark.parametrize("ticks", [0, 4], ids=["prefill", "serve"])
+def test_tensor_parallel_prefill_and_serve_match_single_device(tmp_path,
+                                                               ticks):
+    """Reduced glm4_9b (4 x 16 tokens, fp32) prefilled on a (2, 4) mesh,
+    its heads, MLP and vocab split over "model": the last logits against
+    JAX's single-device prefill at the MoE prefill's bounds; then
+    ``ticks`` greedy serve steps from the prefill's cache (of the one KV
+    head its query head reads), the tokens equal to JAX's greedy decode.
+    Each step's op counts are the dry run's."""
+    arch, act_shard, mesh = "glm4_9b", "seq", (2, 4)
+    jc = jax_config(arch).reduced().replace(dtype="float32",
+                                            act_shard=act_shard)
+    tc = torch_config(arch).reduced().replace(dtype="float32",
+                                              act_shard=act_shard)
+    tokens = synthetic_batch(DataConfig(seq_len=16, global_batch=4,
+                                        vocab=jc.vocab), 0)["tokens"]
+    js = jst.init_train_state(jc, jax.random.PRNGKey(0))
+    logits, cache = jax.jit(japi.prefill_fn(jc, 16 + ticks))(
+        js.params, {"tokens": jnp.asarray(tokens)})
+    want = [np.asarray(jnp.argmax(logits, -1))]
+    batch = {"token": jnp.argmax(logits, -1).astype(jnp.int32)[:, None],
+             "kv_len": jnp.full((4,), 16, jnp.int32)}
+    serve = jax.jit(jst.make_serve_step(jc))
+    for _ in range(ticks):
+        batch, cache = serve(js.params, batch, cache)
+        want.append(np.asarray(batch["token"][:, 0]))
+    _write_state(tmp_path, js)
+    np.save(tmp_path / "tokens.npy", tokens)
+    (tmp_path / "info.json").write_text(json.dumps(dict(
+        arch=arch, act_shard=act_shard, mesh=list(mesh), ticks=ticks)))
+    got, info = run_ranks("sharded_prefill", 8, tmp_path)
+    close(np.asarray(logits), got["logits"], rtol=1e-4, atol=1e-4,
+          what="mesh prefill logits against JAX")
+    assert info["split_leaves"] == _split_leaves(tc, mesh, act_shard, 4) > 0
+    am = AbstractMesh(mesh, ("data", "model"))
+    pred = dryrun.trace_cell(tc, InputShape("t", 16, 4, "prefill"), am)
+    if ticks:
+        assert np.array_equal(got["tokens"], np.stack(want, 1))
+        # this device's 2 rows of the cache, its query head's one KV head
+        assert info["cache_shape"] == [4, 2, 16 + ticks, 1, 32]
+        pred = dryrun.trace_cell(tc, InputShape("t", 16 + ticks, 4,
+                                                "decode"), am)
+        info["counts"] = info["tick_counts"]
     for key in ("collective_bytes", "collective_counts", "flops"):
         assert info["counts"][key] == pred["hlo_analysis"][key], key
 

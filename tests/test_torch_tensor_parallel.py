@@ -1,0 +1,219 @@
+"""The tensor-parallel context of the port's mesh steps
+(``repro_torch.parallel.tensor``), in one process: where it applies, the
+leaves it splits, the KV heads a device's query heads read, the shapes a
+step gathers and the dry run's cache, the decode's check of its cache,
+and the vocab-split cross-entropy on a model axis of one device against
+``common.cross_entropy``.  The steps themselves run on gloo ranks in
+``tests/test_torch_parallel.py``.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import SHAPES, InputShape, get_config
+from repro_torch.models.attention import gqa_decode_layer
+from repro_torch.models.common import cross_entropy
+from repro_torch.models.transformer import decode_cache_spec
+from repro_torch.parallel import sharding as shd
+from repro_torch.parallel import steps as tst
+from repro_torch.parallel import tensor
+from repro_torch.parallel.comm import AbstractMesh
+
+
+def _tp(cfg, mesh, act_shard="seq"):
+    rules = shd.default_rules(act_shard=act_shard)
+    return tensor.TensorParallel.of(
+        mesh, tst.state_layouts(cfg, mesh, rules).params)
+
+
+@pytest.mark.parametrize("arch,shape,act_shard,rows,want", [
+    ("glm4_9b", (4, 2), "seq", 4, True),
+    ("llava_next_mistral_7b", (16, 16), "seq", 256, True),
+    ("deepseek_7b", (1, 8), "seq", 4, True),
+    # the rules cut the rows over "model": its devices hold other rows
+    ("glm4_9b", (4, 2), "batch2d", 8, False),
+    ("glm4_9b", (4, 2), "batch2d", None, False),
+    # one row: batch2d drops both axes, so "model" holds copies again
+    ("glm4_9b", (4, 2), "batch2d", 1, True),
+    ("glm4_9b", (8, 1), "seq", 8, False),          # a model axis of one
+    ("deepseek_moe_16b", (4, 2), "seq", 4, False),
+    ("zamba2_7b", (4, 2), "seq", 4, False),
+    ("xlstm_125m", (4, 2), "seq", 4, False),
+    ("minicpm3_4b", (4, 2), "seq", 4, False),     # dense, MLA
+    ("whisper_medium", (4, 2), "seq", 4, False),
+])
+def test_tensor_parallel_applies_where_the_rules_leave_model_free(
+        arch, shape, act_shard, rows, want):
+    cfg = get_config(arch)
+    mesh = AbstractMesh(shape, ("data", "model"))
+    rules = shd.default_rules(act_shard=act_shard)
+    assert tensor.applies(cfg, mesh, rules, rows) == want
+    assert not tensor.applies(cfg, None, rules, rows)
+
+
+def test_the_split_leaves_are_those_the_rules_put_on_model():
+    """Reduced glm4_9b on (2, 4): the query heads, the MLP and the vocab
+    are split; wk and wv ("embed" takes "data", so "kv" is whole) and the
+    norms stay whole.  Reduced deepseek_7b on (1, 8): 4 heads do not
+    divide 8, so the attention stays whole while the MLP and vocab are
+    split.  A split leaf handed over whole raises."""
+    cfg = get_config("glm4_9b").reduced()
+    tp = _tp(cfg, AbstractMesh((2, 4), ("data", "model")))
+    assert (tp.size, tp.index) == (4, 0)
+    got = {axes: dim for axes, _, dim in tp.leaves}
+    assert got == {("embed", "heads", None): 1, ("embed", "kv", None): None,
+                   ("heads", None, "embed"): 0, ("embed",): None,
+                   ("embed", "mlp"): 1, ("mlp", "embed"): 0,
+                   ("vocab", "embed"): 0}
+    assert tp.split_dim(torch.empty(128, 1, 32), ("embed", "heads", None)) \
+        == 1
+    assert tp.split_dim(torch.empty(128, 2, 32), ("embed", "kv", None)) \
+        is None
+    with pytest.raises(ValueError, match="its block is"):
+        tp.split_dim(torch.empty(128, 4, 32), ("embed", "heads", None))
+    ds = _tp(get_config("deepseek_7b").reduced(),
+             AbstractMesh((1, 8), ("data", "model")))
+    assert ds.dim_of(("embed", "heads", None)) is None
+    assert ds.dim_of(("embed", "mlp")) == 1
+    assert ds.dim_of(("vocab", "embed")) == 0
+
+
+@pytest.mark.parametrize("n_heads,n_kv,size,per_device", [
+    (32, 2, 16, 1),        # glm4_9b on 16: 2 query heads, one KV head
+    (32, 2, 4, 1),         # glm4_9b on 4: 8 query heads of one group
+    (32, 8, 16, 1),        # llava on 16
+    (96, 8, 16, 1),        # mistral_large_123b on 16: 6 of a group of 12
+    (32, 32, 16, 2),       # deepseek_7b on 16 (MHA)
+    (96, 8, 4, 2),         # whole groups of 12
+    (4, 2, 2, 1), (4, 2, 4, 1),
+])
+def test_kv_heads_are_those_the_local_query_heads_read(n_heads, n_kv, size,
+                                                       per_device):
+    """On every device, local query head j reads local KV head
+    j // (local heads // local KV heads), and that is the KV head its
+    global query head reads in the whole layer."""
+    hl, g = n_heads // size, n_heads // n_kv
+    for index in range(size):
+        tp = tensor.TensorParallel(None, "model", index, size, ())
+        heads = tp.kv_heads(n_heads, n_kv)
+        assert len(heads) == per_device and hl % len(heads) == 0
+        for j in range(hl):
+            assert heads[j // (hl // len(heads))] == (index * hl + j) // g
+
+
+def test_kv_heads_raise_where_neither_the_block_nor_a_group_divides():
+    """12 query heads in groups of 6 over 3 devices: 4 a device, so a
+    device's block straddles two groups unevenly."""
+    tp = tensor.TensorParallel(None, "model", 1, 3, ())
+    with pytest.raises(NotImplementedError, match="neither divides"):
+        tp.kv_heads(12, 2)
+
+
+def test_the_cache_spec_takes_its_kv_heads_from_the_caller():
+    """The models build a cache of every KV head unless the step passes
+    its count, whatever context is active."""
+    cfg = get_config("glm4_9b").reduced()
+    tp = _tp(cfg, AbstractMesh((2, 4), ("data", "model")))
+    with tensor.use(tp):
+        whole = decode_cache_spec(cfg, 2, 8)
+        one = decode_cache_spec(cfg, 2, 8, kv_heads=1)
+    assert whole["layers"]["k"].shape == (4, 2, 8, 2, 32)
+    assert one["layers"]["v"].shape == (4, 2, 8, 1, 32)
+
+
+def test_a_decode_layer_refuses_a_cache_of_other_kv_heads():
+    """Under a head split on (2, 4) a layer computes the one KV head its
+    query head reads: a cache of every KV head (as one built outside the
+    step holds) raises, a cache of that one head is taken.  Off a step
+    a cache of fewer heads than the layer's raises."""
+    cfg = get_config("glm4_9b").reduced()
+    tp = _tp(cfg, AbstractMesh((2, 4), ("data", "model")))
+    rng = np.random.default_rng(0)
+    d, dh = cfg.d_model, cfg.dh
+
+    def t(*shape):
+        return torch.tensor(rng.standard_normal(shape), dtype=torch.float32)
+    block = {"wq": t(d, 1, dh), "wk": t(d, 2, dh), "wv": t(d, 2, dh),
+             "wo": t(1, dh, d)}
+    x, pos = t(2, 1, d), torch.tensor([3, 5], dtype=torch.int32)
+    with tensor.use(tp):
+        with pytest.raises(ValueError, match="cache of 2 KV heads"):
+            gqa_decode_layer(block, x, torch.zeros(2, 8, 2, dh),
+                             torch.zeros(2, 8, 2, dh), pos, pos)
+        out, k, _ = gqa_decode_layer(block, x, torch.zeros(2, 8, 1, dh),
+                                     torch.zeros(2, 8, 1, dh), pos, pos)
+    assert out.shape == (2, 1, d) and k[0, 3].abs().max() > 0
+    whole = {"wq": t(d, 4, dh), "wk": t(d, 2, dh), "wv": t(d, 2, dh),
+             "wo": t(4, dh, d)}
+    with pytest.raises(ValueError, match="cache of 1 KV heads"):
+        gqa_decode_layer(whole, x, torch.zeros(2, 8, 1, dh),
+                         torch.zeros(2, 8, 1, dh), pos, pos)
+
+
+def test_a_step_gathers_the_model_block_and_the_dry_run_cache_matches():
+    """On (2, 4) a step gathers wq over "data" only, (L, D, H/4, dh);
+    the gradient reduction keeps that block; the dry run's decode cache
+    holds this device's rows and the one KV head its query head reads."""
+    cfg = get_config("glm4_9b").reduced()
+    mesh = AbstractMesh((2, 4), ("data", "model"))
+    rules = shd.default_rules()
+    lays = tst.state_layouts(cfg, mesh, rules).params
+    wq = lays["blocks"]["attn"]["wq"]
+    local = torch.empty(wq.local_shape)
+    assert wq.local_shape == (4, 64, 1, 32)
+    assert tuple(wq.gather(local).shape) == (4, 128, 4, 32)
+    block = wq.gather(local, ("model",))
+    assert tuple(block.shape) == (4, 128, 1, 32)
+    assert tuple(wq.reduce(block, ("model",)).shape) == wq.local_shape
+    cache = tst.abstract_cache(cfg, InputShape("t", 20, 4, "decode"), mesh,
+                               rules, device="cpu")
+    assert tuple(cache["layers"]["k"].shape) == (4, 2, 20, 1, 32)
+    full = get_config("glm4_9b")
+    big = tst.abstract_cache(full, SHAPES["decode_32k"],
+                             AbstractMesh((16, 16), ("data", "model")),
+                             rules)
+    assert tuple(big["layers"]["v"].shape) == (40, 8, 32768, 1, 128)
+    # batch2d keeps the whole gather: every KV head in the cache
+    b2d = shd.default_rules(act_shard="batch2d")
+    cache = tst.abstract_cache(cfg, InputShape("t", 20, 8, "decode"), mesh,
+                               b2d, device="cpu")
+    assert tuple(cache["layers"]["k"].shape) == (4, 1, 20, 2, 32)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_vocab_cross_entropy_on_one_block_is_the_cross_entropy(masked):
+    """On a model axis of one device (no collective) the vocab-split loss
+    and its gradient equal ``common.cross_entropy``'s at fp32 rounding,
+    labels < 0 ignored."""
+    rng = np.random.default_rng(0)
+    logits = torch.tensor(rng.standard_normal((3, 7, 40)) * 3,
+                          dtype=torch.float32)
+    labels = torch.tensor(rng.integers(0, 40, (3, 7)))
+    if masked:
+        labels[0, :5] = -1
+        labels[2] = -1
+    tp = tensor.TensorParallel(AbstractMesh((1,), ("model",)), "model", 0,
+                               1, ())
+    a = logits.clone().requires_grad_()
+    b = logits.clone().requires_grad_()
+    la = cross_entropy(a, labels, split=tp)
+    lb = cross_entropy(b, labels)
+    la.backward()
+    lb.backward()
+    torch.testing.assert_close(la, lb, rtol=1e-6, atol=0)
+    torch.testing.assert_close(a.grad, b.grad, rtol=1e-6, atol=1e-8)
+    if masked:
+        assert a.grad[2].abs().max() == 0
+
+
+def test_off_a_mesh_step_no_context_is_active():
+    """Outside a mesh step the layers see no context; ``use`` restores
+    the one before it."""
+    assert tensor.active() is None
+    tp = tensor.TensorParallel(None, "model", 0, 2, ())
+    with tensor.use(tp):
+        assert tensor.active() is tp
+        with tensor.use(None):
+            assert tensor.active() is None
+        assert tensor.active() is tp
+    assert tensor.active() is None

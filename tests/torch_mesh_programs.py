@@ -18,6 +18,7 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.utils._python_dispatch import TorchDispatchMode
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT / "src"), str(ROOT / "tests")]
@@ -100,10 +101,89 @@ def _state_from(d, cfg):
                             for i in range(len(leaves(like)))])
 
 
+class Float64(TorchDispatchMode):
+    """Runs the port in float64 throughout: every float32 an operation
+    asks for (a dtype argument, ``Tensor.float()``, a factory's default)
+    is float64 inside the context, the backward and remat's recompute
+    included.  Inputs are given as float64.  A witness, free of fp32
+    rounding, that two ways of computing a step agree."""
+
+    def __enter__(self):
+        self._prev = torch.get_default_dtype()
+        torch.set_default_dtype(torch.float64)
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        torch.set_default_dtype(self._prev)
+        return super().__exit__(*exc)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        def wide(a):
+            return torch.float64 if a is torch.float32 else a
+        return func(*map(wide, args),
+                    **{k: wide(v) for k, v in (kwargs or {}).items()})
+
+
+def double(tree):
+    """``tree`` with its floating leaves (tensors or arrays) in
+    float64."""
+    from repro_torch.tree import tree_map
+
+    def wide(x):
+        if isinstance(x, np.ndarray):
+            x = torch.from_numpy(x)
+        return x.double() if x.is_floating_point() else x
+    return tree_map(wide, tree)
+
+
+def _counts(rep):
+    return {"flops": rep.flops, "collective_bytes": rep.collective_bytes,
+            "collective_counts": rep.collective_counts}
+
+
+class _BlockSpy:
+    """Wraps the model entry points that a mesh step calls
+    (``transformer.lm_loss``, ``lm_prefill``, ``lm_decode``) and checks
+    the parameters they are given: under tensor parallelism every leaf
+    whose spec splits it over "model" is this device's block of it, and
+    every other leaf whole; without it, every leaf whole.  ``split`` counts
+    the split leaves of the last call."""
+
+    def __init__(self, lay):
+        from repro_torch.models import transformer
+        from repro_torch.parallel import tensor
+        from repro_torch.tree import leaves
+        self.split = 0
+        lays = leaves(lay)
+
+        def check(params):
+            tp = tensor.active()
+            self.split = 0
+            for x, l in zip(leaves(params), lays, strict=True):
+                want = list(l.shape)
+                for dim, e in enumerate(l.spec):
+                    if tp is not None and e == tp.axis:
+                        want[dim] //= tp.size
+                        self.split += 1
+                assert tuple(x.shape) == tuple(want), (l.axes, x.shape, want)
+
+        for name in ("lm_loss", "lm_prefill", "lm_decode"):
+            fn = getattr(transformer, name)
+
+            def spied(cfg, params, *a, _fn=fn, **k):
+                check(params)
+                return _fn(cfg, params, *a, **k)
+            setattr(transformer, name, spied)
+
+
 def sharded_train(rank, d):
     """The sharded train step from the state and batches in ``d``, on the
     mesh ``info.json`` names; rank 0 writes the gathered state after each
-    step, the losses, and the first step's op counts."""
+    step, the losses, the first step's op counts and the leaves the layer
+    code got as their "model" blocks.  With ``float64`` in ``info.json``
+    the same steps run again from the same state under :class:`Float64`,
+    and rank 0 also writes that state (``d0``, ``d1``, ...) and its
+    losses."""
     from repro_torch.analysis import hlo
     from repro_torch.configs import get_config
     from repro_torch.parallel import sharding as shd
@@ -116,25 +196,32 @@ def sharded_train(rank, d):
     mesh = _mesh(info["mesh"], ("data", "model"))
     rules = shd.default_rules(act_shard=info["act_shard"])
     lay = st.state_layouts(cfg, mesh, rules)
-    state = st.shard_state(_state_from(d, cfg), lay)
+    spy = _BlockSpy(lay.params)
     batches = np.load(Path(d) / "batches.npz")
-    step = st.make_train_step(cfg, total_steps=info["total_steps"],
-                              warmup=info["warmup"], accum=accum, mesh=mesh,
-                              rules=rules, global_batch=int(np.prod(
-                                  batches["0/tokens"].shape[:-1])))
-    losses, counts, arrays = [], None, {}
-    for i in range(info["steps"]):
-        batch = {k.split("/")[1]: torch.from_numpy(batches[k])
-                 for k in batches.files if k.startswith(f"{i}/")}
-        batch = st.batch_rows(batch, mesh, rules, accum)
-        if i == 0:
-            (state, m), rep = hlo.count(step, state, batch)
-            counts = {"flops": rep.flops,
-                      "collective_bytes": rep.collective_bytes,
-                      "collective_counts": rep.collective_counts}
-        else:
-            state, m = step(state, batch)
-        losses.append(float(m["loss"]))
+    batches = [{k.split("/")[1]: batches[k] for k in batches.files
+                if k.startswith(f"{i}/")} for i in range(info["steps"])]
+
+    def run(state, batches, count):
+        step = st.make_train_step(
+            cfg, total_steps=info["total_steps"], warmup=info["warmup"],
+            accum=accum, mesh=mesh, rules=rules,
+            global_batch=int(np.prod(batches[0]["tokens"].shape[:-1])))
+        losses, counts = [], None
+        for i, batch in enumerate(batches):
+            batch = st.batch_rows({k: torch.as_tensor(v)
+                                   for k, v in batch.items()},
+                                  mesh, rules, accum)
+            if i == 0 and count:
+                (state, m), rep = hlo.count(step, state, batch)
+                counts = _counts(rep)
+            else:
+                state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+        return state, losses, counts
+
+    state, losses, counts = run(
+        st.shard_state(_state_from(d, cfg), lay), batches, True)
+    out = {"losses": losses, "counts": counts, "split_leaves": spy.split}
     # every block is the layout's slice of the gathered state
     whole = st.gather_state(state, lay)
     worst = 0.0
@@ -143,13 +230,25 @@ def sharded_train(rank, d):
         worst = max(worst, (l.shard(w) - x).abs().max().item())
     arrays = {f"a{i}": x.numpy() for i, x in enumerate(leaves(whole))}
     arrays["block_diff"] = np.float64(worst)
-    _save(d, arrays, {"losses": losses, "counts": counts})
+    if info.get("float64"):
+        with Float64():
+            state, out["losses64"], _ = run(
+                st.shard_state(double(_state_from(d, cfg)), lay),
+                double(batches), False)
+            whole = st.gather_state(state, lay)
+        arrays.update({f"d{i}": x.numpy()
+                       for i, x in enumerate(leaves(whole))})
+    _save(d, arrays, out)
 
 
 def sharded_prefill(rank, d):
     """The mesh prefill step from the parameters in ``d`` on this rank's
-    rows of ``d/tokens.npy``; rank 0 writes the gathered last logits and
-    the step's op counts."""
+    rows of ``d/tokens.npy``; rank 0 writes the gathered last logits, the
+    step's op counts and the leaves the layer code got as their "model"
+    blocks.  With ``ticks`` in ``info.json``, that many greedy serve
+    steps follow from the prefill's cache, and rank 0 also writes the
+    gathered tokens (the prefill's argmax first) and the first tick's op
+    counts."""
     from repro_torch.analysis import hlo
     from repro_torch.configs import get_config
     from repro_torch.parallel import sharding as shd
@@ -160,18 +259,36 @@ def sharded_prefill(rank, d):
     mesh = _mesh(info["mesh"], ("data", "model"))
     rules = shd.default_rules(act_shard=info["act_shard"])
     lay = st.state_layouts(cfg, mesh, rules)
+    spy = _BlockSpy(lay.params)
     params = st.shard_state(_state_from(d, cfg), lay).params
     tokens = torch.from_numpy(np.load(Path(d) / "tokens.npy"))
-    step = st.make_prefill_step(cfg, tokens.shape[1], mesh, rules,
-                                tokens.shape[0])
+    rows, s = tokens.shape
+    ticks = info.get("ticks", 0)
+    step = st.make_prefill_step(cfg, s + ticks, mesh, rules, rows)
     batch = st.batch_rows({"tokens": tokens}, mesh, rules)
-    (logits, _), rep = hlo.count(step, params, batch)
+    (logits, cache), rep = hlo.count(step, params, batch)
     whole = shd.gather(logits, ("batch", None), mesh, rules,
-                       (tokens.shape[0], logits.shape[-1]))
-    _save(d, {"logits": whole.numpy()},
-          {"counts": {"flops": rep.flops,
-                      "collective_bytes": rep.collective_bytes,
-                      "collective_counts": rep.collective_counts}})
+                       (rows, logits.shape[-1]))
+    out = {"counts": _counts(rep), "split_leaves": spy.split}
+    arrays = {"logits": whole.numpy()}
+    if ticks:
+        serve = st.make_serve_step(cfg, mesh, rules, rows)
+        tok = {"token": torch.argmax(logits, -1).to(torch.int32)[:, None],
+               "kv_len": torch.full((logits.shape[0],), s,
+                                    dtype=torch.int32)}
+        got = [tok["token"]]
+        for i in range(ticks):
+            if i == 0:
+                (tok, cache), rep = hlo.count(serve, params, tok, cache)
+                out["tick_counts"] = _counts(rep)
+            else:
+                tok, cache = serve(params, tok, cache)
+            got.append(tok["token"])
+        arrays["tokens"] = shd.gather(torch.cat(got, 1), ("batch", None),
+                                      mesh, rules,
+                                      (rows, ticks + 1)).numpy()
+        out["cache_shape"] = list(cache["layers"]["k"].shape)
+    _save(d, arrays, out)
 
 
 def elastic(rank, d):
