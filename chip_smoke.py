@@ -209,7 +209,19 @@ prints its seconds:
    plain results on the CPU; (c) the dry run's trace of that cut cell on
    fake tensors: its FLOPs and collective bytes must equal the op
    counter's for the step (a) ran on the card, and the step's time (CUDA
-   events, median of 5) is printed beside the H100 roofline's t_bound.
+   events, median of 5) is printed beside the H100 roofline's t_bound;
+   (d) the first tensor- and sequence-parallel step on the card: two
+   processes on the one card, a (1, 2) ("data", "model") mesh over gloo
+   with CUDA tensors (NCCL refuses two ranks on one device), the same
+   cut glm4_9b, each rank holding half the query heads, the MLP and the
+   vocab, and 64 of the 128 rows of the residual stream: the mesh
+   prefill and one train step against the unsharded ones on the card
+   (loss within 1e-6, parameters within 1e-6 of a leaf's max, logits
+   within 1e-4), each rank's launches (the step's 4 flash attentions;
+   the prefill's 2 flash attentions and 5 RMSNorms) and its op counts
+   equal to the dry run's trace on an abstract (1, 2) mesh; three more
+   steps timed on the host clock (a gloo step, its collectives staged
+   through the host: not a speed of the design).
 
 Then a ``{"kernels": [...]}`` line and, last, the device line.  Exits
 nonzero without a CUDA device or without the repository around it.
@@ -3001,6 +3013,222 @@ def mesh_collectives(card_dev, mesh) -> dict:
             "pipeline": e_pp}
 
 
+# 21(d): the first tensor- and sequence-parallel step on the card, two
+# processes on the one card over gloo (NCCL refuses two ranks on one
+# device) on a (1, 2) ("data", "model") mesh
+MESH_TP = (1, 2)
+
+
+def _mesh_cfg(smoke: bool):
+    from repro_torch.configs import get_config
+    cfg = get_config("glm4_9b")
+    if smoke:
+        cfg = cfg.reduced()
+    return cfg.replace(n_layers=MESH_LAYERS, dtype="float32",
+                       attn_impl="chunked" if smoke else "kernel")
+
+
+def _op_counts(rep) -> dict:
+    """An op counter's FLOPs and collectives, as JSON gives them back."""
+    return json.loads(json.dumps({
+        "flops": rep.flops, "collective_bytes": rep.collective_bytes,
+        "collective_counts": rep.collective_counts}))
+
+
+def _tp_rank(rank: int, tmp: str, seed: int, card_dev: str,
+             smoke: bool) -> None:
+    """21(d) in one of the two processes: a gloo group on the file store in
+    ``tmp`` (both ranks on the card's device 0), the run of
+    :func:`_tp_run`, its record written to ``tmp/rank<r>.json``."""
+    import datetime
+    import torch.distributed as dist
+    os.environ["LOCAL_RANK"] = "0"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
+                            rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        out = _tp_run(rank, seed, card_dev, smoke)
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _tp_run(rank: int, seed: int, card_dev: str, smoke: bool) -> dict:
+    """One rank of 21(d): the mesh prefill and one train step of the cut
+    glm4_9b on this rank's blocks (its 16 of 32 query heads, half the MLP
+    and the vocab, 64 of the 128 rows of the residual stream), their op
+    counts and launches, the updated parameters gathered whole; three
+    more steps timed on the host clock; then, on rank 0, the unsharded
+    prefill and step on the card from the same state and batch, held
+    against the sharded ones."""
+    from repro_torch.analysis import hlo
+    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import api
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel import steps as st
+    from repro_torch.tree import leaves
+    sync = torch.cuda.synchronize if card_dev == "cuda" else (lambda: None)
+    seconds, t0 = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        sync()
+        seconds[name] = round(time.perf_counter() - t0, 2)
+        t0 = time.perf_counter()
+    cfg = _mesh_cfg(smoke)
+    mesh = make_mesh(MESH_TP, ("data", "model"), card_dev)
+    rules = shd.default_rules()
+    lay = st.state_layouts(cfg, mesh, rules)
+    batch = to_dev(synthetic_batch(DataConfig(
+        seq_len=MESH_SEQ, global_batch=1, vocab=cfg.vocab, seed=seed), 0),
+        card_dev)
+    gen = lambda: torch.Generator(device=card_dev).manual_seed(seed)
+    state = st.shard_state(st.init_train_state(cfg, gen(), card_dev), lay)
+    gc.collect()
+    if card_dev == "cuda":
+        torch.cuda.empty_cache()
+    lap("setup")
+    # the prefill first: the train step updates the state in place
+    prefill = st.make_prefill_step(cfg, MESH_SEQ, mesh, rules, 1)
+    ops.reset_launch_counts()
+    (logits, _), prep = hlo.count(prefill, state.params,
+                                  {"tokens": batch["tokens"]})
+    sync()
+    out = {"prefill_launches": ops.launch_counts(),
+           "prefill_counts": _op_counts(prep), "seconds": seconds}
+    logits = logits.cpu()
+    lap("prefill")
+    step = st.make_train_step(cfg, total_steps=10, warmup=2, mesh=mesh,
+                              rules=rules, global_batch=1)
+    ops.reset_launch_counts()
+    (state, m), rep = hlo.count(step, state, batch)
+    sync()
+    out.update(train_launches=ops.launch_counts(),
+               train_counts=_op_counts(rep), loss=float(m["loss"]))
+    lap("step")
+    # the updated parameters gathered whole (kept on the card by rank 0)
+    whole = [l.gather(x) for x, l in zip(leaves(state.params),
+                                         leaves(lay.params), strict=True)]
+    if rank:
+        del whole
+    lap("gather")
+    times = []
+    for _ in range(3):
+        sync()
+        t1 = time.perf_counter()
+        step(state, batch)
+        sync()
+        times.append((time.perf_counter() - t1) * 1e3)
+    out["step_ms"] = times
+    del state, step
+    gc.collect()
+    if card_dev == "cuda":
+        torch.cuda.empty_cache()
+    lap("timed")
+    if rank:
+        return out
+    plain_state = st.init_train_state(cfg, gen(), card_dev)
+    with torch.no_grad():
+        want = api.prefill_fn(cfg, MESH_SEQ)(
+            plain_state.params, {"tokens": batch["tokens"]})[0].cpu()
+    out["logits_err"] = (logits - want).abs().max().item()
+    out["logits_max"] = want.abs().max().item()
+    plain = st.make_train_step(cfg, total_steps=10, warmup=2)
+    plain_state, pm = plain(plain_state, batch)
+    out["loss_unsharded"] = float(pm["loss"])
+    out["worst"] = max(
+        ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+        for a, b in zip(whole, leaves(plain_state.params), strict=True))
+    lap("unsharded")
+    return out
+
+
+def mesh_tp(seed: int, smi: str, card_dev: str = "cuda",
+            smoke: bool = False) -> dict:
+    """21(d): :func:`_tp_rank` in two processes on the one card, each
+    holding half of every split leaf and 64 of the 128 rows of the
+    residual stream; the sharded loss within 1e-6 of the unsharded
+    step's, its updated parameters within 1e-6 of each leaf's max, the
+    prefill's logits within 1e-4 (absolute and relative) of the
+    unsharded prefill's; each rank's launches those of the step (4 flash
+    attentions, no other kernel) and of the prefill (2 flash attentions,
+    5 RMSNorms, on 64 rows but the final norm's one); each rank's op
+    counts of both steps equal to the dry run's trace of the same cells
+    on an abstract (1, 2) mesh."""
+    import shutil
+    import tempfile
+    import torch.multiprocessing as mp
+    from repro_torch.configs import InputShape
+    from repro_torch.launch import dryrun
+    from repro_torch.parallel.comm import AbstractMesh
+    cfg = _mesh_cfg(smoke)
+    tmp = tempfile.mkdtemp(prefix="mesh_tp_")
+    t0 = time.perf_counter()
+    try:
+        mp.spawn(_tp_rank, args=(tmp, seed, card_dev, smoke), nprocs=2)
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    t_ranks, t0 = time.perf_counter() - t0, time.perf_counter()
+    am = AbstractMesh(MESH_TP, ("data", "model"))
+    for kind in ("train", "prefill"):
+        cell = dryrun.trace_cell(cfg, InputShape("cut", MESH_SEQ, 1, kind),
+                                 am)["hlo_analysis"]
+        want = json.loads(json.dumps({k: cell[k] for k in (
+            "flops", "collective_bytes", "collective_counts")}))
+        for r, got in enumerate(ranks):
+            check(got[f"{kind}_counts"] == want, f"rank {r}'s {kind} op "
+                  f"counts {got[f'{kind}_counts']} differ from the dry "
+                  f"run's {want}")
+    if card_dev == "cuda":
+        prefill = dict(train_launches(cfg, 0), flash_attention=MESH_LAYERS,
+                       rmsnorm=2 * MESH_LAYERS + 1)
+        for r, got in enumerate(ranks):
+            check(got["train_launches"] == train_launches(cfg, 1),
+                  f"rank {r}'s step launched {got['train_launches']}")
+            check(got["prefill_launches"] == prefill,
+                  f"rank {r}'s prefill launched {got['prefill_launches']}")
+    t_trace = time.perf_counter() - t0
+    r0 = ranks[0]
+    l1, l2 = r0["loss_unsharded"], r0["loss"]
+    check(abs(l1 - l2) <= 1e-6 * abs(l1),
+          f"two-rank loss {l2} against the unsharded {l1}")
+    check(r0["worst"] <= 1e-6, f"two-rank parameters off the unsharded "
+                               f"step's by {r0['worst']} of a leaf's max")
+    check(r0["logits_err"] <= 1e-4 * (1 + r0["logits_max"]),
+          f"two-rank prefill logits off by {r0['logits_err']}")
+    launched = {k: sum(r[f"{p}_launches"][k] for r in ranks
+                       for p in ("train", "prefill"))
+                for k in r0["train_launches"]}
+    ms = [float(np.median(r["step_ms"])) for r in ranks]
+    print(f"  21(d) {cfg.name} {cfg.n_layers} layers, 1 x {MESH_SEQ} tokens "
+          f"on a {MESH_TP} mesh, two processes on one card over gloo: 64 "
+          f"rows of the stream a rank; loss {l2!r} (unsharded {l1!r}); "
+          f"parameters within {r0['worst']:.3e} of a leaf's max; prefill "
+          f"logits |diff| "
+          f"{r0['logits_err']:.3e} of max {r0['logits_max']:.3f}; launches "
+          f"a rank: step {r0['train_launches']}, prefill "
+          f"{r0['prefill_launches']}; op counts = the dry run's; step "
+          f"{ms} ms a rank (median of 3, host clock: a two-process gloo "
+          f"step with host-staged collectives, not a speed of the design); "
+          f"collectives of the step {r0['train_counts']['collective_counts']}"
+          f"; seconds: the two processes {t_ranks:.1f} (rank 0's parts "
+          f"{r0['seconds']}), the dry run's traces {t_trace:.1f}; card "
+          f"{smi}")
+    return {"loss": l2, "loss_unsharded": l1, "worst": r0["worst"],
+            "logits_err": r0["logits_err"], "launches": launched,
+            "step_ms": ms, "counts": r0["train_counts"],
+            "prefill_counts": r0["prefill_counts"]}
+
+
 def phase_mesh(seed: int, smi: str, card_dev: str = "cuda",
                smoke: bool = False) -> dict:
     """Phase 21: the mesh layer (``parallel.sharding``, ``comm``,
@@ -3015,16 +3243,12 @@ def phase_mesh(seed: int, smi: str, card_dev: str = "cuda",
     import shutil
     import tempfile
     import torch.distributed as dist
-    from repro_torch.configs import InputShape, get_config
+    from repro_torch.configs import InputShape
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.parallel import steps as st
     from repro_torch.parallel.comm import AbstractMesh
-    cfg = get_config("glm4_9b")
-    if smoke:
-        cfg = cfg.reduced()
-    cfg = cfg.replace(n_layers=MESH_LAYERS, dtype="float32",
-                      attn_impl="chunked" if smoke else "kernel")
+    cfg = _mesh_cfg(smoke)
     tmp = tempfile.mkdtemp(prefix="mesh_store_")
     dist.init_process_group("nccl" if card_dev == "cuda" else "gloo",
                             init_method=f"file://{tmp}/store", rank=0,
@@ -3073,6 +3297,7 @@ def phase_mesh(seed: int, smi: str, card_dev: str = "cuda",
         shutil.rmtree(tmp, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
+    out["tp"] = mesh_tp(seed, smi, card_dev, smoke)
     print("[21] " + json.dumps({"mesh": {**{k: v for k, v in out.items()
                                             if k != "events_added"},
                                          "card": smi}}))
@@ -3176,9 +3401,11 @@ def main() -> int:
     del whisper
     gc.collect()
     torch.cuda.empty_cache()        # whisper's tensors are gone
-    mesh = phase(21, "the mesh layer on a one-rank NCCL mesh and the dry "
-                     "run's counter", phase_mesh, seed, smi)
+    mesh = phase(21, "the mesh layer on a one-rank NCCL mesh, the dry "
+                     "run's counter and a two-rank tensor- and sequence-"
+                     "parallel step", phase_mesh, seed, smi)
     by_path["mesh"] = mesh["launches"]
+    by_path["mesh_tp"] = mesh["tp"]["launches"]
 
     timed = {"flash_attention": ("float32", "S=512"),
              "flash_decode": ("float32", "T=1024"),

@@ -10,7 +10,11 @@ In a tensor-parallel mesh step (``parallel.tensor``) whose wq and wo are
 this device's block of the heads, a layer computes those query heads,
 the KV heads they read (a slice of the whole wk and wv) and the partial
 output of its wo block, summed over the blocks; the decode takes a
-cache of those KV heads, and raises on any other count.
+cache of those KV heads, and raises on any other count.  On a stream
+split by rows (``tensor.seq_split``) the projections take the gathered
+sequence and the output's sums go back reduce-scattered; heads that stay
+whole are computed whole by every device, which keeps its rows of the
+output.
 """
 from __future__ import annotations
 
@@ -145,16 +149,22 @@ def attend_decode(q, k_cache, v_cache, kv_len=None,
 def _project(params, x):
     """Unrotated (q, k, v) of ``x``: every head, or under a head split
     (:func:`head_split`) this device's query heads and the KV heads they
-    read (``TensorParallel.kv_heads``)."""
-    wk, wv = params["wk"], params["wv"]
-    tp = head_split(params)
+    read (``TensorParallel.kv_heads``); of the whole sequence where ``x``
+    is this device's rows of a split stream."""
+    wq, wk, wv = params["wq"], params["wk"], params["wv"]
+    tp, sp = head_split(params), tensor.seq_split()
     if tp is not None:
-        heads = tp.kv_heads(params["wq"].shape[1] * tp.size, wk.shape[1])
-        x = tensor.into_split(x, tp)
+        heads = tp.kv_heads(wq.shape[1] * tp.size, wk.shape[1])
+        x = tensor.into_split(x, tp) if sp is None \
+            else tensor.gather_seq(x, sp)
         wk, wv = (tensor.into_split(w, tp).narrow(1, heads.start,
                                                   len(heads))
                   for w in (wk, wv))
-    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+    elif sp is not None:
+        # every head on the whole sequence, as every device of the axis
+        # computes it; gqa_output keeps this device's rows
+        x = tensor.gather_seq(x, sp, copies=True)
+    q = torch.einsum("bsd,dhk->bshk", x, wq)
     k = torch.einsum("bsd,dnk->bsnk", x, wk)
     v = torch.einsum("bsd,dnk->bsnk", x, wv)
     return q, k, v
@@ -168,10 +178,15 @@ def gqa_project_qkv(params, x, positions, rope_theta: float = 10000.0):
 
 def gqa_output(params, attn_out):
     """The output projection; under a head split, this device's heads'
-    partial sums summed over the blocks."""
+    partial sums summed over the blocks.  On a split stream, this
+    device's rows: the sums reduce-scattered, or cut from every head's
+    whole output."""
     y = torch.einsum("bshd,hdm->bsm", attn_out, params["wo"])
-    tp = head_split(params)
-    return y if tp is None else tensor.out_of_split(y, tp)
+    tp, sp = head_split(params), tensor.seq_split()
+    if sp is None:
+        return y if tp is None else tensor.out_of_split(y, tp)
+    return tensor.split_seq(y, sp) if tp is None \
+        else tensor.scatter_seq(y, sp)
 
 
 def gqa_layer(params, x, positions, *, impl: str = "chunked",

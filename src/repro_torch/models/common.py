@@ -128,10 +128,15 @@ def rmsnorm_spec(dim: int) -> Dict[str, ParamSpec]:
 
 def rmsnorm(params, x, eps: float = 1e-5, *, plain: bool = False):
     """fp32-math RMSNorm: through the RMSNorm kernel (plain on the CPU), or
-    in plain PyTorch on the plain route."""
+    in plain PyTorch on the plain route.  On a stream split by rows
+    (``tensor.seq_split``) the whole scale's gradient from this device's
+    rows is summed over the axis."""
+    scale, sp = params["scale"], tensor.seq_split()
+    if sp is not None:
+        scale = tensor.into_split(scale, sp)
     if plain:
-        return ref.rmsnorm_ref(x, params["scale"], eps)
-    return ops.fused_rmsnorm(x, params["scale"], eps=eps)
+        return ref.rmsnorm_ref(x, scale, eps)
+    return ops.fused_rmsnorm(x, scale, eps=eps)
 
 
 EMBED_AXES = ("vocab", "embed")
@@ -157,24 +162,45 @@ def vocab_start(params) -> int:
     return 0 if tp is None else tp.index * params["embedding"].shape[0]
 
 
-def embed(params, tokens):
-    """The tokens' rows; from a vocab block, the rows it holds (zeros for
-    the others) summed over the blocks."""
+def _after(before, x):
+    """``x``'s rows after ``before``'s (dimension 1), in ``before``'s
+    dtype; ``x`` where there is nothing before."""
+    return x if before is None else torch.cat([before, x.to(before.dtype)],
+                                              dim=1)
+
+
+def embed(params, tokens, before=None):
+    """The tokens' rows, after the rows of ``before`` (B, P, D; a VLM's
+    image patches) where given; from a vocab block, the rows it holds
+    (zeros for the others) summed over the blocks.  On a stream split by
+    rows (``tensor.seq_split``) this device's rows of that sequence: a
+    vocab block's partial rows reduce-scattered (``before`` entering the
+    sum from the axis's first device only), or cut from the whole
+    sequence of a whole table (``tensor.split_seq``)."""
     table = params["embedding"]
-    tp = vocab_split(params)
+    tp, sp = vocab_split(params), tensor.seq_split()
     if tp is None:
-        return table[tokens]
+        x = _after(before, table[tokens])
+        return x if sp is None else tensor.split_seq(x, sp)
     local = tokens - vocab_start(params)
     own = (local >= 0) & (local < table.shape[0])
-    rows = table[torch.where(own, local, 0)]
-    return tensor.out_of_split(torch.where(own[..., None], rows, 0), tp)
+    rows = torch.where(own[..., None], table[torch.where(own, local, 0)], 0)
+    if sp is None:
+        return _after(before, tensor.out_of_split(rows, tp))
+    if before is not None and sp.index:
+        before = torch.zeros_like(before)
+    return tensor.scatter_seq(_after(before, rows), sp)
 
 
 def unembed(params, x):
     """Logits via the tied output table: (..., D) -> (..., V), or this
-    device's vocab block of them (..., V/m) from a vocab block."""
-    tp = vocab_split(params)
-    if tp is not None:
+    device's vocab block of them (..., V/m) from a vocab block.  From a
+    stream split by rows, the logits of the whole sequence (the rows
+    gathered)."""
+    tp, sp = vocab_split(params), tensor.seq_split()
+    if sp is not None:
+        x = tensor.gather_seq(x, sp, copies=tp is None)
+    elif tp is not None:
         x = tensor.into_split(x, tp)
     return x @ params["embedding"].T
 
@@ -204,17 +230,26 @@ def swiglu_spec(d_model: int, d_ff: int) -> Dict[str, ParamSpec]:
 
 def swiglu(params, x):
     """SwiGLU; from blocks of the hidden width (``parallel.tensor``), gate
-    and up split by columns and down by rows, summed over the blocks."""
-    tp = tensor.active()
+    and up split by columns and down by rows, summed over the blocks.  On
+    a stream split by rows (``tensor.seq_split``) the blocks take the
+    gathered rows and the sums go back reduce-scattered; whole weights
+    compute the whole sequence on every device, which keeps its rows."""
+    tp, sp = tensor.active(), tensor.seq_split()
     if tp is not None and tp.split_dim(params["w_gate"], MLP_IN) is None:
         tp = None
     if tp is not None:
         tp.split_dim(params["w_up"], MLP_IN)
         tp.split_dim(params["w_down"], MLP_OUT)
-        x = tensor.into_split(x, tp)
+        x = tensor.into_split(x, tp) if sp is None \
+            else tensor.gather_seq(x, sp)
+    elif sp is not None:
+        x = tensor.gather_seq(x, sp, copies=True)
     h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
     y = h @ params["w_down"]
-    return y if tp is None else tensor.out_of_split(y, tp)
+    if sp is None:
+        return y if tp is None else tensor.out_of_split(y, tp)
+    return tensor.split_seq(y, sp) if tp is None \
+        else tensor.scatter_seq(y, sp)
 
 
 # ---------------------------------------------------------------------------

@@ -35,7 +35,14 @@ VLM families) the embedding, the attention and the SwiGLU take their
 by vocab through the loss (``cross_entropy(split=...)``), and the
 prefill's and the decode's logits are gathered whole.  The step passes
 the cache's KV-head count (``kv_heads=``: those this device's query
-heads read); the models do not take shapes from the context.
+heads read); the models do not take shapes from the context.  Where the
+step splits the residual stream by rows (``tensor.seq_split``) the
+embedding leaves this device's rows of the whole sequence (image patches
+first), the trunk runs on them with the positions of the whole sequence,
+each layer gathers the rows for its projections and reduce-scatters its
+output, the prefill writes the whole prompt's K/V and takes its last row
+from the axis's last device, and remat keeps only the rows as each
+layer's carry.
 
 Training (``lm_loss``, or ``lm_forward(..., plain=True)``) takes the
 plain route of ``models.common``: norms, MoE experts, SSD and sLSTM in
@@ -53,6 +60,7 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from ..parallel import tensor
 from .attention import gqa_decode_layer, gqa_layer, gqa_spec
 from .common import (ParamSpec, cross_entropy, embed, embed_spec,
                      init_params, mask_padded_vocab, rmsnorm, rmsnorm_spec,
@@ -438,19 +446,23 @@ def _hybrid_trunk(cfg, params, x, positions, cache, plain, run):
 
 def _embed_inputs(cfg, params, tokens, img_embeds=None):
     """Token embeddings, after the image-patch embeddings (B,P,D) where a
-    VLM is given them, as in the JAX package."""
-    x = embed(params["embed"], tokens).to(cfg.torch_dtype)
-    if img_embeds is not None:
-        x = torch.cat([img_embeds.to(cfg.torch_dtype), x], dim=1)
-    return x
+    VLM is given them, as in the JAX package; this device's rows of them
+    on a split stream (``common.embed``)."""
+    img = None if img_embeds is None else img_embeds.to(cfg.torch_dtype)
+    return embed(params["embed"], tokens, img).to(cfg.torch_dtype)
 
 
 def _trunk(cfg, params, x, cache=None, plain=False):
     """The blocks over the embedded sequence ``x``; writes each layer's
     K/V (MLA's latent, and in the hybrid each Mamba2 layer's states) into
     ``cache`` when one is given.  On the plain route the layers run under
-    ``cfg.remat``."""
+    ``cfg.remat``.  ``x`` may be this device's rows of a split stream
+    (``tensor.seq_split``): the positions are the whole sequence's, which
+    attention sees gathered."""
     b, s = x.shape[0], x.shape[1]
+    sp = tensor.seq_split()
+    if sp is not None:
+        s *= sp.size
     positions = torch.arange(s, device=x.device).expand(b, s)
     run = _remat(cfg) if plain else (lambda fn, *args: fn(*args))
     if cfg.family == "hybrid":
@@ -465,7 +477,7 @@ def _trunk(cfg, params, x, cache=None, plain=False):
                 continue
             x, *rows = block_apply(cfg, p, x, positions)
             for name, r in zip(names, rows):
-                cache[ckey][name][i, :, :s] = r
+                cache[ckey][name][i, :, :r.shape[1]] = r
     return x
 
 
@@ -504,18 +516,24 @@ def lm_prefill(cfg, params, tokens, cache_len: int, img_embeds=None,
     and written into a zero cache of ``cache_len`` rows; in the hybrid,
     each Mamba2 layer's final states come from the same SSD launch as its
     output, and in the xLSTM each sLSTM layer's from the same
-    ``slstm_seq`` launch.
+    ``slstm_seq`` launch.  On a split stream the last row is the axis's
+    last device's, broadcast to every device of the axis.
     """
-    x = _embed_inputs(cfg, params, tokens, img_embeds)
-    b, s = x.shape[0], x.shape[1]
+    b, s = tokens.shape[0], tokens.shape[1]
+    if img_embeds is not None:
+        s += img_embeds.shape[1]
     if s > cache_len:
         raise ValueError(f"prompt of {s} tokens over cache_len {cache_len}")
+    x = _embed_inputs(cfg, params, tokens, img_embeds)
     cache = init_cache(decode_cache_spec(cfg, b, cache_len, kv_heads),
                        x.device)
     x = _trunk(cfg, params, x, cache)
-    x = rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
-    return _whole_logits(cfg, params, unembed(params["embed"], x)[:, 0]), \
-        cache
+    sp = tensor.seq_split()
+    x = x[:, -1:] if sp is None else tensor.last_row(x, sp)
+    with tensor.whole_stream():
+        x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        logits = unembed(params["embed"], x)[:, 0]
+    return _whole_logits(cfg, params, logits), cache
 
 
 def lm_decode(cfg, params, token, cache, kv_len):

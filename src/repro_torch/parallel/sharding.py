@@ -323,8 +323,9 @@ def reduce_into(g: torch.Tensor, axes: Sequence[Optional[str]], mesh,
 
 def rows_axes(axes: Sequence[Optional[str]]) -> Tuple[Optional[str], ...]:
     """``axes`` with every name but "batch" dropped: the port's steps
-    split a batch, a cache or an activation by rows only (each device
-    computes whole sequences)."""
+    split a batch, a cache or an input by rows only; a tensor-parallel
+    step splits its residual stream by sequence after the embedding
+    (``parallel.tensor``), and a decode cache stays whole in sequence."""
     return tuple(a if a == "batch" else None for a in axes)
 
 

@@ -249,6 +249,22 @@ def _tensor_parallel(cfg, mesh, rules, lays, global_batch, accum: int = 1
     return tensor.TensorParallel.of(mesh, lays)
 
 
+def _stream_shape(cfg: ArchConfig, batch) -> Tuple[int, int, int]:
+    """(B, S, D) of the residual stream of a batch (a microbatch's, under
+    a leading microbatch axis): its tokens after a VLM's image patches."""
+    b, s = batch["tokens"].shape[-2:]
+    if "img_embeds" in batch:
+        s += batch["img_embeds"].shape[-2]
+    return b, s, cfg.d_model
+
+
+def _for_batch(tp: Optional[tensor.TensorParallel], cfg, batch
+               ) -> Optional[tensor.TensorParallel]:
+    """The context of one call of a step: ``tp`` with its stream split
+    where the rules split a stream of this batch's shape."""
+    return None if tp is None else tp.for_stream(_stream_shape(cfg, batch))
+
+
 def _sharded_train_step(cfg, loss_fn, mesh, rules, base_lr, warmup,
                         total_steps, accum, compress_fraction, global_batch):
     if compress_fraction is not None:
@@ -267,7 +283,8 @@ def _sharded_train_step(cfg, loss_fn, mesh, rules, base_lr, warmup,
         weights = _label_weights(batch["labels"], accum, mesh, axes)
         params = tree_map(lambda x, lay: lay.gather(x, keep), state.params,
                           lays)
-        with shd.use_row_groups(groups), tensor.use(tp):
+        with shd.use_row_groups(groups), \
+                tensor.use(_for_batch(tp, cfg, batch)):
             loss, grads = _accumulated(loss_fn, params, batch, accum,
                                        weights)
         del params
@@ -324,7 +341,8 @@ def make_prefill_step(cfg: ArchConfig, cache_len: int, mesh=None,
     fn = api.prefill_fn(cfg, cache_len, _cache_kv_heads(cfg, tp))
 
     def step(params, batch):
-        with torch.no_grad(), shd.use_row_groups(groups), tensor.use(tp):
+        with torch.no_grad(), shd.use_row_groups(groups), \
+                tensor.use(_for_batch(tp, cfg, batch)):
             return fn(gather(params), batch)
     return step
 
@@ -396,8 +414,9 @@ def _placed(spec, mesh, rules, rows_only: bool, device):
 def abstract_batch(cfg: ArchConfig, shape: InputShape, mesh=None,
                    rules: Optional[shd.AxisRules] = None, accum: int = 1,
                    device="meta"):
-    """This device's rows of a batch (whole rows: the port splits no
-    sequence), with a leading microbatch axis under ``accum``."""
+    """This device's rows of a batch (whole rows: a split stream is cut
+    after the embedding), with a leading microbatch axis under
+    ``accum``."""
     spec = api.input_spec(cfg, shape)
     if accum > 1:
         spec = {k: ParamSpec((accum, v.shape[0] // accum) + v.shape[1:],

@@ -1,7 +1,8 @@
-"""Tensor parallelism over the "model" axis of a mesh step: Megatron's
-column and row splits, placed where the JAX package's rules place the
-leaves (``sharding.default_rules``: "heads", "mlp" and "vocab" on
-"model").
+"""Tensor and sequence parallelism over the "model" axis of a mesh step:
+Megatron's column and row splits, placed where the JAX package's rules
+place the leaves (``sharding.default_rules``: "heads", "mlp" and "vocab"
+on "model"), and the residual stream split by rows between them where
+the rules place "seq" on "model" (``act_shard="seq"``, Megatron-SP).
 
 A mesh step of the dense or VLM decoder whose batch the rules do not cut
 over "model" (``steps``) gathers each parameter over every other axis
@@ -12,19 +13,44 @@ does not divide, wk, wv, the norm scales) stays whole.  The layer code
 asks :meth:`TensorParallel.split_dim` whether its leaf is split, which
 reads the leaf's spec and checks that the leaf is that block.
 
-Between the split and the whole residual stream stand two autograd
-functions over ``comm``, so the op counter counts their collectives:
+**The stream.**  The step decides once a call, from the rules' spec of
+the stream's (B, S, D) (:meth:`TensorParallel.for_stream`, the
+counterpart of JAX's constraint to ``("batch", "seq", "act_embed")``),
+whether a device holds rows [i S/m, (i + 1) S/m) of it between the
+sublayers (:func:`seq_split`).  Where S does not divide the axis (a
+decode's one row, an odd prompt) the spec drops "model" and the stream
+stays whole on every device of the axis.  The collectives between the
+split and the stream are autograd functions over ``comm``, so the op
+counter counts them:
 
-* :func:`into_split`: the identity forward, an all-reduce over "model"
-  backward (the input of a column split, and a whole leaf of which a
-  device uses a slice);
-* :func:`out_of_split`: an all-reduce over "model" forward (a row
-  split's partial sums), the identity backward.
+* stream whole: :func:`into_split`, the identity forward and an
+  all-reduce backward (the input of a column split); :func:`out_of_split`,
+  an all-reduce forward (a row split's partial sums), the identity
+  backward;
+* stream split: :func:`gather_seq`, an all-gather of the rows forward
+  and a reduce-scatter backward (the input of a column split);
+  :func:`scatter_seq`, a reduce-scatter forward (a row split's partial
+  sums, each device keeping its rows) and an all-gather backward;
+  :func:`split_seq`, a device's rows of a whole result forward and an
+  all-gather backward.
+
+A whole leaf that a device uses on a part of the work (wk and wv sliced
+by KV heads; under a split stream the norm scales, used on this device's
+rows) enters through :func:`into_split`, so its gradient is summed over
+the axis.  A layer whose weights the spec leaves whole computes whole on
+every device of the axis, as without the split: from the gathered
+sequence (``gather_seq(..., copies=True)``) to its whole output, of
+which :func:`split_seq` keeps this device's rows (its backward
+all-gathers the rows' gradients, so every device differentiates the
+whole layer and its weights' gradients need no sum).
 
 The logits stay cut by vocab: :func:`vocab_cross_entropy` takes the
 global max and sum of exponentials and the target logit from the block
 that owns it; :func:`gather_vocab` joins the blocks of a prefill's or a
-decode's logits.
+decode's logits.  Under a split stream the unembedding takes the
+gathered sequence, so the loss sees logits (B, S, V/m); JAX's spec of
+the logits gives "model" to "seq" first and leaves "vocab" whole, (B,
+S/m, V): the same values, and the same size a device.
 
 The context is a module global, not a thread-local, as
 ``sharding.use_row_groups``'s is, and is set only for the span of a mesh
@@ -42,6 +68,8 @@ from . import comm
 from . import sharding as shd
 
 AXIS = "model"
+# the logical axes of the residual stream (B, S, D), as JAX constrains it
+STREAM_AXES = ("batch", "seq", "act_embed")
 
 
 def _unstacked(axes, shape):
@@ -55,8 +83,9 @@ def _unstacked(axes, shape):
 @dataclasses.dataclass(frozen=True)
 class TensorParallel:
     """The mesh, the axis, this device's coordinate on it and its size,
-    and for each leaf's logical axes (without "layers") its whole shape
-    and the dimension the axis splits (None: whole)."""
+    for each leaf's logical axes (without "layers") its whole shape and
+    the dimension the axis splits (None: whole), the step's rules, and
+    whether this call's residual stream is split by rows (``seq``)."""
 
     mesh: object
     axis: str
@@ -64,6 +93,8 @@ class TensorParallel:
     size: int
     leaves: Tuple[Tuple[Tuple[Optional[str], ...], Tuple[int, ...],
                         Optional[int]], ...]
+    rules: Optional[shd.AxisRules] = None
+    seq: bool = False
 
     @classmethod
     def of(cls, mesh, layouts) -> "TensorParallel":
@@ -72,8 +103,9 @@ class TensorParallel:
         same logical axes differ in shape or split, or where "model"
         shares a dimension with another axis."""
         from ..tree import leaves
-        table = {}
+        table, rules = {}, None
         for lay in leaves(layouts):
+            rules = lay.rules
             axes, shape = _unstacked(lay.axes, lay.shape)
             spec = lay.spec[len(lay.axes) - len(axes):]
             dims = [d for d, e in enumerate(spec)
@@ -87,7 +119,22 @@ class TensorParallel:
                                  f"{table[axes]} and {entry}")
         return cls(mesh, AXIS, comm.coordinate(mesh, AXIS),
                    comm.axis_sizes(mesh)[AXIS],
-                   tuple((a, s, d) for a, (s, d) in table.items()))
+                   tuple((a, s, d) for a, (s, d) in table.items()), rules)
+
+    def for_stream(self, shape: Sequence[int]) -> "TensorParallel":
+        """This context for a call whose residual stream is ``shape`` (B,
+        S, D): ``seq`` set where the rules' spec of :data:`STREAM_AXES`
+        puts the axis on S, unset where it does not divide S or the rules
+        map "seq" to no axis.  B may be a device's rows: the axis is not a
+        batch axis where this context exists (:func:`applies`)."""
+        spec = self.rules.spec(STREAM_AXES, tuple(shape), self.mesh)
+        return dataclasses.replace(
+            self, seq=self.axis in shd._entries(spec[1]))
+
+    def own_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This device's rows (dimension 1) of a whole stream ``x``."""
+        n = _rows(x, self)
+        return x.narrow(1, self.index * n, n)
 
     def dim_of(self, axes: Sequence[Optional[str]]) -> Optional[int]:
         """The dimension the axis splits in leaves with logical ``axes``;
@@ -151,6 +198,30 @@ def active() -> Optional[TensorParallel]:
     return _active
 
 
+def seq_split() -> Optional[TensorParallel]:
+    """The active context where this call's residual stream is split by
+    rows over the axis, else None: the one question the layer code asks
+    of the stream (its rows: :meth:`TensorParallel.own_rows`)."""
+    return _active if _active is not None and _active.seq else None
+
+
+@contextlib.contextmanager
+def whole_stream():
+    """The active context with the stream whole, for a span that computes
+    on rows every device of the axis holds (the prefill's last row)."""
+    with use(_active and dataclasses.replace(_active, seq=False)):
+        yield
+
+
+def _rows(x: torch.Tensor, tp: TensorParallel) -> int:
+    """The rows a device holds of ``x``'s dimension 1 split over the
+    axis; raises where they do not divide."""
+    if x.shape[1] % tp.size:
+        raise ValueError(f"a stream of {x.shape[1]} rows over {tp.size} "
+                         f"devices")
+    return x.shape[1] // tp.size
+
+
 def _all_reduce(x: torch.Tensor, tp: TensorParallel, op: str = "sum"
                 ) -> torch.Tensor:
     """A reduced copy of ``x`` over the axis (``x`` itself on a size of
@@ -190,6 +261,74 @@ def into_split(x: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
 def out_of_split(x: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
     """``x`` summed over the axis; its gradient passed on whole."""
     return _OutOfSplit.apply(x, tp)
+
+
+class _GatherSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp, copies):
+        ctx.tp, ctx.copies = tp, copies
+        return comm.all_gather(x, tp.mesh, tp.axis, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        tp = ctx.tp
+        if ctx.copies:
+            return tp.own_rows(g), None, None
+        _rows(g, tp)
+        return comm.reduce_scatter(g, tp.mesh, tp.axis, 1), None, None
+
+
+class _ScatterSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        _rows(x, tp)
+        return comm.reduce_scatter(x, tp.mesh, tp.axis, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return comm.all_gather(g, ctx.tp.mesh, ctx.tp.axis, 1), None
+
+
+def gather_seq(x: torch.Tensor, tp: TensorParallel, copies: bool = False
+               ) -> torch.Tensor:
+    """The whole stream (B, S, ...) from every device's rows of it; the
+    gradient reduce-scattered back to the rows.  With ``copies`` what
+    follows is the same whole computation on every device of the axis
+    (the unembedding of a vocab it does not split): the gradient is the
+    same on each, and this device takes its rows of it, unsummed."""
+    return _GatherSeq.apply(x, tp, copies)
+
+
+def scatter_seq(x: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
+    """This device's rows of ``x`` (B, S, ...) summed over the axis (a
+    row split's partial sums); the gradient all-gathered back."""
+    return _ScatterSeq.apply(x, tp)
+
+
+class _SplitSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return tp.own_rows(x).clone(memory_format=torch.contiguous_format)
+
+    @staticmethod
+    def backward(ctx, g):
+        return comm.all_gather(g, ctx.tp.mesh, ctx.tp.axis, 1), None
+
+
+def split_seq(x: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
+    """This device's rows of ``x`` (B, S, ...), which every device of the
+    axis holds whole; the gradient all-gathered back to the whole."""
+    return _SplitSeq.apply(x, tp)
+
+
+def last_row(x: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
+    """The last row (B, 1, ...) of a stream split by rows, on every device
+    of the axis: the axis's last device's, broadcast (no gradient)."""
+    return comm.broadcast(x[:, -1:].clone(memory_format=
+                                          torch.contiguous_format),
+                          tp.mesh, tp.axis, tp.size - 1)
 
 
 class _VocabCrossEntropy(torch.autograd.Function):

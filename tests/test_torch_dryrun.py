@@ -234,11 +234,30 @@ def test_codesign_prices_a_dry_run_row():
 def test_every_family_traces_each_kind_of_cell(arch, kind):
     """Each reduced config's train, prefill and decode step traces on a
     (4, 2) abstract mesh: a device's arguments are its blocks and rows,
-    and the step issues the plan's collectives."""
+    and the step issues the plan's collectives: reduce-scatters in a
+    train step (the gradients) and in a tensor-parallel prefill (its 32
+    positions split over "model": the layers' sums), none in a decode."""
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel import tensor
     tc = torch_config(arch).reduced()
-    cell = dryrun.trace_cell(tc, InputShape("t", 32, 8, kind),
-                             AbstractMesh((4, 2), ("data", "model")))
+    mesh = AbstractMesh((4, 2), ("data", "model"))
+    cell = dryrun.trace_cell(tc, InputShape("t", 32, 8, kind), mesh)
     assert cell["status"] == "ok" and cell["memory"]["argument_bytes"] > 0
     hl = cell["hlo_analysis"]
     assert hl["flops"] > 0 and hl["collective_counts"]["all-gather"] > 0
-    assert ("reduce-scatter" in hl["collective_bytes"]) == (kind == "train")
+    split = kind == "prefill" and tensor.applies(
+        tc, mesh, shd.default_rules(act_shard=tc.act_shard), 8)
+    assert ("reduce-scatter" in hl["collective_bytes"]) == \
+        (kind == "train" or split)
+
+
+def test_the_peak_trace_ends_at_the_dry_runs_temp_bytes():
+    """``launch/dryrun_peak.py`` traces a cell as the dry run does, and its
+    last high of the live bytes is the cell's temp bytes."""
+    from repro_torch.launch import dryrun_peak
+    tc = torch_config("glm4_9b").reduced()
+    cell, highs = dryrun_peak.trace_highs(
+        tc, InputShape("t", 32, 8, "train"),
+        AbstractMesh((4, 2), ("data", "model")), 0.0)
+    assert len(highs) > 1 and highs[-1][2] == cell["memory"]["temp_bytes"]
+    assert all(a[2] < b[2] for a, b in zip(highs, highs[1:]))

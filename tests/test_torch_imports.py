@@ -399,11 +399,19 @@ def test_chip_smoke_phase_21_rehearses_on_the_cpu(monkeypatch, capsys):
     """chip_smoke.py's phase 21 on a one-rank gloo group with the reduced
     config and chunked attention (syncs stubbed): the sharded step equals
     the unsharded one, the collectives equal their plain results, and the
-    dry run counts the step's FLOPs and collective bytes."""
+    dry run counts the step's FLOPs and collective bytes; then 21(d) in
+    two processes on a (1, 2) gloo mesh: the tensor- and sequence-
+    parallel step and prefill against the unsharded ones, its op counts
+    the dry run's (the phase checks them), its stream reduce-scattered."""
     import chip_smoke
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
     out = chip_smoke.phase_mesh(0, "CPU rehearsal", card_dev="cpu",
                                 smoke=True)
     assert out["worst"] <= 1e-6 and out["dryrun_flops"] == out["flops"]
     assert max(out["collectives"].values()) <= 2e-5
-    assert "= the card step's count" in capsys.readouterr().out
+    tp = out["tp"]
+    assert tp["worst"] <= 1e-6 and tp["logits_err"] <= 1e-4
+    assert tp["counts"]["collective_counts"]["reduce-scatter"] > 0
+    printed = capsys.readouterr().out
+    assert "= the card step's count" in printed
+    assert "21(d)" in printed and "op counts = the dry run's" in printed

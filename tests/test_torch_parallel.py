@@ -17,7 +17,12 @@ timeout, and the subprocess has a time limit, so a hang fails one test.
   tolerances, against the port's unsharded step at 1e-6, every block the
   layout's slice of the whole state; the first step's collective bytes,
   collective counts and FLOPs, as each rank's op counter records them,
-  equal the dry run's trace of the same cell on an abstract mesh.
+  equal the dry run's trace of the same cell on an abstract mesh.  Where
+  the step is tensor parallel its residual stream is split by sequence
+  (S/m rows a device) and its first gradients equal the unsharded
+  step's.
+* The sequence collectives of ``parallel.tensor`` on 2 ranks against
+  their definitions.
 * Elastic restore: a state sharded on (4, 2) and saved whole restores onto
   (2, 4) exactly; that checkpoint restores in JAX, and JAX's restores in
   the port's (2, 4) layout, exactly; each block is also what DTensor's
@@ -189,6 +194,39 @@ def _jax_drops(monkeypatch, jc, fn, *args) -> int:
     return dropped
 
 
+def _perturbed_norms(js, seed: int = 7):
+    """JAX's state ``js`` with every norm scale (ln1, ln2, final_norm)
+    drawn as 1 + N(0, 0.5^2), in the parameters and their fp32 master
+    copies alike."""
+    rng = np.random.default_rng(seed)
+
+    def scale(path, x):
+        if getattr(path[-1], "key", None) != "scale":
+            return x
+        return jnp.asarray(1 + 0.5 * rng.standard_normal(x.shape), x.dtype)
+    params = jax.tree_util.tree_map_with_path(scale, js.params)
+    master = jax.tree_util.tree_map(lambda x: jnp.array(x, jnp.float32),
+                                    params)
+    return js._replace(params=params, opt=js.opt._replace(master=master))
+
+
+def _first_grads(tc, state, batch, accum):
+    """The port's unsharded gradients of ``batch`` at ``state``'s
+    parameters, as its train step computes them before AdamW."""
+    from repro_torch.models import api as tapi
+    return tst._accumulated(tapi.loss_fn(tc), state.params, {
+        k: torch.as_tensor(v) for k, v in batch.items()}, accum)[1]
+
+
+def _tensor_parallel(tc, mesh, act_shard, rows) -> bool:
+    """Whether a mesh step of ``tc`` is tensor parallel
+    (``parallel.tensor.applies``)."""
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel import tensor
+    return tensor.applies(tc, AbstractMesh(mesh, ("data", "model")),
+                          shd.default_rules(act_shard=act_shard), rows)
+
+
 def _split_leaves(tc, mesh, act_shard, rows) -> int:
     """The parameter leaves a mesh step of ``tc`` hands the layer code as
     their "model" blocks: those whose spec splits them over "model" where
@@ -229,6 +267,15 @@ def _split_leaves(tc, mesh, act_shard, rows) -> int:
     # 4 heads do not divide 8: the attention stays whole, the MLP and
     # the vocab are split
     pytest.param((1, 8), "seq", {}, id="heads-whole-1x8"),
+    # norm scales away from 1: the sequence-split step must sum their
+    # gradients over "model" (each device computes its rows' share); the
+    # scales amplify fp32 rounding (the unsharded fp32 step's parameters
+    # land 2.0e-6 of a leaf from the float64 step's, the mesh's 1.5e-6),
+    # so its state is held in float64 only, its gradients in both
+    pytest.param((2, 4), "seq", dict(norms=True, fp32_state=False),
+                 id="norms-mesh2"),
+    # nothing divides 3 but 12 rows: every leaf whole, the stream split
+    pytest.param((1, 3), "seq", dict(seq=12), id="whole-1x3"),
 ])
 def test_sharded_train_step_matches_single_device(tmp_path, monkeypatch,
                                                   mesh, act_shard, case):
@@ -241,27 +288,34 @@ def test_sharded_train_step_matches_single_device(tmp_path, monkeypatch,
     and the unsharded step both run again in float64), where the two
     agree to 1e-12, rounding's scale there.  In fp32 the second moments
     land up to 1.24e-6 from the unsharded step's, which is itself up to
-    1.4e-6 from the float64 step's (PERF.md)."""
+    1.4e-6 from the float64 step's (PERF.md).  There the step also splits
+    its residual stream by sequence (S/m rows a device), and its first
+    gradients (every leaf, the norm scales among them) equal the
+    unsharded step's: at 1e-5 of a leaf's largest value in fp32 and
+    1e-12 in float64."""
     arch = case.get("arch", "deepseek_7b")
     accum, steps, kw = case.get("accum", 1), 2, dict(total_steps=5,
                                                      warmup=2)
+    seq = case.get("seq", 16)
     jc = jax_config(arch).reduced().replace(dtype="float32",
                                             act_shard=act_shard)
     tc = torch_config(arch).reduced().replace(dtype="float32",
                                               act_shard=act_shard,
                                               accum=accum)
     # a VLM cell of 16 positions is 8 image patches and 8 tokens
-    text = 8 if jc.family == "vlm" else 16
+    text = seq // 2 if jc.family == "vlm" else seq
     dc = DataConfig(seq_len=text, global_batch=4 * accum, vocab=jc.vocab)
     batches = [synthetic_batch(dc, s) for s in range(steps)]
     if jc.family == "vlm":
         rng = np.random.default_rng(5)
         for b in batches:
             b["img_embeds"] = rng.standard_normal(
-                (4 * accum, 16 - text, jc.d_model)).astype(np.float32)
+                (4 * accum, seq - text, jc.d_model)).astype(np.float32)
     if case.get("masked"):
         batches = [_masked(b, accum) for b in batches]
     js = jst.init_train_state(jc, jax.random.PRNGKey(0))
+    if case.get("norms"):
+        js = _perturbed_norms(js)
     if arch == "deepseek_moe_16b":      # the case reaches the capacity
         assert jc.capacity_factor == 1.25
         assert _jax_drops(monkeypatch, jc, japi.loss_fn(jc), js.params, {
@@ -270,11 +324,12 @@ def test_sharded_train_step_matches_single_device(tmp_path, monkeypatch,
     np.savez(tmp_path / "batches.npz", **{
         f"{i}/{k}": v for i, b in enumerate(batches) for k, v in b.items()})
     # the leaves the layer code gets as their "model" blocks (0: no
-    # tensor parallelism)
+    # tensor parallelism, or none divides the axis)
     split = _split_leaves(tc, mesh, act_shard, 4)
+    tp = _tensor_parallel(tc, mesh, act_shard, 4)
     (tmp_path / "info.json").write_text(json.dumps(dict(
         arch=arch, act_shard=act_shard, mesh=list(mesh), steps=steps,
-        accum=accum, float64=split > 0, **kw)))
+        accum=accum, float64=tp, **kw)))
     js0, ts = js, _torch_state(js, tc)
     # JAX's single-device jitted step and the port's unsharded one
     jstep = jax.jit(jst.make_train_step(jc, accum=accum, **kw))
@@ -286,13 +341,17 @@ def test_sharded_train_step_matches_single_device(tmp_path, monkeypatch,
         jl.append(float(jm["loss"]))
         tl.append(float(tm["loss"]))
         lrs.append(float(jm["lr"]))
-    got, info_out = run_ranks("sharded_train", 8, tmp_path)
+    got, info_out = run_ranks("sharded_train", int(np.prod(mesh)),
+                              tmp_path)
     assert float(got["block_diff"]) == 0.0
     # the layer code got each model-split leaf as its block, no other
     assert info_out["split_leaves"] == split
-    assert (split > 0) == (tc.family != "moe" and act_shard == "seq")
+    assert tp == (tc.family != "moe" and act_shard == "seq")
+    assert (split > 0) == tp or mesh == (1, 3)
+    # a tensor-parallel device held S/m rows of the residual stream
+    assert info_out["stream_rows"] == (seq // mesh[1] if tp else seq)
     # the dry run of this cell predicts the step's collectives and FLOPs
-    pred = dryrun.trace_cell(tc, InputShape("t", 16, 4 * accum, "train"),
+    pred = dryrun.trace_cell(tc, InputShape("t", seq, 4 * accum, "train"),
                              AbstractMesh(mesh, ("data", "model")))
     counts = info_out["counts"]
     assert counts["collective_bytes"] == \
@@ -311,17 +370,31 @@ def test_sharded_train_step_matches_single_device(tmp_path, monkeypatch,
     group = ["params"] * n + ["step"] + ["master"] * n + ["m"] * n + \
         ["v"] * n
     fp32 = {"params", "step", "master", "m", "v"}
-    if split:
+    if tp:
         fp32 -= {"v"} if case.get("fp32_moments", True) else {"m", "v"}
+        if not case.get("fp32_state", True):
+            fp32 = {"step"}
     for g, t, s in zip(group, leaves(ts), sharded, strict=True):
         scale = max(float(np.abs(t.numpy()).max()), 1e-30)
         assert g not in fp32 or np.abs(s - t.numpy()).max() <= 1e-6 * scale, \
             f"{g}: state vs the unsharded step"
-    if not split:
+    if not tp:
         return
+    for i, t in enumerate(leaves(_first_grads(tc, _torch_state(js0, tc),
+                                              batches[0], accum))):
+        scale = max(float(t.abs().max()), 1e-30)
+        assert np.abs(got[f"g{i}"] - t.numpy()).max() <= 1e-5 * scale, \
+            f"gradient {i} ({tuple(t.shape)}) vs the unsharded step's"
     with Float64():
         tstep = tst.make_train_step(tc, accum=accum, **kw)
         ts, tl = double(_torch_state(js0, tc)), []
+        for i, t in enumerate(leaves(_first_grads(tc, ts, double(
+                batches[0]), accum))):
+            t = t.numpy()
+            scale = max(float(np.abs(t).max()), 1e-30)
+            assert got[f"h{i}"].dtype == np.float64
+            assert np.abs(got[f"h{i}"] - t).max() <= 1e-12 * scale, \
+                f"float64 gradient {i} vs the unsharded step's"
         for b in batches:
             ts, tm = tstep(ts, double(b))
             tl.append(float(tm["loss"]))
@@ -368,28 +441,32 @@ def test_sharded_moe_prefill_matches_single_device(tmp_path, monkeypatch,
         assert info["counts"][key] == pred["hlo_analysis"][key], key
 
 
-@pytest.mark.parametrize("ticks", [0, 4], ids=["prefill", "serve"])
+@pytest.mark.parametrize("ticks,seq", [(0, 16), (4, 16), (0, 15)],
+                         ids=["prefill", "serve", "prefill-15"])
 def test_tensor_parallel_prefill_and_serve_match_single_device(tmp_path,
-                                                               ticks):
-    """Reduced glm4_9b (4 x 16 tokens, fp32) prefilled on a (2, 4) mesh,
-    its heads, MLP and vocab split over "model": the last logits against
-    JAX's single-device prefill at the MoE prefill's bounds; then
+                                                               ticks, seq):
+    """Reduced glm4_9b (4 x ``seq`` tokens, fp32) prefilled on a (2, 4)
+    mesh, its heads, MLP and vocab split over "model": the last logits
+    against JAX's single-device prefill at the MoE prefill's bounds; then
     ``ticks`` greedy serve steps from the prefill's cache (of the one KV
     head its query head reads), the tokens equal to JAX's greedy decode.
-    Each step's op counts are the dry run's."""
+    Each step's op counts are the dry run's.  16 tokens split the
+    residual stream by sequence (4 rows a device, reduce-scattered); 15
+    do not divide the model axis, so the stream stays whole and no
+    reduce-scatter runs."""
     arch, act_shard, mesh = "glm4_9b", "seq", (2, 4)
     jc = jax_config(arch).reduced().replace(dtype="float32",
                                             act_shard=act_shard)
     tc = torch_config(arch).reduced().replace(dtype="float32",
                                               act_shard=act_shard)
-    tokens = synthetic_batch(DataConfig(seq_len=16, global_batch=4,
+    tokens = synthetic_batch(DataConfig(seq_len=seq, global_batch=4,
                                         vocab=jc.vocab), 0)["tokens"]
     js = jst.init_train_state(jc, jax.random.PRNGKey(0))
-    logits, cache = jax.jit(japi.prefill_fn(jc, 16 + ticks))(
+    logits, cache = jax.jit(japi.prefill_fn(jc, seq + ticks))(
         js.params, {"tokens": jnp.asarray(tokens)})
     want = [np.asarray(jnp.argmax(logits, -1))]
     batch = {"token": jnp.argmax(logits, -1).astype(jnp.int32)[:, None],
-             "kv_len": jnp.full((4,), 16, jnp.int32)}
+             "kv_len": jnp.full((4,), seq, jnp.int32)}
     serve = jax.jit(jst.make_serve_step(jc))
     for _ in range(ticks):
         batch, cache = serve(js.params, batch, cache)
@@ -402,17 +479,47 @@ def test_tensor_parallel_prefill_and_serve_match_single_device(tmp_path,
     close(np.asarray(logits), got["logits"], rtol=1e-4, atol=1e-4,
           what="mesh prefill logits against JAX")
     assert info["split_leaves"] == _split_leaves(tc, mesh, act_shard, 4) > 0
+    # the prefill's stream: 4 of 16 rows a device, or 15 whole
+    assert info["stream_rows"] == (4 if seq == 16 else 15)
+    assert ("reduce-scatter" in info["counts"]["collective_counts"]) == \
+        (seq == 16)
     am = AbstractMesh(mesh, ("data", "model"))
-    pred = dryrun.trace_cell(tc, InputShape("t", 16, 4, "prefill"), am)
+    pred = dryrun.trace_cell(tc, InputShape("t", seq, 4, "prefill"), am)
     if ticks:
         assert np.array_equal(got["tokens"], np.stack(want, 1))
         # this device's 2 rows of the cache, its query head's one KV head
-        assert info["cache_shape"] == [4, 2, 16 + ticks, 1, 32]
-        pred = dryrun.trace_cell(tc, InputShape("t", 16 + ticks, 4,
+        assert info["cache_shape"] == [4, 2, seq + ticks, 1, 32]
+        pred = dryrun.trace_cell(tc, InputShape("t", seq + ticks, 4,
                                                 "decode"), am)
         info["counts"] = info["tick_counts"]
     for key in ("collective_bytes", "collective_counts", "flops"):
         assert info["counts"][key] == pred["hlo_analysis"][key], key
+
+
+def test_sequence_collectives_on_2_ranks(tmp_path):
+    """``gather_seq``, ``scatter_seq``, ``split_seq`` and ``last_row`` on a
+    (1, 2) gloo mesh, forward and backward, against their definitions
+    from both ranks' draws: the gather joins the rows and reduce-scatters
+    its gradient (or, with ``copies``, takes this rank's rows of it), the
+    scatter sums and keeps this rank's rows and all-gathers its
+    gradient, the split keeps this rank's rows and all-gathers its
+    gradient, and the last row is rank 1's, on rank 0."""
+    got, _ = run_ranks("seq_collectives", 2, tmp_path)
+    x = [got[f"x{r}"] for r in range(2)]
+    whole = [got[f"whole{r}"] for r in range(2)]
+    g_whole = [got[f"g_whole{r}"] for r in range(2)]
+    g_rows = [got[f"g_rows{r}"] for r in range(2)]
+    assert np.array_equal(got["gather"], np.concatenate(x, 1))
+    assert np.array_equal(got["gather_copies"], np.concatenate(x, 1))
+    assert np.allclose(got["gather_grad"], (g_whole[0] + g_whole[1])[:, :3],
+                       rtol=0, atol=1e-15)
+    assert np.array_equal(got["gather_copies_grad"], g_whole[0][:, :3])
+    assert np.allclose(got["scatter"], (whole[0] + whole[1])[:, :3],
+                       rtol=0, atol=1e-15)
+    assert np.array_equal(got["scatter_grad"], np.concatenate(g_rows, 1))
+    assert np.array_equal(got["split"], whole[0][:, :3])
+    assert np.array_equal(got["split_grad"], np.concatenate(g_rows, 1))
+    assert np.array_equal(got["last_row"], x[1][:, -1:])
 
 
 @pytest.mark.parametrize("act_shard,rows,axes", [

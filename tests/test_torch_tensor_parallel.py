@@ -3,13 +3,16 @@
 leaves it splits, the KV heads a device's query heads read, the shapes a
 step gathers and the dry run's cache, the decode's check of its cache,
 and the vocab-split cross-entropy on a model axis of one device against
-``common.cross_entropy``.  The steps themselves run on gloo ranks in
-``tests/test_torch_parallel.py``.
+``common.cross_entropy``; where a step splits its residual stream by
+sequence, and the shapes and recorded bytes of the sequence collectives
+on an abstract mesh.  The steps themselves, and the collectives' values,
+run on gloo ranks in ``tests/test_torch_parallel.py``.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.analysis import hlo
 from repro_torch.configs import SHAPES, InputShape, get_config
 from repro_torch.models.attention import gqa_decode_layer
 from repro_torch.models.common import cross_entropy
@@ -217,3 +220,82 @@ def test_off_a_mesh_step_no_context_is_active():
             assert tensor.active() is None
         assert tensor.active() is tp
     assert tensor.active() is None
+
+
+@pytest.mark.parametrize("arch,shape,act_shard,stream,want", [
+    ("glm4_9b", (2, 4), "seq", (4, 16, 128), True),
+    ("glm4_9b", (4, 2), "seq", (1, 16, 128), True),
+    ("deepseek_7b", (1, 8), "seq", (4, 16, 128), True),
+    ("llava_next_mistral_7b", (2, 4), "seq", (2, 8 + 8, 128), True),
+    ("glm4_9b", (1, 3), "seq", (4, 12, 128), True),
+    # the rows do not divide the axis: the spec drops "model"
+    ("glm4_9b", (2, 4), "seq", (4, 15, 128), False),
+    ("glm4_9b", (2, 4), "seq", (4, 1, 128), False),     # a decode
+    # batch2d maps "seq" to nothing (one row: the step is TP all the same)
+    ("glm4_9b", (4, 2), "batch2d", (1, 16, 128), False),
+])
+def test_the_stream_is_split_where_the_rules_put_model_on_seq(
+        arch, shape, act_shard, stream, want):
+    """``TensorParallel.for_stream`` reads the rules' spec of the stream
+    (B, S, D) as JAX's constraint does: S over "model" where it divides,
+    under ``act_shard="seq"`` only; ``seq_split`` answers for the active
+    context."""
+    cfg = get_config(arch).reduced()
+    mesh = AbstractMesh(shape, ("data", "model"))
+    rules = shd.default_rules(act_shard=act_shard)
+    assert tensor.applies(cfg, mesh, rules, stream[0])
+    tp = _tp(cfg, mesh, act_shard).for_stream(stream)
+    assert tp.seq == want
+    with tensor.use(tp):
+        assert (tensor.seq_split() is tp) == want
+        with tensor.whole_stream():
+            assert tensor.seq_split() is None
+            assert tensor.active().size == shape[1]
+        assert (tensor.seq_split() is not None) == want
+    assert tensor.seq_split() is None
+
+
+def test_sequence_collectives_shapes_and_bytes_on_an_abstract_mesh():
+    """On an abstract (2, 4) mesh: ``gather_seq`` gives the whole sequence
+    (an all-gather of its output's bytes) and its backward a device's
+    rows (a reduce-scatter of the whole gradient's bytes, or none with
+    ``copies``); ``scatter_seq`` the rows (a reduce-scatter of its
+    operand) and its backward the whole (an all-gather); ``split_seq``
+    the rows (no collective) and its backward the whole (an all-gather);
+    ``last_row`` one row (a broadcast).  Rows that do not divide the
+    axis raise."""
+    cfg = get_config("glm4_9b").reduced()
+    tp = _tp(cfg, AbstractMesh((2, 4), ("data", "model"))).for_stream(
+        (2, 16, 8))
+    assert tp.seq and tp.size == 4
+    whole, rows = torch.zeros(2, 16, 8), torch.zeros(2, 4, 8)
+    nbytes = whole.numel() * 4
+
+    def run(fn, x):
+        x = x.clone().requires_grad_()
+        y = fn(x)
+        y.backward(torch.ones_like(y))
+        return tuple(y.shape), tuple(x.grad.shape)
+
+    for fn, x, shapes, counts in (
+            (lambda x: tensor.gather_seq(x, tp), rows,
+             ((2, 16, 8), (2, 4, 8)),
+             {"all-gather": 1, "reduce-scatter": 1}),
+            (lambda x: tensor.gather_seq(x, tp, copies=True), rows,
+             ((2, 16, 8), (2, 4, 8)), {"all-gather": 1}),
+            (lambda x: tensor.scatter_seq(x, tp), whole,
+             ((2, 4, 8), (2, 16, 8)),
+             {"reduce-scatter": 1, "all-gather": 1}),
+            (lambda x: tensor.split_seq(x, tp), whole,
+             ((2, 4, 8), (2, 16, 8)), {"all-gather": 1})):
+        got, rep = hlo.count(run, fn, x)
+        assert got == shapes
+        assert rep.collective_counts == counts
+        assert rep.collective_bytes == {k: nbytes for k in counts}
+    row, rep = hlo.count(tensor.last_row, rows, tp)
+    assert tuple(row.shape) == (2, 1, 8)
+    assert rep.collective_counts == {"broadcast": 1}
+    with pytest.raises(ValueError, match="15 rows over 4"):
+        tensor.scatter_seq(torch.zeros(2, 15, 8), tp)
+    with pytest.raises(ValueError, match="15 rows over 4"):
+        tp.own_rows(torch.zeros(2, 15, 8))

@@ -90,6 +90,44 @@ def pipeline(rank, d):
         (o - got).abs().max().item() for o in outs)})
 
 
+def seq_collectives(rank, d):
+    """``tensor.gather_seq``, ``scatter_seq``, ``split_seq`` and
+    ``last_row`` on a (1, 2) ("data", "model") mesh, with rank r's rows
+    and output gradients drawn from seed r: rank 0 writes each result
+    and each input's gradient (``<name>`` and ``<name>_grad``) beside
+    every rank's draws (``x<r>``, ``whole<r>``, ``g_rows<r>``,
+    ``g_whole<r>``)."""
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel import tensor
+    mesh = _mesh((1, 2), ("data", "model"))
+    tp = tensor.TensorParallel(mesh, "model", rank, 2, (),
+                               shd.default_rules()).for_stream((2, 6, 3))
+    assert tp.seq and tp.size == 2 and tp.index == rank
+
+    def draw(r):
+        rng = np.random.default_rng(r)
+        return {k: torch.as_tensor(rng.standard_normal(s))
+                for k, s in (("x", (2, 3, 3)), ("whole", (2, 6, 3)),
+                             ("g_rows", (2, 3, 3)), ("g_whole", (2, 6, 3)))}
+    mine, out = draw(rank), {}
+    for name, fn, arg, seed in (
+            ("gather", tensor.gather_seq, "x", "g_whole"),
+            ("gather_copies", lambda x, tp: tensor.gather_seq(
+                x, tp, copies=True), "x", "g_whole"),
+            ("scatter", tensor.scatter_seq, "whole", "g_rows"),
+            ("split", tensor.split_seq, "whole", "g_rows")):
+        x = mine[arg].clone().requires_grad_()
+        y = fn(x, tp)
+        y.backward(mine[seed])
+        out[name], out[name + "_grad"] = y.detach(), x.grad
+    out["last_row"] = tensor.last_row(mine["x"], tp)
+    every = {}
+    for r in range(2):
+        for k, v in draw(r).items():
+            every[f"{k}{r}"] = v
+    _save(d, {k: v.numpy() for k, v in {**out, **every}.items()})
+
+
 def _state_from(d, cfg):
     """The whole training state whose leaves (flatten order) the test
     wrote to ``d/state.npz``."""
@@ -147,14 +185,22 @@ class _BlockSpy:
     the parameters they are given: under tensor parallelism every leaf
     whose spec splits it over "model" is this device's block of it, and
     every other leaf whole; without it, every leaf whole.  ``split`` counts
-    the split leaves of the last call."""
+    the split leaves of the last call; ``rows`` is the length of the
+    residual stream the trunk (``transformer._trunk``) last ran on: this
+    device's rows where the stream is split."""
 
     def __init__(self, lay):
         from repro_torch.models import transformer
         from repro_torch.parallel import tensor
         from repro_torch.tree import leaves
-        self.split = 0
+        self.split, self.rows = 0, None
         lays = leaves(lay)
+        trunk = transformer._trunk
+
+        def rows(cfg, params, x, *a, **k):
+            self.rows = int(x.shape[1])
+            return trunk(cfg, params, x, *a, **k)
+        transformer._trunk = rows
 
         def check(params):
             tp = tensor.active()
@@ -176,14 +222,37 @@ class _BlockSpy:
             setattr(transformer, name, spied)
 
 
+class _GradSpy:
+    """Wraps the AdamW update that the mesh train step calls
+    (``steps.adamw_update``) and keeps the gradients of its first call
+    since :meth:`reset`: this device's blocks, summed over the mesh."""
+
+    def __init__(self):
+        from repro_torch.parallel import steps as st
+        from repro_torch.tree import leaves
+        self.grads = None
+        update = st.adamw_update
+
+        def spied(grads, *a, **k):
+            if self.grads is None:
+                self.grads = [g.clone() for g in leaves(grads)]
+            return update(grads, *a, **k)
+        st.adamw_update = spied
+
+    def reset(self):
+        self.grads = None
+
+
 def sharded_train(rank, d):
     """The sharded train step from the state and batches in ``d``, on the
     mesh ``info.json`` names; rank 0 writes the gathered state after each
-    step, the losses, the first step's op counts and the leaves the layer
-    code got as their "model" blocks.  With ``float64`` in ``info.json``
-    the same steps run again from the same state under :class:`Float64`,
-    and rank 0 also writes that state (``d0``, ``d1``, ...) and its
-    losses."""
+    step (``a0``, ``a1``, ...), the gathered gradients of the first step
+    (``g0``, ...), the losses, the first step's op counts, the leaves the
+    layer code got as their "model" blocks and the rows of the residual
+    stream a device held.  With ``float64`` in ``info.json`` the same
+    steps run again from the same state under :class:`Float64`, and rank
+    0 also writes that state (``d0``, ``d1``, ...), its first gradients
+    (``h0``, ...) and its losses."""
     from repro_torch.analysis import hlo
     from repro_torch.configs import get_config
     from repro_torch.parallel import sharding as shd
@@ -196,12 +265,17 @@ def sharded_train(rank, d):
     mesh = _mesh(info["mesh"], ("data", "model"))
     rules = shd.default_rules(act_shard=info["act_shard"])
     lay = st.state_layouts(cfg, mesh, rules)
-    spy = _BlockSpy(lay.params)
+    spy, grads = _BlockSpy(lay.params), _GradSpy()
     batches = np.load(Path(d) / "batches.npz")
     batches = [{k.split("/")[1]: batches[k] for k in batches.files
                 if k.startswith(f"{i}/")} for i in range(info["steps"])]
 
+    def whole_grads():
+        return [l.gather(g).numpy() for g, l in
+                zip(grads.grads, leaves(lay.params), strict=True)]
+
     def run(state, batches, count):
+        grads.reset()
         step = st.make_train_step(
             cfg, total_steps=info["total_steps"], warmup=info["warmup"],
             accum=accum, mesh=mesh, rules=rules,
@@ -221,7 +295,9 @@ def sharded_train(rank, d):
 
     state, losses, counts = run(
         st.shard_state(_state_from(d, cfg), lay), batches, True)
-    out = {"losses": losses, "counts": counts, "split_leaves": spy.split}
+    out = {"losses": losses, "counts": counts, "split_leaves": spy.split,
+           "stream_rows": spy.rows}
+    first_grads = whole_grads()
     # every block is the layout's slice of the gathered state
     whole = st.gather_state(state, lay)
     worst = 0.0
@@ -230,12 +306,14 @@ def sharded_train(rank, d):
         worst = max(worst, (l.shard(w) - x).abs().max().item())
     arrays = {f"a{i}": x.numpy() for i, x in enumerate(leaves(whole))}
     arrays["block_diff"] = np.float64(worst)
+    arrays.update({f"g{i}": g for i, g in enumerate(first_grads)})
     if info.get("float64"):
         with Float64():
             state, out["losses64"], _ = run(
                 st.shard_state(double(_state_from(d, cfg)), lay),
                 double(batches), False)
             whole = st.gather_state(state, lay)
+            arrays.update({f"h{i}": g for i, g in enumerate(whole_grads())})
         arrays.update({f"d{i}": x.numpy()
                        for i, x in enumerate(leaves(whole))})
     _save(d, arrays, out)
@@ -269,7 +347,8 @@ def sharded_prefill(rank, d):
     (logits, cache), rep = hlo.count(step, params, batch)
     whole = shd.gather(logits, ("batch", None), mesh, rules,
                        (rows, logits.shape[-1]))
-    out = {"counts": _counts(rep), "split_leaves": spy.split}
+    out = {"counts": _counts(rep), "split_leaves": spy.split,
+           "stream_rows": spy.rows}
     arrays = {"logits": whole.numpy()}
     if ticks:
         serve = st.make_serve_step(cfg, mesh, rules, rows)

@@ -3,14 +3,18 @@ fp32 and in float64, for one case of
 ``test_torch_parallel.py::test_sharded_train_step_matches_single_device``.
 
   PYTHONPATH=src JAX_PLATFORMS=cpu python tests/torch_mesh_rounding.py \
-      deepseek_7b 4x2 [--accum 2] [--masked] [--act-shard seq]
+      deepseek_7b 4x2 [--accum 2] [--masked] [--act-shard seq] \
+      [--norms] [--seq 12]
 
-Two steps of the case's inputs run on 8 gloo ranks (``sharded_train``,
-fp32 then float64 under ``torch_mesh_programs.Float64``) and in this
-process unsharded, fp32 and float64.  For each group of state leaves
-(params, master, m, v) it prints the largest gap, each leaf's as a share
-of that leaf's largest value: mesh against unsharded in fp32 and in
-float64, and each fp32 step against the float64 unsharded step.
+Two steps of the case's inputs run on one gloo rank a device of the mesh
+(``sharded_train``, fp32 then float64 under
+``torch_mesh_programs.Float64``) and in this process unsharded, fp32 and
+float64.  For each group of state leaves (params, master, m, v) and for
+the first step's gradients ("grads") it prints the largest gap, each
+leaf's as a share of that leaf's largest value: mesh against unsharded
+in fp32 and in float64, and each fp32 step against the float64
+unsharded step.  ``--norms`` draws the norm scales away from 1 as the
+``norms-mesh2`` case does; ``--seq`` sets the positions a row.
 """
 import argparse
 import contextlib
@@ -39,6 +43,8 @@ def main(argv=None) -> int:
     ap.add_argument("--accum", type=int, default=1)
     ap.add_argument("--masked", action="store_true")
     ap.add_argument("--act-shard", default="seq")
+    ap.add_argument("--norms", action="store_true")
+    ap.add_argument("--seq", type=int, default=16)
     a = ap.parse_args(argv)
     mesh = tuple(int(n) for n in a.mesh.split("x"))
     jc = tp.jax_config(a.arch).reduced().replace(
@@ -46,7 +52,7 @@ def main(argv=None) -> int:
     tc = tp.torch_config(a.arch).reduced().replace(
         dtype="float32", act_shard=a.act_shard, accum=a.accum)
     # the test's inputs: a VLM cell of 16 positions is 8 patches, 8 tokens
-    text = 8 if jc.family == "vlm" else 16
+    text = a.seq // 2 if jc.family == "vlm" else a.seq
     dc = tp.DataConfig(seq_len=text, global_batch=4 * a.accum,
                        vocab=jc.vocab)
     batches = [tp.synthetic_batch(dc, s) for s in range(2)]
@@ -54,17 +60,21 @@ def main(argv=None) -> int:
         rng = np.random.default_rng(5)
         for b in batches:
             b["img_embeds"] = rng.standard_normal(
-                (4 * a.accum, 16 - text, jc.d_model)).astype(np.float32)
+                (4 * a.accum, a.seq - text, jc.d_model)).astype(np.float32)
     if a.masked:
         batches = [tp._masked(b, a.accum) for b in batches]
     js = tp.jst.init_train_state(jc, jax.random.PRNGKey(0))
+    if a.norms:
+        js = tp._perturbed_norms(js)
     kw = dict(total_steps=5, warmup=2)
-    unsharded = {}
+    unsharded, grads = {}, {}
     for name, mode, cast in (("fp32", contextlib.nullcontext(), lambda t: t),
                              ("fp64", Float64(), double)):
         with mode:
             step = tst.make_train_step(tc, accum=a.accum, **kw)
             ts = cast(tp._torch_state(js, tc))
+            grads[name] = [g.numpy() for g in leaves(tp._first_grads(
+                tc, ts, cast(batches[0]), a.accum))]
             for b in batches:
                 ts, _ = step(ts, cast({k: torch.from_numpy(v)
                                        for k, v in b.items()}))
@@ -78,7 +88,8 @@ def main(argv=None) -> int:
         (d / "info.json").write_text(json.dumps(dict(
             arch=a.arch, act_shard=a.act_shard, mesh=list(mesh), steps=2,
             accum=a.accum, float64=True, **kw)))
-        got, _ = tp.run_ranks("sharded_train", 8, d, timeout=600)
+        got, _ = tp.run_ranks("sharded_train", int(np.prod(mesh)), d,
+                              timeout=600)
         got = dict(got)
     n = len(leaves(ts.params))
     group = ["params"] * n + ["step"] + ["master"] * n + ["m"] * n + \
@@ -96,9 +107,18 @@ def main(argv=None) -> int:
         for k, x in gaps.items():
             w = worst.setdefault(g, {})
             w[k] = max(w.get(k, 0.0), float(np.abs(x).max()) / scale)
+    for i, (g32, g64) in enumerate(zip(grads["fp32"], grads["fp64"])):
+        scale = max(float(np.abs(g32).max()), 1e-30)
+        w = worst.setdefault("grads", {})
+        for k, x in {"mesh-unsharded fp32": got[f"g{i}"] - g32,
+                     "mesh-unsharded fp64": got[f"h{i}"] - g64,
+                     "unsharded fp32-fp64": g32 - g64,
+                     "mesh fp32-unsharded fp64": got[f"g{i}"] - g64}.items():
+            w[k] = max(w.get(k, 0.0), float(np.abs(x).max()) / scale)
     print(f"{a.arch} on {mesh}, act_shard {a.act_shard}, accum {a.accum}"
-          f"{', masked' if a.masked else ''}: largest gap, a share of the "
-          f"leaf's largest value")
+          f"{', masked' if a.masked else ''}{', norms' if a.norms else ''}"
+          f", {a.seq} positions: largest gap, a share of the leaf's "
+          f"largest value")
     for g, w in worst.items():
         print(f"  {g:6s} " + "  ".join(f"{k} {v:.3g}" for k, v in w.items()))
     return 0
