@@ -3036,10 +3036,11 @@ def _op_counts(rep) -> dict:
 
 
 def _tp_rank(rank: int, tmp: str, seed: int, card_dev: str,
-             smoke: bool) -> None:
-    """21(d) in one of the two processes: a gloo group on the file store in
-    ``tmp`` (both ranks on the card's device 0), the run of
-    :func:`_tp_run`, its record written to ``tmp/rank<r>.json``."""
+             smoke: bool, run=None) -> None:
+    """21(d) or 21(e) in one of the two processes: a gloo group on the
+    file store in ``tmp`` (both ranks on the card's device 0), the run of
+    ``run`` (:func:`_tp_run` unless given), its record written to
+    ``tmp/rank<r>.json``."""
     import datetime
     import torch.distributed as dist
     os.environ["LOCAL_RANK"] = "0"
@@ -3049,11 +3050,30 @@ def _tp_rank(rank: int, tmp: str, seed: int, card_dev: str,
                             rank=rank, world_size=2,
                             timeout=datetime.timedelta(seconds=120))
     try:
-        out = _tp_run(rank, seed, card_dev, smoke)
+        out = (run or _tp_run)(rank, seed, card_dev, smoke)
     finally:
         dist.destroy_process_group()
     with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
+
+
+def _two_ranks(run, seed: int, card_dev: str, smoke: bool) -> tuple:
+    """(each rank's record, seconds): :func:`_tp_rank` of ``run`` in two
+    processes on the one card."""
+    import shutil
+    import tempfile
+    import torch.multiprocessing as mp
+    tmp = tempfile.mkdtemp(prefix="mesh_two_")
+    t0 = time.perf_counter()
+    try:
+        mp.spawn(_tp_rank, args=(tmp, seed, card_dev, smoke, run), nprocs=2)
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return ranks, time.perf_counter() - t0
 
 
 def _tp_run(rank: int, seed: int, card_dev: str, smoke: bool) -> dict:
@@ -3160,24 +3180,12 @@ def mesh_tp(seed: int, smi: str, card_dev: str = "cuda",
     5 RMSNorms, on 64 rows but the final norm's one); each rank's op
     counts of both steps equal to the dry run's trace of the same cells
     on an abstract (1, 2) mesh."""
-    import shutil
-    import tempfile
-    import torch.multiprocessing as mp
     from repro_torch.configs import InputShape
     from repro_torch.launch import dryrun
     from repro_torch.parallel.comm import AbstractMesh
     cfg = _mesh_cfg(smoke)
-    tmp = tempfile.mkdtemp(prefix="mesh_tp_")
+    ranks, t_ranks = _two_ranks(_tp_run, seed, card_dev, smoke)
     t0 = time.perf_counter()
-    try:
-        mp.spawn(_tp_rank, args=(tmp, seed, card_dev, smoke), nprocs=2)
-        ranks = []
-        for r in range(2):
-            with open(os.path.join(tmp, f"rank{r}.json")) as f:
-                ranks.append(json.load(f))
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    t_ranks, t0 = time.perf_counter() - t0, time.perf_counter()
     am = AbstractMesh(MESH_TP, ("data", "model"))
     for kind in ("train", "prefill"):
         cell = dryrun.trace_cell(cfg, InputShape("cut", MESH_SEQ, 1, kind),
@@ -3229,13 +3237,158 @@ def mesh_tp(seed: int, smi: str, card_dev: str = "cuda",
             "prefill_counts": r0["prefill_counts"]}
 
 
+# 21(e): FSDP one layer at a time across two devices, two processes on the
+# one card over gloo on a (2, 1) ("data", "model") mesh: 4 x 128 tokens at
+# accum 2, one row a rank a microbatch
+MESH_FSDP, FSDP_ROWS, FSDP_ACCUM = (2, 1), 4, 2
+
+
+def _fsdp_cfg(smoke: bool):
+    return _mesh_cfg(smoke).replace(accum=FSDP_ACCUM)
+
+
+def _fsdp_batch(cfg, seed: int, card_dev: str) -> dict:
+    """The whole batch of 21(e): FSDP_ROWS x MESH_SEQ tokens with a leading
+    microbatch axis of FSDP_ACCUM."""
+    from repro_torch.data import DataConfig, synthetic_batch
+    batch = to_dev(synthetic_batch(DataConfig(
+        seq_len=MESH_SEQ, global_batch=FSDP_ROWS, vocab=cfg.vocab,
+        seed=seed), 0), card_dev)
+    return {k: v.reshape(FSDP_ACCUM, -1, v.shape[-1])
+            for k, v in batch.items()}
+
+
+def _fsdp_run(rank: int, seed: int, card_dev: str, smoke: bool) -> dict:
+    """One rank of 21(e): one train step of the cut glm4_9b at accum 2 on
+    this rank's blocks (half of every leaf that "data" splits) and its
+    row of each microbatch, each layer gathered in its turn and its
+    gradient reduce-scattered as the backward leaves it; the step's op
+    counts, launches, peak memory and host seconds, the updated
+    parameters gathered whole; then, on rank 0, the unsharded step on the
+    card from the same state and the whole batch."""
+    from repro_torch.analysis import hlo
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel import steps as st
+    from repro_torch.tree import leaves
+    cuda = card_dev == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    cfg = _fsdp_cfg(smoke)
+    mesh = make_mesh(MESH_FSDP, ("data", "model"), card_dev)
+    rules = shd.default_rules()
+    lay = st.state_layouts(cfg, mesh, rules)
+    whole = _fsdp_batch(cfg, seed, card_dev)
+    batch = st.batch_rows(whole, mesh, rules, FSDP_ACCUM)
+    gen = lambda: torch.Generator(device=card_dev).manual_seed(seed)
+    state = st.shard_state(st.init_train_state(cfg, gen(), card_dev), lay)
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated() if cuda else 0
+    step = st.make_train_step(cfg, total_steps=10, warmup=2,
+                              accum=FSDP_ACCUM, mesh=mesh, rules=rules,
+                              global_batch=FSDP_ROWS)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    (state, m), rep = hlo.count(step, state, batch)
+    sync()
+    out = {"seconds": time.perf_counter() - t0,
+           "launches": ops.launch_counts(), "counts": _op_counts(rep),
+           "loss": float(m["loss"]), "rows": int(batch["tokens"].shape[1]),
+           "before": before,
+           "peak": torch.cuda.max_memory_allocated() if cuda else 0}
+    params = [l.gather(x) for x, l in zip(leaves(state.params),
+                                          leaves(lay.params), strict=True)]
+    del state, step
+    if rank:
+        return out
+    plain_state = st.init_train_state(cfg, gen(), card_dev)
+    plain = st.make_train_step(cfg, total_steps=10, warmup=2,
+                               accum=FSDP_ACCUM)
+    plain_state, pm = plain(plain_state, whole)
+    out["loss_unsharded"] = float(pm["loss"])
+    out["worst"] = max(
+        ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+        for a, b in zip(params, leaves(plain_state.params), strict=True))
+    return out
+
+
+def mesh_fsdp(seed: int, smi: str, card_dev: str = "cuda",
+              smoke: bool = False) -> dict:
+    """21(e): :func:`_fsdp_run` in two processes on the one card on a (2, 1)
+    mesh, FSDP only: the loss within 1e-6 of the unsharded step's, the
+    updated parameters within 1e-6 of each leaf's max; each rank's
+    launches those of one train step at accum 2 (two microbatches launch
+    what two steps of one do) and its op counts those of the dry run's
+    trace of the same cell on an abstract (2, 1) mesh.  Prints each
+    rank's peak memory across the step beside the whole parameter tree
+    that a step gathering it at its top held on top of the blocks."""
+    from repro_torch.configs import InputShape
+    from repro_torch.launch import dryrun
+    from repro_torch.models import api
+    from repro_torch.models.common import count_params
+    from repro_torch.parallel.comm import AbstractMesh
+    cfg = _fsdp_cfg(smoke)
+    ranks, t_ranks = _two_ranks(_fsdp_run, seed, card_dev, smoke)
+    t0 = time.perf_counter()
+    cell = dryrun.trace_cell(cfg, InputShape("cut", MESH_SEQ, FSDP_ROWS,
+                                             "train"),
+                             AbstractMesh(MESH_FSDP, ("data", "model")))
+    want = json.loads(json.dumps({k: cell["hlo_analysis"][k] for k in (
+        "flops", "collective_bytes", "collective_counts")}))
+    t_trace = time.perf_counter() - t0
+    for r, got in enumerate(ranks):
+        check(got["rows"] == 1, f"rank {r} held {got['rows']} rows")
+        check(got["counts"] == want, f"rank {r}'s op counts "
+              f"{got['counts']} differ from the dry run's {want}")
+        if card_dev == "cuda":
+            check(got["launches"] == train_launches(cfg, FSDP_ACCUM),
+                  f"rank {r}'s step launched {got['launches']}, not "
+                  f"{train_launches(cfg, FSDP_ACCUM)}")
+    r0 = ranks[0]
+    l1, l2 = r0["loss_unsharded"], r0["loss"]
+    check(math.isfinite(l2) and abs(l1 - l2) <= 1e-6 * abs(l1),
+          f"FSDP loss {l2} against the unsharded {l1}")
+    check(r0["worst"] <= 1e-6, f"FSDP parameters off the unsharded step's "
+                               f"by {r0['worst']} of a leaf's max")
+    whole = count_params(api.param_spec(cfg)) * 4
+    counts = want["collective_counts"]
+    print(f"  21(e) {cfg.name} {cfg.n_layers} layers, {FSDP_ROWS} x "
+          f"{MESH_SEQ} tokens at accum {FSDP_ACCUM} on a {MESH_FSDP} mesh, "
+          f"two processes on one card over gloo, one row a rank a "
+          f"microbatch: loss {l2!r} (unsharded {l1!r}); parameters within "
+          f"{r0['worst']:.3e} of a leaf's max; launches a rank "
+          f"{r0['launches']}; op counts = the dry run's ({counts}); peak "
+          f"memory across the step a rank "
+          f"{[round(r['peak'] / 1e9, 3) for r in ranks]} GB, "
+          f"{[round(r['before'] / 1e9, 3) for r in ranks]} GB before it "
+          f"(blocks and batch); the whole fp32 parameter tree a step "
+          f"gathering it at its top held beside them: {whole / 1e9:.3f} GB;"
+          f" the step {[round(r['seconds'], 2) for r in ranks]} s a rank "
+          f"(host clock, gloo's collectives staged through the host); "
+          f"seconds: the two processes {t_ranks:.1f}, the dry run's trace "
+          f"{t_trace:.1f}; card {smi}")
+    return {"loss": l2, "loss_unsharded": l1, "worst": r0["worst"],
+            "launches": {k: sum(r["launches"][k] for r in ranks)
+                         for k in r0["launches"]},
+            "counts": r0["counts"], "peak_bytes": [r["peak"] for r in ranks],
+            "before_bytes": [r["before"] for r in ranks],
+            "whole_tree_bytes": whole,
+            "step_s": [r["seconds"] for r in ranks]}
+
+
 def phase_mesh(seed: int, smi: str, card_dev: str = "cuda",
                smoke: bool = False) -> dict:
     """Phase 21: the mesh layer (``parallel.sharding``, ``comm``,
     ``collectives``, ``pipeline``, the sharded ``parallel.steps``) on a
     one-rank (1, 1) ("data", "model") mesh over NCCL, started on a file
     store under a temporary directory, and the dry run's counter against
-    the step the card runs.  ``card_dev="cpu"`` with ``smoke`` rehearses
+    the step the card runs; then two processes on the card over gloo:
+    the tensor- and sequence-parallel step (21(d), :func:`mesh_tp`) and
+    the FSDP step that gathers a layer at a time (21(e),
+    :func:`mesh_fsdp`).  ``card_dev="cpu"`` with ``smoke`` rehearses
     it on gloo with the reduced config and chunked attention (the CPU's
     attention is the oracle's, whose backward the card's does not
     share)."""
@@ -3298,6 +3451,9 @@ def phase_mesh(seed: int, smi: str, card_dev: str = "cuda",
     gc.collect()
     torch.cuda.empty_cache()
     out["tp"] = mesh_tp(seed, smi, card_dev, smoke)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["fsdp"] = mesh_fsdp(seed, smi, card_dev, smoke)
     print("[21] " + json.dumps({"mesh": {**{k: v for k, v in out.items()
                                             if k != "events_added"},
                                          "card": smi}}))
@@ -3402,10 +3558,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()        # whisper's tensors are gone
     mesh = phase(21, "the mesh layer on a one-rank NCCL mesh, the dry "
-                     "run's counter and a two-rank tensor- and sequence-"
-                     "parallel step", phase_mesh, seed, smi)
+                     "run's counter, a two-rank tensor- and sequence-"
+                     "parallel step and a two-rank FSDP step", phase_mesh,
+                 seed, smi)
     by_path["mesh"] = mesh["launches"]
     by_path["mesh_tp"] = mesh["tp"]["launches"]
+    by_path["mesh_fsdp"] = mesh["fsdp"]["launches"]
 
     timed = {"flash_attention": ("float32", "S=512"),
              "flash_decode": ("float32", "T=1024"),

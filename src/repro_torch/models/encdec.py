@@ -6,7 +6,10 @@ precomputed frame embeddings (B, n_frames, D).  The backbone is a
 bidirectional encoder stack and a causal decoder stack with
 cross-attention; layers are a Python loop over views of the stacked
 tensors (the JAX ``lax.scan``), each under ``cfg.remat`` on the plain
-(training) route, as JAX's ``_remat`` wraps them.
+(training) route, as JAX's ``_remat`` wraps them.  In a mesh step each
+layer's body gathers its own weights (``sharding.layer``), inside what
+remat checkpoints; the prefill gathers each decoder layer's
+cross-attention weights in its turn.
 
 Attention follows ``cfg.attn_impl``: under "kernel" the encoder's
 self-attention (non-causal), the decoder's (causal, S = T) and the
@@ -26,6 +29,7 @@ from typing import Dict
 import torch
 
 from ..kernels import ops
+from ..parallel.sharding import layer
 from .attention import (attend_chunked, attend_full, gqa_decode_layer,
                         gqa_output, gqa_project_qkv, gqa_spec)
 from .common import (ParamSpec, cross_entropy, embed, embed_spec,
@@ -91,6 +95,7 @@ def _positions(x):
 
 
 def _enc_block(cfg, p, h, positions, plain):
+    p = layer(p)
     h = h + _self_attn(cfg, p["attn"],
                        rmsnorm(p["ln1"], h, cfg.norm_eps, plain=plain),
                        positions, causal=False)
@@ -109,6 +114,7 @@ def encode(cfg, params, frames, *, plain: bool = False):
 
 
 def _dec_block(cfg, p, h, positions, enc_out, plain):
+    p = layer(p)
     h = h + _self_attn(cfg, p["attn"],
                        rmsnorm(p["ln1"], h, cfg.norm_eps, plain=plain),
                        positions, causal=True)
@@ -163,7 +169,7 @@ def encdec_prefill(cfg, params, frames):
     b, s = enc.shape[:2]
     cache = init_params(encdec_cache_spec(cfg, b, s), None, enc.device)
     for i, p in enumerate(_layers(params["dec_blocks"], cfg.n_dec_layers)):
-        k, v = cross_kv(cfg, p["xattn"], enc)
+        k, v = cross_kv(cfg, layer(p["xattn"]), enc)
         cache["cross_k"][i] = k
         cache["cross_v"][i] = v
     return cache
@@ -184,6 +190,7 @@ def encdec_decode(cfg, params, token, cache, kv_len):
                             _layers(cache["self"], n),
                             _layers(cache["cross_k"], n),
                             _layers(cache["cross_v"], n)):
+        p = layer(p)
         hn = rmsnorm(p["ln1"], x, cfg.norm_eps)
         a, _, _ = gqa_decode_layer(p["attn"], hn, c["k"], c["v"], kv_len,
                                    kv_len, cfg.rope_theta)

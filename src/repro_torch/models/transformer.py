@@ -44,6 +44,14 @@ output, the prefill writes the whole prompt's K/V and takes its last row
 from the axis's last device, and remat keeps only the rows as each
 layer's carry.
 
+In a mesh step (``parallel.steps``) every stacked leaf comes as this
+device's blocks of its layers (``sharding.Stacked``), and each layer's
+body gathers its own weights first (``sharding.layer``): under remat
+inside what ``_remat`` checkpoints, so a layer's gathered weights are
+freed after its forward and gathered again in its recompute; a shared
+attention block is gathered at each of its applications.  ``_layers``
+gathers nothing; off a mesh ``layer`` returns the views as they are.
+
 Training (``lm_loss``, or ``lm_forward(..., plain=True)``) takes the
 plain route of ``models.common``: norms, MoE experts, SSD and sLSTM in
 plain PyTorch, as JAX trains, and attention through ``cfg.attn_impl``
@@ -61,6 +69,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..parallel import tensor
+from ..parallel.sharding import layer
 from .attention import gqa_decode_layer, gqa_layer, gqa_spec
 from .common import (ParamSpec, cross_entropy, embed, embed_spec,
                      init_params, mask_padded_vocab, rmsnorm, rmsnorm_spec,
@@ -109,10 +118,12 @@ def _remat(cfg):
 
 
 def _layers(tree, n: int):
-    """Views of layer i of a stacked tree, for i in range(n)."""
+    """Layer i of a stacked tree, for i in range(n): views of its tensors,
+    or in a mesh step each leaf's ``sharding.LayerBlock``, which the
+    layer's body gathers (``sharding.layer``); nothing is gathered here."""
     def take(t, i):
-        return t[i] if isinstance(t, torch.Tensor) else \
-            {k: take(v, i) for k, v in t.items()}
+        return {k: take(v, i) for k, v in t.items()} \
+            if isinstance(t, dict) else t[i]
     return [take(tree, i) for i in range(n)]
 
 
@@ -144,6 +155,7 @@ def block_apply(cfg, p, x, positions, plain: bool = False):
     """One pre-norm block over a sequence; returns ``(x, k, v)`` with the
     layer's cache rows for the prefill: the rotated K/V, or under MLA the
     latent c_kv and the rope key."""
+    p = layer(p)
     h = rmsnorm(p["ln1"], x, cfg.norm_eps, plain=plain)
     if cfg.attn == "mla":
         a, k, v = mla_layer(p["attn"], h, positions,
@@ -167,6 +179,7 @@ def block_decode(cfg, p, x, cache, position, kv_len):
     """One block for one token; updates ``cache`` ({"k","v"}, or MLA's
     {"ckv","krope"}) in place.  The MoE FFN runs at capacity factor 4.0,
     as JAX's decode does."""
+    p = layer(p)
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     if cfg.attn == "mla":
         a, _, _ = mla_decode_layer(p["attn"], h, cache["ckv"],
@@ -315,6 +328,7 @@ def _xlstm_walk(cfg, params, cache=None):
 
 
 def _mlstm_block(cfg, p, x, plain):
+    p = layer(p)
     h = rmsnorm(p["ln"], x, cfg.norm_eps, plain=plain)
     return x + mlstm_chunked(p["mixer"], h, chunk=cfg.attn_chunk,
                              plain=plain)[0]
@@ -329,6 +343,7 @@ def _xlstm_trunk(cfg, params, x, cache, plain, run):
         if kind == "mlstm" and c is None:
             x = run(_mlstm_block, cfg, p, x, plain)
             continue
+        p = layer(p)
         h = rmsnorm(p["ln"], x, cfg.norm_eps, plain=plain)
         if kind == "mlstm":
             y, state = mlstm_chunked(p["mixer"], h, chunk=cfg.attn_chunk)
@@ -412,6 +427,7 @@ def decode_cache_spec(cfg, batch: int, cache_len: int,
 
 
 def _mamba_block(cfg, p, x, plain):
+    p = layer(p)
     h = rmsnorm(p["ln"], x, cfg.norm_eps, plain=plain)
     return x + mamba_layer(p["mixer"], h, chunk=cfg.ssm_chunk,
                            impl="plain" if plain else "kernel")
@@ -435,6 +451,7 @@ def _hybrid_trunk(cfg, params, x, positions, cache, plain, run):
         if c is None:
             x = run(_mamba_block, cfg, p, x, plain)
         else:
+            p = layer(p)
             h = rmsnorm(p["ln"], x, cfg.norm_eps)
             y, state = mamba_mixer(p["mixer"], h, chunk=cfg.ssm_chunk,
                                    impl="kernel")
@@ -547,6 +564,7 @@ def lm_decode(cfg, params, token, cache, kv_len):
             if kind == "attn":
                 x = block_decode(cfg, p, x, c, kv_len, kv_len)
                 continue
+            p = layer(p)
             y, state = mamba_decode_layer(
                 p["mixer"], rmsnorm(p["ln"], x, cfg.norm_eps), c)
             c["conv"].copy_(state["conv"])
@@ -555,6 +573,7 @@ def lm_decode(cfg, params, token, cache, kv_len):
     elif cfg.family == "ssm":
         for kind, p, c in _xlstm_walk(cfg, params, cache):
             step = mlstm_decode if kind == "mlstm" else slstm_decode
+            p = layer(p)
             y, state = step(p["mixer"], rmsnorm(p["ln"], x, cfg.norm_eps), c)
             for k in c:
                 c[k].copy_(state[k])

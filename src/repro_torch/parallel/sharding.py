@@ -9,7 +9,12 @@ itself: :func:`placements_for` turns it into DTensor placements on a
 ``DeviceMesh``, :func:`shard_of` cuts a device's block out of a whole
 tensor, :func:`gather` joins the blocks again, and :func:`reduce_into`
 sums a whole-size tensor over the mesh into a device's block (a gradient
-reduce-scattered into its parameter's layout).
+reduce-scattered into its parameter's layout).  A mesh step gathers one
+layer at a time, as GSPMD runs JAX's scanned layers: :func:`for_layers`
+hands the model each stacked leaf as a :class:`Stacked` of its layers'
+blocks, and :func:`layer` gathers a layer's weights inside its body
+(:func:`gather_leaf`, whose backward reduces the layer's gradient into
+its block).
 
 A block is the one ``NamedSharding`` gives the device at the same mesh
 coordinates: a dimension split over the mesh axes (a1, a2, ...) is cut
@@ -371,6 +376,30 @@ class Layout:
         return reduce_into(g, self.axes, self.mesh, self.rules, keep,
                            self.shape)
 
+    def kept_shape(self, keep: Tuple[str, ...] = ()) -> Tuple[int, ...]:
+        """The shape :meth:`gather` with ``keep`` gives: whole, but a
+        dimension an axis in ``keep`` splits alone."""
+        sizes = _sizes(self.mesh)
+        return tuple(n // sizes[e] if e in keep else n
+                     for n, e in zip(self.shape, self.spec))
+
+    @property
+    def stacked(self) -> int:
+        """The leading "layers" dimensions of the leaf (0: not stacked)."""
+        n = 0
+        while n < len(self.axes) and self.axes[n] == "layers":
+            n += 1
+        return n
+
+    def layer(self) -> "Layout":
+        """The layout of one layer of a stacked leaf: the leaf's without
+        its leading "layers" dimensions, which no mesh axis may split."""
+        n = self.stacked
+        if any(self.spec[:n]):
+            raise ValueError(f"leaf {self.axes}: the rules split its layers "
+                             f"({self.spec})")
+        return Layout(self.mesh, self.rules, self.axes[n:], self.shape[n:])
+
 
 def layouts(spec_tree, mesh, rules: AxisRules, rows_only: bool = False):
     """A :class:`Layout` for every ``ParamSpec`` of ``spec_tree`` (by rows
@@ -379,3 +408,127 @@ def layouts(spec_tree, mesh, rules: AxisRules, rows_only: bool = False):
     return tree_map(lambda s: Layout(
         mesh, rules, rows_axes(s.axes) if rows_only else tuple(s.axes),
         tuple(s.shape)), spec_tree)
+
+
+# --------------------------------------------------------------------------
+# FSDP one layer at a time, as GSPMD runs JAX's scanned layers.
+# --------------------------------------------------------------------------
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, block, lay, keep):
+        ctx.lay, ctx.keep = lay, keep
+        return lay.gather(block, keep)
+
+    @staticmethod
+    def backward(ctx, g):
+        lay, keep = ctx.lay, ctx.keep
+        if not any(a not in keep for e in lay.spec for a in _entries(e)):
+            # reduced in place by an all-reduce: not the engine's buffer
+            g = g.clone(memory_format=torch.contiguous_format)
+        return lay.reduce(g, keep), None, None
+
+
+def gather_leaf(block: torch.Tensor, lay: Layout,
+                keep: Tuple[str, ...] = ()) -> torch.Tensor:
+    """The leaf of layout ``lay`` whole (cut along ``keep``) from this
+    device's ``block``: all-gathers over every other axis that splits it.
+    Its gradient is reduced into the block as :meth:`Layout.reduce`
+    reduces it: reduce-scattered over those axes, all-reduced over the
+    axes that replicate the leaf."""
+    return _Gather.apply(block, lay, keep)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class LayerBlock:
+    """This device's block of one layer of a stacked leaf in a mesh step,
+    with the layer's layout: what :func:`layer` gathers."""
+
+    block: torch.Tensor
+    layout: Layout
+    keep: Tuple[str, ...]
+
+
+class Stacked:
+    """A stacked leaf in a mesh step: this device's block of each layer,
+    one tensor a layer (``parts``, in the order of the leading "layers"
+    dimensions ``lead``), each of the layer's layout ``layout``, indexed
+    as the layer code indexes a stacked tensor: by the leading
+    dimensions, down to one layer's :class:`LayerBlock`.  ``shape`` is
+    the leaf's as the layer code sees it a layer at a time (whole, or cut
+    along ``keep``); the leaf is never gathered whole."""
+
+    def __init__(self, parts, layout: Layout, keep: Tuple[str, ...],
+                 lead: Tuple[int, ...]):
+        if len(parts) != math.prod(lead):
+            raise ValueError(f"{len(parts)} layers for {lead}")
+        self.parts, self.layout, self.keep, self.lead = \
+            list(parts), layout, keep, tuple(lead)
+
+    @property
+    def shape(self) -> torch.Size:
+        return torch.Size(self.lead + self.layout.kept_shape(self.keep))
+
+    def __getitem__(self, i: int):
+        if not 0 <= i < self.lead[0]:
+            raise IndexError(i)
+        if len(self.lead) == 1:
+            return LayerBlock(self.parts[i], self.layout, self.keep)
+        n = math.prod(self.lead[1:])
+        return Stacked(self.parts[i * n:(i + 1) * n], self.layout,
+                       self.keep, self.lead[1:])
+
+
+# A module global, like the row groups: whether a mesh step is running,
+# whose stacked leaves reach the layers only as LayerBlocks.
+_in_blocks = False
+
+
+@contextlib.contextmanager
+def use_blocks(on: bool = True):
+    """Mark the span of one mesh step: :func:`layer` then takes only
+    :class:`LayerBlock` leaves."""
+    global _in_blocks
+    prev, _in_blocks = _in_blocks, on
+    try:
+        yield
+    finally:
+        _in_blocks = prev
+
+
+def layer(tree):
+    """One layer's weights as the layer code computes with them: in a mesh
+    step each :class:`LayerBlock` gathered (:func:`gather_leaf`, inside
+    the layer, so remat recomputes it); off a mesh step each tensor as it
+    is (a view of the stacked tensor).  In a mesh step a tensor raises: a
+    stacked leaf is never used whole."""
+    if isinstance(tree, dict):
+        return {k: layer(v) for k, v in tree.items()}
+    if isinstance(tree, LayerBlock):
+        return gather_leaf(tree.block, tree.layout, tree.keep)
+    if _in_blocks:
+        raise ValueError(f"a stacked leaf {tuple(tree.shape)} reached a "
+                         f"layer of a mesh step without its layout")
+    return tree
+
+
+def for_layers(blocks, layouts_tree, keep: Tuple[str, ...] = (),
+               live: Optional[list] = None):
+    """The parameter tree the layer code takes in a mesh step, from this
+    device's ``blocks``: each stacked leaf a :class:`Stacked` of its
+    layers' blocks, every other leaf gathered (:func:`gather_leaf`).
+    With ``live`` (a list) the layers' blocks and the other leaves are
+    detached, made autograd inputs, and appended to it, one list a leaf:
+    each layer is its own input, so its gradient is its own tensor."""
+    from ..tree import leaves, unflatten
+    out = []
+    for x, lay in zip(leaves(blocks), leaves(layouts_tree), strict=True):
+        n = lay.stacked
+        parts = list(x.flatten(0, n - 1).unbind(0)) if n else [x]
+        if live is not None:
+            parts = [p.detach().requires_grad_() for p in parts]
+            live.append(parts)
+        out.append(Stacked(parts, lay.layer(), keep, lay.shape[:n]) if n
+                   else gather_leaf(parts[0], lay, keep))
+    return unflatten(blocks, out)

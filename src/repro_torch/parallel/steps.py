@@ -8,31 +8,46 @@ serve steps.
 
 On a mesh (``mesh=``, ``rules=``; ``sharding``'s layouts) each device
 holds the block of every state leaf that JAX's ``NamedSharding`` gives
-it, and a step is data parallel with FSDP state: it all-gathers the
-parameters, runs the one-device loss on this device's rows of the batch,
-weighs each microbatch's loss by this device's share of the global
-count of valid labels (so the sum over the mesh is JAX's one global mean,
-however the masked labels fall), reduce-scatters the gradients into the
-parameters' layout and updates its blocks with AdamW.  Inside every mesh
-step of a MoE model the dispatch sees the step's row groups
+it, and a step is data parallel with FSDP state, gathered one layer at a
+time as GSPMD runs JAX's scanned layers: the step hands the model its
+blocks (``sharding.for_layers``), each stacked leaf as a
+``sharding.Stacked`` of its layers' blocks and every other leaf (the
+embedding, the final norm, Whisper's) gathered at the top; each layer's
+body gathers its own weights (``sharding.layer``), inside what remat
+checkpoints, so they are freed after the layer and gathered again in its
+recompute.  A stacked leaf never reaches the layers whole: in a mesh
+step (``sharding.use_blocks``, a module global, since on the card
+autograd runs the remat recompute on its own thread) a plain tensor
+there raises.  Each layer's block is its own autograd input, and the
+gather's backward reduces that layer's gradient into the block
+(reduce-scatter, then all-reduce over the axes that replicate the leaf),
+so every gradient leaves the backward in the parameters' layout; the
+microbatches' block gradients are summed in an fp32 accumulator of
+blocks, each dropped before the next microbatch runs, as JAX's
+``shard_like_params(zeros)`` scan holds them.  The step runs the
+one-device loss on this device's rows of the batch, weighs each
+microbatch's loss by this device's share of the global count of valid
+labels (so the sum over the mesh is JAX's one global mean, however the
+masked labels fall) and updates its blocks with AdamW.  Prefill and
+serve take the same blocks and gather each layer in its turn.  Inside
+every mesh step of a MoE model the dispatch sees the step's row groups
 (``sharding.row_groups``: the blocks of devices that the rules cut the
 ``global_batch=`` rows over) and takes JAX's global capacity and
 positions.
 
 The dense and VLM decoders (GQA attention) compute tensor parallel over
 "model" where the rules do not cut the batch over it (``act_shard="seq"``;
-``parallel.tensor``): the step gathers each leaf over every other axis,
+``parallel.tensor``): a layer gathers each leaf over every other axis,
 the layers take each leaf's "model" block (query heads, MLP columns and
 rows, vocab rows) and sum their partial results over the axis, the
 gradients stay those blocks (reduced over the other axes only), and the
 label count and the reported loss sum over the other axes only, since
-the devices of a model axis are parts of one computation, not copies.
-Everywhere else (the MoE, hybrid, xLSTM, MLA and encoder-decoder
-families, ``act_shard="batch2d"``, a model axis of one device) every
-device gathers and computes with whole weights.  Sequence parallelism
-and gathering one layer at a time are not here (ROADMAP.md).  The
-``abstract_*`` helpers give a device's arguments without storage, for
-the dry run.
+the devices of a model axis are parts of one computation, not copies;
+the residual stream is split by rows over the axis where the rules put
+"model" on its sequence.  Everywhere else (the MoE, hybrid, xLSTM, MLA
+and encoder-decoder families, ``act_shard="batch2d"``, a model axis of
+one device) each layer is gathered whole.  The ``abstract_*`` helpers
+give a device's arguments without storage, for the dry run.
 
 The train step updates the state in place, as the JAX trainer donates it
 (``donate_argnums=(0,)``), and returns it with its metrics as 0-d
@@ -101,10 +116,35 @@ def loss_and_grads(loss_fn: Callable, params, batch):
     return loss.detach(), unflatten(params, list(grads))
 
 
+def _block_grads(loss_fn: Callable, blocks, batch, layouts,
+                 keep: Tuple[str, ...] = ()):
+    """:func:`loss_and_grads` of a mesh step at this device's ``blocks``
+    (``sharding.for_layers``): each stacked leaf reaches the layers one
+    layer at a time, each layer's block its own autograd input, gathered
+    inside the layer's body; every other leaf is gathered at the top.
+    Each gradient leaves the backward summed over the mesh and reduced
+    into its block (``sharding.gather_leaf``), in a tree like
+    ``blocks``."""
+    live = []
+    loss = loss_fn(shd.for_layers(blocks, layouts, keep, live), batch)
+    flat = iter(torch.autograd.grad(loss, [t for ts in live for t in ts]))
+    grads = []
+    for x, lay, ts in zip(leaves(blocks), leaves(layouts), live,
+                          strict=True):
+        got = [next(flat) for _ in ts]
+        grads.append(torch.stack(got).view(x.shape) if lay.stacked
+                     else got[0])
+    return loss.detach(), unflatten(blocks, grads)
+
+
 def _accumulated(loss_fn: Callable, params, batch, accum: int,
-                 weights: Optional[torch.Tensor] = None):
+                 weights: Optional[torch.Tensor] = None,
+                 grads_of: Callable = loss_and_grads):
     """(loss, gradients) of one batch, or the means over its ``accum``
-    microbatches (leading axis), accumulated in fp32 in order.
+    microbatches (leading axis), accumulated in fp32 in order, each
+    microbatch's gradients dropped once added.  ``grads_of(loss_fn,
+    params, batch)`` gives a microbatch's (:func:`_block_grads` on a mesh,
+    where ``params`` and the accumulator are this device's blocks).
 
     ``weights`` (``accum``,) scales each microbatch's loss before its
     backward: on a mesh, a device's share of that microbatch's global
@@ -115,14 +155,15 @@ def _accumulated(loss_fn: Callable, params, batch, accum: int,
             return loss_fn
         return lambda p, b: loss_fn(p, b) * weights[i]
     if accum == 1:
-        return loss_and_grads(weighted(0), params, batch)
+        return grads_of(weighted(0), params, batch)
     grads = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
                      params)
     loss = 0.0
     for i in range(accum):
-        l, g = loss_and_grads(weighted(i), params,
-                              {k: v[i] for k, v in batch.items()})
+        l, g = grads_of(weighted(i), params,
+                        {k: v[i] for k, v in batch.items()})
         torch._foreach_add_(leaves(grads), leaves(g))
+        del g
         loss = loss + l
     torch._foreach_div_(leaves(grads), accum)
     return loss / accum, grads
@@ -174,15 +215,6 @@ def make_train_step(cfg: ArchConfig, *, base_lr: float = 3e-4,
                           ef_err=new_ef), metrics
 
     return step
-
-
-def shard_like_params(grads, layouts, keep: Tuple[str, ...] = ()):
-    """This device's block of every gradient leaf summed over the mesh:
-    reduce-scattered into the parameter layout (all-reduced over the axes
-    that replicate a leaf), as JAX's constraint to the parameter sharding
-    makes GSPMD do; along ``keep`` (a tensor-parallel step's "model") the
-    gradients are already the blocks and are not summed."""
-    return tree_map(lambda g, lay: lay.reduce(g, keep), grads, layouts)
 
 
 def state_layouts(cfg: ArchConfig, mesh, rules: shd.AxisRules,
@@ -279,16 +311,15 @@ def _sharded_train_step(cfg, loss_fn, mesh, rules, base_lr, warmup,
     # under tensor parallelism are parts of one computation)
     axes = tuple(a for a in mesh.mesh_dim_names if a not in keep)
 
+    def grads_of(fn, blocks, batch):
+        return _block_grads(fn, blocks, batch, lays, keep)
+
     def step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
         weights = _label_weights(batch["labels"], accum, mesh, axes)
-        params = tree_map(lambda x, lay: lay.gather(x, keep), state.params,
-                          lays)
-        with shd.use_row_groups(groups), \
+        with shd.use_row_groups(groups), shd.use_blocks(), \
                 tensor.use(_for_batch(tp, cfg, batch)):
-            loss, grads = _accumulated(loss_fn, params, batch, accum,
-                                       weights)
-        del params
-        grads = shard_like_params(grads, lays, keep)
+            loss, grads = _accumulated(loss_fn, state.params, batch, accum,
+                                       weights, grads_of)
         # the clipping norm: each block's squares once over the mesh
         sq = sum(g.float().square().sum() / lay.copies
                  for g, lay in zip(leaves(grads), leaves(lays), strict=True))
@@ -342,6 +373,7 @@ def make_prefill_step(cfg: ArchConfig, cache_len: int, mesh=None,
 
     def step(params, batch):
         with torch.no_grad(), shd.use_row_groups(groups), \
+                shd.use_blocks(mesh is not None), \
                 tensor.use(_for_batch(tp, cfg, batch)):
             return fn(gather(params), batch)
     return step
@@ -358,7 +390,8 @@ def make_serve_step(cfg: ArchConfig, mesh=None,
     gather, groups, tp = _param_gather(cfg, mesh, rules, global_batch)
 
     def step(params, batch, cache):
-        with torch.no_grad(), shd.use_row_groups(groups), tensor.use(tp):
+        with torch.no_grad(), shd.use_row_groups(groups), \
+                shd.use_blocks(mesh is not None), tensor.use(tp):
             logits, new_cache = fn(gather(params), batch["token"], cache,
                                    batch["kv_len"])
         next_tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
@@ -379,16 +412,17 @@ def _cache_kv_heads(cfg, tp: Optional[tensor.TensorParallel]
 def _param_gather(cfg, mesh, rules, global_batch
                   ) -> Tuple[Callable, Any, Optional[tensor.TensorParallel]]:
     """(params -> the params the layers take, the step's row groups, its
-    tensor-parallel context): whole params, or under tensor parallelism
-    each leaf's block of the "model" axis."""
+    tensor-parallel context): on a mesh each stacked leaf one layer at a
+    time, each layer gathered in its turn inside its body, and every
+    other leaf gathered whole (``sharding.for_layers``), or under tensor
+    parallelism each leaf's block of the "model" axis."""
     if mesh is None:
         return (lambda params: params), None, None
     rules = _rules(cfg, mesh, rules)
     lays = state_layouts(cfg, mesh, rules).params
     tp = _tensor_parallel(cfg, mesh, rules, lays, global_batch)
     keep = () if tp is None else (tp.axis,)
-    return (lambda params: tree_map(lambda x, lay: lay.gather(x, keep),
-                                    params, lays)), \
+    return (lambda params: shd.for_layers(params, lays, keep)), \
         _row_groups(cfg, mesh, rules, global_batch), tp
 
 

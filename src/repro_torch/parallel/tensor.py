@@ -5,10 +5,10 @@ on "model"), and the residual stream split by rows between them where
 the rules place "seq" on "model" (``act_shard="seq"``, Megatron-SP).
 
 A mesh step of the dense or VLM decoder whose batch the rules do not cut
-over "model" (``steps``) gathers each parameter over every other axis
-and hands the layer code the leaf's "model" block: wq (D, H/m, dh), wo
-(H/m, dh, D), w_gate and w_up (D, F/m), w_down (F/m, D) and the embedding
-(V/m, D).  A leaf the spec leaves whole over "model" (a dimension that
+over "model" (``steps``) gathers each parameter over every other axis, a
+layer at a time (``sharding.layer``), and hands the layer code the
+leaf's "model" block: wq (D, H/m, dh), wo (H/m, dh, D), w_gate and w_up
+(D, F/m), w_down (F/m, D) and the embedding (V/m, D).  A leaf the spec leaves whole over "model" (a dimension that
 does not divide, wk, wv, the norm scales) stays whole.  The layer code
 asks :meth:`TensorParallel.split_dim` whether its leaf is split, which
 reads the leaf's spec and checks that the leaf is that block.
@@ -194,7 +194,7 @@ def use(tp: Optional[TensorParallel]):
 
 def active() -> Optional[TensorParallel]:
     """The tensor-parallel context of the mesh step running now; None off
-    a mesh and where the step keeps the whole gather."""
+    a mesh and where the step gathers each layer whole."""
     return _active
 
 

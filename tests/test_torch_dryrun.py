@@ -14,7 +14,11 @@ HLO analyzer, roofline and dry run.
   (fake-tensor) route of flash attention counts the card's backward.
 * ``python -m repro_torch.launch.dryrun`` on the smallest real cell, as
   the JAX package's own CLI test asks of its dry run.
+* A train step gathers one layer at a time: its collectives are those
+  its parameters' layouts imply, and its temp bytes grow by less than
+  the added layers' weights when the layers double.
 """
+import itertools
 import json
 import os
 import subprocess
@@ -261,3 +265,68 @@ def test_the_peak_trace_ends_at_the_dry_runs_temp_bytes():
         AbstractMesh((4, 2), ("data", "model")), 0.0)
     assert len(highs) > 1 and highs[-1][2] == cell["memory"]["temp_bytes"]
     assert all(a[2] < b[2] for a, b in zip(highs, highs[1:]))
+
+
+def _stacked(lay) -> int:
+    """The leading "layers" dimensions of a leaf's layout."""
+    return len(lay.axes) - len(tuple(
+        itertools.dropwhile(lambda a: a == "layers", lay.axes)))
+
+
+def _implied_collectives(tc, mesh, accum: int) -> dict:
+    """The all-gathers, reduce-scatters and all-reduces a train step that
+    is not tensor parallel implies from its parameters' layouts
+    (``state_layouts``): in each microbatch, each layer of a stacked leaf
+    gathered once a pass (the forward and, under remat, its recompute)
+    and every other leaf once, one all-gather a mesh axis that splits
+    the leaf; each layer's (each leaf's) gradient reduced once, one
+    reduce-scatter a splitting axis and one all-reduce a replicating
+    axis; then the label count, the loss and the clipping norm, one
+    all-reduce a mesh axis each."""
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.tree import leaves
+    rules = shd.default_rules(act_shard=tc.act_shard)
+    axes = mesh.mesh_dim_names
+    passes = 1 if tc.remat == "none" else 2
+    got = {"all-gather": 0, "reduce-scatter": 0, "all-reduce": 3 * len(axes)}
+    for lay in leaves(tst.state_layouts(tc, mesh, rules).params):
+        split = [a for e in lay.spec for a in shd._entries(e)]
+        n = _stacked(lay)
+        layers = int(np.prod(lay.shape[:n]))
+        got["all-gather"] += accum * len(split) * layers * (
+            passes if n else 1)
+        got["reduce-scatter"] += accum * len(split) * layers
+        got["all-reduce"] += accum * (len(axes) - len(split)) * layers
+    return got
+
+
+@pytest.mark.parametrize("remat", ["full", "dots", "none"])
+def test_the_train_step_gathers_one_layer_at_a_time(remat):
+    """Reduced deepseek_7b's train cell (2 microbatches of 8 rows, fp32,
+    ``act_shard="batch2d"``: no tensor parallelism) on an abstract (4, 2)
+    mesh at 2 and at 4 layers.  Its collectives are those the layouts
+    imply: each layer gathered in each pass and reduced once, a
+    microbatch at a time.  Under remat the step holds one layer's
+    gathered weights at a time, so doubling the layers raises the temp
+    bytes by less than the added layers' whole weights (a step that
+    gathers the whole tree at its top holds all of them at once); without
+    remat the backward keeps each layer's gathered weights, as it keeps
+    the rest of the layer's activations."""
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.tree import leaves
+    mesh = AbstractMesh((4, 2), ("data", "model"))
+    temp = {}
+    for n in (2, 4):
+        tc = torch_config("deepseek_7b").reduced().replace(
+            n_layers=n, dtype="float32", act_shard="batch2d", accum=2,
+            remat=remat)
+        cell = dryrun.trace_cell(tc, InputShape("t", 16, 16, "train"), mesh)
+        counts = cell["hlo_analysis"]["collective_counts"]
+        assert counts == _implied_collectives(tc, mesh, 2), n
+        temp[n] = cell["memory"]["temp_bytes"]
+    lays = leaves(tst.state_layouts(
+        tc, mesh, shd.default_rules(act_shard="batch2d")).params)
+    layer = sum(int(np.prod(lay.shape[_stacked(lay):])) * 4
+                for lay in lays if _stacked(lay))
+    if remat != "none":
+        assert 0 < temp[4] - temp[2] < 2 * layer, (temp, layer)

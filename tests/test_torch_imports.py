@@ -402,7 +402,10 @@ def test_chip_smoke_phase_21_rehearses_on_the_cpu(monkeypatch, capsys):
     dry run counts the step's FLOPs and collective bytes; then 21(d) in
     two processes on a (1, 2) gloo mesh: the tensor- and sequence-
     parallel step and prefill against the unsharded ones, its op counts
-    the dry run's (the phase checks them), its stream reduce-scattered."""
+    the dry run's (the phase checks them), its stream reduce-scattered;
+    then 21(e) in two processes on a (2, 1) gloo mesh: the FSDP step at
+    accum 2 against the unsharded one, its layers gathered one at a
+    time, its op counts the dry run's."""
     import chip_smoke
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
     out = chip_smoke.phase_mesh(0, "CPU rehearsal", card_dev="cpu",
@@ -415,3 +418,7 @@ def test_chip_smoke_phase_21_rehearses_on_the_cpu(monkeypatch, capsys):
     printed = capsys.readouterr().out
     assert "= the card step's count" in printed
     assert "21(d)" in printed and "op counts = the dry run's" in printed
+    fsdp = out["fsdp"]
+    assert fsdp["worst"] <= 1e-6
+    assert fsdp["counts"]["collective_counts"]["reduce-scatter"] > 0
+    assert "21(e)" in printed

@@ -184,10 +184,13 @@ class _BlockSpy:
     (``transformer.lm_loss``, ``lm_prefill``, ``lm_decode``) and checks
     the parameters they are given: under tensor parallelism every leaf
     whose spec splits it over "model" is this device's block of it, and
-    every other leaf whole; without it, every leaf whole.  ``split`` counts
-    the split leaves of the last call; ``rows`` is the length of the
-    residual stream the trunk (``transformer._trunk``) last ran on: this
-    device's rows where the stream is split."""
+    every other leaf whole; without it, every leaf whole.  A stacked leaf
+    (leading "layers" dimensions) comes as a ``sharding.Stacked`` whose
+    shape says so, and whose layers are this device's blocks, each its
+    own tensor: it is gathered a layer at a time.  ``split`` counts the
+    split leaves of the last call; ``rows`` is the length of the residual
+    stream the trunk (``transformer._trunk``) last ran on: this device's
+    rows where the stream is split."""
 
     def __init__(self, lay):
         from repro_torch.models import transformer
@@ -203,9 +206,15 @@ class _BlockSpy:
         transformer._trunk = rows
 
         def check(params):
+            from repro_torch.parallel import sharding as shd
             tp = tensor.active()
             self.split = 0
             for x, l in zip(leaves(params), lays, strict=True):
+                if l.stacked:
+                    assert isinstance(x, shd.Stacked), (l.axes, type(x))
+                    block = l.local_shape[l.stacked:]
+                    assert all(tuple(t.shape) == block for t in x.parts), \
+                        (l.axes, block)
                 want = list(l.shape)
                 for dim, e in enumerate(l.spec):
                     if tp is not None and e == tp.axis:
@@ -262,6 +271,8 @@ def sharded_train(rank, d):
     accum = info.get("accum", 1)
     cfg = get_config(info["arch"]).reduced().replace(
         dtype="float32", act_shard=info["act_shard"])
+    if "remat" in info:
+        cfg = cfg.replace(remat=info["remat"])
     mesh = _mesh(info["mesh"], ("data", "model"))
     rules = shd.default_rules(act_shard=info["act_shard"])
     lay = st.state_layouts(cfg, mesh, rules)
@@ -279,7 +290,7 @@ def sharded_train(rank, d):
         step = st.make_train_step(
             cfg, total_steps=info["total_steps"], warmup=info["warmup"],
             accum=accum, mesh=mesh, rules=rules,
-            global_batch=int(np.prod(batches[0]["tokens"].shape[:-1])))
+            global_batch=int(np.prod(batches[0]["labels"].shape[:-1])))
         losses, counts = [], None
         for i, batch in enumerate(batches):
             batch = st.batch_rows({k: torch.as_tensor(v)
