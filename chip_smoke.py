@@ -7,17 +7,20 @@ Phases; each raises (exit code 1) on failure, nothing is caught, and each
 prints its seconds:
 
 1. print the card (nvidia-smi name, power limit); build the CUDA kernels
-   from ``src/repro_torch/kernels/csrc`` with nvcc and print the seconds;
-   print ptxas's registers, shared memory and spills of the attention
+   from ``src/repro_torch/kernels/csrc`` with nvcc (one process a source,
+   all at once, then a link) and print the seconds;
+   print ptxas's registers, shared memory and spills of the ten attention
    kernels, of the grouped matmul's tiled and streaming kernels, of the
-   four flash-decode and of the eight SSD-scan instantiations, and count
+   six flash-decode and of the eight SSD-scan instantiations, and count
    the tensor-core instructions (HGMMA, HMMA) of the attention, tiled
    grouped-matmul, flash-decode and SSD-scan kernels in the SASS
    (``cuobjdump -sass``): none in an attention, tiled, bf16 decode or scan
    kernel would mean a CUDA-core path (the fp32 decode kernels must have
    none); ptxas's lines of the twelve sLSTM instantiations and of the
    twenty RMSNorm ones (9 served widths x 2 types, and the general path),
-   and the sLSTM kernel's cluster plan at xlstm_125m's heads;
+   and the sLSTM kernel's cluster plan at xlstm_125m's heads; and hold
+   ``flash_decode.plan``'s shared memory to the C launcher's at every
+   served decode shape (``served_decode_shapes``), in both types;
 2. hold each kernel against its plain PyTorch version on the card at the
    serving paths' shapes, in fp32 (atol = rtol = 2e-5; 2e-4 for the SSD
    scan, whose chunked and sequential sums differ in order) and bf16
@@ -47,7 +50,13 @@ prints its seconds:
    self (T 448) decodes; flash attention (S 512, causal) and flash decode
    (T 1024) at D 128 with the (query, KV) heads one device computes in a
    tensor-parallel mesh step (``TP_HEADS``: 2/1, 8/1, 6/1 and 2/2), in
-   both types; RMSNorm first fails unless one call runs exactly
+   both types; deepseek_v2_236b's shapes: flash attention at its MLA
+   prefill (S 512, 128 heads, D 192, Dv 128) and flash decode at its
+   latent decode (128 heads on one KV head, key 576, value 512 a view of
+   the key's rows, T 1024 full, in both types, and at a served fill in
+   fp32), and the grouped matmul at its 160 experts (5120 -> 1536 and
+   1536 -> 5120, the routed counts of a 4-slot tick and of a 512-token
+   prefill); RMSNorm first fails unless one call runs exactly
    one device kernel, the port's, then runs the decode tick's 4 rows at
    every served width (256 to 12288) and a 512-token prefill at 4096 and
    7168, in both types, and glm4_9b's decode chain in fp32 (the residual
@@ -221,7 +230,21 @@ prints its seconds:
    the prefill's 2 flash attentions and 5 RMSNorms) and its op counts
    equal to the dry run's trace on an abstract (1, 2) mesh; three more
    steps timed on the host clock (a gloo step, its collectives staged
-   through the host: not a speed of the design).
+   through the host: not a speed of the design);
+22. full-width deepseek_v2_236b (MLA: q_lora 1536, kv_lora 512, qk 128 +
+   64, v 128, 128 heads; 160 routed top-6 experts of 1536 and 2 shared)
+   cut to 2 layers, the dense first one and one MoE layer (4.834 B
+   parameters, 19.34 GB in fp32), card against CPU as in phase 3, printing
+   how many top-6 routes differ; its prefill attention runs the flash
+   attention kernel at D 192 / Dv 128 and its decode the latent flash
+   decode at key 576 / value 512, each row read once;
+23. serve deepseek_v2_236b at full width cut to 4 layers, 1 dense and 3
+   MoE (12.779 B parameters, 51.11 GB in fp32), as in phase 4, every
+   earlier model's tensors freed: each layer runs a flash attention a
+   prefill and a latent flash decode a tick, each MoE layer 3 grouped
+   matmuls a prefill and a tick, and four norms a layer and the final
+   one, as the counts assert; the tick p50, busy ms, kernels a tick, the
+   tick's floor and peak memory.
 
 Then a ``{"kernels": [...]}`` line and, last, the device line.  Exits
 nonzero without a CUDA device or without the repository around it.
@@ -336,8 +359,10 @@ def kernel_report() -> None:
                 counts[fn][op] += bool(re.search(rf"\b{op}\.", line))
     attention = sorted(f for f in counts if "flash_attn" in f)
     tiled = sorted(f for f in counts if "gmm_tiled" in f)
-    check(len(attention) == 6, f"expected 6 attention kernels in the SASS, "
-                               f"found {attention}")
+    # bf16: D padded to 64, 128 or 192; fp32: 128 or 192 (its stages); each
+    # with Dv padded to 64 or 128
+    check(len(attention) == 10, f"expected 10 attention kernels in the "
+                                f"SASS, found {attention}")
     check(len(tiled) == 2, f"expected 2 tiled moe_gmm kernels in the SASS, "
                            f"found {tiled}")
 
@@ -360,13 +385,13 @@ def kernel_report() -> None:
         print(f"  gmm_stream<{dtype(fn)}, rows {cs}, loads {unroll}>: "
               f"ptxas: {'; '.join(ptxas[fn])}")
     decode = sorted(f for f in ptxas if "flash_decode" in f)
-    check(len(decode) == 4, f"expected 4 flash_decode kernels, found "
-                            f"{decode}")
+    check(len(decode) == 6, f"expected 6 flash_decode kernels (3 plans x 2 "
+                            f"types), found {decode}")
     for fn in decode:
-        nc, stages = re.findall(r"Li(\d+)E", fn)
+        nc, heads, stages = re.findall(r"Li(\d+)E", fn)
         hmma = counts.get(fn, {}).get("HMMA", 0)
-        print(f"  flash_decode_kernel<{dtype(fn)}, Dv chunks {nc}, stages "
-              f"{stages}>: {hmma} HMMA in the SASS; ptxas: "
+        print(f"  flash_decode_kernel<{dtype(fn)}, Dv chunks {nc}, heads "
+              f"{heads}, stages {stages}>: {hmma} HMMA in the SASS; ptxas: "
               f"{'; '.join(ptxas[fn])}")
         # bf16 groups of 8-16 heads run mma.sync; fp32 stays on CUDA cores
         check(hmma > 0 if "bfloat16" in fn else hmma == 0,
@@ -404,14 +429,46 @@ def kernel_report() -> None:
               f"shared memory a block")
     for dtype in (torch.float32, torch.bfloat16):
         print(f"  dynamic shared memory at D = Dv = 128, {dtype}: "
-              f"attention {fa.smem_bytes(dtype, 128, 128)} bytes; decode, "
+              f"attention {fa.smem_bytes(dtype, 128, 128)} bytes, at D 192 "
+              f"/ Dv 128 {fa.smem_bytes(dtype, 192, 128)}; decode, "
               f"a block of glm4_9b (G = 16) "
               f"{fd.smem_bytes(dtype, 128, 128, 16)}, of G = 1 "
               f"{fd.smem_bytes(dtype, 128, 128, 1)}, of minicpm3_4b's "
               f"latent decode (D 288, Dv 256, G = 40) "
-              f"{fd.smem_bytes(dtype, 288, 256, 40)}; SSD scan at N = 64, "
-              f"P tile 64 {ms.smem_bytes(dtype, 64, 64)}, P tile 32 "
+              f"{fd.smem_bytes(dtype, 288, 256, 40, True)} (K and V staged "
+              f"apart {fd.smem_bytes(dtype, 288, 256, 40)}), of "
+              f"deepseek_v2_236b's (D 576, Dv 512, G = 128) "
+              f"{fd.smem_bytes(dtype, 576, 512, 128, True)}; SSD scan at "
+              f"N = 64, P tile 64 {ms.smem_bytes(dtype, 64, 64)}, P tile 32 "
               f"{ms.smem_bytes(dtype, 64, 32)}")
+    # the Python plan (which the wrapper and the dry run check) against the
+    # C launcher's layout, at every served decode shape
+    shapes = served_decode_shapes()
+    for dtype in (torch.float32, torch.bfloat16):
+        for d, dv, group, shared in shapes:
+            want = fd.smem_bytes(dtype, d, dv, group, shared)
+            got = fd.plan(dtype, d, dv, group, shared).smem
+            check(got == want, f"flash_decode.plan {dtype} D={d} Dv={dv} "
+                               f"G={group} shared={shared}: {got} bytes, "
+                               f"the launcher's {want}")
+    print(f"  flash_decode.plan equals the launcher's shared memory at "
+          f"{len(shapes)} served decode shapes x 2 types: {shapes}")
+
+
+def served_decode_shapes() -> list:
+    """(D, Dv, group, value read from the key rows) of every decode the
+    served models and the tensor-parallel heads run."""
+    from repro_torch.configs import ARCH_IDS, get_config
+    out = set()
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        if cfg.attn == "mla":
+            out.add((cfg.kv_lora + cfg.qk_rope, cfg.kv_lora, cfg.n_heads,
+                     True))
+        elif cfg.family != "ssm":
+            out.add((cfg.dh, cfg.dh, cfg.n_heads // cfg.n_kv_heads, False))
+    out.update((128, 128, h // hkv, False) for h, hkv in TP_HEADS)
+    return sorted(out)
 
 
 def compare(name, got, want, dtype, tol=None) -> float:
@@ -471,19 +528,20 @@ def phase_kernels(gen):
         return timed(kern, plain, lib, err, nbytes, flops, dtype, sdpa=True)
 
     def decode(h, hkv, d, dtype, tag, lens=(1024, 700, 129, 1), t=1024,
-               latent=False):
+               latent=None):
         """4 slots of a ``t``-row cache, ragged fill; one call must run one
         device kernel (the split keys merge in the same launch).
-        ``latent``: MLA's decode, one KV head whose key is a (B, T, d) row
-        buffer and whose value the view of its first 256 columns, at the
-        model's scale (kv_lora 256 + qk_rope 32 of minicpm3_4b: 96^-0.5);
-        the rows are read once, since the value is a prefix of the key."""
+        ``latent``: (kv_lora, scale) of MLA's decode, one KV head whose key
+        is a (B, T, d) row buffer and whose value the view of its first
+        kv_lora columns, at the model's scale (minicpm3_4b: 256 of 256 +
+        32, 96^-0.5; deepseek_v2_236b: 512 of 512 + 64, 192^-0.5); the rows
+        are read once, since the value is a prefix of the key."""
         from repro_torch.kernels import flash_decode as fd
         b = 4
         q = rnd(b, 1, h, d, dtype=dtype)
         if latent:
             k = rnd(b, t, hkv, d, dtype=dtype)
-            v, dv, scale = k[..., :256], 256, 96 ** -0.5
+            (dv, scale), v = latent, k[..., :latent[0]]
         else:
             k, v = rnd(b, t, hkv, d, dtype=dtype), rnd(b, t, hkv, d,
                                                        dtype=dtype)
@@ -511,12 +569,14 @@ def phase_kernels(gen):
         rows = d if latent else d + dv
         nbytes = (q.numel() + b * h * dv + hkv * rows * n_kv) \
             * q.element_size() + 4 * b
-        split = fd.split_count(t, fd.groups_of(b, h, hkv),
+        pl = fd.plan(dtype, d, dv, h // hkv, bool(latent))
+        split = fd.split_count(t, fd.groups_of(b, h, hkv, d, dv),
                                torch.cuda.get_device_properties(0)
                                .multi_processor_count)
         return timed(kern, plain, lib, err, nbytes, 2 * (d + dv) * h * n_kv,
-                     dtype, sdpa=True, note=f"{split} splits, 1 device "
-                                            f"kernel")
+                     dtype, sdpa=True, note=f"{split} splits, {pl.heads} "
+                                            f"heads a block, {pl.smem} B of "
+                                            f"shared memory, 1 device kernel")
 
     def rmsnorm(n, dm, dtype, tag):
         x, s_ = rnd(n, dm, dtype=dtype), rnd(dm, dtype=torch.float32)
@@ -722,10 +782,25 @@ def phase_kernels(gen):
         rows[("flash_attention", tag, "S=T=1500 H=16 D=64 encoder")] = \
             attention(1500, 16, 16, 64, dtype, tag, causal=False)
         rows[("flash_decode", tag, "T=1024 H=40 Hkv=1 D=288 Dv=256 latent")] \
-            = decode(40, 1, 288, dtype, tag, latent=True)
+            = decode(40, 1, 288, dtype, tag, latent=(256, 96 ** -0.5))
     rows[("flash_decode", "float32",
           "T=1024 H=40 Hkv=1 D=288 Dv=256 latent fill 544/160/68/9")] = \
-        decode(40, 1, 288, torch.float32, "float32", served, latent=True)
+        decode(40, 1, 288, torch.float32, "float32", served,
+               latent=(256, 96 ** -0.5))
+    # deepseek_v2_236b: its MLA prefill (128 heads, q/k 128 + 64, v 128)
+    # and its latent decode (128 heads on one KV head, key 512 + 64, value
+    # the first 512 columns of the key rows), full and at a served fill
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).replace("torch.", "")
+        rows[("flash_attention", tag, "S=512 H=128 D=192 Dv=128 MLA")] = \
+            attention(512, 128, 128, 192, dtype, tag, dv=128)
+        rows[("flash_decode", tag,
+              "T=1024 H=128 Hkv=1 D=576 Dv=512 latent full")] = decode(
+            128, 1, 576, dtype, tag, (1024,) * 4, latent=(512, 192 ** -0.5))
+    rows[("flash_decode", "float32",
+          "T=1024 H=128 Hkv=1 D=576 Dv=512 latent fill 544/160/68/9")] = \
+        decode(128, 1, 576, torch.float32, "float32", served,
+               latent=(512, 192 ** -0.5))
     # the (query, KV) heads of a tensor-parallel mesh step (TP_HEADS)
     for dtype in (torch.float32, torch.bfloat16):
         tag = str(dtype).replace("torch.", "")
@@ -745,13 +820,15 @@ def phase_kernels(gen):
         # glm4_9b's d_model and zamba2's gated-norm width; the decode step
         # at every served width (MLA's kv_norm 256 and q_norm 768,
         # xlstm_125m 768, whisper_medium 1024, deepseek_moe_16b 2048,
-        # minicpm3_4b 2560, zamba2_7b 3584, 12288); and glm4_9b's decode
-        # chain around the norm
+        # minicpm3_4b 2560, zamba2_7b 3584, 12288); deepseek_v2_236b's
+        # widths, which no vector instantiation holds and the general path
+        # runs (kv_norm 512, q_norm 1536, d_model 5120, the last also at a
+        # 512-token prefill); and glm4_9b's decode chain around the norm
         for n in (4, 512):
-            for dm in (4096, 7168):
+            for dm in (4096, 7168, 5120):
                 rows[("rmsnorm", tag, f"N={n} D={dm}")] = rmsnorm(
                     n, dm, dtype, tag)
-        for dm in (256, 768, 1024, 2048, 2560, 3584, 12288):
+        for dm in (256, 768, 1024, 2048, 2560, 3584, 12288, 512, 1536):
             rows[("rmsnorm", tag, f"N=4 D={dm}")] = rmsnorm(4, dm, dtype,
                                                             tag)
         if dtype == torch.float32:
@@ -783,6 +860,15 @@ def phase_kernels(gen):
                                   f"D=2048 F=1408")] = gmm(
                 64, c, 2048, 1408, dtype, tag,
                 routed_counts(n_tok, 64, 6, seed=n_tok))
+        # deepseek_v2_236b's routed experts (160, top-6): gate/up (D=5120,
+        # F=1536) and down (1536 -> 5120) of a 4-slot tick (C = 1 at
+        # capacity factor 4.0) and a 512-token prefill (C = 24 at 1.25)
+        for n_tok, c in ((4, 1), (512, 24)):
+            for d, f in ((5120, 1536), (1536, 5120)):
+                rows[("moe_gmm", tag, f"routed {n_tok} tokens E=160 C={c} "
+                                      f"D={d} F={f}")] = gmm(
+                    160, c, d, f, dtype, tag,
+                    routed_counts(n_tok, 160, 6, seed=n_tok))
         # the sLSTM at xlstm_125m's heads (4 of 192): a 512-, a 300- and a
         # 17-token prefill, and a decode tick of 4 slots from a state
         for s_, rs, bs in ((512, 0.02, 0.0), (512, 0.1, 0.1),
@@ -1021,17 +1107,20 @@ def tick_cache_bytes(cfg, slots, fill):
 
 
 def phase_serve(arch, seed, max_prompt, repeats: int = 1, then=None,
-                long=(256, 512), before=None):
-    """Phases 4, 6, 8, 10, 16 and 18: a full model through the serving
-    engine, the same 8 requests ``repeats`` times, each on a fresh engine.
-    Six prompts are drawn in [4, max_prompt], two have the ``long``
-    lengths.  ``before(cfg, params)`` runs before the engine and
-    ``then(cfg, params)`` last, on the same weights; the launches of the
-    engine's first run are returned, plus those ``before`` returns."""
+                long=(256, 512), before=None, n_layers=None):
+    """Phases 4, 6, 8, 10, 16, 18 and 23: a full model (or its full width
+    cut to ``n_layers``) through the serving engine, the same 8 requests
+    ``repeats`` times, each on a fresh engine.  Six prompts are drawn in
+    [4, max_prompt], two have the ``long`` lengths.  ``before(cfg,
+    params)`` runs before the engine and ``then(cfg, params)`` last, on the
+    same weights; the launches of the engine's first run are returned,
+    plus those ``before`` returns."""
     from repro_torch.configs import get_config
     from repro_torch.models import api
     from repro_torch.models.common import count_params, init_params
     cfg = get_config(arch).replace(dtype="float32", attn_impl="kernel")
+    if n_layers is not None:
+        cfg = cfg.replace(n_layers=n_layers)
     spec = api.param_spec(cfg)
     n_params = count_params(spec)
     torch.cuda.reset_peak_memory_stats()
@@ -1039,8 +1128,9 @@ def phase_serve(arch, seed, max_prompt, repeats: int = 1, then=None,
     params = init_params(spec, torch.Generator(device="cuda").manual_seed(
         seed), "cuda")
     torch.cuda.synchronize()
-    print(f"  {arch}: {n_params / 1e9:.3f} B params fp32 "
-          f"({4 * n_params / 1e9:.1f} GB), init {time.perf_counter() - t0:.1f} s")
+    print(f"  {arch}{'' if n_layers is None else f' cut to {n_layers} layers'}"
+          f": {n_params / 1e9:.3f} B params fp32 ({4 * n_params / 1e9:.2f} "
+          f"GB), init {time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(seed)
     lens = [int(x) for x in rng.integers(4, max_prompt + 1, 6)] + list(long)
     prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in lens]
@@ -3564,6 +3654,15 @@ def main() -> int:
     by_path["mesh"] = mesh["launches"]
     by_path["mesh_tp"] = mesh["tp"]["launches"]
     by_path["mesh_fsdp"] = mesh["fsdp"]["launches"]
+    del mesh
+    gc.collect()
+    torch.cuda.empty_cache()        # the mesh's tensors are gone
+    phase(22, "full-width 2-layer deepseek_v2_236b (MLA + 160 experts), "
+              "card against CPU", phase_cut, "deepseek_v2_236b", 2, seed)
+    by_path["deepseek_v2_236b"] = phase(
+        23, "serving full-width deepseek_v2_236b cut to 4 layers",
+        phase_serve, "deepseek_v2_236b", seed, 128, 1, None, (256, 512),
+        None, 4)
 
     timed = {"flash_attention": ("float32", "S=512"),
              "flash_decode": ("float32", "T=1024"),

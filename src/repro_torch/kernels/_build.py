@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
 Every ``csrc/*.cu`` goes into one shared library with a plain C
-interface, compiled by a single ``nvcc`` call for ``sm_90a`` (Hopper)
-and loaded with ``ctypes``.  The library is named after a hash of the
-sources and flags, built at first use into ``build/torch_kernels/`` at
-the root of the checkout, and reused while the sources are unchanged.
+interface, compiled for ``sm_90a`` (Hopper) by one ``nvcc`` a source, all
+started together, then linked, and loaded with ``ctypes``.  The library
+is named after a hash of the sources and flags, built at first use into
+``build/torch_kernels/`` at the root of the checkout, and reused while the
+sources are unchanged.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`check` raises when that is not 0, so a refused launch is never
@@ -36,6 +37,7 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
     "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+COMPILE_FLAGS = [f for f in NVCC_FLAGS if f != "-shared"] + ["-c"]
 # C entry points return these for a TMA tensor map they could not encode
 # (csrc/hopper.cuh): no cuTensorMapEncodeTiled, or its CUresult + the base
 NO_ENCODER, ENCODE_FAILED = 90000, 90001
@@ -44,7 +46,7 @@ _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _lib_path: Optional[pathlib.Path] = None
 _functions = {}
-BUILD_SECONDS = 0.0     # time of the nvcc call; 0 when the library is reused
+BUILD_SECONDS = 0.0     # time of the nvcc calls; 0 when the library is reused
 
 
 def _sources() -> Sequence[pathlib.Path]:
@@ -75,16 +77,31 @@ def library() -> ctypes.CDLL:
         if not out.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cu = [str(s) for s in _sources() if s.suffix == ".cu"]
+            cu = [s for s in _sources() if s.suffix == ".cu"]
+            objs = [BUILD_DIR / f"{s.stem}.{os.getpid()}.o" for s in cu]
             t0 = time.perf_counter()
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cu],
-                capture_output=True, text=True)
+            procs = [subprocess.Popen(
+                [_nvcc(), *COMPILE_FLAGS, "-o", str(o), str(s)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for s, o in zip(cu, objs)]
+            logs = [p.communicate()[0] for p in procs]
+            failed = [f"{s.name} ({p.returncode}):\n{log}" for s, p, log
+                      in zip(cu, procs, logs) if p.returncode != 0]
+            if not failed:
+                link = subprocess.run(
+                    [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                     *map(str, objs)], stdout=subprocess.PIPE,
+                    stderr=subprocess.STDOUT, text=True)
+                logs.append(link.stdout)
+                if link.returncode != 0:
+                    failed.append(f"link ({link.returncode}):\n"
+                                  f"{link.stdout}")
             BUILD_SECONDS = time.perf_counter() - t0
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                                   f"{proc.stdout}{proc.stderr}")
-            out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+            for o in objs:
+                o.unlink(missing_ok=True)
+            if failed:
+                raise RuntimeError("nvcc failed: " + "\n".join(failed))
+            out.with_suffix(".log").write_text("".join(logs))
             os.replace(tmp, out)
         _lib, _lib_path = ctypes.CDLL(str(out)), out
         return _lib

@@ -17,9 +17,8 @@
 // O((S+T)*D) bytes.  So the products run on tensor cores and the loads are
 // asynchronous:
 // * warp 8 is the producer: one thread loads the Q block once and the K and
-//   V tiles (64 keys) into a ring of stages (4 in bf16, 3 in fp32, as
-//   shared memory allows) with TMA, each stage behind a full and an empty
-//   mbarrier;
+//   V tiles (64 keys) into a ring of stages with TMA, each stage behind a
+//   full and an empty mbarrier;
 // * warps 0-3 and 4-7 are the two consumer warpgroups, each over all 64
 //   query rows and every other tile; each keeps m, l and its output
 //   accumulator in registers and does the online softmax on the score
@@ -58,31 +57,47 @@
 //
 // The tensor maps are encoded on the host at each call (hopper.cuh says
 // how).  Contract (the Python wrapper checks it and raises first): D and Dv
-// multiples of 16 in bf16 and of 8 in fp32, at most 128; the head
-// dimension contiguous; base pointers 16-byte aligned and the outer strides
+// multiples of 16 in bf16 and of 8 in fp32, D at most 192 (deepseek_v2's
+// MLA prefill: qk_nope 128 + qk_rope 64) and Dv at most 128 (the output
+// accumulator's DVP / 2 = 64 registers a thread); the head dimension
+// contiguous; base pointers 16-byte aligned and the outer strides
 // multiples of 16 bytes (TMA's rules).
+//
+// Shared memory: 1 KB of alignment slack, the Q block and `stages` stages
+// of a K and a V tile, in 8 KB boxes of 64 rows by 128 bytes, and
+// 2 * stages + 1 mbarriers; a block may have 232,448 bytes on sm_90.
+// bf16 takes 4 stages: D 192 / Dv 128 is 3 Q boxes + 4 x (3 + 2) boxes,
+// 189,512 bytes.  fp32 (32 columns a box) takes 3 stages up to D 128
+// (4 + 3 x 8 boxes, 230,456 bytes at D = Dv = 128) and 2 above: at D 192 /
+// Dv 128, three would be 6 + 3 x (6 + 4) boxes, 295,992 bytes; two are
+// 6 + 2 x 10 boxes, 214,056 bytes.
 #include "common.cuh"
 #include "hopper.cuh"
 
 namespace {
 
 constexpr int BQ = 64, BK = 64, kGroups = 2, kConsumers = 128 * kGroups;
-constexpr int kThreads = kConsumers + 32, kMaxD = 128;
+constexpr int kThreads = kConsumers + 32, kMaxD = 192, kMaxDv = 128;
 constexpr int kBoxRows = 64, kBoxBytes = kBoxRows * 128;
 constexpr float kLog2e = 1.4426950408889634f;
 
 template <typename T> struct Elem;
 template <> struct Elem<float> {
   static constexpr int box = 32;  // elements in a 128-byte box row
-  static constexpr int stages = 3;
   static constexpr CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
 };
 template <> struct Elem<__nv_bfloat16> {
   static constexpr int box = 64;
-  static constexpr int stages = 4;
   static constexpr CUtensorMapDataType type =
       CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
 };
+
+// Ring stages of an instantiation (the header says why): 4 in bf16, 3 in
+// fp32 up to D 128 and 2 above.
+template <typename T, int DP>
+__host__ __device__ constexpr int stages_of() {
+  return sizeof(T) == 2 ? 4 : (DP <= 128 ? 3 : 2);
+}
 
 // V boxes of a stage: wgmma's N covers DVP columns (whole boxes); fp32 reads
 // only the boxes that hold Dv columns.
@@ -249,7 +264,7 @@ flash_attn_kernel(const __grid_constant__ CUtensorMap tm_q,
   // swizzled boxes need 1024-byte alignment; the launch adds the slack
   uint8_t* smem = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023))
                               & 1023);
-  constexpr int kStages = Elem<T>::stages;
+  constexpr int kStages = stages_of<T, DP>();
   const int nbd = (prm.D + Elem<T>::box - 1) / Elem<T>::box;
   const int nbv = v_boxes<T, DVP>(prm.Dv);
   const int stage_bytes = (nbd + nbv) * kBoxBytes;
@@ -434,7 +449,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
            int H, int Hkv, int S, int T_, int D, int Dv, const long long* st,
            float scale, int causal, void* stream) {
   const int mult = sizeof(T) == 2 ? 16 : 8;
-  if (D <= 0 || Dv <= 0 || D > kMaxD || Dv > kMaxD || D % mult || Dv % mult
+  if (D <= 0 || Dv <= 0 || D > kMaxD || Dv > kMaxDv || D % mult || Dv % mult
       || Hkv <= 0 || H % Hkv)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B * H * S == 0) return static_cast<int>(cudaGetLastError());
@@ -458,7 +473,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 
   const int nbd = (D + box - 1) / box;
   const int nbv = v_boxes<T, DVP>(Dv);
-  constexpr int kStages = Elem<T>::stages;
+  constexpr int kStages = stages_of<T, DP>();
   const size_t smem = 1024 + (size_t)(nbd + kStages * (nbd + nbv)) * kBoxBytes
                       + 8 * (2 * kStages + 1);
   cudaError_t e = cudaFuncSetAttribute(
@@ -476,7 +491,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 }
 
 // Instantiations: Dv padded to 64 or 128 (the accumulator's width), and in
-// bf16 D padded to 64 or 128 (the unrolled Q·Kᵀ k loop); fp32 loops over D.
+// bf16 D padded to 64, 128 or 192 (the unrolled Q·Kᵀ k loop); fp32 loops
+// over D, and its D over 128 is an instantiation of its own for the stages.
 template <typename T, int DP>
 int dispatch_dv(const void* q, const void* k, const void* v, void* o, int B,
                 int H, int Hkv, int S, int T_, int D, int Dv,
@@ -499,7 +515,10 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B,
       return dispatch_dv<T, 64>(q, k, v, o, B, H, Hkv, S, T_, D, Dv, strides,
                                 scale, causal, stream);
   }
-  return dispatch_dv<T, 128>(q, k, v, o, B, H, Hkv, S, T_, D, Dv, strides,
+  if (D <= 128)
+    return dispatch_dv<T, 128>(q, k, v, o, B, H, Hkv, S, T_, D, Dv, strides,
+                               scale, causal, stream);
+  return dispatch_dv<T, 192>(q, k, v, o, B, H, Hkv, S, T_, D, Dv, strides,
                              scale, causal, stream);
 }
 

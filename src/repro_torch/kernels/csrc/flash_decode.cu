@@ -10,8 +10,9 @@
 // per byte of cache in bf16 (8 in fp32), far under the card's ratio.  The
 // design is about bytes in flight and enough blocks, not FMAs:
 // * One block per (key split, b, KV head) serves all G query heads of the
-//   group (up to 32 a block; a larger group takes several blocks), so a
-//   K/V row leaves HBM once per group, not G times.
+//   group (up to 32 a block, 16 at the widest rows; a larger group takes
+//   several blocks), so a K/V row leaves HBM once per group of a block,
+//   not once a head.
 // * The key axis is split over `nsplit` <= 32 blocks.  The host picks
 //   nsplit from T, the number of groups and the SM count, never from
 //   kv_len: the launch reads no device value, needs no host sync and suits
@@ -40,13 +41,30 @@
 //   splits of a ragged batch are empty.
 // K/V are read through the strides of the model's (B, T, Hkv, D) cache.
 // kv_len = 0 gives 0, as the TPU kernel does.
-// Widths: a value row of at most 256 (a lane's NC = 2 chunks of 4 dims),
-// a key row of at most 288, MLA's latent decode (minicpm3_4b: key
-// [c_kv | k_rope] of 256 + 32, value c_kv, 40 query heads on one KV head,
-// so two blocks of 32 and 8 heads a split).  There a fp32 block of 32
-// heads with two ring stages takes 220,672 bytes of shared memory: one
-// block an SM, where narrower rows fit two.  The value is a prefix of the
-// key's row in that cache; each is loaded on its own.
+// The single read: where V is the first Dv columns of K's rows (one
+// storage, one base, the same strides: MLA's latent cache, whose key is
+// [c_kv | k_rope] and whose value c_kv), each row is staged once and V is
+// read from the staged K rows; otherwise K and V each have their rows in
+// a stage.
+// Widths and plans (`plan_of`, mirrored by flash_decode.plan in Python),
+// shared memory of a block at most 232,448 bytes on sm_90:
+// * rows of at most 128: a lane's NC = 1 chunk of 4 output dims, 32 heads
+//   a block, 4 stages in bf16 and 3 in fp32; two blocks an SM;
+// * a key of at most 288 and a value of at most 256 (minicpm3_4b's latent
+//   decode: 256 + 32 and 256, 40 heads on one KV head, blocks of 32 and 8
+//   heads): NC = 2, 32 heads, 4 / 2 stages.  Its fp32 block of 32 heads
+//   took 220,672 bytes with K and V staged apart; the single read stages
+//   74,752 bytes of the 149,504 and the block takes 154,112;
+// * a key of at most 576 and a value of at most 512 (deepseek_v2_236b's
+//   latent decode: 512 + 64 and 512, 128 heads on one KV head): NC = 4,
+//   16 heads a block, 3 stages in bf16 and 2 in fp32.  In fp32 a staged
+//   row is 2,320 bytes (145 odd 16-byte units), a stage 74,240, the q rows
+//   of 16 heads 36,864 and the partial-acc rows 32,768: 223,232 bytes in
+//   all.  With V staged apart (a stage 140,288) or 32 heads (q 73,728 and
+//   the acc rows 65,536) it would pass the limit; so would bf16's four
+//   stages (242,688 with its A fragments of q); three take 205,312.  A
+//   value over 256 that is not a view of the key's rows does not fit and
+//   is refused.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -56,11 +74,10 @@ namespace {
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kTile = 32;         // keys a tile: one a lane
-constexpr int kMaxHeads = 32;     // query heads a block
-constexpr int kHeadsPerWarp = kMaxHeads / kWarps;
+constexpr int kMaxHeads = 32;     // query heads a block, in any plan
 constexpr int kMaxSplit = 32;     // key splits of a group
-constexpr int kMaxD = 288;        // key row
-constexpr int kMaxDv = 256;       // value row: NC = 2 chunks of 4 a lane
+constexpr int kMaxD = 576;        // key row
+constexpr int kMaxDv = 512;       // value row: NC = 4 chunks of 4 a lane
 constexpr int kMaxSmem = 232448;  // 227 KB, a block's most on sm_90
 constexpr int kPStride = kTile + 8;  // floats a row of P: conflict-free
                                      // 8-byte reads of 8 rows
@@ -69,22 +86,35 @@ struct Strides {
   long long qb, qh, kb, kh, kt, vb, vh, vt, ob, oh;
 };
 
+// The plan of a width (the header's table): 4-dim output chunks a lane,
+// query heads a block, ring stages.
+__host__ __device__ constexpr int nc_of(int D, int Dv) {
+  return D <= 128 && Dv <= 128 ? 1 : (D <= 288 && Dv <= 256 ? 2 : 4);
+}
+__host__ __device__ constexpr int heads_of(int nc) {
+  return nc == 4 ? 16 : 32;
+}
+__host__ __device__ constexpr int stages_of(int elsize, int nc) {
+  return elsize == 2 ? (nc == 4 ? 3 : 4) : (nc == 1 ? 3 : 2);
+}
+
 // Keys of one split: T over the splits, rounded up to whole tiles.
 __host__ __device__ inline int chunk_keys(int T_, int nsplit) {
   const int per = (T_ + nsplit - 1) / nsplit;
   return (per + kTile - 1) / kTile * kTile;
 }
 
-// The merge's scratch: a slot a split of (m, l) for up to 32 heads, each
-// row rounded up to 4 floats, then the heads' acc rows of Dv rounded to 4,
-// so that every acc row starts on 16 bytes.
-__host__ __device__ inline int slot_heads(int group) {
-  const int g = group < kMaxHeads ? group : kMaxHeads;
+// The merge's scratch: a slot a split of (m, l) for the heads of a block,
+// each row rounded up to 4 floats, then the heads' acc rows of Dv rounded
+// to 4, so that every acc row starts on 16 bytes.
+__host__ __device__ inline int slot_heads(int group, int heads) {
+  const int g = group < heads ? group : heads;
   return (g + 3) / 4 * 4;
 }
-__host__ __device__ inline long long scratch_slot(int group, int Dv) {
-  const int g = group < kMaxHeads ? group : kMaxHeads;
-  return 2 * slot_heads(group) + (long long)g * ((Dv + 3) / 4 * 4);
+__host__ __device__ inline long long scratch_slot(int group, int Dv,
+                                                  int heads) {
+  const int g = group < heads ? group : heads;
+  return 2 * slot_heads(group, heads) + (long long)g * ((Dv + 3) / 4 * 4);
 }
 
 // Byte offsets into the dynamic shared memory, the same on host and device.
@@ -93,26 +123,30 @@ struct Layout {
   int uk, uv;        // 16-byte units of a K row (D), of a V row (Dv)
   int rk, rv;        // bytes of a K row, a V row in the ring (odd units:
                      // 16-byte reads of 8 rows hit 8 bank groups)
+  bool shared;       // V read from the first Dv columns of the K rows
   int stage;         // bytes of one ring stage: a tile of K and of V
   int gb;            // query heads of the block
   bool tc;           // bf16 products on tensor cores (mma.sync m16n8k16)
-  bool few;          // up to 4 heads on CUDA cores: each warp a quarter
-                     // of the tile's keys, its own softmax state
+  bool few;          // up to 4 heads (and at most those a warp holds) on
+                     // CUDA cores: each warp a quarter of the tile's keys,
+                     // its own softmax state
   int slices;        // partial-acc rows a head: one a warp when few
   int rows;          // partial-acc rows: gb * slices <= 32
   int dv4;           // floats of a partial-acc row (Dv rounded up to 4)
   int qs, qf, sbuf, pbuf, stat, part, total;
-  __host__ __device__ Layout(int elsize, int D, int Dv, int gb_,
-                             int stages) {
+  __host__ __device__ Layout(int elsize, int D, int Dv, int gb_, int heads,
+                             int stages, bool shared_) {
     E = 16 / elsize;
     uk = (D + E - 1) / E;
     uv = (Dv + E - 1) / E;
+    shared = shared_;
     rk = 16 * (uk | 1);
-    rv = 16 * (uv | 1);
-    stage = kTile * (rk + rv);
+    rv = shared ? rk : 16 * (uv | 1);
+    stage = kTile * (rk + (shared ? 0 : rv));
     gb = gb_;
     tc = elsize == 2 && gb >= 8 && gb <= 16 && D % 16 == 0 && Dv % 8 == 0;
-    few = !tc && gb <= 4;
+    const int hpw = heads / kWarps;
+    few = !tc && gb <= (hpw < 4 ? hpw : 4);
     slices = few ? kWarps : 1;
     rows = gb * slices;
     dv4 = (Dv + 3) / 4 * 4;
@@ -211,9 +245,10 @@ __device__ __forceinline__ void dot_unit(float4& s, const float* q,
   }
 }
 
-// Rows [t0, t0 + n) of K and V into one ring stage: 16-byte cp.async where
-// every row and the head dims are 16-byte aligned (vec), else element by
-// element with the tail of the last unit zeroed.
+// Rows [t0, t0 + n) of K and V into one ring stage (of K alone under the
+// single read): 16-byte cp.async where every row and the head dims are
+// 16-byte aligned (vec), else element by element with the tail of the last
+// unit zeroed.
 template <typename T>
 __device__ __forceinline__ void load_tile(char* stage, const T* kp,
                                           const T* vp, const Strides& st,
@@ -229,6 +264,7 @@ __device__ __forceinline__ void load_tile(char* stage, const T* kp,
       if (r >= n) break;
       cp_async16(ks + r * L.rk + 16 * u, kp + (t0 + r) * st.kt + u * L.E);
     }
+    if (L.shared) return;
     r = threadIdx.x / L.uv, u = threadIdx.x - r * L.uv;
     dr = kThreads / L.uv, du = kThreads - dr * L.uv;
     for (; r < n; r += dr, u += du) {
@@ -243,6 +279,7 @@ __device__ __forceinline__ void load_tile(char* stage, const T* kp,
       reinterpret_cast<T*>(ks + r * L.rk)[d] =
           d < D ? kp[(t0 + r) * st.kt + d] : from_f32<T>(0.f);
     }
+    if (L.shared) return;
     for (int c = threadIdx.x; c < n * wv; c += kThreads) {
       const int r = c / wv, d = c - r * wv;
       reinterpret_cast<T*>(vs + r * L.rv)[d] =
@@ -251,23 +288,29 @@ __device__ __forceinline__ void load_tile(char* stage, const T* kp,
   }
 }
 
-// NC: 4-dim output chunks a lane (1 for Dv <= 128, 2 for Dv <= 256).
-template <typename T, int NC, int STAGES>
-__global__ void __launch_bounds__(kThreads, 2)  // two blocks an SM: <= 128 registers
+// NC: 4-dim output chunks a lane (1 for Dv <= 128, 2 for Dv <= 256, 4 for
+// Dv <= 512); HB: query heads a block; the narrow plan fits two blocks an
+// SM (at most 128 registers a thread), the wider ones one.
+template <typename T, int NC, int HB, int STAGES>
+__global__ void __launch_bounds__(kThreads, NC == 1 ? 2 : 1)
 flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const int* __restrict__ kv_len,
                     T* __restrict__ o, float* __restrict__ ws,
                     int* __restrict__ counters, int Hkv, int group,
                     int hchunks, int T_, int D, int Dv, int chunk,
-                    Strides st, float scale, int vec) {
+                    Strides st, float scale, int vec, int shared) {
   constexpr int E = 16 / sizeof(T);
+  constexpr int kHeadsPerWarp = HB / kWarps;
+  // the tensor cores' acc holds 2 NC C fragments in the same registers
+  static_assert(kHeadsPerWarp >= 2, "a warp holds two heads at least");
   extern __shared__ __align__(16) char smem[];
   const int split = blockIdx.x, nsplit = gridDim.x;
   const int hc = blockIdx.y % hchunks, bh = blockIdx.y / hchunks;
   const int hk = bh % Hkv, b = bh / Hkv;
-  const int g0 = hc * kMaxHeads;
-  const int gb = min(kMaxHeads, group - g0);
-  const Layout L(sizeof(T), D, Dv, gb, min(STAGES, chunk / kTile));
+  const int g0 = hc * HB;
+  const int gb = min(HB, group - g0);
+  const Layout L(sizeof(T), D, Dv, gb, HB, min(STAGES, chunk / kTile),
+                 shared);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   // CUDA-core P·V sums: heads hs + j hstep, partial-acc row slice (one a
   // warp when few, all heads then)
@@ -358,14 +401,13 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float mw[kHeadsPerWarp], lw[kHeadsPerWarp];  // few: the warp's own state
 #pragma unroll
   for (int j = 0; j < kHeadsPerWarp; ++j) mw[j] = NEG_INF_F, lw[j] = 0.f;
-  // P·V sums: CUDA cores, acc[j][c] for head hs + hstep j and dims
-  // 4 (lane + 32 c); tensor cores, acc[i][0] the C fragment of dims
-  // 8 (warp + 8 i) of the 16 fragment rows
-  float4 acc[kHeadsPerWarp][NC];
+  // P·V sums: CUDA cores, acc[NC j + c] for head hs + hstep j and dims
+  // 4 (lane + 32 c); tensor cores, acc[i] the C fragment of dims
+  // 8 (warp + 8 i) of the 16 fragment rows, i < 2 NC
+  float4 acc[kHeadsPerWarp * NC];
 #pragma unroll
-  for (int j = 0; j < kHeadsPerWarp; ++j)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[j][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int i = 0; i < kHeadsPerWarp * NC; ++i)
+    acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
 
   for (int i = 0; i < ntiles; ++i) {
     cp_async_wait<STAGES - 2>();
@@ -377,7 +419,7 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 D, Dv, vec);
     cp_async_commit();
     const char* ks = smem + (i % STAGES) * L.stage;
-    const char* vs = ks + kTile * L.rk;
+    const char* vs = L.shared ? ks : ks + kTile * L.rk;
     const int n = min(kTile, end - start - i * kTile);
 
     if (L.tc) {
@@ -484,8 +526,8 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
           mw[j] = m_new;
 #pragma unroll
           for (int cc = 0; cc < NC; ++cc) {
-            acc[j][cc].x *= corr, acc[j][cc].y *= corr;
-            acc[j][cc].z *= corr, acc[j][cc].w *= corr;
+            float4& a = acc[j * NC + cc];
+            a.x *= corr, a.y *= corr, a.z *= corr, a.w *= corr;
           }
         }
       }
@@ -507,8 +549,9 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const float pk = __shfl_sync(0xffffffffu, p[j], 8 * kk);
 #pragma unroll
               for (int cc = 0; cc < NC; ++cc) {
-                acc[j][cc].x += pk * vv[cc].x, acc[j][cc].y += pk * vv[cc].y;
-                acc[j][cc].z += pk * vv[cc].z, acc[j][cc].w += pk * vv[cc].w;
+                float4& a = acc[j * NC + cc];
+                a.x += pk * vv[cc].x, a.y += pk * vv[cc].y;
+                a.z += pk * vv[cc].z, a.w += pk * vv[cc].w;
               }
             }
           }
@@ -562,8 +605,8 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const float chi = fg + 8 < gb ? corr_s[fg + 8] : 1.f;
 #pragma unroll
         for (int j = 0; j < 2 * NC; ++j) {
-          acc[j][0].x *= clo, acc[j][0].y *= clo;
-          acc[j][0].z *= chi, acc[j][0].w *= chi;
+          acc[j].x *= clo, acc[j].y *= clo;
+          acc[j].z *= chi, acc[j].w *= chi;
         }
         for (int k0 = 0; k0 < n; k0 += 16) {
           const float* plo = pbuf + fg * kPStride + k0 + 2 * ft;
@@ -585,7 +628,7 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
             if (d0 < Dv) {
               uint32_t b0, b1;
               ldmatrix_x2_trans(b0, b1, vr + d0 * sizeof(T));
-              mma_bf16(acc[j][0], a, b0 & m0, b1 & m1);
+              mma_bf16(acc[j], a, b0 & m0, b1 & m1);
             }
           }
         }
@@ -599,8 +642,8 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const float c = corr_s[g];
 #pragma unroll
           for (int cc = 0; cc < NC; ++cc) {
-            acc[j][cc].x *= c, acc[j][cc].y *= c;
-            acc[j][cc].z *= c, acc[j][cc].w *= c;
+            float4& a = acc[j * NC + cc];
+            a.x *= c, a.y *= c, a.z *= c, a.w *= c;
           }
         }
       }
@@ -621,8 +664,9 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
             const float p = pbuf[g * kPStride + key];
 #pragma unroll
             for (int cc = 0; cc < NC; ++cc) {
-              acc[j][cc].x += p * vv[cc].x, acc[j][cc].y += p * vv[cc].y;
-              acc[j][cc].z += p * vv[cc].z, acc[j][cc].w += p * vv[cc].w;
+              float4& a = acc[j * NC + cc];
+              a.x += p * vv[cc].x, a.y += p * vv[cc].y;
+              a.z += p * vv[cc].z, a.w += p * vv[cc].w;
             }
           }
         }
@@ -650,8 +694,8 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const float e = expf(mw[j] - mx);
 #pragma unroll
         for (int cc = 0; cc < NC; ++cc) {
-          acc[j][cc].x *= e, acc[j][cc].y *= e;
-          acc[j][cc].z *= e, acc[j][cc].w *= e;
+          float4& a = acc[j * NC + cc];
+          a.x *= e, a.y *= e, a.z *= e, a.w *= e;
         }
         if (threadIdx.x == 0) {
           float lsum = 0.f;
@@ -671,12 +715,12 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int col = 8 * (warp + kWarps * j) + 2 * ft;
       if (col < Dv) {
         if (fg < gb) {
-          part[fg * L.dv4 + col] = acc[j][0].x;
-          part[fg * L.dv4 + col + 1] = acc[j][0].y;
+          part[fg * L.dv4 + col] = acc[j].x;
+          part[fg * L.dv4 + col + 1] = acc[j].y;
         }
         if (fg + 8 < gb) {
-          part[(fg + 8) * L.dv4 + col] = acc[j][0].z;
-          part[(fg + 8) * L.dv4 + col + 1] = acc[j][0].w;
+          part[(fg + 8) * L.dv4 + col] = acc[j].z;
+          part[(fg + 8) * L.dv4 + col + 1] = acc[j].w;
         }
       }
     }
@@ -690,7 +734,7 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const int d = 4 * (lane + 32 * cc);
           if (d < L.dv4)
             *reinterpret_cast<float4*>(part + (slice * gb + g) * L.dv4 +
-                                       d) = acc[j][cc];
+                                       d) = acc[j * NC + cc];
         }
       }
     }
@@ -720,8 +764,8 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   // a live split leaves (m, l, acc) in the scratch; the last live block of
   // the group to arrive merges them and resets the counter
-  const long long slot = scratch_slot(group, Dv);
-  const int mrow = slot_heads(group);
+  const long long slot = scratch_slot(group, Dv, HB);
+  const int mrow = slot_heads(group, HB);
   float* const wg = ws + (long long)blockIdx.y * nsplit * slot;
   {
     float* w = wg + split * slot;  // m at 0, l at mrow, acc at 2 mrow
@@ -790,17 +834,19 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int NC, int STAGES>
+template <typename T, int NC>
 int launch_cfg(const void* q, const void* k, const void* v,
                const int* kv_len, void* o, void* ws, void* counters, int B,
                int Hkv, int group, int T_, int D, int Dv, const Strides& st,
-               float scale, int nsplit, int vec, cudaStream_t stream) {
-  auto kernel = flash_decode_kernel<T, NC, STAGES>;
-  const int gb = group < kMaxHeads ? group : kMaxHeads;
-  const int hchunks = (group + kMaxHeads - 1) / kMaxHeads;
+               float scale, int nsplit, int vec, int shared,
+               cudaStream_t stream) {
+  constexpr int HB = heads_of(NC), STAGES = stages_of(sizeof(T), NC);
+  auto kernel = flash_decode_kernel<T, NC, HB, STAGES>;
+  const int gb = group < HB ? group : HB;
+  const int hchunks = (group + HB - 1) / HB;
   const int chunk = chunk_keys(T_, nsplit);
   const int stages = STAGES < chunk / kTile ? STAGES : chunk / kTile;
-  const Layout L(sizeof(T), D, Dv, gb, stages);
+  const Layout L(sizeof(T), D, Dv, gb, HB, stages, shared);
   if (L.total > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   static bool raised = false;  // the limit, set once per instantiation
   if (!raised) {
@@ -813,36 +859,34 @@ int launch_cfg(const void* q, const void* k, const void* v,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), kv_len, static_cast<T*>(o),
       static_cast<float*>(ws), static_cast<int*>(counters), Hkv, group,
-      hchunks, T_, D, Dv, chunk, st, scale, vec);
+      hchunks, T_, D, Dv, chunk, st, scale, vec, shared);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-constexpr int stages_of(int dmax) {  // ~64-100 KB of K/V in flight a block
-  return sizeof(T) == 2 ? 4 : (dmax <= 128 ? 3 : 2);
 }
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* kv_len,
            void* o, void* ws, void* counters, int B, int H, int Hkv, int T_,
            int D, int Dv, const long long* s, float scale, int nsplit,
-           int vec, void* stream) {
+           int vec, int shared, void* stream) {
   const Strides st{s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8], s[9]};
-  const int dmax = D > Dv ? D : Dv;
   const int* len = static_cast<const int*>(kv_len);
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
   if (B * H == 0) return static_cast<int>(cudaGetLastError());
   if (Hkv <= 0 || H % Hkv || nsplit < 1 || nsplit > kMaxSplit ||
-      D > kMaxD || Dv > kMaxDv)
+      D > kMaxD || Dv > kMaxDv || (shared && (Dv > D || k != v)))
     return static_cast<int>(cudaErrorInvalidValue);
   const int group = H / Hkv;
-  if (dmax <= 128)
-    return launch_cfg<T, 1, stages_of<T>(128)>(q, k, v, len, o, ws, counters,
-                                               B, Hkv, group, T_, D, Dv, st,
-                                               scale, nsplit, vec, cs);
-  return launch_cfg<T, 2, stages_of<T>(256)>(q, k, v, len, o, ws, counters,
-                                             B, Hkv, group, T_, D, Dv, st,
-                                             scale, nsplit, vec, cs);
+  switch (nc_of(D, Dv)) {
+    case 1:
+      return launch_cfg<T, 1>(q, k, v, len, o, ws, counters, B, Hkv, group,
+                              T_, D, Dv, st, scale, nsplit, vec, shared, cs);
+    case 2:
+      return launch_cfg<T, 2>(q, k, v, len, o, ws, counters, B, Hkv, group,
+                              T_, D, Dv, st, scale, nsplit, vec, shared, cs);
+    default:
+      return launch_cfg<T, 4>(q, k, v, len, o, ws, counters, B, Hkv, group,
+                              T_, D, Dv, st, scale, nsplit, vec, shared, cs);
+  }
 }
 
 }  // namespace
@@ -850,16 +894,17 @@ int launch(const void* q, const void* k, const void* v, const void* kv_len,
 // strides: q (b, h), k (b, h, t), v (b, h, t), o (b, h), in elements; the
 // head dimension is contiguous in every tensor.  nsplit: key splits (1..32);
 // ws: fp32 scratch of flash_decode_scratch() floats, counters: one int a
-// (b, KV head, 32 query heads), zero before the first launch and left zero
-// by each; vec: K and V rows and head dims 16-byte aligned.
+// (b, KV head, block of query heads), zero before the first launch and left
+// zero by each; vec: K and V rows and head dims 16-byte aligned; shared: v
+// is k (the same pointer and strides) and V its rows' first Dv columns.
 extern "C" int flash_decode_f32(const void* q, const void* k, const void* v,
                                 const void* kv_len, void* o, void* ws,
                                 void* counters, int B, int H, int Hkv, int T_,
                                 int D, int Dv, const long long* strides,
-                                float scale, int nsplit, int vec,
+                                float scale, int nsplit, int vec, int shared,
                                 void* stream) {
   return launch<float>(q, k, v, kv_len, o, ws, counters, B, H, Hkv, T_, D,
-                       Dv, strides, scale, nsplit, vec, stream);
+                       Dv, strides, scale, nsplit, vec, shared, stream);
 }
 
 extern "C" int flash_decode_bf16(const void* q, const void* k, const void* v,
@@ -867,27 +912,28 @@ extern "C" int flash_decode_bf16(const void* q, const void* k, const void* v,
                                  void* counters, int B, int H, int Hkv,
                                  int T_, int D, int Dv,
                                  const long long* strides, float scale,
-                                 int nsplit, int vec, void* stream) {
+                                 int nsplit, int vec, int shared,
+                                 void* stream) {
   return launch<__nv_bfloat16>(q, k, v, kv_len, o, ws, counters, B, H, Hkv,
-                               T_, D, Dv, strides, scale, nsplit, vec,
+                               T_, D, Dv, strides, scale, nsplit, vec, shared,
                                stream);
 }
 
 // Floats of scratch the merge needs: a (m, l, acc) slot for every split of
-// every (b, KV head, 32 query heads).
-extern "C" long long flash_decode_scratch(int B, int H, int Hkv, int Dv,
-                                          int nsplit) {
-  const int group = H / Hkv;
-  const long long groups =
-      (long long)B * Hkv * ((group + kMaxHeads - 1) / kMaxHeads);
-  return groups * nsplit * scratch_slot(group, Dv);
+// every (b, KV head, block of query heads).
+extern "C" long long flash_decode_scratch(int B, int H, int Hkv, int D,
+                                          int Dv, int nsplit) {
+  const int group = H / Hkv, heads = heads_of(nc_of(D, Dv));
+  const long long groups = (long long)B * Hkv * ((group + heads - 1) / heads);
+  return groups * nsplit * scratch_slot(group, Dv, heads);
 }
 
-// Dynamic shared memory of a block for these widths and group size, bytes.
-extern "C" int flash_decode_smem(int elsize, int D, int Dv, int group) {
-  const int dmax = D > Dv ? D : Dv;
-  const int gb = group < kMaxHeads ? group : kMaxHeads;
-  const int stages = elsize == 2 ? stages_of<__nv_bfloat16>(dmax)
-                                 : stages_of<float>(dmax);
-  return Layout(elsize, D, Dv, gb, stages).total;
+// Dynamic shared memory of a block for these widths, group size and read
+// (shared: V from the K rows), bytes, at the plan's full ring of stages.
+extern "C" int flash_decode_smem(int elsize, int D, int Dv, int group,
+                                 int shared) {
+  const int nc = nc_of(D, Dv), heads = heads_of(nc);
+  const int gb = group < heads ? group : heads;
+  return Layout(elsize, D, Dv, gb, heads, stages_of(elsize, nc), shared)
+      .total;
 }

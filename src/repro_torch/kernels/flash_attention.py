@@ -20,24 +20,54 @@ _ENTRY = {torch.float32: "flash_attention_f32",
           torch.bfloat16: "flash_attention_bf16"}
 _ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
          + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-MAX_HEAD_DIM = 128
+# widest q/k row: deepseek_v2_236b's MLA prefill, qk_nope 128 + qk_rope 64
+MAX_HEAD_DIM = 192
+# widest v row: the output accumulator's 64 registers a thread
+MAX_VALUE_DIM = 128
 # head dims the tensor-core products step through: wgmma's k16 in bf16,
 # mma.sync's k8 in fp32
 HEAD_DIM_MULTIPLE = {torch.bfloat16: 16, torch.float32: 8}
 TMA_ALIGN = 16      # bytes: TMA's base address and stride granule
+SMEM_LIMIT = 232448     # bytes of shared memory a block may have on sm_90
+
+
+def stages(dtype: torch.dtype, d: int) -> int:
+    """Ring stages of K and V tiles: 4 in bf16, 3 in fp32 up to D 128 and 2
+    above (three fp32 stages at D 192 would need 295,992 bytes)."""
+    return 4 if dtype == torch.bfloat16 else (3 if d <= 128 else 2)
 
 
 def smem_bytes(dtype: torch.dtype, d: int, dv: int) -> int:
     """Dynamic shared memory of one CTA, as the kernel's launch sizes it:
-    1 KB of alignment slack, the Q block and the stages of K and V (4 in
-    bf16, 3 in fp32) in boxes of 64 rows by 128 bytes (wgmma's N covers
-    whole V boxes in bf16), and two mbarriers a stage and one for Q."""
+    1 KB of alignment slack, the Q block and the :func:`stages` of K and V
+    in boxes of 64 rows by 128 bytes (wgmma's N covers whole V boxes in
+    bf16), and two mbarriers a stage and one for Q."""
     bf16 = dtype == torch.bfloat16
-    box, stages = (64, 4) if bf16 else (32, 3)
+    box, n = (64 if bf16 else 32), stages(dtype, d)
     nbd = -(-d // box)
     nbv = (64 if dv <= 64 else 128) // 64 if bf16 else -(-dv // 32)
-    return 1024 + (nbd + stages * (nbd + nbv)) * 64 * 128 \
-        + 8 * (2 * stages + 1)
+    return 1024 + (nbd + n * (nbd + nbv)) * 64 * 128 + 8 * (2 * n + 1)
+
+
+def plan(dtype: torch.dtype, d: int, dv: int) -> int:
+    """The kernel's host plan for head widths ``d`` (q, k) and ``dv`` (v):
+    raises ValueError on widths it refuses (multiples of 16 in bf16 and of
+    8 in fp32, d at most 192, dv at most 128) and returns the bytes of
+    shared memory a CTA takes.  Shapes only, so the dry run's fake tensors
+    reach it."""
+    if dtype not in HEAD_DIM_MULTIPLE:
+        raise TypeError(f"flash attention kernel takes one of float32/"
+                        f"bfloat16, got {dtype}")
+    mult = HEAD_DIM_MULTIPLE[dtype]
+    for name, w, cap in (("q/k", d, MAX_HEAD_DIM), ("v", dv, MAX_VALUE_DIM)):
+        if w <= 0 or w > cap or w % mult:
+            raise ValueError(f"{name}: head dim {w} must be a multiple of "
+                             f"{mult} in {dtype}, at most {cap}")
+    smem = smem_bytes(dtype, d, dv)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"D={d}, Dv={dv} in {dtype} need {smem} bytes of "
+                         f"shared memory a block, over {SMEM_LIMIT}")
+    return smem
 
 
 def tma_strides(x: torch.Tensor) -> tuple:
@@ -53,17 +83,14 @@ def tma_strides(x: torch.Tensor) -> tuple:
 def check_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     """Raise ValueError on a head width or layout the kernel refuses.
 
-    D and Dv must be multiples of 16 in bf16 and of 8 in fp32, at most 128;
-    the head dimension contiguous; each base pointer 16-byte aligned and
-    each outer stride a multiple of 16 bytes, as TMA requires.  Works on
-    tensors of any device, so the CPU tests reach it.
+    The widths as :func:`plan` takes them; the head dimension contiguous;
+    each base pointer 16-byte aligned and each outer stride a multiple of
+    16 bytes, as TMA requires.  Works on tensors of any device, so the CPU
+    tests reach it.
     """
-    mult = HEAD_DIM_MULTIPLE[q.dtype]
+    for d in {q.shape[-1], k.shape[-1]}:
+        plan(q.dtype, d, v.shape[-1])
     for name, x in (("q", q), ("k", k), ("v", v)):
-        d = x.shape[-1]
-        if d <= 0 or d > MAX_HEAD_DIM or d % mult:
-            raise ValueError(f"{name}: head dim {d} must be a multiple of "
-                             f"{mult} in {q.dtype}, at most {MAX_HEAD_DIM}")
         if x.stride(-1) != 1:
             raise ValueError(f"{name}: the head dimension must be contiguous")
         if x.data_ptr() % TMA_ALIGN:

@@ -10,8 +10,14 @@ inputs picks the implementation, and nothing else does:
   path);
 * any other device raises.
 
-Both paths check the same shape contract as the TPU kernels, so the two
-packages accept the same shapes.
+Both paths check the TPU kernels' block contracts (S == T when causal,
+mamba_scan's chunk, moe_gmm's 128-wide blocks), so the two packages
+accept the same shapes there.  Head widths are the CUDA kernels' own:
+``flash_attention.plan`` and ``flash_decode.plan`` (at most 192 / 128 and
+576 / 512, within a block's shared memory) run before each launch and on
+the traced route below, so a configuration the card would refuse fails
+in the dry run too; the plain route takes any width, as the TPU kernels
+do.
 
 Under the op counter (``analysis.hlo``) each call counts as one kernel
 call by the formula of its row in ``chip_smoke.py``'s bound column, from
@@ -72,8 +78,10 @@ def _route(*tensors: torch.Tensor) -> str:
 
 
 def _attention_fwd(q, k, v, causal, scale):
-    """(B,H,S,D) views: the kernel, or on fake tensors its plain version."""
+    """(B,H,S,D) views: the kernel, or on fake tensors its plain version
+    after the kernel's host plan."""
     if _fake(q, k, v):
+        _fa.plan(q.dtype, q.shape[-1], v.shape[-1])
         return ref.attention_ref(q, k, v, causal=causal, scale=scale)
     return _fa.flash_attention_fwd(q, k, v, causal=causal, scale=scale)
 
@@ -157,9 +165,13 @@ def flash_decode(q, k, v, kv_len, *, scale=None):
         return 2 * (d + dv) * h * b * t, nbytes
 
     with hlo.kernel("flash_decode", cost):
-        if _route(q, k, v, kv_len) == "kernel":
+        route = _route(q, k, v, kv_len)
+        if route == "kernel":
             out = _fd.flash_decode(q[:, 0], kt, vt, kv_len, scale=scale)
         else:
+            if route == "traced":
+                _fd.plan(q.dtype, q.shape[-1], v.shape[-1],
+                         q.shape[2] // k.shape[2], _fd.value_in_key(kt, vt))
             out = ref.decode_ref(q[:, 0], kt, vt, kv_len, scale=scale)
     return out[:, None]
 

@@ -126,7 +126,9 @@ def decode_split_ref(q, k, v, kv_len, split: int, scale=None, tile: int = 32,
     chunk over the keys below kv_len, then the max-shifted merge, in which a
     chunk with no key weighs exactly 0.  fp32 throughout; with ``round_p``
     P is rounded to bf16 before P·V (l stays the fp32 sum), as the kernel's
-    tensor-core path does (``flash_decode.rounds_p``).
+    tensor-core path does (``flash_decode.rounds_p``: a bf16 block of 8-16
+    heads, at the plan's heads a block, 16 at the widest rows).  The value
+    may be a view of the key's rows, as MLA's latent decode hands it.
     Keys at or past kv_len enter no product, so the cache's unwritten tail
     may hold anything, NaN included.  Layout as ``decode_ref``; kv_len = 0
     gives 0, as the kernel does."""

@@ -9,16 +9,18 @@ absorption.
 The prefill path decompresses to per-head K/V and runs standard attention:
 ``impl="kernel"`` through ``ops.flash_attention`` (the JAX package swaps
 its ``"pallas"`` for ``"chunked"`` here; the port runs the kernel, whose
-contract minicpm3_4b's widths of 96 and 64 meet).  The decode is an MQA
-decode through ``ops.flash_decode``: the query ``[q_nope·W_uk | q_rope]``
-of every head against the one KV head whose key is ``[c_kv | k_rope]``
-and whose value is ``c_kv``.
+contract takes minicpm3_4b's q/k 96 and v 64 and deepseek_v2_236b's 192
+and 128).  The decode is an MQA decode through ``ops.flash_decode``: the
+query ``[q_nope·W_uk | q_rope]`` of every head against the one KV head
+whose key is ``[c_kv | k_rope]`` and whose value is ``c_kv``.
 
 The decode cache: the JAX package keeps "ckv" (B,T,kv_lora) and "krope"
 (B,T,qk_rope) as two leaves.  The port keeps the two keys, but as views
 of one (B,T,kv_lora + qk_rope) buffer (:func:`latent_cache`), so the
 decode's key is that buffer as it stands and its value a prefix of each
-row, with no copy a tick.
+row, with no copy a tick; the kernel reads each row once, the value from
+the staged key row (deepseek_v2_236b's 576 / 512 fit its shared memory
+only so).
 """
 from __future__ import annotations
 

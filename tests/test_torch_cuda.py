@@ -178,16 +178,18 @@ def test_flash_decode_kernel_at_the_latent_width(cuda_device, lens, dtype):
 
 @pytest.mark.cuda
 def test_flash_decode_refuses_rows_over_its_widths(cuda_device):
-    """A key row over 288 or a value row over 256 is refused before a
-    launch."""
+    """A key row over 576 or a value row over 512 is refused before a
+    launch, and so is a value over 256 that is not a view of the key's
+    rows (staged apart, it would pass the block's shared memory)."""
     from repro_torch.kernels import flash_decode as fd
     kv_len = torch.ones(1, dtype=torch.int32, device=cuda_device)
     before = fd.launches
-    for d, dv in ((296, 256), (288, 264)):
+    for d, dv, match in ((584, 512, "576/512"), (576, 520, "576/512"),
+                         (576, 512, "shared memory")):
         q = torch.zeros(1, 1, 4, d, device=cuda_device)
         k = torch.zeros(1, 32, 1, d, device=cuda_device)
         v = torch.zeros(1, 32, 1, dv, device=cuda_device)
-        with pytest.raises(ValueError, match="288/256"):
+        with pytest.raises(ValueError, match=match):
             ops.flash_decode(q, k, v, kv_len)
     assert fd.launches == before
 
@@ -234,6 +236,136 @@ def test_flash_decode_at_the_latent_width_is_one_kernel_and_replays(
         _close(out[:, 0], ref.decode_ref(q[:, 0], k.transpose(1, 2),
                                          v.transpose(1, 2), kv_len,
                                          scale=96 ** -0.5), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,hkv,s,d,dv,causal", [
+    (1, 128, 128, 512, 192, 128, True),   # deepseek_v2_236b's MLA prefill
+    (1, 128, 128, 9, 192, 128, True),     # a short served prompt
+    (1, 4, 2, 67, 192, 128, True),
+    (2, 8, 8, 130, 144, 128, True),       # D 144: bf16 pads it to 192
+    (1, 4, 4, 64, 192, 64, True),
+    (1, 4, 2, 100, 176, 96, False),
+])
+def test_flash_attention_kernel_at_deepseek_v2_widths(cuda_device, b, h,
+                                                      hkv, s, d, dv, causal,
+                                                      dtype):
+    """D up to 192 and Dv up to 128 (fp32 at 2 ring stages, bf16's unrolled
+    Q·Kᵀ over 192 columns), against ``ref.attention_ref`` and the kernel's
+    rounding plan, at the model's scale (192^-0.5 for D 192)."""
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    q, k = _rnd(g, dtype, b, s, h, d), _rnd(g, dtype, b, s, hkv, d)
+    v = _rnd(g, dtype, b, s, hkv, dv)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    got = ops.flash_attention(q, k, v, causal=causal).transpose(1, 2)
+    _close(got, ref.attention_ref(qt, kt, vt, causal=causal), dtype)
+    plan = ref.attention_3xtf32 if dtype == torch.float32 \
+        else ref.attention_bf16p
+    _close(got, plan(qt, kt, vt, causal=causal), dtype)
+
+
+def _wide_latent_inputs(dev, dtype, h=128, width=576, seed=9):
+    """deepseek_v2_236b's latent decode: a (4, 1024, width) buffer of
+    [c_kv | k_rope] rows, the key its first 576 columns and the value its
+    first 512 (views), and a query of ``h`` heads; a ``width`` over 576
+    puts the rows off the 16-byte loads where it is not a multiple of 16
+    bytes."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rows = _rnd(g, dtype, 4, 1024, 1, width)
+    return _rnd(g, dtype, 4, 1, h, 576), rows[..., :576], rows[..., :512]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lens", [(1024, 700, 129, 1), (544, 160, 68, 9),
+                                  (1024,) * 4, (32, 33, 64, 1000)])
+@pytest.mark.parametrize("h,width", [(128, 576), (16, 577), (8, 576),
+                                     (3, 580), (2, 576), (1, 576),
+                                     (20, 576)])
+def test_flash_decode_kernel_at_the_wide_latent_width(cuda_device, h, width,
+                                                      lens, dtype):
+    """Key 576 and value 512, read once from the key's rows: 16 heads a
+    block (128 heads are 8 blocks a split; 20 are 16 + 4), the tensor-core
+    path in bf16 at 8-16 heads, the CUDA-core paths below, rows off 16
+    bytes; against ``ref.decode_ref`` and the split plan."""
+    from repro_torch.kernels import flash_decode as fd
+    q, k, v = _wide_latent_inputs(cuda_device, dtype, h, width)
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    assert fd.value_in_key(kt, vt)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    before = fd.launches
+    got = ops.flash_decode(q, k, v, kv_len, scale=192 ** -0.5)[:, 0]
+    assert fd.launches == before + 1
+    _close(got, ref.decode_ref(q[:, 0], kt, vt, kv_len, scale=192 ** -0.5),
+           dtype)
+    heads = fd.plan(dtype, 576, 512, h, True).heads
+    split = fd.split_count(1024, fd.groups_of(4, h, 1, 576, 512),
+                           fd._sms(cuda_device))
+    _close(got, ref.decode_split_ref(
+        q[:, 0], kt, vt, kv_len, split, scale=192 ** -0.5,
+        round_p=fd.rounds_p(dtype, min(h, heads), 576, 512)), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_at_the_wide_latent_width_is_one_kernel_and_replays(
+        cuda_device, dtype):
+    """One ``ops.flash_decode`` call at deepseek_v2_236b's latent shape runs
+    one device kernel, and replays in a CUDA graph after kv_len and the
+    rows change in place."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    q, k, v = _wide_latent_inputs(cuda_device, dtype)
+    kv_len = torch.tensor([1024, 700, 129, 1], dtype=torch.int32,
+                          device=cuda_device)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.flash_decode(q, k, v, kv_len, scale=192 ** -0.5)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    events = []
+    for _ in range(3):      # a pass may record no device event at all
+        if events:
+            break
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            ops.flash_decode(q, k, v, kv_len, scale=192 ** -0.5)
+            torch.cuda.synchronize()
+        events = [e.name for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+    assert len(events) == 1 and "flash_decode" in events[0], events
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ops.flash_decode(q, k, v, kv_len, scale=192 ** -0.5)
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    for lens in ([9, 68, 160, 544], [1024, 1, 32, 33]):
+        kv_len.copy_(torch.tensor(lens, dtype=torch.int32))
+        k.copy_(_rnd(g, dtype, *k.shape))
+        q.copy_(_rnd(g, dtype, *q.shape))
+        graph.replay()
+        torch.cuda.synchronize()
+        _close(out[:, 0], ref.decode_ref(q[:, 0], k.transpose(1, 2),
+                                         v.transpose(1, 2), kv_len,
+                                         scale=192 ** -0.5), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_stages_a_separate_value_row_apart(cuda_device, dtype):
+    """minicpm3_4b's widths with the value a tensor of its own, not a view
+    of the key's rows: K and V each staged, as before the single read."""
+    from repro_torch.kernels import flash_decode as fd
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    q = _rnd(g, dtype, 4, 1, 40, 288)
+    k, v = _rnd(g, dtype, 4, 1024, 1, 288), _rnd(g, dtype, 4, 1024, 1, 256)
+    assert not fd.value_in_key(k.transpose(1, 2), v.transpose(1, 2))
+    kv_len = torch.tensor([1024, 700, 129, 1], dtype=torch.int32,
+                          device=cuda_device)
+    _close(ops.flash_decode(q, k, v, kv_len)[:, 0],
+           ref.decode_ref(q[:, 0], k.transpose(1, 2), v.transpose(1, 2),
+                          kv_len), dtype)
 
 
 # (query, KV) heads of a device in a tensor-parallel mesh step
@@ -287,7 +419,7 @@ def test_flash_decode_kernel_at_split_boundaries(cuda_device, b, h, hkv, t,
     against the kernel's split plan (``ref.decode_split_ref``)."""
     from repro_torch.kernels import flash_decode as fd
     q, k, v = _decode_inputs(cuda_device, dtype, b, h, hkv, t, d)
-    chunk = t // fd.split_count(t, fd.groups_of(b, h, hkv), fd._sms(
+    chunk = t // fd.split_count(t, fd.groups_of(b, h, hkv, d, d), fd._sms(
         cuda_device))
     kv_len = torch.tensor([1, chunk, chunk + 1, t], dtype=torch.int32,
                           device=cuda_device)
@@ -373,6 +505,8 @@ def test_flash_decode_replays_in_a_cuda_graph(cuda_device, dtype):
 # and q_norm, xlstm_125m, whisper_medium, deepseek_moe_16b, minicpm3_4b,
 # zamba2_7b, glm4_9b and llava, zamba2's gated norm, 12288
 RMSNORM_WIDTHS = (256, 768, 1024, 2048, 2560, 3584, 4096, 7168, 12288)
+# deepseek_v2_236b's kv_norm, q_norm and d_model, which take the general path
+RMSNORM_GENERAL_WIDTHS = (512, 1536, 5120)
 
 
 @pytest.mark.cuda
@@ -380,7 +514,8 @@ RMSNORM_WIDTHS = (256, 768, 1024, 2048, 2560, 3584, 4096, 7168, 12288)
 @pytest.mark.parametrize("n,d", sorted(
     {(1, 32), (100, 256), (4, 4096), (512, 4096), (3, 12288), (4, 4100),
      (13, 4100), (3, 768), (9, 256)}
-    | {(n, d) for d in RMSNORM_WIDTHS for n in (4, 512)}))
+    | {(n, d) for d in RMSNORM_WIDTHS + RMSNORM_GENERAL_WIDTHS
+       for n in (4, 512)}))
 def test_rmsnorm_kernel(cuda_device, n, d, dtype):
     g = torch.Generator(device=cuda_device).manual_seed(2)
     x, s = _rnd(g, dtype, n, d), _rnd(g, torch.float32, d)

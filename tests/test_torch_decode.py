@@ -138,7 +138,8 @@ def test_split_count_reads_shapes_and_sm_count_only():
     (1, 64, 1, 512, 16),      # a group of 64 heads takes two blocks
 ])
 def test_split_count_at_served_layouts(b, h, hkv, t, want):
-    assert fd.split_count(t, fd.groups_of(b, h, hkv), 132) == want
+    assert fd.split_count(t, fd.groups_of(b, h, hkv, 128, 128),
+                          132) == want
 
 
 def test_split_count_bounds():
@@ -157,10 +158,12 @@ def test_split_count_bounds():
 
 
 def test_groups_count_blocks_of_up_to_32_heads():
-    assert fd.groups_of(4, 32, 2) == 8
-    assert fd.groups_of(4, 32, 32) == 128
-    assert fd.groups_of(2, 64, 1) == 4
-    assert fd.groups_of(1, 33, 1) == 2
+    assert fd.groups_of(4, 32, 2, 128, 128) == 8
+    assert fd.groups_of(4, 32, 32, 128, 128) == 128
+    assert fd.groups_of(2, 64, 1, 128, 128) == 4
+    assert fd.groups_of(1, 33, 1, 128, 128) == 2
+    # the latent rows of 576 / 512 take 16 heads a block
+    assert fd.groups_of(4, 128, 1, 576, 512) == 32
 
 
 def test_rounds_p_where_the_kernel_uses_tensor_cores():

@@ -14,6 +14,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.flash_attention import (check_layout,
                                                 flash_attention_fwd)
@@ -130,22 +131,29 @@ def _misaligned(dtype, shape):
     return torch.zeros(n + 1, dtype=dtype)[1:].view(*shape)
 
 
-@pytest.mark.parametrize("dtype,d,ok", [
-    (torch.bfloat16, 16, True), (torch.bfloat16, 112, True),
-    (torch.bfloat16, 128, True), (torch.bfloat16, 24, False),
-    (torch.bfloat16, 144, False), (torch.float32, 24, True),
-    (torch.float32, 112, True), (torch.float32, 12, False),
-    (torch.float32, 136, False),
+@pytest.mark.parametrize("dtype,d,dv,ok", [
+    (torch.bfloat16, 16, 16, True), (torch.bfloat16, 112, 112, True),
+    (torch.bfloat16, 128, 128, True), (torch.bfloat16, 24, 24, False),
+    (torch.bfloat16, 144, 128, True), (torch.bfloat16, 192, 128, True),
+    (torch.bfloat16, 208, 128, False), (torch.bfloat16, 192, 144, False),
+    (torch.float32, 24, 24, True), (torch.float32, 112, 112, True),
+    (torch.float32, 12, 12, False), (torch.float32, 136, 128, True),
+    (torch.float32, 192, 128, True), (torch.float32, 200, 64, False),
+    (torch.float32, 136, 136, False),
 ])
-def test_flash_attention_head_dim_contract(dtype, d, ok):
-    """D and Dv: multiples of wgmma's k16 in bf16 and mma.sync's k8 in fp32,
-    at most 128."""
+def test_flash_attention_head_dim_contract(dtype, d, dv, ok):
+    """D (q and k) and Dv: multiples of wgmma's k16 in bf16 and mma.sync's
+    k8 in fp32, D at most 192 (deepseek_v2_236b's 128 + 64) and Dv at most
+    128, and the plan's shared memory within a block's."""
     q = torch.zeros(1, 64, 2, d, dtype=dtype).transpose(1, 2)
+    v = torch.zeros(1, 64, 2, dv, dtype=dtype).transpose(1, 2)
     if ok:
-        check_layout(q, q, q)
+        check_layout(q, q, v)
+        assert fa.plan(dtype, d, dv) == fa.smem_bytes(dtype, d, dv) \
+            <= fa.SMEM_LIMIT
     else:
         with pytest.raises(ValueError, match="multiple"):
-            check_layout(q, q, q)
+            check_layout(q, q, v)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
