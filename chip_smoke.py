@@ -56,7 +56,9 @@ prints its seconds:
    the key's rows, T 1024 full, in both types, and at a served fill in
    fp32), and the grouped matmul at its 160 experts (5120 -> 1536 and
    1536 -> 5120, the routed counts of a 4-slot tick and of a 512-token
-   prefill); RMSNorm first fails unless one call runs exactly
+   prefill); the grouped matmul on one rank's block of 21(f)'s expert
+   parallelism (experts 32-63 of 64, given that block's slice of the
+   counts: a one-slot tick and the 1 x 128 prefill); RMSNorm first fails unless one call runs exactly
    one device kernel, the port's, then runs the decode tick's 4 rows at
    every served width (256 to 12288) and a 512-token prefill at 4096 and
    7168, in both types, and glm4_9b's decode chain in fp32 (the residual
@@ -207,8 +209,8 @@ prints its seconds:
 21. the mesh layer, every earlier model's tensors freed, on a one-rank
    (1, 1) ("data", "model") mesh over NCCL started on a file store under a
    temporary directory: (a) full-width glm4_9b cut to 2 layers, 1 x 128
-   tokens, fp32: one step of ``make_train_step(mesh=...)`` (parameters
-   all-gathered, gradients reduce-scattered, AdamW on the blocks) against
+   tokens, fp32: one step of ``make_train_step(mesh=...)`` (AdamW on the
+   blocks, which on one device are the leaves) against
    phase 14(a)'s unsharded step from the same state and batch: the loss
    and every updated leaf within 1e-6 of the leaf's max (bit-equal but
    for the clipping norm, which sums the leaves' blocks in another
@@ -230,7 +232,21 @@ prints its seconds:
    the prefill's 2 flash attentions and 5 RMSNorms) and its op counts
    equal to the dry run's trace on an abstract (1, 2) mesh; three more
    steps timed on the host clock (a gloo step, its collectives staged
-   through the host: not a speed of the design);
+   through the host: not a speed of the design); (e) FSDP on a (2, 1)
+   mesh over two such processes, 4 x 128 tokens at accum 2, each layer
+   gathered in its turn, against the unsharded step, with each rank's
+   peak memory; (f) expert parallelism on the (1, 2) mesh of (d):
+   full-width deepseek_moe_16b cut to its dense first layer and one MoE
+   layer of 64 experts (top-6, 2048 -> 1408, vocab 102,400, fp32), 32
+   experts a rank: the 1 x 128 mesh prefill, 4 greedy serve ticks and
+   one train step against the unsharded ones on the card (logits within
+   1e-5 of max |logit|, the same tokens, loss and parameters within 1e-6
+   of a leaf's max), each rank's ``moe_gmm`` calls on 32 experts, its
+   launches, and its op counts of the three equal to the dry run's, each
+   rank's peak memory beside the unsharded run's; then one tick of that
+   step on an abstract (1, 2) mesh (collectives of shapes only) under
+   sync debug mode "error".  Axes of one device issue no collective, so
+   (a)'s step runs none and (d)-(f) none over "data";
 22. full-width deepseek_v2_236b (MLA: q_lora 1536, kv_lora 512, qk 128 +
    64, v 128, 128 heads; 160 routed top-6 experts of 1536 and 2 shared)
    cut to 2 layers, the dense first one and one MoE layer (4.834 B
@@ -860,6 +876,16 @@ def phase_kernels(gen):
                                   f"D=2048 F=1408")] = gmm(
                 64, c, 2048, 1408, dtype, tag,
                 routed_counts(n_tok, 64, 6, seed=n_tok))
+        # one rank's block of expert parallelism over two devices (21(f)):
+        # experts 32-63 of the 64, the block's slice of the counts as
+        # ``rows``, at the 1 x 128 prefill (C = 15 at 1.25: gate/up and
+        # down) and a one-slot tick (C = 1 at 4.0)
+        for n_tok, c, d, f in ((1, 1, 2048, 1408), (128, 15, 2048, 1408),
+                               (128, 15, 1408, 2048)):
+            rows[("moe_gmm", tag, f"routed {n_tok} tokens experts 32-63 "
+                                  f"E=32 C={c} D={d} F={f}")] = gmm(
+                32, c, d, f, dtype, tag,
+                routed_counts(n_tok, 64, 6, seed=n_tok)[32:])
         # deepseek_v2_236b's routed experts (160, top-6): gate/up (D=5120,
         # F=1536) and down (1536 -> 5120) of a 4-slot tick (C = 1 at
         # capacity factor 4.0) and a 512-token prefill (C = 24 at 1.25)
@@ -3222,8 +3248,7 @@ def _tp_run(rank: int, seed: int, card_dev: str, smoke: bool) -> dict:
                train_counts=_op_counts(rep), loss=float(m["loss"]))
     lap("step")
     # the updated parameters gathered whole (kept on the card by rank 0)
-    whole = [l.gather(x) for x, l in zip(leaves(state.params),
-                                         leaves(lay.params), strict=True)]
+    whole = leaves(st.gather_state(state.params, lay.params))
     if rank:
         del whole
     lap("gather")
@@ -3389,8 +3414,7 @@ def _fsdp_run(rank: int, seed: int, card_dev: str, smoke: bool) -> dict:
            "loss": float(m["loss"]), "rows": int(batch["tokens"].shape[1]),
            "before": before,
            "peak": torch.cuda.max_memory_allocated() if cuda else 0}
-    params = [l.gather(x) for x, l in zip(leaves(state.params),
-                                          leaves(lay.params), strict=True)]
+    params = leaves(st.gather_state(state.params, lay.params))
     del state, step
     if rank:
         return out
@@ -3469,6 +3493,283 @@ def mesh_fsdp(seed: int, smi: str, card_dev: str = "cuda",
             "step_s": [r["seconds"] for r in ranks]}
 
 
+# 21(f): expert parallelism on the card, two processes on the one card over
+# gloo on the (1, 2) mesh of 21(d): full-width deepseek_moe_16b cut to its
+# dense first layer and one MoE layer of 64 experts, 32 a rank
+MESH_EP_LAYERS, MESH_EP_TICKS = 2, 4
+
+
+def _ep_cfg(smoke: bool):
+    from repro_torch.configs import get_config
+    cfg = get_config("deepseek_moe_16b")
+    if smoke:
+        cfg = cfg.reduced()
+    return cfg.replace(n_layers=MESH_EP_LAYERS, dtype="float32",
+                       attn_impl="chunked" if smoke else "kernel")
+
+
+class _ExpertBlocks:
+    """Records the experts (the first dimension of x) of every
+    ``ops.moe_gmm`` call made while it is entered."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self.ops, self._gmm, self.experts = ops, ops.moe_gmm, []
+
+        def recorded(x, w, rows=None):
+            self.experts.append(int(x.shape[0]))
+            return self._gmm(x, w, rows)
+        ops.moe_gmm = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.moe_gmm = self._gmm
+
+
+def _ep_run(rank: int, seed: int, card_dev: str, smoke: bool) -> dict:
+    """One rank of 21(f): the mesh prefill of the cut deepseek_moe_16b (1 x
+    128 tokens), four greedy serve ticks from its cache and one train step
+    on this rank's blocks (its 32 of 64 routed experts, half the query
+    heads, the MLPs and the vocab, 64 of the 128 rows of the stream): op
+    counts, launches, the experts of each ``moe_gmm`` call, peak memory,
+    the tokens and the updated parameters gathered whole; then, on rank
+    0, the unsharded prefill, ticks and step on the card from the same
+    state and batch."""
+    from repro_torch.analysis import hlo
+    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import api
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel import steps as st
+    from repro_torch.tree import leaves
+    cuda = card_dev == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    cfg = _ep_cfg(smoke)
+    mesh = make_mesh(MESH_TP, ("data", "model"), card_dev)
+    rules = shd.default_rules()
+    lay = st.state_layouts(cfg, mesh, rules)
+    batch = to_dev(synthetic_batch(DataConfig(
+        seq_len=MESH_SEQ, global_batch=1, vocab=cfg.vocab, seed=seed), 0),
+        card_dev)
+    prompt = {"tokens": batch["tokens"]}
+    gen = lambda: torch.Generator(device=card_dev).manual_seed(seed)
+    state = st.shard_state(st.init_train_state(cfg, gen(), card_dev), lay)
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+
+    def serve(params, prefill, tick):
+        """The prefill's logits and counts, then the ticks' tokens and the
+        first tick's counts, with each part's launches."""
+        got = {}
+        ops.reset_launch_counts()
+        (logits, cache), rep = hlo.count(prefill, params, prompt)
+        sync()
+        got.update(prefill_launches=ops.launch_counts(),
+                   prefill_counts=_op_counts(rep), logits=logits.cpu())
+        tok = {"token": torch.argmax(logits, -1).to(torch.int32)[:, None],
+               "kv_len": torch.full((1,), MESH_SEQ, dtype=torch.int32,
+                                    device=card_dev)}
+        tokens = [tok["token"]]
+        ops.reset_launch_counts()
+        for i in range(MESH_EP_TICKS):
+            if i == 0:
+                (tok, cache), rep = hlo.count(tick, params, tok, cache)
+                got["tick_counts"] = _op_counts(rep)
+            else:
+                tok, cache = tick(params, tok, cache)
+            tokens.append(tok["token"])
+        sync()
+        got.update(tick_launches=ops.launch_counts(),
+                   tokens=torch.cat(tokens, 1).cpu().tolist())
+        return got
+
+    with _ExpertBlocks() as blocks:
+        out = serve(state.params, st.make_prefill_step(
+            cfg, MESH_SEQ + MESH_EP_TICKS, mesh, rules, 1),
+            st.make_serve_step(cfg, mesh, rules, 1))
+    out["gmm_experts"] = blocks.experts
+    step = st.make_train_step(cfg, total_steps=10, warmup=2, mesh=mesh,
+                              rules=rules, global_batch=1)
+    ops.reset_launch_counts()
+    (state, m), rep = hlo.count(step, state, batch)
+    sync()
+    out.update(train_launches=ops.launch_counts(),
+               train_counts=_op_counts(rep), loss=float(m["loss"]),
+               seconds=time.perf_counter() - t0,
+               peak=torch.cuda.max_memory_allocated() if cuda else 0)
+    whole = leaves(st.gather_state(state.params, lay.params))
+    del state, step
+    if rank:
+        out.pop("logits")
+        return out
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    plain_state = st.init_train_state(cfg, gen(), card_dev)
+    with torch.no_grad():
+        want = serve(plain_state.params,
+                     api.prefill_fn(cfg, MESH_SEQ + MESH_EP_TICKS),
+                     st.make_serve_step(cfg))
+    plain_state, pm = st.make_train_step(cfg, total_steps=10, warmup=2)(
+        plain_state, batch)
+    logits = out.pop("logits")
+    out.update(
+        loss_unsharded=float(pm["loss"]),
+        logits_err=(logits - want["logits"]).abs().max().item(),
+        logits_max=want["logits"].abs().max().item(),
+        tokens_unsharded=want["tokens"],
+        peak_unsharded=torch.cuda.max_memory_allocated() if cuda else 0,
+        worst=max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30)
+                   ).item() for a, b in zip(whole, leaves(
+                       plain_state.params), strict=True)))
+    return out
+
+
+def _ep_tick_without_sync(cfg, seed: int) -> None:
+    """One serve tick of the expert-parallel step of 21(f) under sync debug
+    mode "error", on rank 0's blocks in one process: on an abstract (1, 2)
+    mesh, whose collectives are shapes only (over gloo every collective
+    of a CUDA tensor is staged through the host), so it holds the layer
+    code, the routing and the dispatch to no host sync."""
+    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.models import api
+    from repro_torch.models.common import init_params
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel import steps as st
+    from repro_torch.parallel.comm import AbstractMesh
+    from repro_torch.tree import tree_map
+    am = AbstractMesh(MESH_TP, ("data", "model"))
+    rules = shd.default_rules()
+    lay = st.state_layouts(cfg, am, rules).params
+    params = tree_map(lambda x, l: l.shard(x), init_params(
+        api.param_spec(cfg), torch.Generator(device="cuda").manual_seed(
+            seed), "cuda"), lay)
+    gc.collect()
+    tokens = torch.from_numpy(synthetic_batch(DataConfig(
+        seq_len=MESH_SEQ, global_batch=1, vocab=cfg.vocab, seed=seed),
+        0)["tokens"]).cuda()
+    logits, cache = st.make_prefill_step(cfg, MESH_SEQ + 1, am, rules, 1)(
+        params, {"tokens": tokens})
+    tick = st.make_serve_step(cfg, am, rules, 1)
+    tok = {"token": torch.argmax(logits, -1).to(torch.int32)[:, None],
+           "kv_len": torch.full((1,), MESH_SEQ, dtype=torch.int32,
+                                device="cuda")}
+    tick(params, tok, cache)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got, _ = tick(params, tok, cache)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    check(0 <= int(got["token"].max()) < cfg.vocab, "the tick's token "
+          f"{got['token']} is out of the vocab")
+
+
+def mesh_ep(seed: int, smi: str, card_dev: str = "cuda",
+            smoke: bool = False) -> dict:
+    """21(f): :func:`_ep_run` in two processes on the one card on the (1, 2)
+    mesh, expert parallel: the prefill's logits within 1e-5 of max |logit|
+    of the unsharded prefill's, the four ticks' tokens equal to the
+    unsharded ones, the loss within 1e-6 and the updated parameters within
+    1e-6 of each leaf's max of the unsharded step's; each rank's
+    ``moe_gmm`` launches on E/2 experts (32), its launches those of a
+    prefill (2 flash attentions, 5 RMSNorms, 3 ``moe_gmm``), of the ticks
+    (per tick 2 flash decodes, 5 RMSNorms, 3 ``moe_gmm``) and of a train
+    step (4 flash attentions), and its op counts of the three equal to
+    the dry run's trace on an abstract (1, 2) mesh; then one tick under
+    sync debug mode "error" (:func:`_ep_tick_without_sync`).  Prints each
+    rank's peak memory beside the unsharded run's."""
+    from repro_torch.configs import InputShape
+    from repro_torch.launch import dryrun
+    from repro_torch.parallel.comm import AbstractMesh
+    cfg = _ep_cfg(smoke)
+    ranks, t_ranks = _two_ranks(_ep_run, seed, card_dev, smoke)
+    t0 = time.perf_counter()
+    am = AbstractMesh(MESH_TP, ("data", "model"))
+    for kind, seq, key in (("train", MESH_SEQ, "train_counts"),
+                           ("prefill", MESH_SEQ, "prefill_counts"),
+                           ("decode", MESH_SEQ + MESH_EP_TICKS,
+                            "tick_counts")):
+        cell = dryrun.trace_cell(cfg, InputShape("cut", seq, 1, kind),
+                                 am)["hlo_analysis"]
+        want = json.loads(json.dumps({k: cell[k] for k in (
+            "flops", "collective_bytes", "collective_counts")}))
+        for r, got in enumerate(ranks):
+            check(got[key] == want, f"rank {r}'s {kind} op counts "
+                  f"{got[key]} differ from the dry run's {want}")
+    t_trace = time.perf_counter() - t0
+    half = cfg.n_experts // MESH_TP[1]
+    for r, got in enumerate(ranks):
+        check(got["gmm_experts"] == [half] * 3 * (1 + MESH_EP_TICKS),
+              f"rank {r}'s moe_gmm calls took {got['gmm_experts']} experts")
+    if card_dev == "cuda":
+        n = cfg.n_layers
+        prefill = dict(train_launches(cfg, 0), flash_attention=n,
+                       rmsnorm=2 * n + 1, moe_gmm=3)
+        ticks = dict(train_launches(cfg, 0), flash_decode=n * MESH_EP_TICKS,
+                     rmsnorm=(2 * n + 1) * MESH_EP_TICKS,
+                     moe_gmm=3 * MESH_EP_TICKS)
+        for r, got in enumerate(ranks):
+            for part, want in (("prefill", prefill), ("tick", ticks),
+                               ("train", train_launches(cfg, 1))):
+                check(got[f"{part}_launches"] == want, f"rank {r}'s {part} "
+                      f"launched {got[f'{part}_launches']}, not {want}")
+    r0 = ranks[0]
+    l1, l2 = r0["loss_unsharded"], r0["loss"]
+    check(math.isfinite(l2) and abs(l1 - l2) <= 1e-6 * abs(l1),
+          f"expert-parallel loss {l2} against the unsharded {l1}")
+    check(r0["worst"] <= 1e-6, f"expert-parallel parameters off the "
+                               f"unsharded step's by {r0['worst']} of a "
+                               f"leaf's max")
+    check(r0["logits_err"] <= 1e-5 * r0["logits_max"],
+          f"expert-parallel prefill logits off by {r0['logits_err']} "
+          f"(max |logit| {r0['logits_max']})")
+    check(r0["tokens"] == r0["tokens_unsharded"] == ranks[1]["tokens"],
+          f"expert-parallel tokens {r0['tokens']} against the unsharded "
+          f"{r0['tokens_unsharded']}")
+    synced = "not run on the CPU"
+    if card_dev == "cuda":
+        gc.collect()
+        torch.cuda.empty_cache()
+        _ep_tick_without_sync(cfg, seed)
+        synced = "none"
+    launched = {k: sum(r[f"{p}_launches"][k] for r in ranks
+                       for p in ("prefill", "tick", "train"))
+                for k in r0["train_launches"]}
+    print(f"  21(f) {cfg.name} {cfg.n_layers} layers (the dense first one "
+          f"and one of {cfg.n_experts} experts, top-{cfg.top_k}), 1 x "
+          f"{MESH_SEQ} tokens on a {MESH_TP} mesh, two processes on one card "
+          f"over gloo, {half} experts a rank: prefill logits |diff| "
+          f"{r0['logits_err']:.3e} of max {r0['logits_max']:.3f}; "
+          f"{MESH_EP_TICKS} ticks' tokens equal {r0['tokens']}; loss {l2!r} "
+          f"(unsharded {l1!r}); parameters within {r0['worst']:.3e} of a "
+          f"leaf's max; moe_gmm calls a rank {len(r0['gmm_experts'])}, each "
+          f"on {half} experts; launches a rank: prefill "
+          f"{r0['prefill_launches']}, ticks {r0['tick_launches']}, step "
+          f"{r0['train_launches']}; op counts = the dry run's (step "
+          f"{r0['train_counts']['collective_counts']}, tick "
+          f"{r0['tick_counts']['collective_counts']}); host syncs in a tick "
+          f"under sync debug mode \"error\": {synced}; peak memory a rank "
+          f"{[round(r['peak'] / 1e9, 3) for r in ranks]} GB, unsharded "
+          f"{r0['peak_unsharded'] / 1e9:.3f} GB; seconds: the two processes "
+          f"{t_ranks:.1f} (rank 0's sharded parts "
+          f"{r0['seconds']:.1f}), the dry run's traces {t_trace:.1f}; card "
+          f"{smi}")
+    return {"loss": l2, "loss_unsharded": l1, "worst": r0["worst"],
+            "logits_err": r0["logits_err"], "logits_max": r0["logits_max"],
+            "tokens": r0["tokens"], "launches": launched,
+            "gmm_experts": r0["gmm_experts"], "counts": r0["train_counts"],
+            "tick_counts": r0["tick_counts"],
+            "peak_bytes": [r["peak"] for r in ranks],
+            "peak_unsharded_bytes": r0["peak_unsharded"]}
+
+
 def phase_mesh(seed: int, smi: str, card_dev: str = "cuda",
                smoke: bool = False) -> dict:
     """Phase 21: the mesh layer (``parallel.sharding``, ``comm``,
@@ -3544,6 +3845,9 @@ def phase_mesh(seed: int, smi: str, card_dev: str = "cuda",
     gc.collect()
     torch.cuda.empty_cache()
     out["fsdp"] = mesh_fsdp(seed, smi, card_dev, smoke)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["ep"] = mesh_ep(seed, smi, card_dev, smoke)
     print("[21] " + json.dumps({"mesh": {**{k: v for k, v in out.items()
                                             if k != "events_added"},
                                          "card": smi}}))
@@ -3654,6 +3958,7 @@ def main() -> int:
     by_path["mesh"] = mesh["launches"]
     by_path["mesh_tp"] = mesh["tp"]["launches"]
     by_path["mesh_fsdp"] = mesh["fsdp"]["launches"]
+    by_path["mesh_ep"] = mesh["ep"]["launches"]
     del mesh
     gc.collect()
     torch.cuda.empty_cache()        # the mesh's tensors are gone

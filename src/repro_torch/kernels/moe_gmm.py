@@ -41,8 +41,10 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor,
     expert holds: row r of expert e is x[e, r] @ w[e] for
     r < min(rows[e], C) and exactly 0 past it, and an expert with no rows
     reads no weights.  ``None`` means all C rows.  Any C is taken (the
-    kernel masks a ragged C tile).  x may be a strided view, such as the
-    dispatch buffer without its sink row, as long as its last dimension is
+    kernel masks a ragged C tile).  The E experts need not be a model's
+    first: under expert parallelism they are one device's block, experts
+    [i E, (i + 1) E) of the model's, and ``rows`` is that block's slice of
+    the counts.  x may be a strided view as long as its last dimension is
     contiguous; w must be contiguous.
     """
     global launches

@@ -216,9 +216,11 @@ def moe_gmm(x, w, rows=None):
 
     ``rows``: an optional (E,) int32 tensor of the rows each expert holds.
     Row r of expert e is then x[e, r] @ w[e] for r < min(rows[e], C) and
-    exactly 0 past it; on a buffer whose rows past the count are zero, as
-    the MoE dispatch builds it, that is the TPU ``gmm``.  The kernel reads
-    no weights of an expert without rows.
+    exactly 0 past it, whatever x holds there; on the rows the TPU ``gmm``
+    combines that is its result.  The kernel reads no weights of an expert
+    without rows.  x and w may be a block of a model's experts whose
+    first is not expert 0 (expert parallelism: E is E/m, the experts of
+    one device) with ``rows`` that block's slice of the counts.
 
     Block contract of the TPU ``gmm``: D a multiple of min(128, D) and F of
     min(128, F).  Any C is taken: the TPU wrapper pads C to its block, the

@@ -228,6 +228,13 @@ def swiglu_spec(d_model: int, d_ff: int) -> Dict[str, ParamSpec]:
     }
 
 
+def swiglu_sum(params, x):
+    """The SwiGLU's products, with no collective: from blocks of the
+    hidden width, this block's share of the sum over the blocks."""
+    return (F.silu(x @ params["w_gate"]) * (x @ params["w_up"])) \
+        @ params["w_down"]
+
+
 def swiglu(params, x):
     """SwiGLU; from blocks of the hidden width (``parallel.tensor``), gate
     and up split by columns and down by rows, summed over the blocks.  On
@@ -244,8 +251,7 @@ def swiglu(params, x):
             else tensor.gather_seq(x, sp)
     elif sp is not None:
         x = tensor.gather_seq(x, sp, copies=True)
-    h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
-    y = h @ params["w_down"]
+    y = swiglu_sum(params, x)
     if sp is None:
         return y if tp is None else tensor.out_of_split(y, tp)
     return tensor.split_seq(y, sp) if tp is None \

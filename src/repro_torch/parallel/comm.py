@@ -11,9 +11,10 @@ Each call records its per-device bytes with the active counter
 (``analysis.hlo``), by the convention of the JAX package's HLO analyzer:
 an all-gather its output, a reduce-scatter its operand, an all-reduce
 twice its operand (a ring's reduce-scatter and all-gather), a
-point-to-point send its operand, a broadcast its operand.  Groups of one
-device are not skipped, so a one-rank mesh still runs every collective
-through the backend.
+point-to-point send its operand, a broadcast its operand.  Over an axis
+of one device a collective is the identity, as GSPMD emits none there:
+it returns its input (contiguous) with no backend call, no copy and no
+record, so the dry run's counter and the step agree.
 
 Gloo has no reduce-scatter: there it is an all-reduce of the operand and
 this device's slice of the sum (the same values; the recorded bytes are
@@ -97,6 +98,8 @@ def all_gather(x: torch.Tensor, mesh, axis: str, dim: int = 0
     coordinate order."""
     n = mesh.size(_dim(mesh, axis))
     x = x.contiguous()
+    if n == 1:
+        return x
     if is_abstract(mesh):
         parts = [x] * n
     else:
@@ -112,6 +115,8 @@ def reduce_scatter(x: torch.Tensor, mesh, axis: str, dim: int = 0
     """This device's block along ``dim`` of the sum of ``x`` over the
     ``axis`` group."""
     n = mesh.size(_dim(mesh, axis))
+    if n == 1:
+        return x.contiguous()
     hlo.note_collective("reduce-scatter", _nbytes(x))
     size = x.shape[dim] // n
     c = coordinate(mesh, axis)
@@ -134,6 +139,8 @@ def all_reduce(x: torch.Tensor, mesh, axes: Axes, op: str = "sum"
     only along ``axes``, in place; returns ``x``."""
     red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
     for a in _axes(axes):
+        if mesh.size(_dim(mesh, a)) == 1:
+            continue
         hlo.note_collective("all-reduce", 2 * _nbytes(x))
         if not is_abstract(mesh):
             dist.all_reduce(x, op=red, group=mesh.get_group(a))
@@ -143,6 +150,8 @@ def all_reduce(x: torch.Tensor, mesh, axes: Axes, op: str = "sum"
 def broadcast(x: torch.Tensor, mesh, axis: str, index: int) -> torch.Tensor:
     """``x`` of the device at ``index`` along ``axis``, in place on every
     device of the group; returns ``x``."""
+    if mesh.size(_dim(mesh, axis)) == 1:
+        return x
     hlo.note_collective("broadcast", _nbytes(x))
     if not is_abstract(mesh):
         dist.broadcast(x, src=rank_at(mesh, axis, index),
@@ -157,9 +166,11 @@ def shift(y: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     wrap-around dropped."""
     n, c = mesh.size(_dim(mesh, axis)), coordinate(mesh, axis)
     y = y.contiguous()
-    hlo.note_collective("collective-permute", _nbytes(y))
     got = torch.zeros_like(y)
-    if is_abstract(mesh) or n == 1:
+    if n == 1:
+        return got
+    hlo.note_collective("collective-permute", _nbytes(y))
+    if is_abstract(mesh):
         return got
     reqs = []
     if c + 1 < n:

@@ -311,18 +311,23 @@ def reduce_into(g: torch.Tensor, axes: Sequence[Optional[str]], mesh,
     then all-reduces over the axes that replicate it.  Along the axes in
     ``keep`` the devices hold parts of one computation, not copies: ``g``
     is already cut there as :func:`gather` with the same ``keep`` leaves
-    the leaf (of whole ``shape``), and is not summed over them."""
+    the leaf (of whole ``shape``), and is not summed over them.  Axes of
+    one device issue nothing (``comm``); ``g`` itself is never reduced in
+    place."""
     spec = rules.spec(axes, shape=g.shape if shape is None else shape,
                       mesh=mesh)
-    split = set(keep)
+    sizes, split, fresh = _sizes(mesh), set(keep), False
     for d, e in enumerate(spec):
         for a in _entries(e):
-            if a not in keep:
-                g = comm.reduce_scatter(g, mesh, a, d)
+            if a not in keep and sizes[a] > 1:
+                g, fresh = comm.reduce_scatter(g, mesh, a, d), True
             split.add(a)
-    rest = tuple(a for a in mesh.mesh_dim_names if a not in split)
+    rest = tuple(a for a in mesh.mesh_dim_names
+                 if a not in split and sizes[a] > 1)
     if rest:
-        g = comm.all_reduce(g.contiguous(), mesh, rest)
+        # the all-reduce works in place: never on the caller's ``g``
+        g = comm.all_reduce(g.contiguous() if fresh else g.clone(
+            memory_format=torch.contiguous_format), mesh, rest)
     return g
 
 
@@ -423,11 +428,7 @@ class _Gather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        lay, keep = ctx.lay, ctx.keep
-        if not any(a not in keep for e in lay.spec for a in _entries(e)):
-            # reduced in place by an all-reduce: not the engine's buffer
-            g = g.clone(memory_format=torch.contiguous_format)
-        return lay.reduce(g, keep), None, None
+        return ctx.lay.reduce(g, ctx.keep), None, None
 
 
 def gather_leaf(block: torch.Tensor, lay: Layout,

@@ -229,8 +229,13 @@ def shard_state(state, layouts):
 
 
 def gather_state(state, layouts):
-    """The whole state from every device's blocks."""
-    return tree_map(lambda x, lay: lay.gather(x), state, layouts)
+    """The whole state from every device's blocks: new tensors, also where
+    a leaf is whole or split over axes of one device only (there
+    ``Layout.gather`` returns the block itself)."""
+    def whole(x, lay):
+        g = lay.gather(x)
+        return g.clone() if g.data_ptr() == x.data_ptr() else g
+    return tree_map(whole, state, layouts)
 
 
 def _rules(cfg: ArchConfig, mesh, rules):

@@ -4,14 +4,17 @@ place the leaves (``sharding.default_rules``: "heads", "mlp" and "vocab"
 on "model"), and the residual stream split by rows between them where
 the rules place "seq" on "model" (``act_shard="seq"``, Megatron-SP).
 
-A mesh step of the dense or VLM decoder whose batch the rules do not cut
-over "model" (``steps``) gathers each parameter over every other axis, a
-layer at a time (``sharding.layer``), and hands the layer code the
-leaf's "model" block: wq (D, H/m, dh), wo (H/m, dh, D), w_gate and w_up
-(D, F/m), w_down (F/m, D) and the embedding (V/m, D).  A leaf the spec leaves whole over "model" (a dimension that
-does not divide, wk, wv, the norm scales) stays whole.  The layer code
-asks :meth:`TensorParallel.split_dim` whether its leaf is split, which
-reads the leaf's spec and checks that the leaf is that block.
+A mesh step of the dense, VLM or MoE decoder whose batch the rules do
+not cut over "model" (``steps``, :func:`applies`) gathers each parameter
+over every other axis, a layer at a time (``sharding.layer``), and hands
+the layer code the leaf's "model" block: wq (D, H/m, dh), wo (H/m, dh,
+D), w_gate and w_up (D, F/m), w_down (F/m, D), the embedding (V/m, D),
+and a MoE layer's routed experts (E/m, D, F) and (E/m, F, D), expert
+parallelism as the rules place "experts" (``models.moe``).  A leaf the
+spec leaves whole over "model" (a dimension that does not divide, wk,
+wv, the norm scales, the router) stays whole.  The layer code asks
+:meth:`TensorParallel.split_dim` whether its leaf is split, which reads
+the leaf's spec and checks that the leaf is that block.
 
 **The stream.**  The step decides once a call, from the rules' spec of
 the stream's (B, S, D) (:meth:`TensorParallel.for_stream`, the
@@ -99,9 +102,12 @@ class TensorParallel:
     @classmethod
     def of(cls, mesh, layouts) -> "TensorParallel":
         """The context of a step whose parameters lie in ``layouts`` (a
-        tree of ``sharding.Layout``); raises where two leaves with the
-        same logical axes differ in shape or split, or where "model"
-        shares a dimension with another axis."""
+        tree of ``sharding.Layout``), one entry a leaf's logical axes and
+        whole shape: leaves with the same axes may differ in shape (a MoE
+        model's dense and shared SwiGLUs), as long as their blocks do, so
+        that a block names its leaf (:meth:`split_dim`).  Raises where two
+        such blocks coincide, or where "model" shares a dimension with
+        another axis."""
         from ..tree import leaves
         table, rules = {}, None
         for lay in leaves(layouts):
@@ -113,13 +119,17 @@ class TensorParallel:
             if dims and spec[dims[0]] != AXIS:
                 raise ValueError(f"leaf {lay.axes}: {AXIS!r} shares a "
                                  f"dimension ({spec})")
-            entry = (shape, dims[0] if dims else None)
-            if table.setdefault(axes, entry) != entry:
+            table[axes, shape] = dims[0] if dims else None
+        size = comm.axis_sizes(mesh)[AXIS]
+        blocks = {}
+        for (axes, shape), dim in table.items():
+            key = (axes, _block(shape, dim, size))
+            if blocks.setdefault(key, (shape, dim)) != (shape, dim):
                 raise ValueError(f"leaves with axes {axes} differ: "
-                                 f"{table[axes]} and {entry}")
-        return cls(mesh, AXIS, comm.coordinate(mesh, AXIS),
-                   comm.axis_sizes(mesh)[AXIS],
-                   tuple((a, s, d) for a, (s, d) in table.items()), rules)
+                                 f"{blocks[key]} and {(shape, dim)} have "
+                                 f"the same block {key[1]}")
+        return cls(mesh, AXIS, comm.coordinate(mesh, AXIS), size,
+                   tuple((a, s, d) for (a, s), d in table.items()), rules)
 
     def for_stream(self, shape: Sequence[int]) -> "TensorParallel":
         """This context for a call whose residual stream is ``shape`` (B,
@@ -138,26 +148,35 @@ class TensorParallel:
 
     def dim_of(self, axes: Sequence[Optional[str]]) -> Optional[int]:
         """The dimension the axis splits in leaves with logical ``axes``;
-        None where they stay whole."""
-        return self._entry(axes)[1]
+        None where they stay whole.  Raises where leaves with these axes
+        split differently (ask :meth:`split_dim` with the leaf)."""
+        dims = {d for _, d in self._entries(axes)}
+        if len(dims) > 1:
+            raise ValueError(f"leaves with axes {tuple(axes)} split "
+                             f"differently: {dims}")
+        return dims.pop()
 
     def split_dim(self, w: torch.Tensor, axes: Sequence[Optional[str]]
                   ) -> Optional[int]:
-        """:meth:`dim_of` for the leaf ``w``, which must be this device's
-        block of it (a split leaf that came whole raises)."""
-        whole, dim = self._entry(axes)
-        want = whole if dim is None else \
-            whole[:dim] + (whole[dim] // self.size,) + whole[dim + 1:]
-        if tuple(w.shape) != want:
+        """The dimension the axis splits in the leaf ``w`` of logical
+        ``axes`` (None: whole), which must be this device's block of one
+        of the leaves with these axes (a split leaf that came whole
+        raises)."""
+        blocks = {_block(shape, dim, self.size): dim
+                  for shape, dim in self._entries(axes)}
+        if tuple(w.shape) not in blocks:
+            want = " or ".join(str(b) for b in blocks)
             raise ValueError(f"leaf {tuple(axes)} has shape "
                              f"{tuple(w.shape)}, its block is {want}")
-        return dim
+        return blocks[tuple(w.shape)]
 
-    def _entry(self, axes):
-        for a, shape, dim in self.leaves:
-            if a == tuple(axes):
-                return shape, dim
-        raise KeyError(f"no leaf with axes {tuple(axes)}")
+    def _entries(self, axes):
+        """(whole shape, split dimension) of every leaf with ``axes``."""
+        got = [(shape, dim) for a, shape, dim in self.leaves
+               if a == tuple(axes)]
+        if not got:
+            raise KeyError(f"no leaf with axes {tuple(axes)}")
+        return got
 
     def kv_heads(self, n_heads: int, n_kv: int) -> range:
         """The KV heads, in order, that this device's block of the
@@ -211,6 +230,15 @@ def whole_stream():
     on rows every device of the axis holds (the prefill's last row)."""
     with use(_active and dataclasses.replace(_active, seq=False)):
         yield
+
+
+def _block(shape: Tuple[int, ...], dim: Optional[int], size: int
+           ) -> Tuple[int, ...]:
+    """A device's block of a leaf of whole ``shape`` split at ``dim``
+    (None: whole) over ``size`` devices."""
+    if dim is None:
+        return tuple(shape)
+    return shape[:dim] + (shape[dim] // size,) + shape[dim + 1:]
 
 
 def _rows(x: torch.Tensor, tp: TensorParallel) -> int:
@@ -376,19 +404,22 @@ def vocab_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 def gather_vocab(logits: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
     """The whole logits (..., V) from every device's vocab block."""
-    if tp.size == 1:
-        return logits
     return comm.all_gather(logits, tp.mesh, tp.axis, logits.dim() - 1)
 
 
 def applies(cfg, mesh, rules: shd.AxisRules, rows: Optional[int]) -> bool:
     """Whether a mesh step of ``cfg`` splits its layers over "model": the
-    dense and VLM decoders with GQA attention, on a mesh with a "model"
-    axis of more than one device that the batch of ``rows`` rows (the
-    rules' "batch" entry where not given) is not cut over."""
-    if cfg.family not in ("dense", "vlm") or cfg.attn != "gqa" \
-            or mesh is None or AXIS not in mesh.mesh_dim_names \
-            or comm.axis_sizes(mesh)[AXIS] == 1:
+    dense, VLM and MoE decoders with GQA attention (a MoE model where its
+    routed experts and its shared experts' width divide the axis, so each
+    device holds a block of the experts), on a mesh with a "model" axis
+    of more than one device that the batch of ``rows`` rows (the rules'
+    "batch" entry where not given) is not cut over."""
+    if cfg.family not in ("dense", "vlm", "moe") or cfg.attn != "gqa" \
+            or mesh is None or AXIS not in mesh.mesh_dim_names:
+        return False
+    size = comm.axis_sizes(mesh)[AXIS]
+    if size == 1 or cfg.family == "moe" and (
+            cfg.n_experts % size or cfg.n_shared * cfg.d_ff_expert % size):
         return False
     batch = rules.get("batch") if rows is None \
         else rules.spec(("batch",), (rows,), mesh)[0]

@@ -405,7 +405,10 @@ def test_chip_smoke_phase_21_rehearses_on_the_cpu(monkeypatch, capsys):
     the dry run's (the phase checks them), its stream reduce-scattered;
     then 21(e) in two processes on a (2, 1) gloo mesh: the FSDP step at
     accum 2 against the unsharded one, its layers gathered one at a
-    time, its op counts the dry run's."""
+    time, its op counts the dry run's; then 21(f) in two processes on the
+    (1, 2) mesh: the expert-parallel prefill, four ticks and a train step
+    of the cut deepseek_moe_16b against the unsharded ones, each rank's
+    grouped matmuls on half the experts."""
     import chip_smoke
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
     out = chip_smoke.phase_mesh(0, "CPU rehearsal", card_dev="cpu",
@@ -422,3 +425,10 @@ def test_chip_smoke_phase_21_rehearses_on_the_cpu(monkeypatch, capsys):
     assert fsdp["worst"] <= 1e-6
     assert fsdp["counts"]["collective_counts"]["reduce-scatter"] > 0
     assert "21(e)" in printed
+    ep = out["ep"]
+    assert ep["worst"] <= 1e-6
+    assert ep["logits_err"] <= 1e-5 * ep["logits_max"]
+    # 3 grouped matmuls a prefill and a tick, each on 4 of the 8 experts
+    assert ep["gmm_experts"] == [4] * 15
+    assert ep["tick_counts"]["collective_counts"]["all-reduce"] > 0
+    assert "21(f)" in printed

@@ -241,6 +241,17 @@ def _split_leaves(tc, mesh, act_shard, rows) -> int:
         tst.state_layouts(tc, am, rules).params))
 
 
+def _check_moe_blocks(tc, got, m: int, rows: int) -> None:
+    """What a MoE layer of a mesh step got (``_BlockSpy.moe``): the routed
+    experts as this device's block of E/m, the router whole, and ``rows``
+    rows of the residual stream (B/dp rows, S/m positions)."""
+    e, d, f = tc.n_experts, tc.d_model, tc.d_ff_expert
+    assert got["router"] == [d, e]
+    assert got["w_gate"] == got["w_up"] == [e // m, d, f]
+    assert got["w_down"] == [e // m, f, d]
+    assert got["x"][1:] == [rows, d]
+
+
 @pytest.mark.parametrize("mesh,act_shard,case", [
     pytest.param((4, 2), "seq", {}, id="mesh0-seq"),
     pytest.param((4, 2), "batch2d", {}, id="mesh1-batch2d"),
@@ -249,15 +260,6 @@ def _split_leaves(tc, mesh, act_shard, rows) -> int:
     pytest.param((4, 2), "seq", dict(masked=True), id="masked-accum1"),
     pytest.param((4, 2), "seq", dict(masked=True, accum=2),
                  id="masked-accum2"),
-    # the MoE dispatch takes the global batch's capacity and positions
-    pytest.param((4, 2), "seq", dict(arch="deepseek_moe_16b"),
-                 id="moe-mesh0"),
-    pytest.param((2, 4), "seq", dict(arch="deepseek_moe_16b"),
-                 id="moe-mesh2"),
-    # 4 rows over batch2d's 8 devices: the rules cut them over "model"
-    # only, so 2 row groups, each held by the 4 data shards
-    pytest.param((4, 2), "batch2d", dict(arch="deepseek_moe_16b"),
-                 id="moe-batch2d"),
     # tensor parallel: the VLM, its 8 image patches entering whole; in
     # fp32 its first moments land up to 1.08e-6 of a leaf's largest value
     # from the unsharded step's, which are themselves up to 1.46e-6 from
@@ -279,9 +281,13 @@ def _split_leaves(tc, mesh, act_shard, rows) -> int:
 ])
 def test_sharded_train_step_matches_single_device(tmp_path, monkeypatch,
                                                   mesh, act_shard, case):
+    check_sharded_train(tmp_path, monkeypatch, mesh, act_shard, case)
+
+
+def check_sharded_train(tmp_path, monkeypatch, mesh, act_shard, case):
     """Two steps of the mesh train step against JAX's single-device step
     and the port's unsharded one, the state at 1e-6 of each leaf's
-    largest value.  Where the step is tensor parallel (dense and VLM
+    largest value.  Where the step is tensor parallel (dense, VLM and MoE
     families, "model" not a batch axis) its split sums round otherwise:
     the parameters (and, but for the VLM, the first moments) are held at
     1e-6 in fp32, and every leaf in float64 (``Float64``: the mesh step
@@ -292,7 +298,8 @@ def test_sharded_train_step_matches_single_device(tmp_path, monkeypatch,
     its residual stream by sequence (S/m rows a device), and its first
     gradients (every leaf, the norm scales among them) equal the
     unsharded step's: at 1e-5 of a leaf's largest value in fp32 and
-    1e-12 in float64."""
+    1e-12 in float64.  A MoE layer gets its block of the experts and the
+    router whole (``_check_moe_blocks``)."""
     arch = case.get("arch", "deepseek_7b")
     accum, steps, kw = case.get("accum", 1), 2, dict(total_steps=5,
                                                      warmup=2)
@@ -346,10 +353,13 @@ def test_sharded_train_step_matches_single_device(tmp_path, monkeypatch,
     assert float(got["block_diff"]) == 0.0
     # the layer code got each model-split leaf as its block, no other
     assert info_out["split_leaves"] == split
-    assert tp == (tc.family != "moe" and act_shard == "seq")
+    assert tp == (act_shard == "seq")
     assert (split > 0) == tp or mesh == (1, 3)
     # a tensor-parallel device held S/m rows of the residual stream
     assert info_out["stream_rows"] == (seq // mesh[1] if tp else seq)
+    if tc.family == "moe":
+        _check_moe_blocks(tc, info_out["moe"], mesh[1] if tp else 1,
+                          seq // mesh[1] if tp else seq)
     # the dry run of this cell predicts the step's collectives and FLOPs
     pred = dryrun.trace_cell(tc, InputShape("t", seq, 4 * accum, "train"),
                              AbstractMesh(mesh, ("data", "model")))
@@ -407,38 +417,6 @@ def test_sharded_train_step_matches_single_device(tmp_path, monkeypatch,
         scale = max(float(np.abs(t).max()), 1e-30)
         assert np.abs(s - t).max() <= 1e-12 * scale, \
             f"{group[i]}: float64 state vs the unsharded step"
-
-
-@pytest.mark.parametrize("mesh", [(4, 2), (2, 4)])
-def test_sharded_moe_prefill_matches_single_device(tmp_path, monkeypatch,
-                                                   mesh):
-    """The mesh prefill of reduced deepseek_moe_16b (4 x 16 tokens, at
-    the capacity factor of 1.25, where JAX's dispatch drops slots) against
-    JAX's single-device prefill logits; its op counts are the dry run's."""
-    arch, act_shard = "deepseek_moe_16b", "seq"
-    jc = jax_config(arch).reduced().replace(dtype="float32",
-                                            act_shard=act_shard)
-    tc = torch_config(arch).reduced().replace(dtype="float32",
-                                              act_shard=act_shard)
-    tokens = synthetic_batch(DataConfig(seq_len=16, global_batch=4,
-                                        vocab=jc.vocab), 0)["tokens"]
-    js = jst.init_train_state(jc, jax.random.PRNGKey(0))
-    prefill = japi.prefill_fn(jc, 16)
-    batch = {"tokens": jnp.asarray(tokens)}
-    assert jc.capacity_factor == 1.25
-    assert _jax_drops(monkeypatch, jc, prefill, js.params, batch) > 0
-    want = np.asarray(jax.jit(prefill)(js.params, batch)[0])
-    _write_state(tmp_path, js)
-    np.save(tmp_path / "tokens.npy", tokens)
-    (tmp_path / "info.json").write_text(json.dumps(dict(
-        arch=arch, act_shard=act_shard, mesh=list(mesh))))
-    got, info = run_ranks("sharded_prefill", 8, tmp_path)
-    close(want, got["logits"], rtol=1e-4, atol=1e-4,
-          what="mesh prefill logits against JAX")
-    pred = dryrun.trace_cell(tc, InputShape("t", 16, 4, "prefill"),
-                             AbstractMesh(mesh, ("data", "model")))
-    for key in ("collective_bytes", "collective_counts", "flops"):
-        assert info["counts"][key] == pred["hlo_analysis"][key], key
 
 
 @pytest.mark.parametrize("ticks,seq", [(0, 16), (4, 16), (0, 15)],

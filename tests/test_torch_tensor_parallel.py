@@ -39,7 +39,10 @@ def _tp(cfg, mesh, act_shard="seq"):
     # one row: batch2d drops both axes, so "model" holds copies again
     ("glm4_9b", (4, 2), "batch2d", 1, True),
     ("glm4_9b", (8, 1), "seq", 8, False),          # a model axis of one
-    ("deepseek_moe_16b", (4, 2), "seq", 4, False),
+    # expert parallelism: 64 experts, 4 a device on 16
+    ("deepseek_moe_16b", (4, 2), "seq", 4, True),
+    ("deepseek_moe_16b", (16, 16), "seq", 256, True),
+    ("deepseek_v2_236b", (4, 2), "seq", 4, False),    # MoE, MLA
     ("zamba2_7b", (4, 2), "seq", 4, False),
     ("xlstm_125m", (4, 2), "seq", 4, False),
     ("minicpm3_4b", (4, 2), "seq", 4, False),     # dense, MLA

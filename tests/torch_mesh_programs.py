@@ -190,20 +190,29 @@ class _BlockSpy:
     own tensor: it is gathered a layer at a time.  ``split`` counts the
     split leaves of the last call; ``rows`` is the length of the residual
     stream the trunk (``transformer._trunk``) last ran on: this device's
-    rows where the stream is split."""
+    rows where the stream is split; ``moe`` the shapes a MoE layer
+    (``transformer.moe_apply``) last got: its router, its routed experts
+    and its input stream ``x``."""
 
     def __init__(self, lay):
         from repro_torch.models import transformer
         from repro_torch.parallel import tensor
         from repro_torch.tree import leaves
-        self.split, self.rows = 0, None
+        self.split, self.rows, self.moe = 0, None, None
         lays = leaves(lay)
-        trunk = transformer._trunk
+        trunk, moe_apply = transformer._trunk, transformer.moe_apply
 
         def rows(cfg, params, x, *a, **k):
             self.rows = int(x.shape[1])
             return trunk(cfg, params, x, *a, **k)
         transformer._trunk = rows
+
+        def moe(params, x, *a, **k):
+            self.moe = {n: list(params[n].shape) for n in (
+                "router", "w_gate", "w_up", "w_down")}
+            self.moe["x"] = list(x.shape)
+            return moe_apply(params, x, *a, **k)
+        transformer.moe_apply = moe
 
         def check(params):
             from repro_torch.parallel import sharding as shd
@@ -307,7 +316,7 @@ def sharded_train(rank, d):
     state, losses, counts = run(
         st.shard_state(_state_from(d, cfg), lay), batches, True)
     out = {"losses": losses, "counts": counts, "split_leaves": spy.split,
-           "stream_rows": spy.rows}
+           "stream_rows": spy.rows, "moe": spy.moe}
     first_grads = whole_grads()
     # every block is the layout's slice of the gathered state
     whole = st.gather_state(state, lay)
@@ -359,7 +368,7 @@ def sharded_prefill(rank, d):
     whole = shd.gather(logits, ("batch", None), mesh, rules,
                        (rows, logits.shape[-1]))
     out = {"counts": _counts(rep), "split_leaves": spy.split,
-           "stream_rows": spy.rows}
+           "stream_rows": spy.rows, "moe": spy.moe}
     arrays = {"logits": whole.numpy()}
     if ticks:
         serve = st.make_serve_step(cfg, mesh, rules, rows)
@@ -371,6 +380,7 @@ def sharded_prefill(rank, d):
             if i == 0:
                 (tok, cache), rep = hlo.count(serve, params, tok, cache)
                 out["tick_counts"] = _counts(rep)
+                out["tick_moe"] = spy.moe
             else:
                 tok, cache = serve(params, tok, cache)
             got.append(tok["token"])
