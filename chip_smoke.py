@@ -56,7 +56,12 @@ prints its seconds:
    the key's rows, T 1024 full, in both types, and at a served fill in
    fp32), and the grouped matmul at its 160 experts (5120 -> 1536 and
    1536 -> 5120, the routed counts of a 4-slot tick and of a 512-token
-   prefill); the grouped matmul on one rank's block of 21(f)'s expert
+   prefill); the flash attention (S 512, D 192 / Dv 128; D 96 / Dv 64)
+   and the latent flash decode (576 / 512; 288 / 256) at the 64 heads of
+   a rank of 21(g)'s deepseek_v2_236b and the 20 of its minicpm3_4b, and the
+   grouped matmul on its block of deepseek_v2_236b's experts (80-159 of
+   160, the 1 x 128 prefill's and a one-slot tick's counts); the grouped
+   matmul on one rank's block of 21(f)'s expert
    parallelism (experts 32-63 of 64, given that block's slice of the
    counts: a one-slot tick and the 1 x 128 prefill); RMSNorm first fails unless one call runs exactly
    one device kernel, the port's, then runs the decode tick's 4 rows at
@@ -245,8 +250,26 @@ prints its seconds:
    launches, and its op counts of the three equal to the dry run's, each
    rank's peak memory beside the unsharded run's; then one tick of that
    step on an abstract (1, 2) mesh (collectives of shapes only) under
-   sync debug mode "error".  Axes of one device issue no collective, so
-   (a)'s step runs none and (d)-(f) none over "data";
+   sync debug mode "error"; (g) tensor parallelism of MLA on the (1, 2)
+   mesh over two such processes: full-width deepseek_v2_236b cut to its
+   dense first layer and one MoE layer (4.834 B parameters, 64 of 128
+   heads and 80 of 160 experts a rank, drawn a leaf at a time so that no
+   process holds the whole model) served, 1 x 128 tokens and 4 greedy
+   ticks, and cut to its dense first layer (0.862 B) trained one step;
+   full-width minicpm3_4b cut to 2 layers (20 of 40 heads a rank) served
+   and trained alike: against the unsharded runs on the card (logits
+   within 1e-5 of max |logit|, the same tokens; a step at the base lr,
+   no warmup, that moves every leaf: its loss within 1e-6, each leaf of
+   its first moments within 4 times the unsharded step's own gap to
+   float64 or 1e-6 of the leaf's max, and in float64 with plain
+   attention its loss, first moments and parameters within 1e-12), each
+   rank's flash attentions (64 heads,
+   D 192 / Dv 128; 20 heads, 96 / 64) and latent flash decodes (64 heads
+   on 576 / 512; 20 on 288 / 256) on its heads and its grouped matmuls
+   on 80 experts, its launches and its op counts equal to the dry run's,
+   each rank's peak memory beside the unsharded run's.  Axes of one
+   device issue no collective, so (a)'s step runs none and (d)-(g) none
+   over "data";
 22. full-width deepseek_v2_236b (MLA: q_lora 1536, kv_lora 512, qk 128 +
    64, v 128, 128 heads; 160 routed top-6 experts of 1536 and 2 shared)
    cut to 2 layers, the dense first one and one MoE layer (4.834 B
@@ -484,6 +507,11 @@ def served_decode_shapes() -> list:
         elif cfg.family != "ssm":
             out.add((cfg.dh, cfg.dh, cfg.n_heads // cfg.n_kv_heads, False))
     out.update((128, 128, h // hkv, False) for h, hkv in TP_HEADS)
+    # MLA's latent decode on a rank of 21(g): half the heads on the one
+    # latent head
+    out.update((cfg.kv_lora + cfg.qk_rope, cfg.kv_lora, cfg.n_heads // 2,
+                True) for cfg in map(get_config, ARCH_IDS)
+               if cfg.attn == "mla")
     return sorted(out)
 
 
@@ -817,6 +845,21 @@ def phase_kernels(gen):
           "T=1024 H=128 Hkv=1 D=576 Dv=512 latent fill 544/160/68/9")] = \
         decode(128, 1, 576, torch.float32, "float32", served,
                latent=(512, 192 ** -0.5))
+    # the heads on a rank of 21(g)'s tensor-parallel MLA: deepseek_v2_236b's
+    # 64 of 128 and minicpm3_4b's 20 of 40, the prefill attention and the
+    # latent decode
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).replace("torch.", "")
+        rows[("flash_attention", tag, "S=512 H=64 D=192 Dv=128 MLA TP")] = \
+            attention(512, 64, 64, 192, dtype, tag, dv=128)
+        rows[("flash_decode", tag,
+              "T=1024 H=64 Hkv=1 D=576 Dv=512 latent TP")] = decode(
+            64, 1, 576, dtype, tag, (1024,) * 4, latent=(512, 192 ** -0.5))
+        rows[("flash_attention", tag, "S=512 H=20 D=96 Dv=64 MLA TP")] = \
+            attention(512, 20, 20, 96, dtype, tag, dv=64)
+        rows[("flash_decode", tag,
+              "T=1024 H=20 Hkv=1 D=288 Dv=256 latent TP")] = decode(
+            20, 1, 288, dtype, tag, (1024,) * 4, latent=(256, 96 ** -0.5))
     # the (query, KV) heads of a tensor-parallel mesh step (TP_HEADS)
     for dtype in (torch.float32, torch.bfloat16):
         tag = str(dtype).replace("torch.", "")
@@ -895,6 +938,16 @@ def phase_kernels(gen):
                                       f"D={d} F={f}")] = gmm(
                     160, c, d, f, dtype, tag,
                     routed_counts(n_tok, 160, 6, seed=n_tok))
+        # one rank's block of 21(g)'s deepseek_v2_236b: experts 80-159 of
+        # the 160, the block's slice of the counts of the 1 x 128 prefill
+        # (C = 6 at 1.25: gate/up and down) and of a one-slot tick (C = 1
+        # at 4.0)
+        for n_tok, c, d, f in ((1, 1, 5120, 1536), (128, 6, 5120, 1536),
+                               (128, 6, 1536, 5120)):
+            rows[("moe_gmm", tag, f"routed {n_tok} tokens experts 80-159 "
+                                  f"E=80 C={c} D={d} F={f}")] = gmm(
+                80, c, d, f, dtype, tag,
+                routed_counts(n_tok, 160, 6, seed=n_tok)[80:])
         # the sLSTM at xlstm_125m's heads (4 of 192): a 512-, a 300- and a
         # 17-token prefill, and a decode tick of 4 slots from a state
         for s_, rs, bs in ((512, 0.02, 0.0), (512, 0.1, 0.1),
@@ -3495,8 +3548,9 @@ def mesh_fsdp(seed: int, smi: str, card_dev: str = "cuda",
 
 # 21(f): expert parallelism on the card, two processes on the one card over
 # gloo on the (1, 2) mesh of 21(d): full-width deepseek_moe_16b cut to its
-# dense first layer and one MoE layer of 64 experts, 32 a rank
-MESH_EP_LAYERS, MESH_EP_TICKS = 2, 4
+# dense first layer and one MoE layer of 64 experts, 32 a rank; it and
+# 21(g) serve MESH_TICKS greedy ticks after the mesh prefill
+MESH_EP_LAYERS, MESH_TICKS = 2, 4
 
 
 def _ep_cfg(smoke: bool):
@@ -3508,22 +3562,65 @@ def _ep_cfg(smoke: bool):
                        attn_impl="chunked" if smoke else "kernel")
 
 
-class _ExpertBlocks:
-    """Records the experts (the first dimension of x) of every
-    ``ops.moe_gmm`` call made while it is entered."""
+class _OpShapes:
+    """Records, of every call made while it is entered, the (heads, key
+    width, value width) of ``ops.flash_attention`` and
+    ``ops.flash_decode`` and the experts of ``ops.moe_gmm``."""
+
+    NAMES = ("flash_attention", "flash_decode", "moe_gmm")
 
     def __enter__(self):
         from repro_torch.kernels import ops
-        self.ops, self._gmm, self.experts = ops, ops.moe_gmm, []
+        self.ops, self.calls = ops, {n: [] for n in self.NAMES}
+        self._fns = {n: getattr(ops, n) for n in self.NAMES}
 
-        def recorded(x, w, rows=None):
-            self.experts.append(int(x.shape[0]))
-            return self._gmm(x, w, rows)
-        ops.moe_gmm = recorded
+        def recorder(name):
+            fn, seen = self._fns[name], self.calls[name]
+
+            def recorded(x, w, *a, **k):
+                seen.append(int(x.shape[0]) if name == "moe_gmm" else
+                            [int(x.shape[2]), int(x.shape[3]),
+                             int(a[0].shape[3])])
+                return fn(x, w, *a, **k)
+            return recorded
+        for n in self.NAMES:
+            setattr(ops, n, recorder(n))
         return self
 
     def __exit__(self, *exc):
-        self.ops.moe_gmm = self._gmm
+        for n, fn in self._fns.items():
+            setattr(self.ops, n, fn)
+
+
+def _mesh_serve(params, prefill, tick, prompt, dev, sync) -> dict:
+    """The prefill's logits, launches and op counts, then the ticks'
+    tokens, launches and the first tick's op counts, with the shapes the
+    attention and grouped-matmul wrappers got."""
+    from repro_torch.analysis import hlo
+    from repro_torch.kernels import ops
+    got = {}
+    with _OpShapes() as shapes:
+        ops.reset_launch_counts()
+        (logits, cache), rep = hlo.count(prefill, params, prompt)
+        sync()
+        got.update(prefill_launches=ops.launch_counts(),
+                   prefill_counts=_op_counts(rep), logits=logits.cpu())
+        tok = {"token": torch.argmax(logits, -1).to(torch.int32)[:, None],
+               "kv_len": torch.full((1,), MESH_SEQ, dtype=torch.int32,
+                                    device=dev)}
+        tokens = [tok["token"]]
+        ops.reset_launch_counts()
+        for i in range(MESH_TICKS):
+            if i == 0:
+                (tok, cache), rep = hlo.count(tick, params, tok, cache)
+                got["tick_counts"] = _op_counts(rep)
+            else:
+                tok, cache = tick(params, tok, cache)
+            tokens.append(tok["token"])
+        sync()
+    got.update(tick_launches=ops.launch_counts(), shapes=shapes.calls,
+               tokens=torch.cat(tokens, 1).cpu().tolist())
+    return got
 
 
 def _ep_run(rank: int, seed: int, card_dev: str, smoke: bool) -> dict:
@@ -3561,37 +3658,10 @@ def _ep_run(rank: int, seed: int, card_dev: str, smoke: bool) -> dict:
         torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
 
-    def serve(params, prefill, tick):
-        """The prefill's logits and counts, then the ticks' tokens and the
-        first tick's counts, with each part's launches."""
-        got = {}
-        ops.reset_launch_counts()
-        (logits, cache), rep = hlo.count(prefill, params, prompt)
-        sync()
-        got.update(prefill_launches=ops.launch_counts(),
-                   prefill_counts=_op_counts(rep), logits=logits.cpu())
-        tok = {"token": torch.argmax(logits, -1).to(torch.int32)[:, None],
-               "kv_len": torch.full((1,), MESH_SEQ, dtype=torch.int32,
-                                    device=card_dev)}
-        tokens = [tok["token"]]
-        ops.reset_launch_counts()
-        for i in range(MESH_EP_TICKS):
-            if i == 0:
-                (tok, cache), rep = hlo.count(tick, params, tok, cache)
-                got["tick_counts"] = _op_counts(rep)
-            else:
-                tok, cache = tick(params, tok, cache)
-            tokens.append(tok["token"])
-        sync()
-        got.update(tick_launches=ops.launch_counts(),
-                   tokens=torch.cat(tokens, 1).cpu().tolist())
-        return got
-
-    with _ExpertBlocks() as blocks:
-        out = serve(state.params, st.make_prefill_step(
-            cfg, MESH_SEQ + MESH_EP_TICKS, mesh, rules, 1),
-            st.make_serve_step(cfg, mesh, rules, 1))
-    out["gmm_experts"] = blocks.experts
+    out = _mesh_serve(state.params, st.make_prefill_step(
+        cfg, MESH_SEQ + MESH_TICKS, mesh, rules, 1),
+        st.make_serve_step(cfg, mesh, rules, 1), prompt, card_dev, sync)
+    out["gmm_experts"] = out.pop("shapes")["moe_gmm"]
     step = st.make_train_step(cfg, total_steps=10, warmup=2, mesh=mesh,
                               rules=rules, global_batch=1)
     ops.reset_launch_counts()
@@ -3612,9 +3682,9 @@ def _ep_run(rank: int, seed: int, card_dev: str, smoke: bool) -> dict:
         torch.cuda.reset_peak_memory_stats()
     plain_state = st.init_train_state(cfg, gen(), card_dev)
     with torch.no_grad():
-        want = serve(plain_state.params,
-                     api.prefill_fn(cfg, MESH_SEQ + MESH_EP_TICKS),
-                     st.make_serve_step(cfg))
+        want = _mesh_serve(plain_state.params,
+                           api.prefill_fn(cfg, MESH_SEQ + MESH_TICKS),
+                           st.make_serve_step(cfg), prompt, card_dev, sync)
     plain_state, pm = st.make_train_step(cfg, total_steps=10, warmup=2)(
         plain_state, batch)
     logits = out.pop("logits")
@@ -3694,7 +3764,7 @@ def mesh_ep(seed: int, smi: str, card_dev: str = "cuda",
     am = AbstractMesh(MESH_TP, ("data", "model"))
     for kind, seq, key in (("train", MESH_SEQ, "train_counts"),
                            ("prefill", MESH_SEQ, "prefill_counts"),
-                           ("decode", MESH_SEQ + MESH_EP_TICKS,
+                           ("decode", MESH_SEQ + MESH_TICKS,
                             "tick_counts")):
         cell = dryrun.trace_cell(cfg, InputShape("cut", seq, 1, kind),
                                  am)["hlo_analysis"]
@@ -3706,15 +3776,15 @@ def mesh_ep(seed: int, smi: str, card_dev: str = "cuda",
     t_trace = time.perf_counter() - t0
     half = cfg.n_experts // MESH_TP[1]
     for r, got in enumerate(ranks):
-        check(got["gmm_experts"] == [half] * 3 * (1 + MESH_EP_TICKS),
+        check(got["gmm_experts"] == [half] * 3 * (1 + MESH_TICKS),
               f"rank {r}'s moe_gmm calls took {got['gmm_experts']} experts")
     if card_dev == "cuda":
         n = cfg.n_layers
         prefill = dict(train_launches(cfg, 0), flash_attention=n,
                        rmsnorm=2 * n + 1, moe_gmm=3)
-        ticks = dict(train_launches(cfg, 0), flash_decode=n * MESH_EP_TICKS,
-                     rmsnorm=(2 * n + 1) * MESH_EP_TICKS,
-                     moe_gmm=3 * MESH_EP_TICKS)
+        ticks = dict(train_launches(cfg, 0), flash_decode=n * MESH_TICKS,
+                     rmsnorm=(2 * n + 1) * MESH_TICKS,
+                     moe_gmm=3 * MESH_TICKS)
         for r, got in enumerate(ranks):
             for part, want in (("prefill", prefill), ("tick", ticks),
                                ("train", train_launches(cfg, 1))):
@@ -3747,7 +3817,7 @@ def mesh_ep(seed: int, smi: str, card_dev: str = "cuda",
           f"{MESH_SEQ} tokens on a {MESH_TP} mesh, two processes on one card "
           f"over gloo, {half} experts a rank: prefill logits |diff| "
           f"{r0['logits_err']:.3e} of max {r0['logits_max']:.3f}; "
-          f"{MESH_EP_TICKS} ticks' tokens equal {r0['tokens']}; loss {l2!r} "
+          f"{MESH_TICKS} ticks' tokens equal {r0['tokens']}; loss {l2!r} "
           f"(unsharded {l1!r}); parameters within {r0['worst']:.3e} of a "
           f"leaf's max; moe_gmm calls a rank {len(r0['gmm_experts'])}, each "
           f"on {half} experts; launches a rank: prefill "
@@ -3770,6 +3840,428 @@ def mesh_ep(seed: int, smi: str, card_dev: str = "cuda",
             "peak_unsharded_bytes": r0["peak_unsharded"]}
 
 
+# 21(g): tensor parallelism of MLA on the card, two processes on the one
+# card over gloo on the (1, 2) mesh of 21(d): full-width deepseek_v2_236b
+# cut to its dense first layer and one MoE layer (64 of 128 heads, 80 of
+# 160 experts a rank) served, and cut to its dense first layer trained;
+# full-width minicpm3_4b cut to 2 layers (20 of 40 heads a rank) served
+# and trained
+MLA_CUTS = (("deepseek_v2_236b", 2, "serve"), ("deepseek_v2_236b", 1,
+                                                "train"),
+            ("minicpm3_4b", 2, "serve"), ("minicpm3_4b", 2, "train"))
+
+
+def _mla_cfg(arch: str, n_layers: int, smoke: bool):
+    """``arch`` at full width (reduced in the CPU rehearsal) cut to
+    ``n_layers``, fp32, one microbatch; a MoE model cut to no more layers
+    than its dense first ones is the dense decoder of those layers."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if smoke:
+        cfg = cfg.reduced()
+    if cfg.family == "moe" and n_layers <= cfg.first_dense:
+        cfg = cfg.replace(family="dense", first_dense=0)
+    return cfg.replace(n_layers=n_layers, dtype="float32", accum=1,
+                       attn_impl="chunked" if smoke else "kernel")
+
+
+def _blocks_from_seed(spec, lay, gen, dev):
+    """This device's blocks of the parameters ``init_params(spec, gen,
+    dev)`` draws, drawn a leaf at a time in its order, so that the whole
+    tree is never on the card."""
+    from repro_torch.models.common import ParamSpec, init_params
+    if isinstance(spec, ParamSpec):
+        return lay.shard(init_params(spec, gen, dev))
+    return {k: _blocks_from_seed(v, lay[k], gen, dev)
+            for k, v in spec.items()}
+
+
+def _leaf_paths(tree, at: str = "") -> list:
+    """The "/"-joined key path of each leaf of a tree of dicts, in
+    ``tree.leaves`` order."""
+    if not isinstance(tree, dict):
+        return [at]
+    return [p for k in sorted(tree)
+            for p in _leaf_paths(tree[k], f"{at}/{k}" if at else k)]
+
+
+def _trained(state, lay) -> tuple:
+    """The parameters and the first moments of a sharded train state,
+    gathered whole a leaf at a time into host memory (two ranks' float64
+    states and their gathered copies do not fit the one card); after one
+    step the first moments hold the clipped gradient times 1 - b1."""
+    from repro_torch.tree import leaves
+
+    def whole(tree, lays):
+        return [lw.gather(x).to("cpu", copy=True) for x, lw in zip(
+            leaves(tree), leaves(lays), strict=True)]
+    return whole(state.params, lay.params), whole(state.opt.m, lay.opt.m)
+
+
+def _mla_run(rank: int, seed: int, card_dev: str, smoke: bool) -> dict:
+    """One rank of 21(g), each cut of ``MLA_CUTS`` in turn on this rank's
+    blocks (half the heads of wq_b, wkv_b and wo, half the experts, the
+    MLPs and the vocab; 64 of the 128 rows of the stream): a cut served
+    runs the 1 x 128 mesh prefill and four greedy ticks (logits, tokens,
+    launches, op counts, the wrappers' shapes); a cut trained runs one
+    step at the base lr (launches, op counts, the loss, the parameters and
+    first moments gathered whole), then the same step in float64 with
+    plain attention; each with this rank's peak memory (a trained cut's
+    of its fp32 step).  Then, on rank 0, each cut unsharded on the card
+    from the same seed, every sharded tensor freed first, a trained one
+    in fp32 and in float64: the gaps of each leaf (``fp32``, ``fp64``)
+    and the fp32 step's own gap to float64 (``own``)."""
+    from repro_torch.analysis import hlo
+    from repro_torch.analysis.precision import Float64, double
+    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import api
+    from repro_torch.models.common import init_params
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel import steps as st
+    from repro_torch.tree import leaves
+    cuda = card_dev == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    mesh = make_mesh(MESH_TP, ("data", "model"), card_dev)
+    rules = shd.default_rules()
+    gen = lambda: torch.Generator(device=card_dev).manual_seed(seed)
+
+    def fresh():
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+    def peak():
+        return torch.cuda.max_memory_allocated() if cuda else 0
+    out, wholes = {}, {}
+    for arch, n, part in MLA_CUTS:
+        cfg = _mla_cfg(arch, n, smoke)
+        batch = to_dev(synthetic_batch(DataConfig(
+            seq_len=MESH_SEQ, global_batch=1, vocab=cfg.vocab, seed=seed),
+            0), card_dev)
+        lay = st.state_layouts(cfg, mesh, rules)
+        fresh()
+        t0 = time.perf_counter()
+        if part == "serve":
+            params = _blocks_from_seed(api.param_spec(cfg), lay.params,
+                                       gen(), card_dev)
+            got = _mesh_serve(
+                params, st.make_prefill_step(
+                    cfg, MESH_SEQ + MESH_TICKS, mesh, rules, 1),
+                st.make_serve_step(cfg, mesh, rules, 1),
+                {"tokens": batch["tokens"]}, card_dev, sync)
+            del params
+        else:
+            state = st.shard_state(st.init_train_state(cfg, gen(),
+                                                       card_dev), lay)
+            # no warmup: the step compared runs at the base lr, so that
+            # it moves the weights (a first step under warmup has lr 0)
+            step = st.make_train_step(cfg, total_steps=10, warmup=0,
+                                      mesh=mesh, rules=rules,
+                                      global_batch=1)
+            ops.reset_launch_counts()
+            (state, m), rep = hlo.count(step, state, batch)
+            sync()
+            got = {"train_launches": ops.launch_counts(),
+                   "train_counts": _op_counts(rep), "loss": float(m["loss"]),
+                   "lr": float(m["lr"]), "seconds": time.perf_counter() - t0,
+                   "peak": peak()}
+            trained = [_trained(state, lay)]
+            del state, step
+            fresh()
+            # the float64 witness: the same step from the same state, its
+            # attention the plain one (the kernels take no float64)
+            wide = cfg.replace(attn_impl="chunked")
+            state = double(st.shard_state(st.init_train_state(
+                wide, gen(), card_dev), lay))
+            with Float64():
+                state, m = st.make_train_step(
+                    wide, total_steps=10, warmup=0, mesh=mesh, rules=rules,
+                    global_batch=1)(state, batch)
+                trained.append(_trained(state, lay))
+            got["loss64"] = float(m["loss"])
+            if rank == 0:
+                wholes[arch] = trained
+            del state, trained
+        if part == "serve":
+            sync()
+            got.update(seconds=time.perf_counter() - t0, peak=peak())
+        out[f"{arch}/{part}"] = got
+    if rank:
+        for got in out.values():
+            got.pop("logits", None)
+        return out
+    for arch, n, part in MLA_CUTS:
+        cfg = _mla_cfg(arch, n, smoke)
+        batch = to_dev(synthetic_batch(DataConfig(
+            seq_len=MESH_SEQ, global_batch=1, vocab=cfg.vocab, seed=seed),
+            0), card_dev)
+        got = out[f"{arch}/{part}"]
+        fresh()
+        if part == "serve":
+            params = init_params(api.param_spec(cfg), gen(), card_dev)
+            with torch.no_grad():
+                want = _mesh_serve(
+                    params, api.prefill_fn(cfg, MESH_SEQ
+                                                + MESH_TICKS),
+                    st.make_serve_step(cfg), {"tokens": batch["tokens"]},
+                    card_dev, sync)
+            del params
+            # over the real vocab: the padded columns hold -1e30
+            logits = got.pop("logits")[..., :cfg.vocab]
+            plain = want["logits"][..., :cfg.vocab]
+            got.update(
+                logits_err=(logits - plain).abs().max().item(),
+                logits_max=plain.abs().max().item(),
+                tokens_unsharded=want["tokens"], peak_unsharded=peak())
+            continue
+        (p32, m32), (p64, m64) = wholes.pop(arch)
+        state = st.init_train_state(cfg, gen(), card_dev)
+        before = [p.clone() for p in leaves(state.params)]
+        state, pm = st.make_train_step(cfg, total_steps=10, warmup=0)(
+            state, batch)
+        sync()
+        got["peak_unsharded"] = peak()
+        names = _leaf_paths(state.params)
+
+        def gaps(mine, theirs):
+            """Each leaf's largest absolute gap and the largest |value| of
+            ``theirs``, by the leaf's path."""
+            return {k: ((a.to(b.device) - b).abs().max().item(),
+                        b.abs().max().item())
+                    for k, a, b in zip(names, mine, theirs, strict=True)}
+        u32 = leaves(state.params), leaves(state.opt.m)
+        # how far the step moved each leaf, of its max before the step
+        moved = [d / top for d, top in gaps(u32[0], before).values()]
+        fp32 = {"params": gaps(p32, u32[0]), "m": gaps(m32, u32[1])}
+        del state, before, p32, m32
+        fresh()
+        wide = cfg.replace(attn_impl="chunked")
+        state = double(st.init_train_state(wide, gen(), card_dev))
+        with Float64():
+            state, pm64 = st.make_train_step(wide, total_steps=10,
+                                             warmup=0)(state, batch)
+        u64 = leaves(state.params), leaves(state.opt.m)
+        fp64 = {"params": gaps(p64, u64[0]), "m": gaps(m64, u64[1])}
+        # the unsharded fp32 step's own gap to its float64 run: the
+        # rounding the sharded one is held against
+        own = {"params": gaps(u32[0], u64[0]), "m": gaps(u32[1], u64[1])}
+        got.update(loss_unsharded=float(pm["loss"]),
+                   loss64_unsharded=float(pm64["loss"]),
+                   lr_unsharded=float(pm["lr"]), moved_least=min(moved),
+                   moved_most=max(moved), fp32=fp32, fp64=fp64, own=own)
+        del state, u32, u64, p64, m64
+    return out
+
+
+def _worst(gaps: dict) -> dict:
+    """Of {"params": {leaf: (gap, max)}, "m": {...}}, each group's largest
+    gap as a share of its leaf's max, and that leaf."""
+    return {g: max((d / max(top, 1e-30), k) for k, (d, top)
+                   in by_leaf.items()) for g, by_leaf in gaps.items()}
+
+
+def _adam_first_step_slack(r0: dict, prec: str, tol: float) -> dict:
+    """Each leaf's bound on its parameters' gap after one AdamW step, from
+    its first moments' gap.  At the first step the update is lr g / (|g| +
+    eps) + lr wd p, and g -> g / (|g| + eps) has slope at most 1 / eps
+    (at g = 0): a gradient gap dg moves a parameter by up to lr dg / eps,
+    and m = (1 - b1) g.  So the parameters, from the same p, may differ
+    by lr / eps x max |dm| / (1 - b1), plus ``tol`` of the leaf's max for
+    the rounding of the update itself."""
+    import inspect
+    from repro_torch.optim.adamw import adamw_update
+    arg = inspect.signature(adamw_update).parameters
+    eps, b1 = arg["eps"].default, arg["b1"].default
+    return {k: r0["lr"] / eps * r0[prec]["m"][k][0] / (1 - b1) + tol * top
+            for k, (_, top) in r0[prec]["params"].items()}
+
+
+def _mla_want_launches(cfg, part: str) -> dict:
+    """The launches a rank's cut of 21(g) makes: a prefill's flash
+    attention a layer, the latent flash decode a layer a tick, four norms
+    a layer (ln1, ln2, q_norm, kv_norm) and the final one a prefill and a
+    tick, three grouped matmuls a MoE layer a prefill and a tick; a train
+    step's two flash attentions a layer (``train_launches``)."""
+    if part == "train":
+        return {"train": train_launches(cfg, 1)}
+    n, moe = cfg.n_layers, 3 * (cfg.n_layers - cfg.first_dense) \
+        if cfg.family == "moe" else 0
+    norms = (4 if cfg.q_lora else 3) * n + 1
+    return {"prefill": dict(train_launches(cfg, 0), flash_attention=n,
+                            rmsnorm=norms, moe_gmm=moe),
+            "tick": dict(train_launches(cfg, 0),
+                         flash_decode=n * MESH_TICKS,
+                         rmsnorm=norms * MESH_TICKS,
+                         moe_gmm=moe * MESH_TICKS)}
+
+
+def mesh_mla(seed: int, smi: str, card_dev: str = "cuda",
+             smoke: bool = False) -> dict:
+    """21(g): :func:`_mla_run` in two processes on the one card on the (1, 2)
+    mesh, tensor parallel over MLA's heads: each served cut's prefill
+    logits within 1e-5 of max |logit| of the unsharded prefill's and its
+    four ticks' tokens equal to the unsharded ones, each rank's flash
+    attentions and latent flash decodes on half the heads at the model's
+    widths and its grouped matmuls on half the experts; each trained
+    cut's step, at the base lr with no warmup so that it moves every leaf,
+    with its loss within 1e-6 of the unsharded step's and each leaf of
+    its first moments (the clipped gradients) within 4 times the
+    unsharded step's own gap to its float64 run, or 1e-6, of the leaf's
+    max, and the same step in float64 (attention plain) with its loss,
+    parameters and first moments within 1e-12 of the unsharded float64
+    step's (fp32 parameters: Adam's first step takes each gradient to
+    about +-1 where it is well above eps and amplifies its rounding where
+    it is near eps, so they are printed, and held in float64); each rank's launches those of its cut and its op counts equal to the
+    dry run's trace of the same cells on an abstract (1, 2) mesh.  Prints
+    each rank's peak memory beside the unsharded run's."""
+    from repro_torch.configs import InputShape
+    from repro_torch.launch import dryrun
+    from repro_torch.parallel.comm import AbstractMesh
+    ranks, t_ranks = _two_ranks(_mla_run, seed, card_dev, smoke)
+    t0 = time.perf_counter()
+    am = AbstractMesh(MESH_TP, ("data", "model"))
+    m = MESH_TP[1]
+    result, launched = {}, {}
+    for arch, n, part in MLA_CUTS:
+        cfg = _mla_cfg(arch, n, smoke)
+        key = f"{arch}/{part}"
+        cells = (("train", MESH_SEQ, "train_counts"),) if part == "train" \
+            else (("prefill", MESH_SEQ, "prefill_counts"),
+                  ("decode", MESH_SEQ + MESH_TICKS, "tick_counts"))
+        for kind, seq, ckey in cells:
+            cell = dryrun.trace_cell(cfg, InputShape("cut", seq, 1, kind),
+                                     am)["hlo_analysis"]
+            want = json.loads(json.dumps({k: cell[k] for k in (
+                "flops", "collective_bytes", "collective_counts")}))
+            for r, rk in enumerate(ranks):
+                check(rk[key][ckey] == want, f"21(g) {key}: rank {r}'s "
+                      f"{kind} op counts {rk[key][ckey]} differ from the "
+                      f"dry run's {want}")
+        if card_dev == "cuda":
+            for p, want in _mla_want_launches(cfg, part).items():
+                for r, rk in enumerate(ranks):
+                    check(rk[key][f"{p}_launches"] == want, f"21(g) {key}: "
+                          f"rank {r}'s {p} launched "
+                          f"{rk[key][f'{p}_launches']}, not {want}")
+        r0 = ranks[0][key]
+        for p in ("prefill", "tick", "train"):
+            if f"{p}_launches" in r0:
+                for k, v in r0[f"{p}_launches"].items():
+                    launched[k] = launched.get(k, 0) + sum(
+                        rk[key][f"{p}_launches"][k] for rk in ranks)
+        if part == "serve":
+            heads = cfg.n_heads // m
+            attn = [heads, cfg.qk_nope + cfg.qk_rope, cfg.v_head]
+            latent = [heads, cfg.kv_lora + cfg.qk_rope, cfg.kv_lora]
+            experts = cfg.n_experts // m if cfg.family == "moe" else None
+            for r, rk in enumerate(ranks):
+                sh = rk[key]["shapes"]
+                # the CPU rehearsal's prefill attention is the plain one
+                check(sh["flash_attention"] == [attn] * cfg.n_layers
+                      or smoke, f"21(g) {key}: rank {r}'s flash attentions "
+                      f"took {sh['flash_attention']}, not {attn} a layer")
+                check(sh["flash_decode"] == [latent] * cfg.n_layers
+                      * MESH_TICKS, f"21(g) {key}: rank {r}'s flash "
+                      f"decodes took {sh['flash_decode']}, not {latent}")
+                check(sh["moe_gmm"] == ([experts] * 3 * (
+                    1 + MESH_TICKS) if experts else []),
+                      f"21(g) {key}: rank {r}'s grouped matmuls took "
+                      f"{sh['moe_gmm']} experts")
+            check(r0["logits_err"] <= 1e-5 * r0["logits_max"],
+                  f"21(g) {key}: prefill logits off by {r0['logits_err']} "
+                  f"(max |logit| {r0['logits_max']})")
+            check(r0["tokens"] == r0["tokens_unsharded"]
+                  == ranks[1][key]["tokens"], f"21(g) {key}: tokens "
+                  f"{r0['tokens']} against the unsharded "
+                  f"{r0['tokens_unsharded']}")
+            print(f"  21(g) {cfg.name} {n} layers served, 1 x {MESH_SEQ} "
+                  f"tokens on a {MESH_TP} mesh, two processes on one card "
+                  f"over gloo: {heads} of {cfg.n_heads} heads a rank "
+                  f"(flash attention {attn}, latent flash decode {latent})"
+                  + (f", {experts} of {cfg.n_experts} experts a rank"
+                     if experts else "") + f"; prefill logits |diff| "
+                  f"{r0['logits_err']:.3e} of max {r0['logits_max']:.3f}; "
+                  f"{MESH_TICKS} ticks' tokens equal {r0['tokens']}; "
+                  f"launches a rank: prefill {r0['prefill_launches']}, "
+                  f"ticks {r0['tick_launches']}; op counts = the dry "
+                  f"run's (prefill {r0['prefill_counts']['collective_counts']}"
+                  f", tick {r0['tick_counts']['collective_counts']}); peak "
+                  f"memory a rank "
+                  f"{[round(rk[key]['peak'] / 1e9, 3) for rk in ranks]} GB, "
+                  f"unsharded {r0['peak_unsharded'] / 1e9:.3f} GB; rank 0's "
+                  f"sharded seconds {r0['seconds']:.1f}; card {smi}")
+        else:
+            l1, l2 = r0["loss_unsharded"], r0["loss"]
+            check(math.isfinite(l2) and abs(l1 - l2) <= 1e-6 * abs(l1),
+                  f"21(g) {key}: loss {l2} against the unsharded {l1}")
+            check(abs(r0["loss64"] - r0["loss64_unsharded"])
+                  <= 1e-12 * abs(r0["loss64_unsharded"]),
+                  f"21(g) {key}: float64 loss {r0['loss64']!r} against the "
+                  f"unsharded {r0['loss64_unsharded']!r}")
+            check(r0["lr"] == r0["lr_unsharded"] > 0.0
+                  and r0["moved_least"] > 0.0, f"21(g) {key}: the step "
+                  f"compared ran at lr {r0['lr']} (unsharded "
+                  f"{r0['lr_unsharded']}) and moved a leaf by as little "
+                  f"as {r0['moved_least']} of its max")
+            worst = {k: _worst(r0[k]) for k in ("fp32", "fp64", "own")}
+            # the gradients (first moments): in float64 within 1e-12 of a
+            # leaf's max; in fp32, which rounds otherwise on the mesh (sums
+            # over the axis of its heads', its experts' and the whole
+            # leaves' parts), within 4 times the unsharded step's own gap
+            # to float64, or 1e-6
+            v, leaf = worst["fp64"]["m"]
+            check(v <= 1e-12, f"21(g) {key}: float64 first moments off the "
+                  f"unsharded step's by {v} of a leaf's max at {leaf}")
+            for leaf, (d, top) in r0["fp32"]["m"].items():
+                own, _ = r0["own"]["m"][leaf]
+                check(d <= max(1e-6 * top, 4 * own), f"21(g) {key}: first "
+                      f"moments at {leaf} off the unsharded step's by {d} "
+                      f"(max {top}), over 4 x its own gap to float64 "
+                      f"({own}) and 1e-6 of the max")
+            # the parameters: within what Adam's first step makes of the
+            # first moments' gap
+            slack = {}
+            for prec, tol in (("fp64", 1e-12), ("fp32", 1e-6)):
+                lim = _adam_first_step_slack(r0, prec, tol)
+                for leaf, (d, top) in r0[prec]["params"].items():
+                    check(d <= lim[leaf], f"21(g) {key}: {prec} parameters "
+                          f"at {leaf} off the unsharded step's by {d} (max "
+                          f"{top}), over {lim[leaf]}, lr / eps x its first "
+                          f"moments' gap / (1 - b1) + {tol} of the max")
+                slack[prec] = max(d / lim[k] for k, (d, _)
+                                  in r0[prec]["params"].items())
+
+            def held(k, g):
+                v, leaf = worst[k][g]
+                return f"{v:.3e} ({leaf})"
+            print(f"  21(g) {cfg.name} {n} layer(s) trained, 1 x {MESH_SEQ} "
+                  f"tokens on a {MESH_TP} mesh, one step at lr "
+                  f"{r0['lr']:.3e}, which moved each leaf by "
+                  f"{r0['moved_least']:.3e} to {r0['moved_most']:.3e} of "
+                  f"its max: fp32 loss {l2!r} (unsharded {l1!r}); the "
+                  f"largest gap to the unsharded step, a share of the "
+                  f"leaf's max, in fp32 first moments {held('fp32', 'm')}, "
+                  f"parameters {held('fp32', 'params')}, the unsharded "
+                  f"fp32 step's own gap to float64 {held('own', 'm')} and "
+                  f"{held('own', 'params')}; in float64 (attention plain) "
+                  f"first moments {held('fp64', 'm')}, parameters "
+                  f"{held('fp64', 'params')} (of their bound from the "
+                  f"moments' gap at most {slack['fp32']:.3f} in fp32, "
+                  f"{slack['fp64']:.3f} in float64); launches a rank "
+                  f"{r0['train_launches']}; op counts = the dry run's "
+                  f"({r0['train_counts']['collective_counts']}); peak memory "
+                  f"a rank {[round(rk[key]['peak'] / 1e9, 3) for rk in ranks]}"
+                  f" GB, unsharded {r0['peak_unsharded'] / 1e9:.3f} GB; rank "
+                  f"0's sharded seconds {r0['seconds']:.1f}; card {smi}")
+        result[key] = r0
+    print(f"  21(g) seconds: the two processes {t_ranks:.1f}, the dry "
+          f"run's traces {time.perf_counter() - t0:.1f}")
+    return {"cuts": result, "launches": launched}
+
+
 def phase_mesh(seed: int, smi: str, card_dev: str = "cuda",
                smoke: bool = False) -> dict:
     """Phase 21: the mesh layer (``parallel.sharding``, ``comm``,
@@ -3777,12 +4269,13 @@ def phase_mesh(seed: int, smi: str, card_dev: str = "cuda",
     one-rank (1, 1) ("data", "model") mesh over NCCL, started on a file
     store under a temporary directory, and the dry run's counter against
     the step the card runs; then two processes on the card over gloo:
-    the tensor- and sequence-parallel step (21(d), :func:`mesh_tp`) and
-    the FSDP step that gathers a layer at a time (21(e),
-    :func:`mesh_fsdp`).  ``card_dev="cpu"`` with ``smoke`` rehearses
-    it on gloo with the reduced config and chunked attention (the CPU's
-    attention is the oracle's, whose backward the card's does not
-    share)."""
+    the tensor- and sequence-parallel step (21(d), :func:`mesh_tp`), the
+    FSDP step that gathers a layer at a time (21(e), :func:`mesh_fsdp`),
+    the expert-parallel MoE steps (21(f), :func:`mesh_ep`) and the
+    tensor-parallel MLA steps (21(g), :func:`mesh_mla`).
+    ``card_dev="cpu"`` with ``smoke`` rehearses it on gloo with the
+    reduced config and chunked attention (the CPU's attention is the
+    oracle's, whose backward the card's does not share)."""
     import datetime
     import shutil
     import tempfile
@@ -3848,6 +4341,9 @@ def phase_mesh(seed: int, smi: str, card_dev: str = "cuda",
     gc.collect()
     torch.cuda.empty_cache()
     out["ep"] = mesh_ep(seed, smi, card_dev, smoke)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["mla"] = mesh_mla(seed, smi, card_dev, smoke)
     print("[21] " + json.dumps({"mesh": {**{k: v for k, v in out.items()
                                             if k != "events_added"},
                                          "card": smi}}))
@@ -3952,13 +4448,15 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()        # whisper's tensors are gone
     mesh = phase(21, "the mesh layer on a one-rank NCCL mesh, the dry "
-                     "run's counter, a two-rank tensor- and sequence-"
-                     "parallel step and a two-rank FSDP step", phase_mesh,
+                     "run's counter, two-rank tensor- and sequence-"
+                     "parallel, FSDP, expert-parallel and MLA steps",
+                 phase_mesh,
                  seed, smi)
     by_path["mesh"] = mesh["launches"]
     by_path["mesh_tp"] = mesh["tp"]["launches"]
     by_path["mesh_fsdp"] = mesh["fsdp"]["launches"]
     by_path["mesh_ep"] = mesh["ep"]["launches"]
+    by_path["mesh_mla"] = mesh["mla"]["launches"]
     del mesh
     gc.collect()
     torch.cuda.empty_cache()        # the mesh's tensors are gone

@@ -146,24 +146,45 @@ def attend_decode(q, k_cache, v_cache, kv_len=None,
 # ---------------------------------------------------------------------------
 
 
+def heads_input(x, tp: Optional[tensor.TensorParallel]):
+    """The input of an attention layer's projections: under a head split
+    ``tp`` the whole stream, its gradient summed over the axis
+    (``into_split``), or gathered from this device's rows of a split
+    stream (``gather_seq``); heads left whole take the whole sequence of
+    a split stream as every device of the axis computes it (``copies``),
+    and :func:`heads_output` keeps this device's rows."""
+    sp = tensor.seq_split()
+    if tp is not None:
+        return tensor.into_split(x, tp) if sp is None \
+            else tensor.gather_seq(x, sp)
+    return x if sp is None else tensor.gather_seq(x, sp, copies=True)
+
+
+def heads_output(y, tp: Optional[tensor.TensorParallel]):
+    """An attention layer's output projection ``y``: under a head split
+    ``tp`` this device's heads' partial sums, summed over the blocks; on
+    a split stream this device's rows, the sums reduce-scattered or cut
+    from every head's whole output."""
+    sp = tensor.seq_split()
+    if sp is None:
+        return y if tp is None else tensor.out_of_split(y, tp)
+    return tensor.split_seq(y, sp) if tp is None \
+        else tensor.scatter_seq(y, sp)
+
+
 def _project(params, x):
     """Unrotated (q, k, v) of ``x``: every head, or under a head split
     (:func:`head_split`) this device's query heads and the KV heads they
     read (``TensorParallel.kv_heads``); of the whole sequence where ``x``
     is this device's rows of a split stream."""
     wq, wk, wv = params["wq"], params["wk"], params["wv"]
-    tp, sp = head_split(params), tensor.seq_split()
+    tp = head_split(params)
+    x = heads_input(x, tp)
     if tp is not None:
         heads = tp.kv_heads(wq.shape[1] * tp.size, wk.shape[1])
-        x = tensor.into_split(x, tp) if sp is None \
-            else tensor.gather_seq(x, sp)
         wk, wv = (tensor.into_split(w, tp).narrow(1, heads.start,
                                                   len(heads))
                   for w in (wk, wv))
-    elif sp is not None:
-        # every head on the whole sequence, as every device of the axis
-        # computes it; gqa_output keeps this device's rows
-        x = tensor.gather_seq(x, sp, copies=True)
     q = torch.einsum("bsd,dhk->bshk", x, wq)
     k = torch.einsum("bsd,dnk->bsnk", x, wk)
     v = torch.einsum("bsd,dnk->bsnk", x, wv)
@@ -177,16 +198,9 @@ def gqa_project_qkv(params, x, positions, rope_theta: float = 10000.0):
 
 
 def gqa_output(params, attn_out):
-    """The output projection; under a head split, this device's heads'
-    partial sums summed over the blocks.  On a split stream, this
-    device's rows: the sums reduce-scattered, or cut from every head's
-    whole output."""
-    y = torch.einsum("bshd,hdm->bsm", attn_out, params["wo"])
-    tp, sp = head_split(params), tensor.seq_split()
-    if sp is None:
-        return y if tp is None else tensor.out_of_split(y, tp)
-    return tensor.split_seq(y, sp) if tp is None \
-        else tensor.scatter_seq(y, sp)
+    """The output projection (:func:`heads_output`)."""
+    return heads_output(torch.einsum("bshd,hdm->bsm", attn_out,
+                                     params["wo"]), head_split(params))
 
 
 def gqa_layer(params, x, positions, *, impl: str = "chunked",

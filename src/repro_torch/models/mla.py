@@ -21,17 +21,34 @@ decode's key is that buffer as it stands and its value a prefix of each
 row, with no copy a tick; the kernel reads each row once, the value from
 the staged key row (deepseek_v2_236b's 576 / 512 fit its shared memory
 only so).
+
+In a tensor-parallel mesh step (``parallel.tensor``) whose wq_b (wq
+where q_lora is 0), wkv_b and wo are this device's block of the heads,
+as JAX's rules put "heads" on "model", a layer computes those heads:
+every device projects the whole input through the whole wq_a and wkv_a
+and their norms (their gradients summed over the axis, since each
+device's heads use them), decompresses its heads' keys and values, and
+its wo block's partial output is summed over the blocks
+(``attention.heads_input`` / ``heads_output``, as GQA's).  The latent
+c_kv and k_rope come out whole on every device, so the prefill writes
+the whole latent cache, which stays whole over "model", and the decode
+runs this device's heads against it with every device writing the same
+new row.  Heads that do not divide the axis run whole on every device.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch._subclasses.fake_tensor import FakeTensor
 
 from ..kernels import ops
-from .attention import _scatter_kv, attend_chunked, attend_full
+from ..parallel import tensor
+from .attention import (WO_AXES, WQ_AXES, _scatter_kv, attend_chunked,
+                        attend_full, heads_input, heads_output)
 from .common import ParamSpec, apply_rope, rmsnorm, rmsnorm_spec
+
+WQB_AXES = (None, "heads", None)        # wq_b and wkv_b
 
 
 def mla_spec(d_model: int, n_heads: int, *, q_lora: int, kv_lora: int,
@@ -41,16 +58,48 @@ def mla_spec(d_model: int, n_heads: int, *, q_lora: int, kv_lora: int,
         sp["wq_a"] = ParamSpec((d_model, q_lora), ("embed", None))
         sp["q_norm"] = rmsnorm_spec(q_lora)["scale"]
         sp["wq_b"] = ParamSpec((q_lora, n_heads, qk_nope + qk_rope),
-                               (None, "heads", None))
+                               WQB_AXES)
     else:
         sp["wq"] = ParamSpec((d_model, n_heads, qk_nope + qk_rope),
-                             ("embed", "heads", None))
+                             WQ_AXES)
     sp["wkv_a"] = ParamSpec((d_model, kv_lora + qk_rope), ("embed", None))
     sp["kv_norm"] = rmsnorm_spec(kv_lora)["scale"]
-    sp["wkv_b"] = ParamSpec((kv_lora, n_heads, qk_nope + v_head),
-                            (None, "heads", None))
-    sp["wo"] = ParamSpec((n_heads, v_head, d_model), ("heads", None, "embed"))
+    sp["wkv_b"] = ParamSpec((kv_lora, n_heads, qk_nope + v_head), WQB_AXES)
+    sp["wo"] = ParamSpec((n_heads, v_head, d_model), WO_AXES)
     return sp
+
+
+def head_split(params) -> Optional[tensor.TensorParallel]:
+    """The tensor-parallel context where wq_b (wq where q_lora is 0),
+    wkv_b and wo are this device's block of the heads, else None (off a
+    mesh step, or heads that do not divide the axis: the layer runs
+    whole)."""
+    tp = tensor.active()
+    if tp is None:
+        return None
+    wq, axes = (params["wq_b"], WQB_AXES) if "wq_b" in params \
+        else (params["wq"], WQ_AXES)
+    split = {tp.split_dim(w, a) is not None for w, a in (
+        (wq, axes), (params["wkv_b"], WQB_AXES), (params["wo"], WO_AXES))}
+    if len(split) > 1:
+        raise ValueError("MLA's heads split in some of wq, wkv_b and wo "
+                         "only")
+    return tp if split.pop() else None
+
+
+def _shared(w, tp: Optional[tensor.TensorParallel]):
+    """A leaf that every device of the axis uses whole for its block of
+    the heads (wq_a, wkv_a, their norms): its gradient summed over the
+    axis."""
+    return w if tp is None else tensor.into_split(w, tp)
+
+
+def _latent_norm(scale, x, tp, plain: bool):
+    """RMSNorm of a latent of the whole sequence, which every device of
+    the axis computes: its scale's gradient summed over the axis only
+    where the heads split (not as the norm of a split stream's rows)."""
+    with tensor.whole_stream():
+        return rmsnorm({"scale": _shared(scale, tp)}, x, plain=plain)
 
 
 def _mla_dims(params):
@@ -64,10 +113,13 @@ def _mla_dims(params):
 
 
 def mla_project_q(params, x, positions, rope_theta, qk_nope, qk_rope,
-                  plain: bool = False):
+                  tp: Optional[tensor.TensorParallel], plain: bool = False):
+    """(q_nope, rotated q_rope) of ``x`` (the whole sequence): every head,
+    or under the layer's head split ``tp`` (:func:`head_split`) this
+    device's."""
     if "wq_a" in params:
-        cq = torch.einsum("bsd,dr->bsr", x, params["wq_a"])
-        cq = rmsnorm({"scale": params["q_norm"]}, cq, plain=plain)
+        cq = torch.einsum("bsd,dr->bsr", x, _shared(params["wq_a"], tp))
+        cq = _latent_norm(params["q_norm"], cq, tp, plain)
         q = torch.einsum("bsr,rhk->bshk", cq, params["wq_b"])
     else:
         q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
@@ -76,10 +128,12 @@ def mla_project_q(params, x, positions, rope_theta, qk_nope, qk_rope,
 
 
 def mla_compress_kv(params, x, positions, rope_theta, kv_lora,
-                    plain: bool = False):
-    ckv = torch.einsum("bsd,dr->bsr", x, params["wkv_a"])
+                    tp: Optional[tensor.TensorParallel], plain: bool = False):
+    """(c_kv, rotated k_rope) of ``x`` (the whole sequence), whole on every
+    device of the axis under the layer's head split ``tp``."""
+    ckv = torch.einsum("bsd,dr->bsr", x, _shared(params["wkv_a"], tp))
     c_kv, k_rope = ckv.split([kv_lora, ckv.shape[-1] - kv_lora], dim=-1)
-    c_kv = rmsnorm({"scale": params["kv_norm"]}, c_kv, plain=plain)
+    c_kv = _latent_norm(params["kv_norm"], c_kv, tp, plain)
     return c_kv, apply_rope(k_rope, positions, rope_theta)  # one shared head
 
 
@@ -87,12 +141,15 @@ def mla_layer(params, x, positions, *, rope_theta: float = 10000.0,
               impl: str = "chunked", chunk: int = 1024, plain: bool = False):
     """Train/prefill MLA: decompress and run standard attention.  Returns
     ``(out, c_kv, k_rope)``: the latent and rope key (B,S,·) that the
-    prefill writes to the cache, computed once."""
+    prefill writes to the cache, computed once (of the whole sequence
+    where ``x`` is this device's rows of a split stream)."""
     kv_lora, h, qk_nope, qk_rope, v_head = _mla_dims(params)
+    tp = head_split(params)
+    x = heads_input(x, tp)
     q_nope, q_rope = mla_project_q(params, x, positions, rope_theta,
-                                   qk_nope, qk_rope, plain)
+                                   qk_nope, qk_rope, tp, plain)
     c_kv, k_rope = mla_compress_kv(params, x, positions, rope_theta, kv_lora,
-                                   plain)
+                                   tp, plain)
     kv = torch.einsum("bsr,rhk->bshk", c_kv, params["wkv_b"])
     k_nope, v = kv.split([qk_nope, v_head], dim=-1)
     q = torch.cat([q_nope, q_rope], dim=-1)
@@ -107,7 +164,8 @@ def mla_layer(params, x, positions, *, rope_theta: float = 10000.0,
         o = ops.flash_attention(q, k, v, causal=True, scale=scale)
     else:
         raise ValueError(f"unknown attention impl {impl!r}")
-    return torch.einsum("bshd,hdm->bsm", o, params["wo"]), c_kv, k_rope
+    out = torch.einsum("bshd,hdm->bsm", o, params["wo"])
+    return heads_output(out, tp), c_kv, k_rope
 
 
 def latent_cache(ckv_spec: ParamSpec, krope_spec: ParamSpec,
@@ -157,14 +215,18 @@ def mla_decode_layer(params, x, cache_ckv, cache_krope, position, kv_len,
     them in place.  Attention runs in latent space as one MQA decode
     through ``ops.flash_decode``: per head the query q_nope·W_uk and its
     rope part against the key [c_kv | k_rope], the value c_kv; the result
-    is decompressed by W_uv once.  Returns ``(out, cache_ckv,
+    is decompressed by W_uv once.  Under a head split the query holds
+    this device's heads (a group of H/m on the one latent head), and
+    their outputs are summed over the axis.  Returns ``(out, cache_ckv,
     cache_krope)``.
     """
     kv_lora, h, qk_nope, qk_rope, v_head = _mla_dims(params)
+    tp = head_split(params)
+    x = heads_input(x, tp)
     pos = position[:, None] if position.dim() == 1 else position
     q_nope, q_rope = mla_project_q(params, x, pos, rope_theta, qk_nope,
-                                   qk_rope)
-    c_kv, k_rope = mla_compress_kv(params, x, pos, rope_theta, kv_lora)
+                                   qk_rope, tp)
+    c_kv, k_rope = mla_compress_kv(params, x, pos, rope_theta, kv_lora, tp)
     rows = latent_rows(cache_ckv, cache_krope)
     _scatter_kv(cache_ckv, c_kv, kv_len)
     _scatter_kv(cache_krope, k_rope, kv_len)
@@ -178,4 +240,4 @@ def mla_decode_layer(params, x, cache_ckv, cache_krope, position, kv_len,
                            kv_len + 1, scale=scale)        # (B,1,H,R)
     o = torch.einsum("bshr,rhd->bshd", lat, w_uv)
     out = torch.einsum("bshd,hdm->bsm", o, params["wo"])
-    return out, cache_ckv, cache_krope
+    return heads_output(out, tp), cache_ckv, cache_krope

@@ -29,20 +29,21 @@ the dense decoder with precomputed image-patch embeddings before the
 text (``img_embeds``); its image positions take no loss.  The
 encoder-decoder family is ``encdec.py``.
 
-Inside a tensor-parallel mesh step (``parallel.tensor``; the dense and
-VLM families) the embedding, the attention and the SwiGLU take their
-"model" blocks of the weights and sum over the axis, the logits stay cut
-by vocab through the loss (``cross_entropy(split=...)``), and the
-prefill's and the decode's logits are gathered whole.  The step passes
-the cache's KV-head count (``kv_heads=``: those this device's query
-heads read); the models do not take shapes from the context.  Where the
-step splits the residual stream by rows (``tensor.seq_split``) the
-embedding leaves this device's rows of the whole sequence (image patches
-first), the trunk runs on them with the positions of the whole sequence,
-each layer gathers the rows for its projections and reduce-scatters its
-output, the prefill writes the whole prompt's K/V and takes its last row
-from the axis's last device, and remat keeps only the rows as each
-layer's carry.
+Inside a tensor-parallel mesh step (``parallel.tensor``; the dense, VLM
+and MoE families, GQA or MLA) the embedding, the attention, the SwiGLU
+and the experts take their "model" blocks of the weights and sum over
+the axis, the logits stay cut by vocab through the loss
+(``cross_entropy(split=...)``), and the prefill's and the decode's
+logits are gathered whole.  The step passes the cache's KV-head count
+(``kv_heads=``: those this device's query heads read; MLA's latent
+cache stays whole); the models do not take shapes from the context.
+Where the step splits the residual stream by rows (``tensor.seq_split``)
+the embedding leaves this device's rows of the whole sequence (image
+patches first), the trunk runs on them with the positions of the whole
+sequence, each layer gathers the rows for its projections and
+reduce-scatters its output, the prefill writes the whole prompt's K/V
+and takes its last row from the axis's last device, and remat keeps only
+the rows as each layer's carry.
 
 In a mesh step (``parallel.steps``) every stacked leaf comes as this
 device's blocks of its layers (``sharding.Stacked``), and each layer's

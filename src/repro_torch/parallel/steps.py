@@ -35,18 +35,19 @@ every mesh step of a MoE model the dispatch sees the step's row groups
 ``global_batch=`` rows over) and takes JAX's global capacity and
 positions.
 
-The dense and VLM decoders (GQA attention) compute tensor parallel over
-"model" where the rules do not cut the batch over it (``act_shard="seq"``;
-``parallel.tensor``): a layer gathers each leaf over every other axis,
-the layers take each leaf's "model" block (query heads, MLP columns and
-rows, vocab rows) and sum their partial results over the axis, the
-gradients stay those blocks (reduced over the other axes only), and the
+The dense, VLM and MoE decoders (GQA or MLA attention) compute tensor
+parallel over "model" where the rules do not cut the batch over it
+(``act_shard="seq"``; ``parallel.tensor``): a layer gathers each leaf
+over every other axis, the layers take each leaf's "model" block (query
+heads, MLA's decompression, MLP columns and rows, experts, vocab rows)
+and sum their partial results over the axis, the gradients stay those
+blocks (reduced over the other axes only), and the
 label count and the reported loss sum over the other axes only, since
 the devices of a model axis are parts of one computation, not copies;
 the residual stream is split by rows over the axis where the rules put
-"model" on its sequence.  Everywhere else (the MoE, hybrid, xLSTM, MLA
-and encoder-decoder families, ``act_shard="batch2d"``, a model axis of
-one device) each layer is gathered whole.  The ``abstract_*`` helpers
+"model" on its sequence.  Everywhere else (the hybrid, xLSTM and
+encoder-decoder families, ``act_shard="batch2d"``, a model axis of one
+device) each layer is gathered whole.  The ``abstract_*`` helpers
 give a device's arguments without storage, for the dry run.
 
 The train step updates the state in place, as the JAX trainer donates it
@@ -276,10 +277,11 @@ def _row_groups(cfg: ArchConfig, mesh, rules: shd.AxisRules,
 def _tensor_parallel(cfg, mesh, rules, lays, global_batch, accum: int = 1
                      ) -> Optional[tensor.TensorParallel]:
     """The tensor-parallel context of a mesh step (``parallel.tensor``),
-    or None where the step gathers whole weights: off the dense and VLM
-    families with GQA attention, on a "model" axis of one device, and
-    where the rules cut the batch (a microbatch of ``global_batch //
-    accum`` rows, the rules' table where not given) over "model"."""
+    or None where the step gathers whole weights: off the dense, VLM and
+    MoE families with GQA or MLA attention, on a "model" axis of one
+    device, and where the rules cut the batch (a microbatch of
+    ``global_batch // accum`` rows, the rules' table where not given)
+    over "model"."""
     rows = None if global_batch is None else global_batch // accum
     if not tensor.applies(cfg, mesh, rules, rows):
         return None
@@ -408,8 +410,9 @@ def make_serve_step(cfg: ArchConfig, mesh=None,
 def _cache_kv_heads(cfg, tp: Optional[tensor.TensorParallel]
                     ) -> Optional[int]:
     """The KV heads of a decode cache in a step of context ``tp``: those
-    this device's query heads read, or None (every one)."""
-    if tp is None:
+    this device's query heads read, or None (every one; MLA's latent
+    cache has no heads, and stays whole over "model")."""
+    if tp is None or cfg.attn == "mla":
         return None
     return attention.local_kv_heads(tp, cfg.n_heads, cfg.n_kv_heads)
 

@@ -4,17 +4,19 @@ place the leaves (``sharding.default_rules``: "heads", "mlp" and "vocab"
 on "model"), and the residual stream split by rows between them where
 the rules place "seq" on "model" (``act_shard="seq"``, Megatron-SP).
 
-A mesh step of the dense, VLM or MoE decoder whose batch the rules do
-not cut over "model" (``steps``, :func:`applies`) gathers each parameter
-over every other axis, a layer at a time (``sharding.layer``), and hands
-the layer code the leaf's "model" block: wq (D, H/m, dh), wo (H/m, dh,
-D), w_gate and w_up (D, F/m), w_down (F/m, D), the embedding (V/m, D),
-and a MoE layer's routed experts (E/m, D, F) and (E/m, F, D), expert
-parallelism as the rules place "experts" (``models.moe``).  A leaf the
-spec leaves whole over "model" (a dimension that does not divide, wk,
-wv, the norm scales, the router) stays whole.  The layer code asks
-:meth:`TensorParallel.split_dim` whether its leaf is split, which reads
-the leaf's spec and checks that the leaf is that block.
+A mesh step of the dense, VLM or MoE decoder (GQA or MLA attention)
+whose batch the rules do not cut over "model" (``steps``,
+:func:`applies`) gathers each parameter over every other axis, a layer
+at a time (``sharding.layer``), and hands the layer code the leaf's
+"model" block: wq (D, H/m, dh), wo (H/m, dh, D), MLA's wq_b (q_lora,
+H/m, dq) or wq (D, H/m, dq) and wkv_b (kv_lora, H/m, dk + dv), w_gate
+and w_up (D, F/m), w_down (F/m, D), the embedding (V/m, D), and a MoE
+layer's routed experts (E/m, D, F) and (E/m, F, D), expert parallelism
+as the rules place "experts" (``models.moe``).  A leaf the spec leaves
+whole over "model" (a dimension that does not divide, wk, wv, MLA's
+wq_a and wkv_a, the norm scales, the router) stays whole.  The layer
+code asks :meth:`TensorParallel.split_dim` whether its leaf is split,
+which reads the leaf's spec and checks that the leaf is that block.
 
 **The stream.**  The step decides once a call, from the rules' spec of
 the stream's (B, S, D) (:meth:`TensorParallel.for_stream`, the
@@ -38,7 +40,8 @@ counter counts them:
   all-gather backward.
 
 A whole leaf that a device uses on a part of the work (wk and wv sliced
-by KV heads; under a split stream the norm scales, used on this device's
+by KV heads; MLA's wq_a, wkv_a and their norms, which feed this device's
+heads; under a split stream the norm scales, used on this device's
 rows) enters through :func:`into_split`, so its gradient is summed over
 the axis.  A layer whose weights the spec leaves whole computes whole on
 every device of the axis, as without the split: from the gathered
@@ -409,12 +412,13 @@ def gather_vocab(logits: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
 
 def applies(cfg, mesh, rules: shd.AxisRules, rows: Optional[int]) -> bool:
     """Whether a mesh step of ``cfg`` splits its layers over "model": the
-    dense, VLM and MoE decoders with GQA attention (a MoE model where its
-    routed experts and its shared experts' width divide the axis, so each
-    device holds a block of the experts), on a mesh with a "model" axis
-    of more than one device that the batch of ``rows`` rows (the rules'
-    "batch" entry where not given) is not cut over."""
-    if cfg.family not in ("dense", "vlm", "moe") or cfg.attn != "gqa" \
+    dense, VLM and MoE decoders with GQA or MLA attention (a MoE model
+    where its routed experts and its shared experts' width divide the
+    axis, so each device holds a block of the experts), on a mesh with a
+    "model" axis of more than one device that the batch of ``rows`` rows
+    (the rules' "batch" entry where not given) is not cut over."""
+    if cfg.family not in ("dense", "vlm", "moe") \
+            or cfg.attn not in ("gqa", "mla") \
             or mesh is None or AXIS not in mesh.mesh_dim_names:
         return False
     size = comm.axis_sizes(mesh)[AXIS]

@@ -408,7 +408,10 @@ def test_chip_smoke_phase_21_rehearses_on_the_cpu(monkeypatch, capsys):
     time, its op counts the dry run's; then 21(f) in two processes on the
     (1, 2) mesh: the expert-parallel prefill, four ticks and a train step
     of the cut deepseek_moe_16b against the unsharded ones, each rank's
-    grouped matmuls on half the experts."""
+    grouped matmuls on half the experts; then 21(g) in two processes on
+    the (1, 2) mesh: the MLA cuts of deepseek_v2_236b and minicpm3_4b
+    served and trained on half the heads (and half the experts) against
+    the unsharded runs."""
     import chip_smoke
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
     out = chip_smoke.phase_mesh(0, "CPU rehearsal", card_dev="cpu",
@@ -432,3 +435,24 @@ def test_chip_smoke_phase_21_rehearses_on_the_cpu(monkeypatch, capsys):
     assert ep["gmm_experts"] == [4] * 15
     assert ep["tick_counts"]["collective_counts"]["all-reduce"] > 0
     assert "21(f)" in printed
+    mla = out["mla"]["cuts"]
+    for arch in ("deepseek_v2_236b", "minicpm3_4b"):
+        served, trained = mla[f"{arch}/serve"], mla[f"{arch}/train"]
+        assert served["logits_err"] <= 1e-5 * served["logits_max"]
+        assert served["tokens"] == served["tokens_unsharded"]
+        # the latent decode on 2 of the 4 heads a rank, a layer a tick
+        assert served["shapes"]["flash_decode"] == [[2, 48, 32]] * 8
+        # a step that moves every leaf: its gradients (the first
+        # moments) held against the unsharded step's in float64 and, within
+        # their rounding, in fp32 (the phase checks the parameters too)
+        assert trained["lr"] == trained["lr_unsharded"] > 0
+        assert trained["moved_least"] > 0
+        for d, top in trained["fp64"]["m"].values():
+            assert d <= 1e-12 * top
+        for leaf, (d, top) in trained["fp32"]["m"].items():
+            assert d <= max(1e-6 * top, 4 * trained["own"]["m"][leaf][0])
+        assert trained["train_counts"]["collective_counts"][
+            "all-reduce"] > 0
+    # 3 grouped matmuls a prefill and a tick, each on 4 of the 8 experts
+    assert mla["deepseek_v2_236b/serve"]["shapes"]["moe_gmm"] == [4] * 15
+    assert "21(g)" in printed

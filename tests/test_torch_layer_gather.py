@@ -8,7 +8,8 @@ Each test runs ``tests/torch_mesh_programs.py`` on a (4, 2) ("data",
 * Two train steps of reduced zamba2_7b (Mamba2 layers and two shared
   attention blocks, each gathered at each of its applications),
   xlstm_125m (mLSTM blocks on two leading "layers" dimensions),
-  minicpm3_4b (MLA) and whisper_medium (encoder and decoder stacks), and
+  minicpm3_4b (MLA, at ``act_shard="batch2d"``, whose batch takes "model")
+  and whisper_medium (encoder and decoder stacks), and
   of reduced deepseek_7b under ``remat="dots"`` at ``accum=2``, against
   JAX's single-device jitted step and the port's unsharded step at the
   bounds of ``test_sharded_train_step_matches_single_device`` for a step
@@ -88,7 +89,10 @@ def _batches(jc, accum: int, steps: int):
     # step, its first gradients against the unsharded step's in fp32 and
     # in float64
     pytest.param("xlstm_125m", dict(fp32_state=False), id="xlstm"),
-    pytest.param("minicpm3_4b", {}, id="mla"),
+    # batch2d: the rules cut the 4 rows over "model", so the MLA layers
+    # are gathered whole (their tensor-parallel steps are
+    # tests/test_torch_mla_parallel.py's)
+    pytest.param("minicpm3_4b", dict(act_shard="batch2d"), id="mla"),
     pytest.param("whisper_medium", {}, id="encdec"),
     # remat "dots" keeps the layers' matmul outputs and recomputes the
     # rest, the gather among them; accum 2 adds each microbatch's

@@ -304,11 +304,12 @@ def check_sharded_train(tmp_path, monkeypatch, mesh, act_shard, case):
     accum, steps, kw = case.get("accum", 1), 2, dict(total_steps=5,
                                                      warmup=2)
     seq = case.get("seq", 16)
+    over = case.get("replace", {})
     jc = jax_config(arch).reduced().replace(dtype="float32",
-                                            act_shard=act_shard)
+                                            act_shard=act_shard, **over)
     tc = torch_config(arch).reduced().replace(dtype="float32",
                                               act_shard=act_shard,
-                                              accum=accum)
+                                              accum=accum, **over)
     # a VLM cell of 16 positions is 8 image patches and 8 tokens
     text = seq // 2 if jc.family == "vlm" else seq
     dc = DataConfig(seq_len=text, global_batch=4 * accum, vocab=jc.vocab)
@@ -323,7 +324,7 @@ def check_sharded_train(tmp_path, monkeypatch, mesh, act_shard, case):
     js = jst.init_train_state(jc, jax.random.PRNGKey(0))
     if case.get("norms"):
         js = _perturbed_norms(js)
-    if arch == "deepseek_moe_16b":      # the case reaches the capacity
+    if jc.family == "moe":              # the case reaches the capacity
         assert jc.capacity_factor == 1.25
         assert _jax_drops(monkeypatch, jc, japi.loss_fn(jc), js.params, {
             k: jnp.asarray(v) for k, v in batches[0].items()}) > 0
@@ -336,7 +337,7 @@ def check_sharded_train(tmp_path, monkeypatch, mesh, act_shard, case):
     tp = _tensor_parallel(tc, mesh, act_shard, 4)
     (tmp_path / "info.json").write_text(json.dumps(dict(
         arch=arch, act_shard=act_shard, mesh=list(mesh), steps=steps,
-        accum=accum, float64=tp, **kw)))
+        accum=accum, float64=tp, replace=over, **kw)))
     js0, ts = js, _torch_state(js, tc)
     # JAX's single-device jitted step and the port's unsharded one
     jstep = jax.jit(jst.make_train_step(jc, accum=accum, **kw))
@@ -466,7 +467,8 @@ def test_tensor_parallel_prefill_and_serve_match_single_device(tmp_path,
     if ticks:
         assert np.array_equal(got["tokens"], np.stack(want, 1))
         # this device's 2 rows of the cache, its query head's one KV head
-        assert info["cache_shape"] == [4, 2, seq + ticks, 1, 32]
+        kv = [4, 2, seq + ticks, 1, 32]
+        assert info["cache_shape"] == {"k": kv, "v": kv}
         pred = dryrun.trace_cell(tc, InputShape("t", seq + ticks, 4,
                                                 "decode"), am)
         info["counts"] = info["tick_counts"]

@@ -42,10 +42,14 @@ def _tp(cfg, mesh, act_shard="seq"):
     # expert parallelism: 64 experts, 4 a device on 16
     ("deepseek_moe_16b", (4, 2), "seq", 4, True),
     ("deepseek_moe_16b", (16, 16), "seq", 256, True),
-    ("deepseek_v2_236b", (4, 2), "seq", 4, False),    # MoE, MLA
+    # MLA: its heads split (deepseek_v2_236b's MoE layers expert
+    # parallel), or on 16 minicpm3_4b's 40 heads stay whole while its
+    # MLP and vocab split
+    ("deepseek_v2_236b", (4, 2), "seq", 4, True),
+    ("minicpm3_4b", (16, 16), "seq", 256, True),
     ("zamba2_7b", (4, 2), "seq", 4, False),
     ("xlstm_125m", (4, 2), "seq", 4, False),
-    ("minicpm3_4b", (4, 2), "seq", 4, False),     # dense, MLA
+    ("minicpm3_4b", (4, 2), "seq", 4, True),
     ("whisper_medium", (4, 2), "seq", 4, False),
 ])
 def test_tensor_parallel_applies_where_the_rules_leave_model_free(
@@ -302,3 +306,42 @@ def test_sequence_collectives_shapes_and_bytes_on_an_abstract_mesh():
         tensor.scatter_seq(torch.zeros(2, 15, 8), tp)
     with pytest.raises(ValueError, match="15 rows over 4"):
         tp.own_rows(torch.zeros(2, 15, 8))
+
+
+@pytest.mark.parametrize("arch,heads", [("deepseek_v2_236b", 8),
+                                        ("minicpm3_4b", None)])
+def test_mla_heads_split_where_they_divide_and_the_latent_cache_is_whole(
+        arch, heads):
+    """On the production mesh (16, 16): deepseek_v2_236b's wq_b (1536,
+    128, 192) and wkv_b (512, 128, 256) share their logical axes and are
+    told apart by their blocks, 8 heads each, as is wo; minicpm3_4b's 40
+    heads do not divide 16, so its wq_b, wkv_b and wo stay whole and a
+    block shape raises.  wq_a and wkv_a stay whole either way, and the
+    decode cache of either holds a device's rows of the whole latent and
+    rope key (it has no heads)."""
+    from repro_torch.models import mla
+    cfg = get_config(arch)
+    mesh = AbstractMesh((16, 16), ("data", "model"))
+    tp = _tp(cfg, mesh)
+    h = cfg.n_heads
+    wq_b = torch.empty(cfg.q_lora, heads or h, cfg.qk_nope + cfg.qk_rope)
+    wkv_b = torch.empty(cfg.kv_lora, heads or h, cfg.qk_nope + cfg.v_head)
+    wo = torch.empty(heads or h, cfg.v_head, cfg.d_model)
+    params = {"wq_b": wq_b, "wkv_b": wkv_b, "wo": wo}
+    with tensor.use(tp):
+        assert (mla.head_split(params) is tp) == (heads is not None)
+    want = None if heads is None else 1
+    assert tp.split_dim(wq_b, mla.WQB_AXES) == want
+    assert tp.split_dim(wkv_b, mla.WQB_AXES) == want
+    assert tp.split_dim(torch.empty(cfg.d_model, cfg.q_lora),
+                        ("embed", None)) is None
+    if heads is None:
+        with pytest.raises(ValueError, match="its block is"):
+            tp.split_dim(torch.empty(cfg.q_lora, 2, 96), mla.WQB_AXES)
+    cache = tst.abstract_cache(cfg, SHAPES["decode_32k"], mesh,
+                               shd.default_rules())
+    n = cfg.n_layers - cfg.first_dense
+    assert tuple(cache["layers"]["ckv"].shape) == (n, 8, 32768,
+                                                   cfg.kv_lora)
+    assert tuple(cache["layers"]["krope"].shape) == (n, 8, 32768,
+                                                     cfg.qk_rope)

@@ -18,10 +18,11 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.distributed as dist
-from torch.utils._python_dispatch import TorchDispatchMode
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT / "src"), str(ROOT / "tests")]
+
+from repro_torch.analysis.precision import Float64, double  # noqa: E402
 
 
 def _mesh(shape, axes):
@@ -128,6 +129,18 @@ def seq_collectives(rank, d):
     _save(d, {k: v.numpy() for k, v in {**out, **every}.items()})
 
 
+def _cfg(info):
+    """The reduced config of ``info.json``'s arch in fp32 at its
+    ``act_shard``, with the fields its ``replace`` names (and ``remat``)
+    set."""
+    from repro_torch.configs import get_config
+    over = dict(info.get("replace", {}))
+    if "remat" in info:
+        over["remat"] = info["remat"]
+    return get_config(info["arch"]).reduced().replace(
+        dtype="float32", act_shard=info["act_shard"], **over)
+
+
 def _state_from(d, cfg):
     """The whole training state whose leaves (flatten order) the test
     wrote to ``d/state.npz``."""
@@ -137,41 +150,6 @@ def _state_from(d, cfg):
     like = st.abstract_state(cfg)
     return unflatten(like, [torch.from_numpy(data[f"a{i}"])
                             for i in range(len(leaves(like)))])
-
-
-class Float64(TorchDispatchMode):
-    """Runs the port in float64 throughout: every float32 an operation
-    asks for (a dtype argument, ``Tensor.float()``, a factory's default)
-    is float64 inside the context, the backward and remat's recompute
-    included.  Inputs are given as float64.  A witness, free of fp32
-    rounding, that two ways of computing a step agree."""
-
-    def __enter__(self):
-        self._prev = torch.get_default_dtype()
-        torch.set_default_dtype(torch.float64)
-        return super().__enter__()
-
-    def __exit__(self, *exc):
-        torch.set_default_dtype(self._prev)
-        return super().__exit__(*exc)
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        def wide(a):
-            return torch.float64 if a is torch.float32 else a
-        return func(*map(wide, args),
-                    **{k: wide(v) for k, v in (kwargs or {}).items()})
-
-
-def double(tree):
-    """``tree`` with its floating leaves (tensors or arrays) in
-    float64."""
-    from repro_torch.tree import tree_map
-
-    def wide(x):
-        if isinstance(x, np.ndarray):
-            x = torch.from_numpy(x)
-        return x.double() if x.is_floating_point() else x
-    return tree_map(wide, tree)
 
 
 def _counts(rep):
@@ -272,16 +250,12 @@ def sharded_train(rank, d):
     0 also writes that state (``d0``, ``d1``, ...), its first gradients
     (``h0``, ...) and its losses."""
     from repro_torch.analysis import hlo
-    from repro_torch.configs import get_config
     from repro_torch.parallel import sharding as shd
     from repro_torch.parallel import steps as st
     from repro_torch.tree import leaves
     info = json.loads((Path(d) / "info.json").read_text())
     accum = info.get("accum", 1)
-    cfg = get_config(info["arch"]).reduced().replace(
-        dtype="float32", act_shard=info["act_shard"])
-    if "remat" in info:
-        cfg = cfg.replace(remat=info["remat"])
+    cfg = _cfg(info)
     mesh = _mesh(info["mesh"], ("data", "model"))
     rules = shd.default_rules(act_shard=info["act_shard"])
     lay = st.state_layouts(cfg, mesh, rules)
@@ -348,12 +322,10 @@ def sharded_prefill(rank, d):
     gathered tokens (the prefill's argmax first) and the first tick's op
     counts."""
     from repro_torch.analysis import hlo
-    from repro_torch.configs import get_config
     from repro_torch.parallel import sharding as shd
     from repro_torch.parallel import steps as st
     info = json.loads((Path(d) / "info.json").read_text())
-    cfg = get_config(info["arch"]).reduced().replace(
-        dtype="float32", act_shard=info["act_shard"])
+    cfg = _cfg(info)
     mesh = _mesh(info["mesh"], ("data", "model"))
     rules = shd.default_rules(act_shard=info["act_shard"])
     lay = st.state_layouts(cfg, mesh, rules)
@@ -387,7 +359,8 @@ def sharded_prefill(rank, d):
         arrays["tokens"] = shd.gather(torch.cat(got, 1), ("batch", None),
                                       mesh, rules,
                                       (rows, ticks + 1)).numpy()
-        out["cache_shape"] = list(cache["layers"]["k"].shape)
+        out["cache_shape"] = {k: list(v.shape)
+                              for k, v in cache["layers"].items()}
     _save(d, arrays, out)
 
 

@@ -4,7 +4,7 @@ fp32 and in float64, for one case of
 
   PYTHONPATH=src JAX_PLATFORMS=cpu python tests/torch_mesh_rounding.py \
       deepseek_7b 4x2 [--accum 2] [--masked] [--act-shard seq] \
-      [--norms] [--seq 12]
+      [--norms] [--seq 12] [--set n_heads=8 ...]
 
 Two steps of the case's inputs run on one gloo rank a device of the mesh
 (``sharded_train``, fp32 then float64 under
@@ -14,7 +14,8 @@ the first step's gradients ("grads") it prints the largest gap, each
 leaf's as a share of that leaf's largest value: mesh against unsharded
 in fp32 and in float64, and each fp32 step against the float64
 unsharded step.  ``--norms`` draws the norm scales away from 1 as the
-``norms-mesh2`` case does; ``--seq`` sets the positions a row.
+``norms-mesh2`` case does; ``--seq`` sets the positions a row;
+``--set`` a field of both reduced configs, as a case's ``replace``.
 """
 import argparse
 import contextlib
@@ -45,12 +46,16 @@ def main(argv=None) -> int:
     ap.add_argument("--act-shard", default="seq")
     ap.add_argument("--norms", action="store_true")
     ap.add_argument("--seq", type=int, default=16)
+    ap.add_argument("--set", action="append", default=[],
+                    metavar="FIELD=INT", help="a config field of both "
+                    "packages' reduced config, e.g. n_heads=8")
     a = ap.parse_args(argv)
     mesh = tuple(int(n) for n in a.mesh.split("x"))
+    over = {k: int(v) for k, v in (f.split("=") for f in a.set)}
     jc = tp.jax_config(a.arch).reduced().replace(
-        dtype="float32", act_shard=a.act_shard, accum=a.accum)
+        dtype="float32", act_shard=a.act_shard, accum=a.accum, **over)
     tc = tp.torch_config(a.arch).reduced().replace(
-        dtype="float32", act_shard=a.act_shard, accum=a.accum)
+        dtype="float32", act_shard=a.act_shard, accum=a.accum, **over)
     # the test's inputs: a VLM cell of 16 positions is 8 patches, 8 tokens
     text = a.seq // 2 if jc.family == "vlm" else a.seq
     dc = tp.DataConfig(seq_len=text, global_batch=4 * a.accum,
@@ -87,7 +92,7 @@ def main(argv=None) -> int:
             for k, v in b.items()})
         (d / "info.json").write_text(json.dumps(dict(
             arch=a.arch, act_shard=a.act_shard, mesh=list(mesh), steps=2,
-            accum=a.accum, float64=True, **kw)))
+            accum=a.accum, float64=True, replace=over, **kw)))
         got, _ = tp.run_ranks("sharded_train", int(np.prod(mesh)), d,
                               timeout=600)
         got = dict(got)
