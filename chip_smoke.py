@@ -451,13 +451,20 @@ def kernel_report() -> None:
         j4, nb = re.findall(r"Li(\d+)E", fn)
         print(f"  slstm_seq_kernel<{dtype(fn)}, h span {32 * int(j4)}, row "
               f"slots {nb}>: ptxas: {'; '.join(ptxas[fn])}")
-    norms = sorted(f for f in ptxas if "rmsnorm" in f)
+    norms = sorted(f for f in ptxas
+                   if "rmsnorm_vec" in f or "rmsnorm_any" in f)
     check(len(norms) == 20, f"expected 20 rmsnorm kernels (9 widths x 2 "
                             f"types and the general path), found {norms}")
-    for fn in norms:
+    split = sorted(f for f in ptxas if "row_sumsq" in f or "row_scaled" in f)
+    check(len(split) == 4, f"expected 4 split-norm kernels (the sums of "
+                           f"squares and the scaled rows x 2 types), found "
+                           f"{split}")
+    for fn in norms + split:
         shape = re.findall(r"Li(\d+)E", fn)
         what = (f"{shape[0]} threads a row, {shape[1]} vectors a thread"
-                if "rmsnorm_vec" in fn else "general path")
+                if "rmsnorm_vec" in fn else "general path"
+                if "rmsnorm_any" in fn else "split norm, sums of squares"
+                if "row_sumsq" in fn else "split norm, scaled rows")
         print(f"  rmsnorm<{dtype(fn)}, {what}>: ptxas: "
               f"{'; '.join(ptxas[fn])}")
     for b in (1, 4):
@@ -630,6 +637,34 @@ def phase_kernels(gen):
         err = compare(f"rmsnorm N={n} D={dm} {tag}", kern(), plain(), dtype)
         nbytes = 2 * x.numel() * x.element_size() + 4 * dm
         return timed(kern, plain, lib, err, nbytes, 4 * n * dm, dtype)
+
+    def norm_sumsq(n, w, dtype, tag):
+        """The split norm's first entry: each row's fp32 sum of squares.
+        One PyTorch call computes it in fp32 only (``torch.linalg.vecdot``
+        of the rows with themselves; on bf16 it sums in bf16)."""
+        x = rnd(n, w, dtype=dtype)
+        kern = lambda: ops.rmsnorm_sumsq(x)
+        plain = lambda: ref.rmsnorm_sumsq_ref(x)
+        lib = (lambda: torch.linalg.vecdot(x, x)) \
+            if dtype == torch.float32 else None
+        err = compare(f"rmsnorm_sumsq N={n} W={w} {tag}", kern() / w,
+                      plain() / w, torch.float32)
+        return timed(kern, plain, lib, err, x.numel() * x.element_size()
+                     + 4 * n, 2 * n * w, dtype, note="fp32 sums; the error "
+                                                     "of the sums / W")
+
+    def norm_scaled(n, w, dtype, tag):
+        """The split norm's second entry: the rows normalised by a total
+        over 16 blocks of ``w`` channels (zamba2_7b's gated norm on a
+        device of 16).  No single PyTorch call takes the total given."""
+        x, s_ = rnd(n, w, dtype=dtype), rnd(w, dtype=torch.float32)
+        total = ref.rmsnorm_sumsq_ref(rnd(n, 16 * w, dtype=dtype))
+        kern = lambda: ops.rmsnorm_scaled(x, total, s_, 16 * w, eps=1e-5)
+        plain = lambda: ref.rmsnorm_scaled_ref(x, total, s_, 16 * w, 1e-5)
+        err = compare(f"rmsnorm_scaled N={n} W={w} {tag}", kern(), plain(),
+                      dtype)
+        nbytes = 2 * x.numel() * x.element_size() + 4 * (n + w)
+        return timed(kern, plain, None, err, nbytes, 3 * n * w, dtype)
 
     def norm_chain(dtype, tag):
         """glm4_9b's decode at 4 rows: the residual added in place, the
@@ -868,6 +903,17 @@ def phase_kernels(gen):
                 attention(512, h, hkv, 128, dtype, tag)
             rows[("flash_decode", tag, f"T=1024 H={h} Hkv={hkv} TP")] = \
                 decode(h, hkv, 128, dtype, tag)
+    # a rank of 21(h)'s tensor-parallel zamba2_7b: its 16 of the 32
+    # attention heads of 112 (16 KV heads) at the 1 x 128 prefill, and its
+    # decode
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).replace("torch.", "")
+        rows[("flash_attention", tag, "S=128 H=16 D=112 MHA TP")] = \
+            attention(128, 16, 16, 112, dtype, tag)
+        rows[("flash_decode", tag, "T=1024 H=16 D=112 MHA TP")] = decode(
+            16, 16, 112, dtype, tag)
+    rows[("flash_decode", "float32", "T=132 H=16 D=112 MHA TP fill 128")] = \
+        decode(16, 16, 112, torch.float32, "float32", (128,) * 4, t=132)
     rows[("flash_decode", "float32", "T=1500 H=16 D=64 cross")] = decode(
         16, 16, 64, torch.float32, "float32", (1500,) * 4, t=1500)
     rows[("flash_decode", "float32", "T=448 H=16 D=64 self fill "
@@ -901,6 +947,18 @@ def phase_kernels(gen):
                 1, s, 112, 64, 64, 64, dtype, tag)
         rows[("mamba_scan", tag, "B=2 S=64 H=3 P=16 N=8 L=16")] = scan(
             2, 64, 3, 16, 8, 16, dtype, tag)
+        # a rank of 21(h): 56 of the 112 heads, at its 1 x 128 prefill
+        rows[("mamba_scan", tag, "S=128 H=56 TP")] = scan(
+            1, 128, 56, 64, 64, 64, dtype, tag)
+        # the split gated norm's entries: a decode tick's 4 rows and a
+        # 512-token prefill, on a device's block of zamba2_7b's 7168
+        # channels over 16, 2 and 1 devices
+        for n in (4, 512):
+            for w in (448, 3584, 7168):
+                rows[("rmsnorm_sumsq", tag, f"N={n} W={w}")] = norm_sumsq(
+                    n, w, dtype, tag)
+                rows[("rmsnorm_scaled", tag, f"N={n} W={w}")] = norm_scaled(
+                    n, w, dtype, tag)
         # the grouped matmul at deepseek_moe_16b's expert FFN: decode (C = 1
         # at four slots), prefill at S = 128 and 512 (C = 15 and 60 at
         # capacity factor 1.25), gate/up (D=2048, F=1408) and down (D=1408,
@@ -1099,11 +1157,13 @@ def structure_launches(cfg, n_prefill, n_steps):
     step; a decode step is three norms, a self and a cross flash decode a
     decoder layer and the final norm."""
     calls = n_prefill + n_steps
+    # the split norm's entries run only in a tensor-parallel hybrid step
+    split = {"rmsnorm_sumsq": 0, "rmsnorm_scaled": 0}
     if cfg.family == "encdec":
         n, nd = cfg.n_layers, cfg.n_dec_layers
         return {"flash_attention": n * n_prefill,
                 "flash_decode": 2 * nd * calls, "mamba_scan": 0,
-                "moe_gmm": 0, "slstm_seq": 0,
+                "moe_gmm": 0, "slstm_seq": 0, **split,
                 "rmsnorm": (2 * n + 1) * n_prefill + (3 * nd + 1) * calls}
     attn = mamba = moe = slstm = 0
     if cfg.family == "hybrid":
@@ -1120,7 +1180,7 @@ def structure_launches(cfg, n_prefill, n_steps):
             "flash_decode": attn * n_steps,
             "mamba_scan": mamba * n_prefill, "moe_gmm": 3 * moe * calls,
             "rmsnorm": (2 * blocks + mla + 1) * calls,
-            "slstm_seq": slstm * calls}
+            "slstm_seq": slstm * calls, **split}
 
 
 def serve_once(cfg, params, prompts, new_tokens):
@@ -2521,8 +2581,8 @@ def train_launches(cfg, steps: int) -> dict:
     (``cfg.remat`` "full"); the encoder-decoder's are its encoder layers'
     self-attention and its decoder layers' self- and cross-attention.  The
     norms, and every other kernel, are plain on the training route."""
-    want = {k: 0 for k in ("flash_attention", "flash_decode", "mamba_scan",
-                           "moe_gmm", "rmsnorm", "slstm_seq")}
+    from repro_torch.kernels import ops
+    want = {k: 0 for k in ops.launch_counts()}
     attn = cfg.n_layers + 2 * cfg.n_dec_layers if cfg.family == "encdec" \
         else cfg.n_layers
     want["flash_attention"] = 2 * attn * steps
@@ -3053,64 +3113,344 @@ def _host_tree(tree):
     return tree_map(lambda t: t.detach().to("cpu", copy=True), tree)
 
 
-def mesh_step(cfg, seed, card_dev, mesh) -> dict:
-    """21(a): one step of ``make_train_step(mesh=...)`` against phase 14(a)'s
-    unsharded step, from the same state (drawn from ``seed`` twice, the
-    unsharded run's result kept on the host) and batch; then one more
-    profiled step of each, whose device events differ by what the
-    collectives add."""
+# Part A of the mesh phases (21(a), 21(d)-(h)): a train step compared with
+# the unsharded one runs at the base lr (warmup 0: under warmup the first
+# step's lr is 0 and moves nothing), in fp32 and again in float64 with
+# plain attention, and is held by ``_hold_trained``
+
+
+def _fresh(cuda: bool) -> None:
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _release_host_memory()
+
+
+def _release_host_memory() -> None:
+    """Hand freed host memory back to the machine (96 GiB for the card and
+    every process of a phase): the page-locked buffers PyTorch keeps for
+    reuse (gloo stages each collective of a card's tensors through them),
+    where this build of PyTorch offers a call for it, and the C heap's
+    free pages."""
+    import ctypes
+    for name in ("_host_emptyCache", "_accelerator_emptyHostCache"):
+        fn = getattr(torch._C, name, None)
+        if fn is not None and torch.cuda.is_available():
+            fn()
+            break
+    try:
+        ctypes.CDLL("libc.so.6").malloc_trim(0)
+    except OSError:
+        pass
+
+
+def _rss_gb() -> float:
+    """This process's resident host memory, GB (0 where /proc has none)."""
+    try:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) * 1024 / 1e9
+    except OSError:
+        pass
+    return 0.0
+
+
+def _leaf_paths(tree, at: str = "") -> list:
+    """The "/"-joined key path of each leaf of a tree of dicts, in
+    ``tree.leaves`` order."""
+    if not isinstance(tree, dict):
+        return [at]
+    return [p for k in sorted(tree)
+            for p in _leaf_paths(tree[k], f"{at}/{k}" if at else k)]
+
+
+def _trained(state, lay, keep: bool = True) -> tuple:
+    """The parameters and the first moments of a sharded train state,
+    gathered whole a leaf at a time in host memory (two ranks' float64
+    states and their gathered copies do not fit the one card): each block
+    copied to the host and the host copies gathered (gloo's collectives of
+    host tensors stage nothing through the card), or, where not ``keep``,
+    gathered (every rank joins the collectives) and dropped;
+    after one step the first moments hold the clipped gradient times 1 -
+    b1."""
+    from repro_torch.tree import leaves
+
+    def whole(tree, lays):
+        out = []
+        for x, lw in zip(leaves(tree), leaves(lays), strict=True):
+            w = lw.gather(x.to("cpu", copy=True))
+            out.append(w if keep else None)
+        return out
+    return whole(state.params, lay.params), whole(state.opt.m, lay.opt.m)
+
+
+def _state_blocks(cfg, lay, gen, dev):
+    """This device's blocks of ``steps.init_train_state(cfg, gen, dev)``,
+    its parameters drawn a leaf at a time (``_blocks_from_seed``), so that
+    the whole state is never on the card."""
+    from repro_torch.models import api
+    from repro_torch.optim import adamw_init
+    from repro_torch.parallel import steps as st
+    from repro_torch.tree import tree_map
+    p32 = _blocks_from_seed(api.param_spec(cfg), lay.params, gen, dev)
+    return st.TrainState(params=tree_map(lambda x: x.to(cfg.torch_dtype),
+                                         p32), opt=adamw_init(p32))
+
+
+def _train_sharded(cfg, mesh, rules, lay, batch, gen, dev, sync,
+                   keep: bool = True, **step_kw) -> tuple:
+    """Part A's sharded half, in a rank: one mesh train step of ``cfg`` at
+    the base lr from the state ``gen`` draws, on this rank's blocks (its
+    launches, op counts, loss, lr, host seconds, this rank's memory before
+    it and its peak across it, the blocks held), then the same step in
+    float64 with plain attention (the kernels take no float64).  Returns
+    (that record, the parameters and first moments of each step gathered
+    whole into host memory, fp32 then float64; dropped where not
+    ``keep``)."""
     from repro_torch.analysis import hlo
-    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.analysis.precision import Float64, double
     from repro_torch.kernels import ops
-    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel import steps as st
+    cuda = dev == "cuda"
+    state = _state_blocks(cfg, lay, gen(), dev)
+    _fresh(cuda)        # the peak of the step, from the blocks on
+    before = torch.cuda.memory_allocated() if cuda else 0
+    step = st.make_train_step(cfg, total_steps=10, warmup=0, mesh=mesh,
+                              rules=rules, **step_kw)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    (state, m), rep = hlo.count(step, state, batch)
+    sync()
+    got = {"train_launches": ops.launch_counts(),
+           "train_counts": _op_counts(rep), "loss": float(m["loss"]),
+           "lr": float(m["lr"]), "seconds": time.perf_counter() - t0,
+           "before": before,
+           "peak": torch.cuda.max_memory_allocated() if cuda else 0}
+    t1 = time.perf_counter()
+    trained = [_trained(state, lay, keep)]
+    del state, step
+    _fresh(cuda)
+    t2 = time.perf_counter()
+    wide = cfg.replace(attn_impl="chunked")
+    state = double(_state_blocks(wide, lay, gen(), dev))
+    with Float64():
+        state, m = st.make_train_step(wide, total_steps=10, warmup=0,
+                                      mesh=mesh, rules=rules,
+                                      **step_kw)(state, batch)
+        sync()
+        t3 = time.perf_counter()
+        trained.append(_trained(state, lay, keep))
+    got["loss64"] = float(m["loss"])
+    del state
+    _fresh(cuda)
+    got["rss_gb"] = round(_rss_gb(), 2)
+    # host seconds of the parts: the fp32 gather, the float64 step and
+    # its gather
+    got["part_seconds"] = [round(t, 2) for t in (
+        t2 - t1, t3 - t2, time.perf_counter() - t3)]
+    return got, trained
+
+
+def _train_unsharded(cfg, gen, dev, batch, trained, sync,
+                     accum: int = 1) -> dict:
+    """Part A's unsharded half, after every sharded tensor is freed: the
+    same step unsharded from the same state, in fp32 and in float64; each
+    leaf's gaps of the sharded ``trained`` to it (``fp32``, ``fp64``), the
+    unsharded fp32 step's own gap to its float64 run (``own``, the
+    rounding the sharded one is held against), how far the step moved
+    each leaf (a share of its largest value), its losses, lr, peak memory
+    and host seconds (``unsharded_seconds``).  The gaps are taken on the
+    device of the unsharded state, a leaf at a time."""
+    from repro_torch.analysis.precision import Float64, double
     from repro_torch.parallel import steps as st
     from repro_torch.tree import leaves
+    cuda = dev == "cuda"
+    t0 = time.perf_counter()
+    (p32, m32), (p64, m64) = trained
+    _fresh(cuda)
+    state = st.init_train_state(cfg, gen(), dev)
+    before = [p.clone() for p in leaves(state.params)]
+    top = [p.abs().max().item() for p in before]
+    _fresh(cuda)        # the peak of the step, from the state on
+    state, pm = st.make_train_step(cfg, total_steps=10, warmup=0,
+                                   accum=accum)(state, batch)
+    sync()
+    out = {"peak_unsharded": torch.cuda.max_memory_allocated() if cuda
+           else 0}
+    names = _leaf_paths(state.params)
+
+    def gaps(mine, theirs):
+        """Each leaf's largest absolute gap and the largest |value| of
+        ``theirs``, by the leaf's path."""
+        return {k: ((a.to(b.device) - b).abs().max().item(),
+                    b.abs().max().item())
+                for k, a, b in zip(names, mine, theirs, strict=True)}
+    u32 = leaves(state.params), leaves(state.opt.m)
+    # each leaf's move, a share of its largest |value| before or after
+    # the step (zero-initialised leaves start at 0)
+    moved = [d / max(a, b) for a, (d, b) in zip(
+        top, gaps(before, u32[0]).values())]
+    fp32 = {"params": gaps(p32, u32[0]), "m": gaps(m32, u32[1])}
+    del state, before       # the unsharded fp32 results stay (u32)
+    _fresh(cuda)
+    wide = cfg.replace(attn_impl="chunked")
+    state = double(st.init_train_state(wide, gen(), dev))
+    with Float64():
+        state, pm64 = st.make_train_step(wide, total_steps=10, warmup=0,
+                                         accum=accum)(state, double(batch))
+    u64 = leaves(state.params), leaves(state.opt.m)
+    out.update(loss_unsharded=float(pm["loss"]),
+               loss64_unsharded=float(pm64["loss"]),
+               lr_unsharded=float(pm["lr"]), moved_least=min(moved),
+               moved_most=max(moved), fp32=fp32,
+               fp64={"params": gaps(p64, u64[0]), "m": gaps(m64, u64[1])},
+               own={"params": gaps(u32[0], u64[0]),
+                    "m": gaps(u32[1], u64[1])})
+    del state, u64
+    _fresh(cuda)
+    out["unsharded_seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _worst(gaps: dict) -> dict:
+    """Of {"params": {leaf: (gap, max)}, "m": {...}}, each group's largest
+    gap as a share of its leaf's max, and that leaf."""
+    return {g: max((d / max(top, 1e-30), k) for k, (d, top)
+                   in by_leaf.items()) for g, by_leaf in gaps.items()}
+
+
+def _adam_first_step_slack(r0: dict, prec: str, tol: float) -> dict:
+    """Each leaf's bound on its parameters' gap after one AdamW step, from
+    its first moments' gap.  At the first step the update is lr g / (|g| +
+    eps) + lr wd p, and g -> g / (|g| + eps) has slope at most 1 / eps
+    (at g = 0): a gradient gap dg moves a parameter by up to lr dg / eps,
+    and m = (1 - b1) g.  So the parameters, from the same p, may differ
+    by lr / eps x max |dm| / (1 - b1), plus ``tol`` of the leaf's max for
+    the rounding of the update itself."""
+    import inspect
+    from repro_torch.optim.adamw import adamw_update
+    arg = inspect.signature(adamw_update).parameters
+    eps, b1 = arg["eps"].default, arg["b1"].default
+    return {k: r0["lr"] / eps * r0[prec]["m"][k][0] / (1 - b1) + tol * top
+            for k, (_, top) in r0[prec]["params"].items()}
+
+
+def _hold_trained(label: str, r0: dict) -> str:
+    """Part A's check of a sharded step's record joined with its unsharded
+    one (``_train_sharded``, ``_train_unsharded``): the step ran at the
+    base lr and moved every leaf; the fp32 loss within 1e-6 and the
+    float64 one within 1e-12 of the unsharded step's; the first moments
+    (the clipped gradient times 1 - b1) within 1e-12 of each leaf's max in
+    float64 and, in fp32, within 4 times the unsharded step's own gap to
+    float64, or 1e-6 of the max; the parameters within what Adam's first
+    step makes of the first moments' gap (``_adam_first_step_slack``),
+    plus 1e-12 (float64) or 1e-6 (fp32) of the max.  Returns what it
+    held, for the phase's line."""
+    l1, l2 = r0["loss_unsharded"], r0["loss"]
+    check(math.isfinite(l2) and abs(l1 - l2) <= 1e-6 * abs(l1),
+          f"{label}: loss {l2} against the unsharded {l1}")
+    check(abs(r0["loss64"] - r0["loss64_unsharded"])
+          <= 1e-12 * abs(r0["loss64_unsharded"]),
+          f"{label}: float64 loss {r0['loss64']!r} against the unsharded "
+          f"{r0['loss64_unsharded']!r}")
+    check(r0["lr"] == r0["lr_unsharded"] > 0.0 and r0["moved_least"] > 0.0,
+          f"{label}: the step compared ran at lr {r0['lr']} (unsharded "
+          f"{r0['lr_unsharded']}) and moved a leaf by as little as "
+          f"{r0['moved_least']} of its max")
+    worst = {k: _worst(r0[k]) for k in ("fp32", "fp64", "own")}
+    v, leaf = worst["fp64"]["m"]
+    check(v <= 1e-12, f"{label}: float64 first moments off the unsharded "
+                      f"step's by {v} of a leaf's max at {leaf}")
+    for leaf, (d, top) in r0["fp32"]["m"].items():
+        own, _ = r0["own"]["m"][leaf]
+        check(d <= max(1e-6 * top, 4 * own), f"{label}: first moments at "
+              f"{leaf} off the unsharded step's by {d} (max {top}), over 4 "
+              f"x its own gap to float64 ({own}) and 1e-6 of the max")
+    slack = {}
+    for prec, tol in (("fp64", 1e-12), ("fp32", 1e-6)):
+        lim = _adam_first_step_slack(r0, prec, tol)
+        for leaf, (d, top) in r0[prec]["params"].items():
+            check(d <= lim[leaf], f"{label}: {prec} parameters at {leaf} off "
+                  f"the unsharded step's by {d} (max {top}), over "
+                  f"{lim[leaf]}, lr / eps x its first moments' gap / "
+                  f"(1 - b1) + {tol} of the max")
+        slack[prec] = max(d / lim[k] for k, (d, _)
+                          in r0[prec]["params"].items())
+
+    def held(k, g):
+        v, leaf = worst[k][g]
+        return f"{v:.3e} ({leaf})"
+    return (f"one step at lr {r0['lr']:.3e}, which moved each leaf by "
+            f"{r0['moved_least']:.3e} to {r0['moved_most']:.3e} of its max: "
+            f"fp32 loss {l2!r} (unsharded {l1!r}); the largest gap to the "
+            f"unsharded step, a share of the leaf's max, in fp32 first "
+            f"moments {held('fp32', 'm')}, parameters "
+            f"{held('fp32', 'params')}, the unsharded fp32 step's own gap "
+            f"to float64 {held('own', 'm')} and {held('own', 'params')}; in "
+            f"float64 (attention plain) first moments {held('fp64', 'm')}, "
+            f"parameters {held('fp64', 'params')} (of their bound from the "
+            f"moments' gap at most {slack['fp32']:.3f} in fp32, "
+            f"{slack['fp64']:.3f} in float64); rank 0's seconds: the fp32 "
+            f"step {r0['seconds']:.1f}, its gather, the float64 step and "
+            f"its gather {r0['part_seconds']}, the unsharded steps "
+            f"{r0['unsharded_seconds']:.1f}; its host memory after the "
+            f"sharded steps {r0['rss_gb']} GB")
+
+
+def _trained_record(r0: dict) -> dict:
+    """Of a record ``_hold_trained`` held, what a phase returns: the
+    losses, the lr, how far the step moved the leaves and each group's
+    largest gap (``_worst``) in fp32, in float64 and the unsharded fp32
+    step's own."""
+    out = {k: r0[k] for k in ("loss", "loss_unsharded", "loss64",
+                              "loss64_unsharded", "lr", "moved_least",
+                              "moved_most")}
+    out.update({k: _worst(r0[k]) for k in ("fp32", "fp64", "own")})
+    return out
+
+
+def mesh_step(cfg, seed, card_dev, mesh) -> dict:
+    """21(a): one step of ``make_train_step(mesh=...)`` at the base lr
+    against phase 14(a)'s unsharded step, from the same state (drawn from
+    ``seed``) and batch, in fp32 and in float64 (part A:
+    ``_train_sharded``, ``_train_unsharded``, ``_hold_trained``; on one
+    rank the gap is the clipping norm's order of summation alone); then
+    one profiled step of each from a fresh state, whose device events
+    differ by what the collectives add."""
+    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel import steps as st
     batch = to_dev(synthetic_batch(DataConfig(
         seq_len=MESH_SEQ, global_batch=1, vocab=cfg.vocab, seed=seed), 0),
         card_dev)
     gen = lambda: torch.Generator(device=card_dev).manual_seed(seed)
+    sync = torch.cuda.synchronize if card_dev == "cuda" else (lambda: None)
     profiled = (lambda fn: device_events(fn)) if card_dev == "cuda" \
         else (lambda fn: [fn()][:0])
-    plain = st.make_train_step(cfg, total_steps=10, warmup=2)
-    state = st.init_train_state(cfg, gen(), card_dev)
-    state, m1 = plain(state, batch)
-    want, l1 = _host_tree(state), float(m1["loss"])
-    ev_plain = profiled(lambda: plain(state, batch))
-    del state
-    gc.collect()
-    torch.cuda.empty_cache()
     rules = shd.default_rules()
     lay = st.state_layouts(cfg, mesh, rules)
-    state = st.shard_state(st.init_train_state(cfg, gen(), card_dev), lay)
-    gc.collect()
-    torch.cuda.empty_cache()
-    sharded = st.make_train_step(cfg, total_steps=10, warmup=2, mesh=mesh,
-                                 rules=rules)
-    ops.reset_launch_counts()
-    (state, m2), rep = hlo.count(sharded, state, batch)
-    torch.cuda.synchronize()
-    launched = ops.launch_counts()
-    l2 = float(m2["loss"])
+    got, trained = _train_sharded(cfg, mesh, rules, lay, batch, gen,
+                                  card_dev, sync)
+    got.update(_train_unsharded(cfg, gen, card_dev, batch, trained, sync))
+    del trained
+    launched = got["train_launches"]
     if card_dev == "cuda":
         check(launched == train_launches(cfg, 1), f"the sharded step "
               f"launched {launched}, not {train_launches(cfg, 1)}")
-    check(l1 == l2 or abs(l1 - l2) <= 1e-6 * abs(l1),
-          f"sharded loss {l2} against the unsharded {l1}")
-    worst, equal = 0.0, 0
-    for a, b in zip(leaves(state), leaves(want), strict=True):
-        a = a.cpu()
-        equal += bool(torch.equal(a, b))
-        if not b.is_floating_point():
-            check(torch.equal(a, b), f"an integer leaf {a} != {b}")
-            continue
-        err = (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
-        worst = max(worst, err)
-        check(err <= 1e-6, f"a sharded leaf {tuple(b.shape)} is off the "
-                           f"unsharded step's by {err} of its max")
-    n_leaves = len(leaves(want))
-    del want
+    held = _hold_trained("21(a)", got)
+    plain = st.make_train_step(cfg, total_steps=10, warmup=0)
+    state = st.init_train_state(cfg, gen(), card_dev)
+    ev_plain = profiled(lambda: plain(state, batch))
+    del state
+    _fresh(card_dev == "cuda")
+    sharded = st.make_train_step(cfg, total_steps=10, warmup=0, mesh=mesh,
+                                 rules=rules)
+    state = _state_blocks(cfg, lay, gen(), card_dev)
     ev_sharded = profiled(lambda: sharded(state, batch))
     del state
+    _fresh(card_dev == "cuda")
     added = {}
     for name in ev_sharded:
         added[name] = added.get(name, 0) + 1
@@ -3123,17 +3463,15 @@ def mesh_step(cfg, seed, card_dev, mesh) -> dict:
                    if "nccl" in k.lower() or "memcpy" in k.lower()}
     added = {**comm_events, "other kernels": sum(
         v for k, v in added.items() if k not in comm_events)}
-    print(f"  {cfg.name} {cfg.n_layers} layers, 1 x {MESH_SEQ} tokens, "
-          f"mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}: loss "
-          f"{l2!r} (unsharded {l1!r}); {equal} of {n_leaves} state leaves "
-          f"bit-equal, worst {worst:.2e} of its leaf's max (the clipping "
-          f"norm sums the leaves' blocks in another order); launches "
-          f"{launched}; collectives {rep.collective_counts} moving "
-          f"{rep.collective_bytes} bytes; device events of a sharded step "
-          f"less an unsharded one's: {added}")
-    return {"loss": l2, "loss_unsharded": l1, "worst": worst,
-            "equal_leaves": equal, "leaves": n_leaves, "launches": launched,
-            "flops": rep.flops, "collective_bytes": rep.collective_bytes,
+    counts = got["train_counts"]
+    print(f"  21(a) {cfg.name} {cfg.n_layers} layers, 1 x {MESH_SEQ} tokens, "
+          f"mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}: {held}; "
+          f"launches {launched}; collectives {counts['collective_counts']} "
+          f"moving {counts['collective_bytes']} bytes; device events of a "
+          f"sharded step less an unsharded one's: {added}")
+    return {**_trained_record(got), "launches": launched,
+            "flops": counts["flops"],
+            "collective_bytes": counts["collective_bytes"],
             "events_added": added, "step": sharded, "layouts": lay,
             "batch": batch}
 
@@ -3246,13 +3584,13 @@ def _two_ranks(run, seed: int, card_dev: str, smoke: bool) -> tuple:
 
 
 def _tp_run(rank: int, seed: int, card_dev: str, smoke: bool) -> dict:
-    """One rank of 21(d): the mesh prefill and one train step of the cut
-    glm4_9b on this rank's blocks (its 16 of 32 query heads, half the MLP
-    and the vocab, 64 of the 128 rows of the residual stream), their op
-    counts and launches, the updated parameters gathered whole; three
-    more steps timed on the host clock; then, on rank 0, the unsharded
-    prefill and step on the card from the same state and batch, held
-    against the sharded ones."""
+    """One rank of 21(d): the mesh prefill of the cut glm4_9b on this
+    rank's blocks (its 16 of 32 query heads, half the MLP and the vocab,
+    64 of the 128 rows of the residual stream), its op counts and
+    launches; one train step at the base lr in fp32 and float64 (part A,
+    ``_train_sharded``); three more steps timed on the host clock; then,
+    on rank 0, the unsharded prefill and step on the card from the same
+    state and batch (``_train_unsharded``)."""
     from repro_torch.analysis import hlo
     from repro_torch.data import DataConfig, synthetic_batch
     from repro_torch.kernels import ops
@@ -3260,8 +3598,8 @@ def _tp_run(rank: int, seed: int, card_dev: str, smoke: bool) -> dict:
     from repro_torch.models import api
     from repro_torch.parallel import sharding as shd
     from repro_torch.parallel import steps as st
-    from repro_torch.tree import leaves
-    sync = torch.cuda.synchronize if card_dev == "cuda" else (lambda: None)
+    cuda = card_dev == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
     seconds, t0 = {}, time.perf_counter()
 
     def lap(name):
@@ -3277,34 +3615,26 @@ def _tp_run(rank: int, seed: int, card_dev: str, smoke: bool) -> dict:
         seq_len=MESH_SEQ, global_batch=1, vocab=cfg.vocab, seed=seed), 0),
         card_dev)
     gen = lambda: torch.Generator(device=card_dev).manual_seed(seed)
-    state = st.shard_state(st.init_train_state(cfg, gen(), card_dev), lay)
-    gc.collect()
-    if card_dev == "cuda":
-        torch.cuda.empty_cache()
+    state = _state_blocks(cfg, lay, gen(), card_dev)
+    _fresh(cuda)
     lap("setup")
-    # the prefill first: the train step updates the state in place
     prefill = st.make_prefill_step(cfg, MESH_SEQ, mesh, rules, 1)
     ops.reset_launch_counts()
     (logits, _), prep = hlo.count(prefill, state.params,
                                   {"tokens": batch["tokens"]})
     sync()
     out = {"prefill_launches": ops.launch_counts(),
-           "prefill_counts": _op_counts(prep), "seconds": seconds}
+           "prefill_counts": _op_counts(prep), "laps": seconds}
     logits = logits.cpu()
+    del state
     lap("prefill")
-    step = st.make_train_step(cfg, total_steps=10, warmup=2, mesh=mesh,
-                              rules=rules, global_batch=1)
-    ops.reset_launch_counts()
-    (state, m), rep = hlo.count(step, state, batch)
-    sync()
-    out.update(train_launches=ops.launch_counts(),
-               train_counts=_op_counts(rep), loss=float(m["loss"]))
+    got, trained = _train_sharded(cfg, mesh, rules, lay, batch, gen,
+                                  card_dev, sync, rank == 0, global_batch=1)
+    out.update(got)
     lap("step")
-    # the updated parameters gathered whole (kept on the card by rank 0)
-    whole = leaves(st.gather_state(state.params, lay.params))
-    if rank:
-        del whole
-    lap("gather")
+    state = _state_blocks(cfg, lay, gen(), card_dev)
+    step = st.make_train_step(cfg, total_steps=10, warmup=0, mesh=mesh,
+                              rules=rules, global_batch=1)
     times = []
     for _ in range(3):
         sync()
@@ -3314,9 +3644,7 @@ def _tp_run(rank: int, seed: int, card_dev: str, smoke: bool) -> dict:
         times.append((time.perf_counter() - t1) * 1e3)
     out["step_ms"] = times
     del state, step
-    gc.collect()
-    if card_dev == "cuda":
-        torch.cuda.empty_cache()
+    _fresh(cuda)
     lap("timed")
     if rank:
         return out
@@ -3324,14 +3652,10 @@ def _tp_run(rank: int, seed: int, card_dev: str, smoke: bool) -> dict:
     with torch.no_grad():
         want = api.prefill_fn(cfg, MESH_SEQ)(
             plain_state.params, {"tokens": batch["tokens"]})[0].cpu()
+    del plain_state
     out["logits_err"] = (logits - want).abs().max().item()
     out["logits_max"] = want.abs().max().item()
-    plain = st.make_train_step(cfg, total_steps=10, warmup=2)
-    plain_state, pm = plain(plain_state, batch)
-    out["loss_unsharded"] = float(pm["loss"])
-    out["worst"] = max(
-        ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
-        for a, b in zip(whole, leaves(plain_state.params), strict=True))
+    out.update(_train_unsharded(cfg, gen, card_dev, batch, trained, sync))
     lap("unsharded")
     return out
 
@@ -3340,8 +3664,8 @@ def mesh_tp(seed: int, smi: str, card_dev: str = "cuda",
             smoke: bool = False) -> dict:
     """21(d): :func:`_tp_rank` in two processes on the one card, each
     holding half of every split leaf and 64 of the 128 rows of the
-    residual stream; the sharded loss within 1e-6 of the unsharded
-    step's, its updated parameters within 1e-6 of each leaf's max, the
+    residual stream; its train step at the base lr held against the
+    unsharded one in fp32 and float64 (``_hold_trained``), the
     prefill's logits within 1e-4 (absolute and relative) of the
     unsharded prefill's; each rank's launches those of the step (4 flash
     attentions, no other kernel) and of the prefill (2 flash attentions,
@@ -3374,11 +3698,7 @@ def mesh_tp(seed: int, smi: str, card_dev: str = "cuda",
                   f"rank {r}'s prefill launched {got['prefill_launches']}")
     t_trace = time.perf_counter() - t0
     r0 = ranks[0]
-    l1, l2 = r0["loss_unsharded"], r0["loss"]
-    check(abs(l1 - l2) <= 1e-6 * abs(l1),
-          f"two-rank loss {l2} against the unsharded {l1}")
-    check(r0["worst"] <= 1e-6, f"two-rank parameters off the unsharded "
-                               f"step's by {r0['worst']} of a leaf's max")
+    held = _hold_trained("21(d)", r0)
     check(r0["logits_err"] <= 1e-4 * (1 + r0["logits_max"]),
           f"two-rank prefill logits off by {r0['logits_err']}")
     launched = {k: sum(r[f"{p}_launches"][k] for r in ranks
@@ -3387,9 +3707,7 @@ def mesh_tp(seed: int, smi: str, card_dev: str = "cuda",
     ms = [float(np.median(r["step_ms"])) for r in ranks]
     print(f"  21(d) {cfg.name} {cfg.n_layers} layers, 1 x {MESH_SEQ} tokens "
           f"on a {MESH_TP} mesh, two processes on one card over gloo: 64 "
-          f"rows of the stream a rank; loss {l2!r} (unsharded {l1!r}); "
-          f"parameters within {r0['worst']:.3e} of a leaf's max; prefill "
-          f"logits |diff| "
+          f"rows of the stream a rank; {held}; prefill logits |diff| "
           f"{r0['logits_err']:.3e} of max {r0['logits_max']:.3f}; launches "
           f"a rank: step {r0['train_launches']}, prefill "
           f"{r0['prefill_launches']}; op counts = the dry run's; step "
@@ -3397,22 +3715,25 @@ def mesh_tp(seed: int, smi: str, card_dev: str = "cuda",
           f"step with host-staged collectives, not a speed of the design); "
           f"collectives of the step {r0['train_counts']['collective_counts']}"
           f"; seconds: the two processes {t_ranks:.1f} (rank 0's parts "
-          f"{r0['seconds']}), the dry run's traces {t_trace:.1f}; card "
+          f"{r0['laps']}), the dry run's traces {t_trace:.1f}; card "
           f"{smi}")
-    return {"loss": l2, "loss_unsharded": l1, "worst": r0["worst"],
-            "logits_err": r0["logits_err"], "launches": launched,
-            "step_ms": ms, "counts": r0["train_counts"],
+    return {**_trained_record(r0), "logits_err": r0["logits_err"],
+            "launches": launched, "step_ms": ms,
+            "counts": r0["train_counts"],
             "prefill_counts": r0["prefill_counts"]}
 
 
 # 21(e): FSDP one layer at a time across two devices, two processes on the
 # one card over gloo on a (2, 1) ("data", "model") mesh: 4 x 128 tokens at
-# accum 2, one row a rank a microbatch
-MESH_FSDP, FSDP_ROWS, FSDP_ACCUM = (2, 1), 4, 2
+# accum 2, one row a rank a microbatch; glm4_9b cut to one layer, since
+# two ranks' float64 steps of two (a rank's half of the 0.62 B-weight
+# embedding, gathered whole, and its whole gradient, ~40 GB a rank) do
+# not fit the one card
+MESH_FSDP, FSDP_ROWS, FSDP_ACCUM, FSDP_LAYERS = (2, 1), 4, 2, 1
 
 
 def _fsdp_cfg(smoke: bool):
-    return _mesh_cfg(smoke).replace(accum=FSDP_ACCUM)
+    return _mesh_cfg(smoke).replace(accum=FSDP_ACCUM, n_layers=FSDP_LAYERS)
 
 
 def _fsdp_batch(cfg, seed: int, card_dev: str) -> dict:
@@ -3427,19 +3748,17 @@ def _fsdp_batch(cfg, seed: int, card_dev: str) -> dict:
 
 
 def _fsdp_run(rank: int, seed: int, card_dev: str, smoke: bool) -> dict:
-    """One rank of 21(e): one train step of the cut glm4_9b at accum 2 on
-    this rank's blocks (half of every leaf that "data" splits) and its
-    row of each microbatch, each layer gathered in its turn and its
-    gradient reduce-scattered as the backward leaves it; the step's op
-    counts, launches, peak memory and host seconds, the updated
-    parameters gathered whole; then, on rank 0, the unsharded step on the
-    card from the same state and the whole batch."""
-    from repro_torch.analysis import hlo
-    from repro_torch.kernels import ops
+    """One rank of 21(e): one train step at the base lr of the cut
+    glm4_9b at accum 2 on this rank's blocks (half of every leaf that
+    "data" splits) and its row of each microbatch, each layer gathered in
+    its turn and its gradient reduce-scattered as the backward leaves it,
+    in fp32 and float64 (part A, ``_train_sharded``): the step's op
+    counts, launches, peak memory and host seconds; then, on rank 0, the
+    unsharded step on the card from the same state and the whole batch
+    (``_train_unsharded``)."""
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.parallel import sharding as shd
     from repro_torch.parallel import steps as st
-    from repro_torch.tree import leaves
     cuda = card_dev == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     cfg = _fsdp_cfg(smoke)
@@ -3449,44 +3768,22 @@ def _fsdp_run(rank: int, seed: int, card_dev: str, smoke: bool) -> dict:
     whole = _fsdp_batch(cfg, seed, card_dev)
     batch = st.batch_rows(whole, mesh, rules, FSDP_ACCUM)
     gen = lambda: torch.Generator(device=card_dev).manual_seed(seed)
-    state = st.shard_state(st.init_train_state(cfg, gen(), card_dev), lay)
-    gc.collect()
-    if cuda:
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-    before = torch.cuda.memory_allocated() if cuda else 0
-    step = st.make_train_step(cfg, total_steps=10, warmup=2,
-                              accum=FSDP_ACCUM, mesh=mesh, rules=rules,
-                              global_batch=FSDP_ROWS)
-    ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    (state, m), rep = hlo.count(step, state, batch)
-    sync()
-    out = {"seconds": time.perf_counter() - t0,
-           "launches": ops.launch_counts(), "counts": _op_counts(rep),
-           "loss": float(m["loss"]), "rows": int(batch["tokens"].shape[1]),
-           "before": before,
-           "peak": torch.cuda.max_memory_allocated() if cuda else 0}
-    params = leaves(st.gather_state(state.params, lay.params))
-    del state, step
+    out, trained = _train_sharded(cfg, mesh, rules, lay, batch, gen,
+                                  card_dev, sync, rank == 0,
+                                  accum=FSDP_ACCUM, global_batch=FSDP_ROWS)
+    out["rows"] = int(batch["tokens"].shape[1])
     if rank:
         return out
-    plain_state = st.init_train_state(cfg, gen(), card_dev)
-    plain = st.make_train_step(cfg, total_steps=10, warmup=2,
-                               accum=FSDP_ACCUM)
-    plain_state, pm = plain(plain_state, whole)
-    out["loss_unsharded"] = float(pm["loss"])
-    out["worst"] = max(
-        ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
-        for a, b in zip(params, leaves(plain_state.params), strict=True))
+    out.update(_train_unsharded(cfg, gen, card_dev, whole, trained, sync,
+                                FSDP_ACCUM))
     return out
 
 
 def mesh_fsdp(seed: int, smi: str, card_dev: str = "cuda",
               smoke: bool = False) -> dict:
     """21(e): :func:`_fsdp_run` in two processes on the one card on a (2, 1)
-    mesh, FSDP only: the loss within 1e-6 of the unsharded step's, the
-    updated parameters within 1e-6 of each leaf's max; each rank's
+    mesh, FSDP only: its step at the base lr held against the unsharded
+    one in fp32 and float64 (``_hold_trained``); each rank's
     launches those of one train step at accum 2 (two microbatches launch
     what two steps of one do) and its op counts those of the dry run's
     trace of the same cell on an abstract (2, 1) mesh.  Prints each
@@ -3508,26 +3805,22 @@ def mesh_fsdp(seed: int, smi: str, card_dev: str = "cuda",
     t_trace = time.perf_counter() - t0
     for r, got in enumerate(ranks):
         check(got["rows"] == 1, f"rank {r} held {got['rows']} rows")
-        check(got["counts"] == want, f"rank {r}'s op counts "
-              f"{got['counts']} differ from the dry run's {want}")
+        check(got["train_counts"] == want, f"rank {r}'s op counts "
+              f"{got['train_counts']} differ from the dry run's {want}")
         if card_dev == "cuda":
-            check(got["launches"] == train_launches(cfg, FSDP_ACCUM),
-                  f"rank {r}'s step launched {got['launches']}, not "
+            check(got["train_launches"] == train_launches(cfg, FSDP_ACCUM),
+                  f"rank {r}'s step launched {got['train_launches']}, not "
                   f"{train_launches(cfg, FSDP_ACCUM)}")
     r0 = ranks[0]
-    l1, l2 = r0["loss_unsharded"], r0["loss"]
-    check(math.isfinite(l2) and abs(l1 - l2) <= 1e-6 * abs(l1),
-          f"FSDP loss {l2} against the unsharded {l1}")
-    check(r0["worst"] <= 1e-6, f"FSDP parameters off the unsharded step's "
-                               f"by {r0['worst']} of a leaf's max")
+    held = _hold_trained("21(e)", r0)
     whole = count_params(api.param_spec(cfg)) * 4
     counts = want["collective_counts"]
     print(f"  21(e) {cfg.name} {cfg.n_layers} layers, {FSDP_ROWS} x "
           f"{MESH_SEQ} tokens at accum {FSDP_ACCUM} on a {MESH_FSDP} mesh, "
           f"two processes on one card over gloo, one row a rank a "
-          f"microbatch: loss {l2!r} (unsharded {l1!r}); parameters within "
-          f"{r0['worst']:.3e} of a leaf's max; launches a rank "
-          f"{r0['launches']}; op counts = the dry run's ({counts}); peak "
+          f"microbatch: {held}; launches a rank "
+          f"{r0['train_launches']}; op counts = the dry run's ({counts}); "
+          f"peak "
           f"memory across the step a rank "
           f"{[round(r['peak'] / 1e9, 3) for r in ranks]} GB, "
           f"{[round(r['before'] / 1e9, 3) for r in ranks]} GB before it "
@@ -3537,10 +3830,11 @@ def mesh_fsdp(seed: int, smi: str, card_dev: str = "cuda",
           f"(host clock, gloo's collectives staged through the host); "
           f"seconds: the two processes {t_ranks:.1f}, the dry run's trace "
           f"{t_trace:.1f}; card {smi}")
-    return {"loss": l2, "loss_unsharded": l1, "worst": r0["worst"],
-            "launches": {k: sum(r["launches"][k] for r in ranks)
-                         for k in r0["launches"]},
-            "counts": r0["counts"], "peak_bytes": [r["peak"] for r in ranks],
+    return {**_trained_record(r0),
+            "launches": {k: sum(r["train_launches"][k] for r in ranks)
+                         for k in r0["train_launches"]},
+            "counts": r0["train_counts"],
+            "peak_bytes": [r["peak"] for r in ranks],
             "before_bytes": [r["before"] for r in ranks],
             "whole_tree_bytes": whole,
             "step_s": [r["seconds"] for r in ranks]}
@@ -3565,9 +3859,18 @@ def _ep_cfg(smoke: bool):
 class _OpShapes:
     """Records, of every call made while it is entered, the (heads, key
     width, value width) of ``ops.flash_attention`` and
-    ``ops.flash_decode`` and the experts of ``ops.moe_gmm``."""
+    ``ops.flash_decode``, the experts of ``ops.moe_gmm``, the heads of
+    ``ops.mamba_scan`` and the width of the split norm's entries."""
 
-    NAMES = ("flash_attention", "flash_decode", "moe_gmm")
+    SHAPE = {"flash_attention": lambda q, k, v, *a: [
+                 int(q.shape[2]), int(q.shape[3]), int(v.shape[3])],
+             "flash_decode": lambda q, k, v, *a: [
+                 int(q.shape[2]), int(q.shape[3]), int(v.shape[3])],
+             "moe_gmm": lambda x, *a: int(x.shape[0]),
+             "mamba_scan": lambda xh, *a: int(xh.shape[2]),
+             "rmsnorm_sumsq": lambda x, *a: int(x.shape[-1]),
+             "rmsnorm_scaled": lambda x, *a: int(x.shape[-1])}
+    NAMES = tuple(SHAPE)
 
     def __enter__(self):
         from repro_torch.kernels import ops
@@ -3577,11 +3880,9 @@ class _OpShapes:
         def recorder(name):
             fn, seen = self._fns[name], self.calls[name]
 
-            def recorded(x, w, *a, **k):
-                seen.append(int(x.shape[0]) if name == "moe_gmm" else
-                            [int(x.shape[2]), int(x.shape[3]),
-                             int(a[0].shape[3])])
-                return fn(x, w, *a, **k)
+            def recorded(*a, **k):
+                seen.append(self.SHAPE[name](*a))
+                return fn(*a, **k)
             return recorded
         for n in self.NAMES:
             setattr(ops, n, recorder(n))
@@ -3626,20 +3927,17 @@ def _mesh_serve(params, prefill, tick, prompt, dev, sync) -> dict:
 def _ep_run(rank: int, seed: int, card_dev: str, smoke: bool) -> dict:
     """One rank of 21(f): the mesh prefill of the cut deepseek_moe_16b (1 x
     128 tokens), four greedy serve ticks from its cache and one train step
-    on this rank's blocks (its 32 of 64 routed experts, half the query
-    heads, the MLPs and the vocab, 64 of the 128 rows of the stream): op
-    counts, launches, the experts of each ``moe_gmm`` call, peak memory,
-    the tokens and the updated parameters gathered whole; then, on rank
-    0, the unsharded prefill, ticks and step on the card from the same
-    state and batch."""
-    from repro_torch.analysis import hlo
+    at the base lr in fp32 and float64 (part A, ``_train_sharded``) on
+    this rank's blocks (its 32 of 64 routed experts, half the query heads,
+    the MLPs and the vocab, 64 of the 128 rows of the stream): op counts,
+    launches, the experts of each ``moe_gmm`` call, peak memory, the
+    tokens; then, on rank 0, the unsharded prefill, ticks and step on the
+    card from the same state and batch (``_train_unsharded``)."""
     from repro_torch.data import DataConfig, synthetic_batch
-    from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import api
     from repro_torch.parallel import sharding as shd
     from repro_torch.parallel import steps as st
-    from repro_torch.tree import leaves
     cuda = card_dev == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     cfg = _ep_cfg(smoke)
@@ -3651,7 +3949,7 @@ def _ep_run(rank: int, seed: int, card_dev: str, smoke: bool) -> dict:
         card_dev)
     prompt = {"tokens": batch["tokens"]}
     gen = lambda: torch.Generator(device=card_dev).manual_seed(seed)
-    state = st.shard_state(st.init_train_state(cfg, gen(), card_dev), lay)
+    state = _state_blocks(cfg, lay, gen(), card_dev)
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
@@ -3662,41 +3960,29 @@ def _ep_run(rank: int, seed: int, card_dev: str, smoke: bool) -> dict:
         cfg, MESH_SEQ + MESH_TICKS, mesh, rules, 1),
         st.make_serve_step(cfg, mesh, rules, 1), prompt, card_dev, sync)
     out["gmm_experts"] = out.pop("shapes")["moe_gmm"]
-    step = st.make_train_step(cfg, total_steps=10, warmup=2, mesh=mesh,
-                              rules=rules, global_batch=1)
-    ops.reset_launch_counts()
-    (state, m), rep = hlo.count(step, state, batch)
-    sync()
-    out.update(train_launches=ops.launch_counts(),
-               train_counts=_op_counts(rep), loss=float(m["loss"]),
-               seconds=time.perf_counter() - t0,
-               peak=torch.cuda.max_memory_allocated() if cuda else 0)
-    whole = leaves(st.gather_state(state.params, lay.params))
-    del state, step
+    out.update(serve_seconds=time.perf_counter() - t0,
+               serve_peak=torch.cuda.max_memory_allocated() if cuda else 0)
+    del state
+    got, trained = _train_sharded(cfg, mesh, rules, lay, batch, gen,
+                                  card_dev, sync, rank == 0, global_batch=1)
+    out.update(got)
     if rank:
         out.pop("logits")
         return out
-    gc.collect()
-    if cuda:
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
+    _fresh(cuda)
     plain_state = st.init_train_state(cfg, gen(), card_dev)
     with torch.no_grad():
         want = _mesh_serve(plain_state.params,
                            api.prefill_fn(cfg, MESH_SEQ + MESH_TICKS),
                            st.make_serve_step(cfg), prompt, card_dev, sync)
-    plain_state, pm = st.make_train_step(cfg, total_steps=10, warmup=2)(
-        plain_state, batch)
+    out["serve_peak_unsharded"] = torch.cuda.max_memory_allocated() \
+        if cuda else 0
+    del plain_state
     logits = out.pop("logits")
-    out.update(
-        loss_unsharded=float(pm["loss"]),
-        logits_err=(logits - want["logits"]).abs().max().item(),
-        logits_max=want["logits"].abs().max().item(),
-        tokens_unsharded=want["tokens"],
-        peak_unsharded=torch.cuda.max_memory_allocated() if cuda else 0,
-        worst=max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30)
-                   ).item() for a, b in zip(whole, leaves(
-                       plain_state.params), strict=True)))
+    out.update(logits_err=(logits - want["logits"]).abs().max().item(),
+               logits_max=want["logits"].abs().max().item(),
+               tokens_unsharded=want["tokens"])
+    out.update(_train_unsharded(cfg, gen, card_dev, batch, trained, sync))
     return out
 
 
@@ -3746,8 +4032,8 @@ def mesh_ep(seed: int, smi: str, card_dev: str = "cuda",
     """21(f): :func:`_ep_run` in two processes on the one card on the (1, 2)
     mesh, expert parallel: the prefill's logits within 1e-5 of max |logit|
     of the unsharded prefill's, the four ticks' tokens equal to the
-    unsharded ones, the loss within 1e-6 and the updated parameters within
-    1e-6 of each leaf's max of the unsharded step's; each rank's
+    unsharded ones, the train step at the base lr held against the
+    unsharded one in fp32 and float64 (``_hold_trained``); each rank's
     ``moe_gmm`` launches on E/2 experts (32), its launches those of a
     prefill (2 flash attentions, 5 RMSNorms, 3 ``moe_gmm``), of the ticks
     (per tick 2 flash decodes, 5 RMSNorms, 3 ``moe_gmm``) and of a train
@@ -3791,12 +4077,7 @@ def mesh_ep(seed: int, smi: str, card_dev: str = "cuda",
                 check(got[f"{part}_launches"] == want, f"rank {r}'s {part} "
                       f"launched {got[f'{part}_launches']}, not {want}")
     r0 = ranks[0]
-    l1, l2 = r0["loss_unsharded"], r0["loss"]
-    check(math.isfinite(l2) and abs(l1 - l2) <= 1e-6 * abs(l1),
-          f"expert-parallel loss {l2} against the unsharded {l1}")
-    check(r0["worst"] <= 1e-6, f"expert-parallel parameters off the "
-                               f"unsharded step's by {r0['worst']} of a "
-                               f"leaf's max")
+    held = _hold_trained("21(f)", r0)
     check(r0["logits_err"] <= 1e-5 * r0["logits_max"],
           f"expert-parallel prefill logits off by {r0['logits_err']} "
           f"(max |logit| {r0['logits_max']})")
@@ -3817,27 +4098,28 @@ def mesh_ep(seed: int, smi: str, card_dev: str = "cuda",
           f"{MESH_SEQ} tokens on a {MESH_TP} mesh, two processes on one card "
           f"over gloo, {half} experts a rank: prefill logits |diff| "
           f"{r0['logits_err']:.3e} of max {r0['logits_max']:.3f}; "
-          f"{MESH_TICKS} ticks' tokens equal {r0['tokens']}; loss {l2!r} "
-          f"(unsharded {l1!r}); parameters within {r0['worst']:.3e} of a "
-          f"leaf's max; moe_gmm calls a rank {len(r0['gmm_experts'])}, each "
+          f"{MESH_TICKS} ticks' tokens equal {r0['tokens']}; {held}; "
+          f"moe_gmm calls a rank {len(r0['gmm_experts'])}, each "
           f"on {half} experts; launches a rank: prefill "
           f"{r0['prefill_launches']}, ticks {r0['tick_launches']}, step "
           f"{r0['train_launches']}; op counts = the dry run's (step "
           f"{r0['train_counts']['collective_counts']}, tick "
           f"{r0['tick_counts']['collective_counts']}); host syncs in a tick "
           f"under sync debug mode \"error\": {synced}; peak memory a rank "
-          f"{[round(r['peak'] / 1e9, 3) for r in ranks]} GB, unsharded "
-          f"{r0['peak_unsharded'] / 1e9:.3f} GB; seconds: the two processes "
-          f"{t_ranks:.1f} (rank 0's sharded parts "
-          f"{r0['seconds']:.1f}), the dry run's traces {t_trace:.1f}; card "
-          f"{smi}")
-    return {"loss": l2, "loss_unsharded": l1, "worst": r0["worst"],
+          f"served {[round(r['serve_peak'] / 1e9, 3) for r in ranks]} GB "
+          f"(unsharded {r0['serve_peak_unsharded'] / 1e9:.3f}), trained "
+          f"{[round(r['peak'] / 1e9, 3) for r in ranks]} GB (unsharded "
+          f"{r0['peak_unsharded'] / 1e9:.3f}); seconds: the two processes "
+          f"{t_ranks:.1f} (rank 0's sharded serving "
+          f"{r0['serve_seconds']:.1f}, step {r0['seconds']:.1f}), the dry "
+          f"run's traces {t_trace:.1f}; card {smi}")
+    return {**_trained_record(r0),
             "logits_err": r0["logits_err"], "logits_max": r0["logits_max"],
             "tokens": r0["tokens"], "launches": launched,
             "gmm_experts": r0["gmm_experts"], "counts": r0["train_counts"],
             "tick_counts": r0["tick_counts"],
-            "peak_bytes": [r["peak"] for r in ranks],
-            "peak_unsharded_bytes": r0["peak_unsharded"]}
+            "peak_bytes": [r["serve_peak"] for r in ranks],
+            "peak_unsharded_bytes": r0["serve_peak_unsharded"]}
 
 
 # 21(g): tensor parallelism of MLA on the card, two processes on the one
@@ -3876,65 +4158,27 @@ def _blocks_from_seed(spec, lay, gen, dev):
             for k, v in spec.items()}
 
 
-def _leaf_paths(tree, at: str = "") -> list:
-    """The "/"-joined key path of each leaf of a tree of dicts, in
-    ``tree.leaves`` order."""
-    if not isinstance(tree, dict):
-        return [at]
-    return [p for k in sorted(tree)
-            for p in _leaf_paths(tree[k], f"{at}/{k}" if at else k)]
-
-
-def _trained(state, lay) -> tuple:
-    """The parameters and the first moments of a sharded train state,
-    gathered whole a leaf at a time into host memory (two ranks' float64
-    states and their gathered copies do not fit the one card); after one
-    step the first moments hold the clipped gradient times 1 - b1."""
-    from repro_torch.tree import leaves
-
-    def whole(tree, lays):
-        return [lw.gather(x).to("cpu", copy=True) for x, lw in zip(
-            leaves(tree), leaves(lays), strict=True)]
-    return whole(state.params, lay.params), whole(state.opt.m, lay.opt.m)
-
-
 def _mla_run(rank: int, seed: int, card_dev: str, smoke: bool) -> dict:
     """One rank of 21(g), each cut of ``MLA_CUTS`` in turn on this rank's
     blocks (half the heads of wq_b, wkv_b and wo, half the experts, the
     MLPs and the vocab; 64 of the 128 rows of the stream): a cut served
     runs the 1 x 128 mesh prefill and four greedy ticks (logits, tokens,
-    launches, op counts, the wrappers' shapes); a cut trained runs one
-    step at the base lr (launches, op counts, the loss, the parameters and
-    first moments gathered whole), then the same step in float64 with
-    plain attention; each with this rank's peak memory (a trained cut's
-    of its fp32 step).  Then, on rank 0, each cut unsharded on the card
-    from the same seed, every sharded tensor freed first, a trained one
-    in fp32 and in float64: the gaps of each leaf (``fp32``, ``fp64``)
-    and the fp32 step's own gap to float64 (``own``)."""
-    from repro_torch.analysis import hlo
-    from repro_torch.analysis.precision import Float64, double
+    launches, op counts, the wrappers' shapes, this rank's peak memory);
+    a cut trained runs one step at the base lr in fp32 and float64 (part
+    A, ``_train_sharded``).  Then, on rank 0, each cut unsharded on the
+    card from the same seed, every sharded tensor freed first
+    (``_train_unsharded`` for a trained one)."""
     from repro_torch.data import DataConfig, synthetic_batch
-    from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import api
     from repro_torch.models.common import init_params
     from repro_torch.parallel import sharding as shd
     from repro_torch.parallel import steps as st
-    from repro_torch.tree import leaves
     cuda = card_dev == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     mesh = make_mesh(MESH_TP, ("data", "model"), card_dev)
     rules = shd.default_rules()
     gen = lambda: torch.Generator(device=card_dev).manual_seed(seed)
-
-    def fresh():
-        gc.collect()
-        if cuda:
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-
-    def peak():
-        return torch.cuda.max_memory_allocated() if cuda else 0
     out, wholes = {}, {}
     for arch, n, part in MLA_CUTS:
         cfg = _mla_cfg(arch, n, smoke)
@@ -3942,9 +4186,9 @@ def _mla_run(rank: int, seed: int, card_dev: str, smoke: bool) -> dict:
             seq_len=MESH_SEQ, global_batch=1, vocab=cfg.vocab, seed=seed),
             0), card_dev)
         lay = st.state_layouts(cfg, mesh, rules)
-        fresh()
-        t0 = time.perf_counter()
         if part == "serve":
+            _fresh(cuda)
+            t0 = time.perf_counter()
             params = _blocks_from_seed(api.param_spec(cfg), lay.params,
                                        gen(), card_dev)
             got = _mesh_serve(
@@ -3953,41 +4197,16 @@ def _mla_run(rank: int, seed: int, card_dev: str, smoke: bool) -> dict:
                 st.make_serve_step(cfg, mesh, rules, 1),
                 {"tokens": batch["tokens"]}, card_dev, sync)
             del params
-        else:
-            state = st.shard_state(st.init_train_state(cfg, gen(),
-                                                       card_dev), lay)
-            # no warmup: the step compared runs at the base lr, so that
-            # it moves the weights (a first step under warmup has lr 0)
-            step = st.make_train_step(cfg, total_steps=10, warmup=0,
-                                      mesh=mesh, rules=rules,
-                                      global_batch=1)
-            ops.reset_launch_counts()
-            (state, m), rep = hlo.count(step, state, batch)
             sync()
-            got = {"train_launches": ops.launch_counts(),
-                   "train_counts": _op_counts(rep), "loss": float(m["loss"]),
-                   "lr": float(m["lr"]), "seconds": time.perf_counter() - t0,
-                   "peak": peak()}
-            trained = [_trained(state, lay)]
-            del state, step
-            fresh()
-            # the float64 witness: the same step from the same state, its
-            # attention the plain one (the kernels take no float64)
-            wide = cfg.replace(attn_impl="chunked")
-            state = double(st.shard_state(st.init_train_state(
-                wide, gen(), card_dev), lay))
-            with Float64():
-                state, m = st.make_train_step(
-                    wide, total_steps=10, warmup=0, mesh=mesh, rules=rules,
-                    global_batch=1)(state, batch)
-                trained.append(_trained(state, lay))
-            got["loss64"] = float(m["loss"])
+            got.update(seconds=time.perf_counter() - t0,
+                       peak=torch.cuda.max_memory_allocated() if cuda else 0)
+        else:
+            got, trained = _train_sharded(cfg, mesh, rules, lay, batch, gen,
+                                          card_dev, sync, rank == 0,
+                                          global_batch=1)
             if rank == 0:
                 wholes[arch] = trained
-            del state, trained
-        if part == "serve":
-            sync()
-            got.update(seconds=time.perf_counter() - t0, peak=peak())
+            del trained
         out[f"{arch}/{part}"] = got
     if rank:
         for got in out.values():
@@ -3999,84 +4218,27 @@ def _mla_run(rank: int, seed: int, card_dev: str, smoke: bool) -> dict:
             seq_len=MESH_SEQ, global_batch=1, vocab=cfg.vocab, seed=seed),
             0), card_dev)
         got = out[f"{arch}/{part}"]
-        fresh()
-        if part == "serve":
-            params = init_params(api.param_spec(cfg), gen(), card_dev)
-            with torch.no_grad():
-                want = _mesh_serve(
-                    params, api.prefill_fn(cfg, MESH_SEQ
-                                                + MESH_TICKS),
-                    st.make_serve_step(cfg), {"tokens": batch["tokens"]},
-                    card_dev, sync)
-            del params
-            # over the real vocab: the padded columns hold -1e30
-            logits = got.pop("logits")[..., :cfg.vocab]
-            plain = want["logits"][..., :cfg.vocab]
-            got.update(
-                logits_err=(logits - plain).abs().max().item(),
-                logits_max=plain.abs().max().item(),
-                tokens_unsharded=want["tokens"], peak_unsharded=peak())
+        if part == "train":
+            got.update(_train_unsharded(cfg, gen, card_dev, batch,
+                                        wholes.pop(arch), sync))
             continue
-        (p32, m32), (p64, m64) = wholes.pop(arch)
-        state = st.init_train_state(cfg, gen(), card_dev)
-        before = [p.clone() for p in leaves(state.params)]
-        state, pm = st.make_train_step(cfg, total_steps=10, warmup=0)(
-            state, batch)
-        sync()
-        got["peak_unsharded"] = peak()
-        names = _leaf_paths(state.params)
-
-        def gaps(mine, theirs):
-            """Each leaf's largest absolute gap and the largest |value| of
-            ``theirs``, by the leaf's path."""
-            return {k: ((a.to(b.device) - b).abs().max().item(),
-                        b.abs().max().item())
-                    for k, a, b in zip(names, mine, theirs, strict=True)}
-        u32 = leaves(state.params), leaves(state.opt.m)
-        # how far the step moved each leaf, of its max before the step
-        moved = [d / top for d, top in gaps(u32[0], before).values()]
-        fp32 = {"params": gaps(p32, u32[0]), "m": gaps(m32, u32[1])}
-        del state, before, p32, m32
-        fresh()
-        wide = cfg.replace(attn_impl="chunked")
-        state = double(st.init_train_state(wide, gen(), card_dev))
-        with Float64():
-            state, pm64 = st.make_train_step(wide, total_steps=10,
-                                             warmup=0)(state, batch)
-        u64 = leaves(state.params), leaves(state.opt.m)
-        fp64 = {"params": gaps(p64, u64[0]), "m": gaps(m64, u64[1])}
-        # the unsharded fp32 step's own gap to its float64 run: the
-        # rounding the sharded one is held against
-        own = {"params": gaps(u32[0], u64[0]), "m": gaps(u32[1], u64[1])}
-        got.update(loss_unsharded=float(pm["loss"]),
-                   loss64_unsharded=float(pm64["loss"]),
-                   lr_unsharded=float(pm["lr"]), moved_least=min(moved),
-                   moved_most=max(moved), fp32=fp32, fp64=fp64, own=own)
-        del state, u32, u64, p64, m64
+        _fresh(cuda)
+        params = init_params(api.param_spec(cfg), gen(), card_dev)
+        with torch.no_grad():
+            want = _mesh_serve(
+                params, api.prefill_fn(cfg, MESH_SEQ + MESH_TICKS),
+                st.make_serve_step(cfg), {"tokens": batch["tokens"]},
+                card_dev, sync)
+        del params
+        # over the real vocab: the padded columns hold -1e30
+        logits = got.pop("logits")[..., :cfg.vocab]
+        plain = want["logits"][..., :cfg.vocab]
+        got.update(
+            logits_err=(logits - plain).abs().max().item(),
+            logits_max=plain.abs().max().item(),
+            tokens_unsharded=want["tokens"],
+            peak_unsharded=torch.cuda.max_memory_allocated() if cuda else 0)
     return out
-
-
-def _worst(gaps: dict) -> dict:
-    """Of {"params": {leaf: (gap, max)}, "m": {...}}, each group's largest
-    gap as a share of its leaf's max, and that leaf."""
-    return {g: max((d / max(top, 1e-30), k) for k, (d, top)
-                   in by_leaf.items()) for g, by_leaf in gaps.items()}
-
-
-def _adam_first_step_slack(r0: dict, prec: str, tol: float) -> dict:
-    """Each leaf's bound on its parameters' gap after one AdamW step, from
-    its first moments' gap.  At the first step the update is lr g / (|g| +
-    eps) + lr wd p, and g -> g / (|g| + eps) has slope at most 1 / eps
-    (at g = 0): a gradient gap dg moves a parameter by up to lr dg / eps,
-    and m = (1 - b1) g.  So the parameters, from the same p, may differ
-    by lr / eps x max |dm| / (1 - b1), plus ``tol`` of the leaf's max for
-    the rounding of the update itself."""
-    import inspect
-    from repro_torch.optim.adamw import adamw_update
-    arg = inspect.signature(adamw_update).parameters
-    eps, b1 = arg["eps"].default, arg["b1"].default
-    return {k: r0["lr"] / eps * r0[prec]["m"][k][0] / (1 - b1) + tol * top
-            for k, (_, top) in r0[prec]["params"].items()}
 
 
 def _mla_want_launches(cfg, part: str) -> dict:
@@ -4106,17 +4268,11 @@ def mesh_mla(seed: int, smi: str, card_dev: str = "cuda",
     four ticks' tokens equal to the unsharded ones, each rank's flash
     attentions and latent flash decodes on half the heads at the model's
     widths and its grouped matmuls on half the experts; each trained
-    cut's step, at the base lr with no warmup so that it moves every leaf,
-    with its loss within 1e-6 of the unsharded step's and each leaf of
-    its first moments (the clipped gradients) within 4 times the
-    unsharded step's own gap to its float64 run, or 1e-6, of the leaf's
-    max, and the same step in float64 (attention plain) with its loss,
-    parameters and first moments within 1e-12 of the unsharded float64
-    step's (fp32 parameters: Adam's first step takes each gradient to
-    about +-1 where it is well above eps and amplifies its rounding where
-    it is near eps, so they are printed, and held in float64); each rank's launches those of its cut and its op counts equal to the
-    dry run's trace of the same cells on an abstract (1, 2) mesh.  Prints
-    each rank's peak memory beside the unsharded run's."""
+    cut's step at the base lr held against the unsharded one in fp32 and
+    float64 (``_hold_trained``); each rank's launches those of its cut
+    and its op counts equal to the dry run's trace of the same cells on
+    an abstract (1, 2) mesh.  Prints each rank's peak memory beside the
+    unsharded run's."""
     from repro_torch.configs import InputShape
     from repro_torch.launch import dryrun
     from repro_torch.parallel.comm import AbstractMesh
@@ -4194,63 +4350,9 @@ def mesh_mla(seed: int, smi: str, card_dev: str = "cuda",
                   f"unsharded {r0['peak_unsharded'] / 1e9:.3f} GB; rank 0's "
                   f"sharded seconds {r0['seconds']:.1f}; card {smi}")
         else:
-            l1, l2 = r0["loss_unsharded"], r0["loss"]
-            check(math.isfinite(l2) and abs(l1 - l2) <= 1e-6 * abs(l1),
-                  f"21(g) {key}: loss {l2} against the unsharded {l1}")
-            check(abs(r0["loss64"] - r0["loss64_unsharded"])
-                  <= 1e-12 * abs(r0["loss64_unsharded"]),
-                  f"21(g) {key}: float64 loss {r0['loss64']!r} against the "
-                  f"unsharded {r0['loss64_unsharded']!r}")
-            check(r0["lr"] == r0["lr_unsharded"] > 0.0
-                  and r0["moved_least"] > 0.0, f"21(g) {key}: the step "
-                  f"compared ran at lr {r0['lr']} (unsharded "
-                  f"{r0['lr_unsharded']}) and moved a leaf by as little "
-                  f"as {r0['moved_least']} of its max")
-            worst = {k: _worst(r0[k]) for k in ("fp32", "fp64", "own")}
-            # the gradients (first moments): in float64 within 1e-12 of a
-            # leaf's max; in fp32, which rounds otherwise on the mesh (sums
-            # over the axis of its heads', its experts' and the whole
-            # leaves' parts), within 4 times the unsharded step's own gap
-            # to float64, or 1e-6
-            v, leaf = worst["fp64"]["m"]
-            check(v <= 1e-12, f"21(g) {key}: float64 first moments off the "
-                  f"unsharded step's by {v} of a leaf's max at {leaf}")
-            for leaf, (d, top) in r0["fp32"]["m"].items():
-                own, _ = r0["own"]["m"][leaf]
-                check(d <= max(1e-6 * top, 4 * own), f"21(g) {key}: first "
-                      f"moments at {leaf} off the unsharded step's by {d} "
-                      f"(max {top}), over 4 x its own gap to float64 "
-                      f"({own}) and 1e-6 of the max")
-            # the parameters: within what Adam's first step makes of the
-            # first moments' gap
-            slack = {}
-            for prec, tol in (("fp64", 1e-12), ("fp32", 1e-6)):
-                lim = _adam_first_step_slack(r0, prec, tol)
-                for leaf, (d, top) in r0[prec]["params"].items():
-                    check(d <= lim[leaf], f"21(g) {key}: {prec} parameters "
-                          f"at {leaf} off the unsharded step's by {d} (max "
-                          f"{top}), over {lim[leaf]}, lr / eps x its first "
-                          f"moments' gap / (1 - b1) + {tol} of the max")
-                slack[prec] = max(d / lim[k] for k, (d, _)
-                                  in r0[prec]["params"].items())
-
-            def held(k, g):
-                v, leaf = worst[k][g]
-                return f"{v:.3e} ({leaf})"
+            held = _hold_trained(f"21(g) {key}", r0)
             print(f"  21(g) {cfg.name} {n} layer(s) trained, 1 x {MESH_SEQ} "
-                  f"tokens on a {MESH_TP} mesh, one step at lr "
-                  f"{r0['lr']:.3e}, which moved each leaf by "
-                  f"{r0['moved_least']:.3e} to {r0['moved_most']:.3e} of "
-                  f"its max: fp32 loss {l2!r} (unsharded {l1!r}); the "
-                  f"largest gap to the unsharded step, a share of the "
-                  f"leaf's max, in fp32 first moments {held('fp32', 'm')}, "
-                  f"parameters {held('fp32', 'params')}, the unsharded "
-                  f"fp32 step's own gap to float64 {held('own', 'm')} and "
-                  f"{held('own', 'params')}; in float64 (attention plain) "
-                  f"first moments {held('fp64', 'm')}, parameters "
-                  f"{held('fp64', 'params')} (of their bound from the "
-                  f"moments' gap at most {slack['fp32']:.3f} in fp32, "
-                  f"{slack['fp64']:.3f} in float64); launches a rank "
+                  f"tokens on a {MESH_TP} mesh, {held}; launches a rank "
                   f"{r0['train_launches']}; op counts = the dry run's "
                   f"({r0['train_counts']['collective_counts']}); peak memory "
                   f"a rank {[round(rk[key]['peak'] / 1e9, 3) for rk in ranks]}"
@@ -4262,6 +4364,212 @@ def mesh_mla(seed: int, smi: str, card_dev: str = "cuda",
     return {"cuts": result, "launches": launched}
 
 
+# 21(h): tensor and sequence parallelism of the hybrid on the card, two
+# processes on the one card over gloo on the (1, 2) mesh of 21(d):
+# full-width zamba2_7b cut to its first group (6 Mamba2 layers and one
+# application of a shared attention block) and one rest layer, 56 of the
+# 112 Mamba2 heads and 16 of the 32 attention heads a rank, served and
+# trained
+HYBRID_LAYERS = 7
+
+
+def _hybrid_cfg(smoke: bool):
+    """zamba2_7b at full width (reduced in the CPU rehearsal) cut to
+    HYBRID_LAYERS: one group of ``attn_every`` (6) Mamba2 layers, one
+    application of a shared attention block and one rest layer; fp32, one
+    microbatch.  One group applies only the first of the shared weight
+    sets, so the cut keeps that one (an unused set would take no
+    gradient)."""
+    from repro_torch.configs import get_config
+    cfg = get_config("zamba2_7b")
+    if smoke:
+        cfg = cfg.reduced().replace(attn_every=6)
+    return cfg.replace(n_layers=HYBRID_LAYERS, n_shared_attn=1,
+                       dtype="float32", accum=1,
+                       attn_impl="chunked" if smoke else "kernel")
+
+
+def _hybrid_run(rank: int, seed: int, card_dev: str, smoke: bool) -> dict:
+    """One rank of 21(h): the 1 x 128 mesh prefill of the cut zamba2_7b and
+    four greedy ticks on this rank's blocks (its heads of the Mamba2
+    layers' gated-norm scale and out_proj, in_proj and the conv gathered
+    whole and sliced, half the attention heads, the MLP and the vocab; 64
+    of the 128 rows of the stream): logits, tokens, launches, op counts,
+    the wrappers' shapes, this rank's peak memory; then one train step at
+    the base lr in fp32 and float64 (part A, ``_train_sharded``).  Then,
+    on rank 0, the unsharded prefill, ticks and step from the same seed
+    (``_train_unsharded``)."""
+    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import api
+    from repro_torch.models.common import init_params
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel import steps as st
+    cuda = card_dev == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    cfg = _hybrid_cfg(smoke)
+    mesh = make_mesh(MESH_TP, ("data", "model"), card_dev)
+    rules = shd.default_rules()
+    lay = st.state_layouts(cfg, mesh, rules)
+    batch = to_dev(synthetic_batch(DataConfig(
+        seq_len=MESH_SEQ, global_batch=1, vocab=cfg.vocab, seed=seed), 0),
+        card_dev)
+    prompt = {"tokens": batch["tokens"]}
+    gen = lambda: torch.Generator(device=card_dev).manual_seed(seed)
+    _fresh(cuda)
+    t0 = time.perf_counter()
+    params = _blocks_from_seed(api.param_spec(cfg), lay.params, gen(),
+                               card_dev)
+    out = _mesh_serve(params, st.make_prefill_step(
+        cfg, MESH_SEQ + MESH_TICKS, mesh, rules, 1),
+        st.make_serve_step(cfg, mesh, rules, 1), prompt, card_dev, sync)
+    del params
+    sync()
+    out.update(serve_seconds=time.perf_counter() - t0,
+               serve_peak=torch.cuda.max_memory_allocated() if cuda else 0)
+    got, trained = _train_sharded(cfg, mesh, rules, lay, batch, gen,
+                                  card_dev, sync, rank == 0, global_batch=1)
+    out.update(got)
+    if rank:
+        out.pop("logits")
+        return out
+    _fresh(cuda)
+    params = init_params(api.param_spec(cfg), gen(), card_dev)
+    with torch.no_grad():
+        want = _mesh_serve(params, api.prefill_fn(cfg, MESH_SEQ + MESH_TICKS),
+                           st.make_serve_step(cfg), prompt, card_dev, sync)
+    out["serve_peak_unsharded"] = torch.cuda.max_memory_allocated() \
+        if cuda else 0
+    del params
+    logits = out.pop("logits")[..., :cfg.vocab]
+    plain = want["logits"][..., :cfg.vocab]
+    out.update(logits_err=(logits - plain).abs().max().item(),
+               logits_max=plain.abs().max().item(),
+               tokens_unsharded=want["tokens"])
+    out.update(_train_unsharded(cfg, gen, card_dev, batch, trained, sync))
+    return out
+
+
+def _hybrid_want_launches(cfg) -> dict:
+    """The launches a rank of 21(h) makes: a prefill's SSD scan a Mamba2
+    layer, a flash attention a shared application, the split gated norm's
+    two entries a Mamba2 layer, and the RMSNorm kernel for the Mamba2
+    layers' pre-norms, the shared blocks' two and the final one; a tick
+    the same but a flash decode for the attention and no scan (the SSD
+    step is plain); a train step one flash attention a shared application
+    (run without remat, as JAX's ``group_body`` runs it; the norms and the
+    SSD are plain on the training route)."""
+    n, groups = cfg.n_layers, cfg.n_layers // cfg.attn_every
+    norms = {"rmsnorm": n + 2 * groups + 1, "rmsnorm_sumsq": n,
+             "rmsnorm_scaled": n}
+    zero = train_launches(cfg, 0)
+    return {"prefill": dict(zero, mamba_scan=n, flash_attention=groups,
+                            **norms),
+            "tick": dict(zero, flash_decode=groups * MESH_TICKS,
+                         **{k: v * MESH_TICKS for k, v in norms.items()}),
+            "train": dict(zero, flash_attention=groups)}
+
+
+def mesh_hybrid(seed: int, smi: str, card_dev: str = "cuda",
+                smoke: bool = False) -> dict:
+    """21(h): :func:`_hybrid_run` in two processes on the one card on the
+    (1, 2) mesh, tensor parallel over the Mamba2 heads and the shared
+    attention's: the prefill's logits within 1e-5 of max |logit| of the
+    unsharded prefill's and its four ticks' tokens equal to the unsharded
+    ones; each rank's SSD scans on half the Mamba2 heads, its flash
+    attentions and flash decodes on half the attention heads at D 112,
+    its split-norm entries on half the gated norm's channels, its
+    launches those of its cut (``_hybrid_want_launches``) and its op
+    counts the dry run's trace of the same cells on an abstract (1, 2)
+    mesh; the train step at the base lr held against the unsharded one in
+    fp32 and float64 (``_hold_trained``).  Prints each rank's peak memory
+    beside the unsharded run's."""
+    from repro_torch.configs import InputShape
+    from repro_torch.launch import dryrun
+    from repro_torch.parallel.comm import AbstractMesh
+    cfg = _hybrid_cfg(smoke)
+    ranks, t_ranks = _two_ranks(_hybrid_run, seed, card_dev, smoke)
+    t0 = time.perf_counter()
+    am = AbstractMesh(MESH_TP, ("data", "model"))
+    for kind, seq, key in (("train", MESH_SEQ, "train_counts"),
+                           ("prefill", MESH_SEQ, "prefill_counts"),
+                           ("decode", MESH_SEQ + MESH_TICKS,
+                            "tick_counts")):
+        cell = dryrun.trace_cell(cfg, InputShape("cut", seq, 1, kind),
+                                 am)["hlo_analysis"]
+        want = json.loads(json.dumps({k: cell[k] for k in (
+            "flops", "collective_bytes", "collective_counts")}))
+        for r, got in enumerate(ranks):
+            check(got[key] == want, f"21(h): rank {r}'s {kind} op counts "
+                  f"{got[key]} differ from the dry run's {want}")
+    t_trace = time.perf_counter() - t0
+    m = MESH_TP[1]
+    h = cfg.ssm_expand * cfg.d_model // cfg.ssm_headdim
+    n, groups = cfg.n_layers, cfg.n_layers // cfg.attn_every
+    attn = [cfg.n_heads // m, cfg.dh, cfg.dh]
+    for r, rk in enumerate(ranks):
+        sh = rk["shapes"]
+        check(sh["mamba_scan"] == [h // m] * n or smoke, f"21(h): rank {r}'s "
+              f"SSD scans took {sh['mamba_scan']} heads, not {h // m}")
+        # the CPU rehearsal's prefill attention is the plain one
+        check(sh["flash_attention"] == [attn] * groups or smoke,
+              f"21(h): rank {r}'s flash attentions took "
+              f"{sh['flash_attention']}, not {attn}")
+        check(sh["flash_decode"] == [attn] * groups * MESH_TICKS,
+              f"21(h): rank {r}'s flash decodes took {sh['flash_decode']}")
+        width = cfg.ssm_expand * cfg.d_model // m
+        for e in ("rmsnorm_sumsq", "rmsnorm_scaled"):
+            check(sh[e] == [width] * n * (1 + MESH_TICKS), f"21(h): rank "
+                  f"{r}'s {e} calls took widths {sh[e]}, not {width}")
+    if card_dev == "cuda":
+        for p, want in _hybrid_want_launches(cfg).items():
+            for r, rk in enumerate(ranks):
+                check(rk[f"{p}_launches"] == want, f"21(h): rank {r}'s {p} "
+                      f"launched {rk[f'{p}_launches']}, not {want}")
+    r0 = ranks[0]
+    check(r0["logits_err"] <= 1e-5 * r0["logits_max"],
+          f"21(h): prefill logits off by {r0['logits_err']} (max |logit| "
+          f"{r0['logits_max']})")
+    check(r0["tokens"] == r0["tokens_unsharded"] == ranks[1]["tokens"],
+          f"21(h): tokens {r0['tokens']} against the unsharded "
+          f"{r0['tokens_unsharded']}")
+    held = _hold_trained("21(h)", r0)
+    launched = {k: sum(rk[f"{p}_launches"][k] for rk in ranks
+                       for p in ("prefill", "tick", "train"))
+                for k in r0["train_launches"]}
+    print(f"  21(h) {cfg.name} {n} layers ({groups} group(s) of "
+          f"{cfg.attn_every} Mamba2 layers and a shared attention block, "
+          f"{n % cfg.attn_every} rest), 1 x {MESH_SEQ} tokens on a {MESH_TP} "
+          f"mesh, two processes on one card over gloo: {h // m} of {h} "
+          f"Mamba2 heads and {attn[0]} of {cfg.n_heads} attention heads a "
+          f"rank (SSD scans {r0['shapes']['mamba_scan']} heads, flash "
+          f"attention {attn}, split norm {width} of "
+          f"{cfg.ssm_expand * cfg.d_model} channels); prefill logits |diff| "
+          f"{r0['logits_err']:.3e} of max {r0['logits_max']:.3f}; "
+          f"{MESH_TICKS} ticks' tokens equal {r0['tokens']}; {held}; "
+          f"launches a rank: prefill {r0['prefill_launches']}, ticks "
+          f"{r0['tick_launches']}, step {r0['train_launches']}; op counts = "
+          f"the dry run's (prefill "
+          f"{r0['prefill_counts']['collective_counts']}, tick "
+          f"{r0['tick_counts']['collective_counts']}, step "
+          f"{r0['train_counts']['collective_counts']}); peak memory a rank "
+          f"served {[round(rk['serve_peak'] / 1e9, 3) for rk in ranks]} GB "
+          f"(unsharded {r0['serve_peak_unsharded'] / 1e9:.3f}), trained "
+          f"{[round(rk['peak'] / 1e9, 3) for rk in ranks]} GB (unsharded "
+          f"{r0['peak_unsharded'] / 1e9:.3f}); seconds: the two processes "
+          f"{t_ranks:.1f} (rank 0's sharded serving "
+          f"{r0['serve_seconds']:.1f}, step {r0['seconds']:.1f}), the dry "
+          f"run's traces {t_trace:.1f}; card {smi}")
+    return {**_trained_record(r0), "logits_err": r0["logits_err"],
+            "logits_max": r0["logits_max"], "tokens": r0["tokens"],
+            "shapes": r0["shapes"], "launches": launched,
+            "counts": r0["train_counts"],
+            "serve_peak_bytes": [rk["serve_peak"] for rk in ranks],
+            "serve_peak_unsharded_bytes": r0["serve_peak_unsharded"],
+            "peak_bytes": [rk["peak"] for rk in ranks],
+            "peak_unsharded_bytes": r0["peak_unsharded"]}
+
+
 def phase_mesh(seed: int, smi: str, card_dev: str = "cuda",
                smoke: bool = False) -> dict:
     """Phase 21: the mesh layer (``parallel.sharding``, ``comm``,
@@ -4271,8 +4579,9 @@ def phase_mesh(seed: int, smi: str, card_dev: str = "cuda",
     the step the card runs; then two processes on the card over gloo:
     the tensor- and sequence-parallel step (21(d), :func:`mesh_tp`), the
     FSDP step that gathers a layer at a time (21(e), :func:`mesh_fsdp`),
-    the expert-parallel MoE steps (21(f), :func:`mesh_ep`) and the
-    tensor-parallel MLA steps (21(g), :func:`mesh_mla`).
+    the expert-parallel MoE steps (21(f), :func:`mesh_ep`), the
+    tensor-parallel MLA steps (21(g), :func:`mesh_mla`) and the tensor-
+    and sequence-parallel hybrid (21(h), :func:`mesh_hybrid`).
     ``card_dev="cpu"`` with ``smoke`` rehearses it on gloo with the
     reduced config and chunked attention (the CPU's attention is the
     oracle's, whose backward the card's does not share)."""
@@ -4286,6 +4595,9 @@ def phase_mesh(seed: int, smi: str, card_dev: str = "cuda",
     from repro_torch.parallel import steps as st
     from repro_torch.parallel.comm import AbstractMesh
     cfg = _mesh_cfg(smoke)
+    gc.collect()
+    _release_host_memory()
+    print(f"  the main process's host memory: {_rss_gb():.2f} GB")
     tmp = tempfile.mkdtemp(prefix="mesh_store_")
     dist.init_process_group("nccl" if card_dev == "cuda" else "gloo",
                             init_method=f"file://{tmp}/store", rank=0,
@@ -4344,6 +4656,9 @@ def phase_mesh(seed: int, smi: str, card_dev: str = "cuda",
     gc.collect()
     torch.cuda.empty_cache()
     out["mla"] = mesh_mla(seed, smi, card_dev, smoke)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["hybrid"] = mesh_hybrid(seed, smi, card_dev, smoke)
     print("[21] " + json.dumps({"mesh": {**{k: v for k, v in out.items()
                                             if k != "events_added"},
                                          "card": smi}}))
@@ -4449,7 +4764,8 @@ def main() -> int:
     torch.cuda.empty_cache()        # whisper's tensors are gone
     mesh = phase(21, "the mesh layer on a one-rank NCCL mesh, the dry "
                      "run's counter, two-rank tensor- and sequence-"
-                     "parallel, FSDP, expert-parallel and MLA steps",
+                     "parallel, FSDP, expert-parallel, MLA and hybrid "
+                     "steps",
                  phase_mesh,
                  seed, smi)
     by_path["mesh"] = mesh["launches"]
@@ -4457,6 +4773,7 @@ def main() -> int:
     by_path["mesh_fsdp"] = mesh["fsdp"]["launches"]
     by_path["mesh_ep"] = mesh["ep"]["launches"]
     by_path["mesh_mla"] = mesh["mla"]["launches"]
+    by_path["mesh_hybrid"] = mesh["hybrid"]["launches"]
     del mesh
     gc.collect()
     torch.cuda.empty_cache()        # the mesh's tensors are gone
@@ -4470,6 +4787,8 @@ def main() -> int:
     timed = {"flash_attention": ("float32", "S=512"),
              "flash_decode": ("float32", "T=1024"),
              "rmsnorm": ("float32", "N=4 D=4096"),
+             "rmsnorm_sumsq": ("float32", "N=512 W=3584"),
+             "rmsnorm_scaled": ("float32", "N=512 W=3584"),
              "mamba_scan": ("float32", "S=512"),
              "moe_gmm": ("float32", "E=64 C=1 D=2048 F=1408"),
              "slstm_seq": ("float32", "B=1 S=512 r=0.02")}
@@ -4480,6 +4799,10 @@ def main() -> int:
                          "src/repro/kernels/flash_decode.py:62"),
         "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
                     "src/repro/kernels/rmsnorm.py:27"),
+        "rmsnorm_sumsq": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
+                          "src/repro/kernels/rmsnorm.py:27"),
+        "rmsnorm_scaled": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
+                           "src/repro/kernels/rmsnorm.py:27"),
         "mamba_scan": ("src/repro_torch/kernels/csrc/mamba_scan.cu",
                        "src/repro/kernels/mamba_scan.py:62"),
         "moe_gmm": ("src/repro_torch/kernels/csrc/moe_gmm.cu",

@@ -29,6 +29,14 @@
 // Any other width, or a pointer that is not 16-byte aligned, takes the
 // general path: one 256-thread block a row, two passes over the row (the
 // second from L1/L2), element loads.
+//
+// Two more entries serve a norm whose width is split over devices (the
+// gated norm of Mamba2 under tensor parallelism, each device holding its
+// heads' channels): rmsnorm_sumsq_* writes each row's fp32 sum of squares
+// (the caller all-reduces them over the devices), and rmsnorm_scaled_*
+// normalises by a given total, y = x * rsqrt(total / width + eps) *
+// scale.  One reduction and one elementwise pass, one 256-thread block a
+// row each, element loads: simple first.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -207,7 +215,84 @@ int rmsnorm_launch(const void* xp, const void* sp, void* yp, int n, int d,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+row_sumsq(const T* __restrict__ x, float* __restrict__ out, int w) {
+  const long long row = blockIdx.x;
+  const T* xr = x + row * w;
+  float ss = 0.f;
+  for (int i = threadIdx.x; i < w; i += kThreads) {
+    const float v = to_f32(xr[i]);
+    ss = fmaf(v, v, ss);
+  }
+  ss = warp_sum(ss);
+  __shared__ float part[kThreads / 32];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (lane == 0) part[warp] = ss;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float total = 0.f;
+#pragma unroll
+    for (int k = 0; k < kThreads / 32; ++k) total += part[k];
+    out[row] = total;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+row_scaled(const T* __restrict__ x, const float* __restrict__ total,
+           const float* __restrict__ scale, T* __restrict__ y, int w,
+           float width, float eps) {
+  const long long row = blockIdx.x;
+  const float inv = rsqrtf(total[row] / width + eps);
+  const T* xr = x + row * w;
+  T* yr = y + row * w;
+  for (int i = threadIdx.x; i < w; i += kThreads)
+    yr[i] = from_f32<T>(to_f32(xr[i]) * inv * scale[i]);
+}
+
+template <typename T>
+int sumsq_launch(const void* xp, void* outp, int n, int w, void* stream_p) {
+  if (n <= 0) return 0;
+  row_sumsq<T><<<n, kThreads, 0, static_cast<cudaStream_t>(stream_p)>>>(
+      static_cast<const T*>(xp), static_cast<float*>(outp), w);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int scaled_launch(const void* xp, const void* tp, const void* sp, void* yp,
+                  int n, int w, float width, float eps, void* stream_p) {
+  if (n <= 0) return 0;
+  row_scaled<T><<<n, kThreads, 0, static_cast<cudaStream_t>(stream_p)>>>(
+      static_cast<const T*>(xp), static_cast<const float*>(tp),
+      static_cast<const float*>(sp), static_cast<T*>(yp), w, width, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+extern "C" int rmsnorm_sumsq_f32(const void* x, void* out, int n, int w,
+                                 void* stream) {
+  return sumsq_launch<float>(x, out, n, w, stream);
+}
+
+extern "C" int rmsnorm_sumsq_bf16(const void* x, void* out, int n, int w,
+                                  void* stream) {
+  return sumsq_launch<__nv_bfloat16>(x, out, n, w, stream);
+}
+
+extern "C" int rmsnorm_scaled_f32(const void* x, const void* total,
+                                  const void* scale, void* y, int n, int w,
+                                  float width, float eps, void* stream) {
+  return scaled_launch<float>(x, total, scale, y, n, w, width, eps, stream);
+}
+
+extern "C" int rmsnorm_scaled_bf16(const void* x, const void* total,
+                                   const void* scale, void* y, int n, int w,
+                                   float width, float eps, void* stream) {
+  return scaled_launch<__nv_bfloat16>(x, total, scale, y, n, w, width, eps,
+                                      stream);
+}
 
 extern "C" int rmsnorm_f32(const void* x, const void* scale, void* y, int n,
                            int d, float eps, void* stream) {

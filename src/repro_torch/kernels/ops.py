@@ -44,18 +44,25 @@ from . import ref
 from . import rmsnorm as _rms
 from . import slstm_cell as _sl
 
-_KERNELS = {"flash_attention": _fa, "flash_decode": _fd, "mamba_scan": _ms,
-            "moe_gmm": _gmm, "rmsnorm": _rms, "slstm_seq": _sl}
+# each kernel entry's launch count: (its wrapper module, the counter)
+_KERNELS = {"flash_attention": (_fa, "launches"),
+            "flash_decode": (_fd, "launches"),
+            "mamba_scan": (_ms, "launches"), "moe_gmm": (_gmm, "launches"),
+            "rmsnorm": (_rms, "launches"),
+            "rmsnorm_sumsq": (_rms, "sumsq_launches"),
+            "rmsnorm_scaled": (_rms, "scaled_launches"),
+            "slstm_seq": (_sl, "launches")}
 
 
 def launch_counts() -> Dict[str, int]:
-    """Kernel launches per kernel since the last reset."""
-    return {name: mod.launches for name, mod in _KERNELS.items()}
+    """Kernel launches per kernel entry since the last reset."""
+    return {name: getattr(mod, attr)
+            for name, (mod, attr) in _KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in _KERNELS.values():
-        mod.launches = 0
+    for mod, attr in _KERNELS.values():
+        setattr(mod, attr, 0)
 
 
 def _fake(*tensors: torch.Tensor) -> bool:
@@ -291,4 +298,36 @@ def fused_rmsnorm(x, scale, *, eps: float = 1e-5):
             out = _rms.rmsnorm(x2.contiguous(), scale, eps)
         else:
             out = ref.rmsnorm_ref(x2, scale, eps)
+    return out.reshape(shape)
+
+
+def rmsnorm_sumsq(x):
+    """(..., W) -> (...) fp32 sums of squares over the last axis (an
+    RMSNorm's first half where its width is split over devices)."""
+    shape = x.shape
+    x2 = x.reshape(-1, shape[-1])
+    cost = lambda: (2 * x.numel(), x.numel() * x.element_size()
+                    + 4 * x2.shape[0])
+    with hlo.kernel("rmsnorm_sumsq", cost):
+        if _route(x) == "kernel":
+            out = _rms.sumsq(x2.contiguous())
+        else:
+            out = ref.rmsnorm_sumsq_ref(x2)
+    return out.reshape(shape[:-1])
+
+
+def rmsnorm_scaled(x, total, scale, width: int, *, eps: float = 1e-5):
+    """(..., W) x normalised by its rows' sums of squares ``total`` (...,
+    fp32) over ``width`` channels: x * rsqrt(total / width + eps) *
+    scale, fp32 math, in x's dtype."""
+    shape = x.shape
+    x2 = x.reshape(-1, shape[-1])
+    t2 = total.reshape(-1)
+    cost = lambda: (3 * x.numel(), 2 * x.numel() * x.element_size()
+                    + 4 * (t2.numel() + shape[-1]))
+    with hlo.kernel("rmsnorm_scaled", cost):
+        if _route(x, total, scale) == "kernel":
+            out = _rms.scaled(x2.contiguous(), t2, scale, width, eps)
+        else:
+            out = ref.rmsnorm_scaled_ref(x2, t2, scale, width, eps)
     return out.reshape(shape)

@@ -168,6 +168,20 @@ def rmsnorm_ref(x, scale, eps: float = 1e-5):
     return (x32 * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
 
 
+def rmsnorm_sumsq_ref(x):
+    """(..., W) -> (...) fp32 sums of squares over the last axis: the
+    first half of an RMSNorm whose width is split over devices."""
+    return x.float().square().sum(dim=-1)
+
+
+def rmsnorm_scaled_ref(x, total, scale, width: int, eps: float = 1e-5):
+    """(..., W) x normalised by the sums of squares ``total`` (...) of its
+    rows over ``width`` channels (W of them here), fp32 math:
+    x * rsqrt(total / width + eps) * scale, in x's dtype."""
+    inv = torch.rsqrt(total.float() / width + eps)
+    return (x.float() * inv[..., None] * scale.float()).to(x.dtype)
+
+
 def gmm_ref(x, w, rows=None):
     """Grouped matmul oracle: (E,C,D) @ (E,D,F) -> (E,C,F), fp32 math, the
     result in x's dtype.  With ``rows`` (E,), row r of expert e is exactly 0

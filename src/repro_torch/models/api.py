@@ -2,7 +2,8 @@
 
   param_spec(cfg)                    ParamSpec tree of the model
   loss_fn(cfg)(params, batch)        scalar loss           [train shapes]
-  prefill_fn(cfg, cache_len[, kv_heads])(params, batch)  (last_logits, cache)
+  prefill_fn(cfg, cache_len[, kv_heads, ssm_heads])(params, batch)
+                                     (last_logits, cache)
   decode_fn(cfg)(params, token, cache, kv_len)       (logits, cache)
   input_spec(cfg, shape)             ParamSpec dict of batch inputs
   cache_spec(cfg, shape)             ParamSpec tree of the decode cache
@@ -35,11 +36,13 @@ def loss_fn(cfg: ArchConfig) -> Callable:
 
 
 def prefill_fn(cfg: ArchConfig, cache_len: int,
-               kv_heads: Optional[int] = None) -> Callable:
+               kv_heads: Optional[int] = None,
+               ssm_heads: Optional[int] = None) -> Callable:
     """cache_len: the KV cache capacity to allocate (the encoder-decoder's
     self cache is ``dec_len`` rows, its cross cache the frames given);
-    kv_heads: the KV heads of a decoder's cache (every one where not
-    given; a tensor-parallel device's, ``parallel.steps``)."""
+    kv_heads, ssm_heads: the KV heads of a decoder's cache and the Mamba2
+    heads of a hybrid's (every one where not given; a tensor-parallel
+    device's, ``parallel.steps``)."""
     if cfg.family == "encdec":
         def _encdec_prefill(params, batch):
             cache = ed.encdec_prefill(cfg, params, batch["frames"])
@@ -53,8 +56,9 @@ def prefill_fn(cfg: ArchConfig, cache_len: int,
         return lambda params, batch: tf.lm_prefill(
             cfg, params, batch["tokens"], cache_len,
             img_embeds=batch.get("img_embeds"), kv_heads=kv_heads)
-    return lambda params, batch: tf.lm_prefill(cfg, params, batch["tokens"],
-                                               cache_len, kv_heads=kv_heads)
+    return lambda params, batch: tf.lm_prefill(
+        cfg, params, batch["tokens"], cache_len, kv_heads=kv_heads,
+        ssm_heads=ssm_heads)
 
 
 def decode_fn(cfg: ArchConfig) -> Callable:
@@ -66,11 +70,12 @@ def decode_fn(cfg: ArchConfig) -> Callable:
 
 
 def cache_spec(cfg: ArchConfig, shape: InputShape,
-               kv_heads: Optional[int] = None):
+               kv_heads: Optional[int] = None,
+               ssm_heads: Optional[int] = None):
     if cfg.family == "encdec":
         return ed.encdec_cache_spec(cfg, shape.global_batch, shape.seq_len)
     return tf.decode_cache_spec(cfg, shape.global_batch, shape.seq_len,
-                                kv_heads)
+                                kv_heads, ssm_heads)
 
 
 def input_spec(cfg: ArchConfig, shape: InputShape) -> Dict[str, ParamSpec]:

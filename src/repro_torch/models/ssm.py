@@ -9,16 +9,37 @@ group-shared (G=1), so C·Bᵀ is computed once for all heads.
 ``ssd_chunked`` is the plain chunked path; the model's own path is
 ``ops.mamba_scan``, the chunked-SSD kernel on the card and its sequential
 plain version on the CPU, which also returns the final state.
+
+In a tensor-parallel mesh step (``parallel.tensor``) whose gated-norm
+scale and out_proj are this device's block of the channels, as JAX's
+rules put "mlp" on "model", a layer computes h/m of the heads: the z, x
+and dt of those heads and the whole B and C (G = 1: every head reads
+them), from the columns of in_proj, conv_w and conv_b that it slices out
+of the whole leaves (the step gathers them whole: their "mlp" blocks do
+not fall on the heads) and its heads of A_log, D and dt_bias (their
+gradients summed over the axis).  The input enters and the out_proj's
+partial sums leave as attention's do (``attention.heads_input`` /
+``heads_output``).  The gated RMSNorm normalises over the whole d_inner,
+as JAX's does: each device sums its channels' squares, and the (B, S)
+sums are all-reduced, their gradient too (``_split_norm``; on the card
+``ops.rmsnorm_sumsq`` and ``ops.rmsnorm_scaled``).  A device's decode
+cache holds its heads' x channels and the whole B and C of the conv
+tail, and its heads' SSD state.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
 
-from ..kernels import ops
+from ..kernels import ops, ref
+from ..parallel import tensor
+from .attention import heads_input, heads_output
 from .common import ParamSpec, rmsnorm
+
+IN_AXES, CONV_W_AXES, CHANNEL_AXES = ("embed", "mlp"), (None, "mlp"), ("mlp",)
+OUT_AXES = ("mlp", "embed")
 
 
 def mamba_spec(d_model: int, *, expand: int = 2, headdim: int = 64,
@@ -28,14 +49,14 @@ def mamba_spec(d_model: int, *, expand: int = 2, headdim: int = 64,
     conv_dim = d_inner + 2 * state                      # x, B, C get conv'd
     return {
         "in_proj": ParamSpec((d_model, 2 * d_inner + 2 * state + h),
-                             ("embed", "mlp")),
-        "conv_w": ParamSpec((conv_width, conv_dim), (None, "mlp")),
-        "conv_b": ParamSpec((conv_dim,), ("mlp",), init="zeros"),
+                             IN_AXES),
+        "conv_w": ParamSpec((conv_width, conv_dim), CONV_W_AXES),
+        "conv_b": ParamSpec((conv_dim,), CHANNEL_AXES, init="zeros"),
         "A_log": ParamSpec((h,), (None,), init="zeros"),
         "D": ParamSpec((h,), (None,), init="ones"),
         "dt_bias": ParamSpec((h,), (None,), init="zeros"),
-        "norm": ParamSpec((d_inner,), ("mlp",), init="ones"),
-        "out_proj": ParamSpec((d_inner, d_model), ("mlp", "embed")),
+        "norm": ParamSpec((d_inner,), CHANNEL_AXES, init="ones"),
+        "out_proj": ParamSpec((d_inner, d_model), OUT_AXES),
     }
 
 
@@ -135,6 +156,53 @@ def ssd_step(state, xh, dt, a_log, bm, cm):
 # ---------------------------------------------------------------------------
 
 
+def head_split(params) -> Optional[tensor.TensorParallel]:
+    """The tensor-parallel context where the gated norm's scale and
+    out_proj are this device's block of the channels (whole heads), else
+    None (off a mesh step: the layer runs whole).  in_proj, conv_w and
+    conv_b then come whole (``tensor.WHOLE_OVER_MODEL``); a block of them
+    raises."""
+    tp = tensor.active()
+    if tp is None or tp.split_dim(params["out_proj"], OUT_AXES) is None:
+        return None
+    if tp.split_dim(params["norm"], CHANNEL_AXES) is None:
+        raise ValueError("Mamba2's out_proj split over the model axis and "
+                         "its gated norm whole")
+    for name, axes in (("in_proj", IN_AXES), ("conv_w", CONV_W_AXES),
+                       ("conv_b", CHANNEL_AXES)):
+        if tp.split_dim(params[name], axes) is not None:
+            raise ValueError(f"Mamba2's {name} came as its model block; "
+                             f"the layer slices its heads from the whole")
+    return tp
+
+
+def _heads(params, tp: Optional[tensor.TensorParallel]):
+    """The layer's parameters as this device computes with them: under
+    the head split ``tp`` its heads' columns of in_proj (z, x, dt; the
+    whole B and C) and of the conv (x; the whole B and C), cut from the
+    whole leaves (whose gradients the step reduces over the axis), and
+    its heads of A_log, D and dt_bias (their gradients summed over the
+    axis, ``into_split``); ``params`` where there is no split."""
+    if tp is None:
+        return params
+    d_inner, h, headdim, state = _mamba_dims(params)
+    hl = h // tp.size
+    dl, hd = hl * headdim, tp.index * hl
+    zx = hd * headdim
+
+    def cols(w, spans):
+        return torch.cat([w.narrow(-1, a, n) for a, n in spans], dim=-1)
+    conv = ((zx, dl), (d_inner, 2 * state))
+    out = {"in_proj": cols(params["in_proj"], (
+               (zx, dl), (d_inner + zx, dl), (2 * d_inner, 2 * state),
+               (2 * d_inner + 2 * state + hd, hl))),
+           "conv_w": cols(params["conv_w"], conv),
+           "conv_b": cols(params["conv_b"], conv)}
+    for name in ("A_log", "D", "dt_bias"):
+        out[name] = tensor.into_split(params[name], tp).narrow(0, hd, hl)
+    return {**params, **out}
+
+
 def _project(params, x):
     d_inner, h, headdim, state = _mamba_dims(params)
     zxbcdt = torch.einsum("bsd,dk->bsk", x, params["in_proj"])
@@ -142,26 +210,59 @@ def _project(params, x):
     return z, xbc, dt, (d_inner, h, headdim, state)
 
 
-def _gate_out(params, y, xh, z, plain: bool = False):
+def _split_norm(x, scale, width: int, tp: tensor.TensorParallel,
+                plain: bool, eps: float = 1e-5):
+    """RMSNorm over ``width`` channels of which ``x`` (..., W) holds this
+    device's W: its rows' sums of squares here, all-reduced over the axis
+    forward and backward (every device normalises by, and takes gradient
+    through, the one sum), then the rows normalised by them; through the
+    two split-norm kernels on the card, plain on the plain route."""
+    ss = ref.rmsnorm_sumsq_ref(x) if plain else ops.rmsnorm_sumsq(x)
+    total = tensor.out_of_split(tensor.into_split(ss, tp), tp)
+    if plain:
+        return ref.rmsnorm_scaled_ref(x, total, scale, width, eps)
+    return ops.rmsnorm_scaled(x, total, scale, width, eps=eps)
+
+
+def _gate_out(params, y, xh, z, plain: bool = False,
+              tp: Optional[tensor.TensorParallel] = None, width: int = 0):
     """Skip term, gated RMSNorm (through the RMSNorm kernel on the card, or
-    plain on the plain route) and the output projection."""
+    plain on the plain route; over the ``width`` channels of every device
+    under the head split ``tp``) and the output projection (this device's
+    partial sums under ``tp``)."""
     b, s = y.shape[0], y.shape[1]
     y = y + params["D"][None, None, :, None].to(y.dtype) * xh
-    y = rmsnorm({"scale": params["norm"]}, y.reshape(b, s, -1) * F.silu(z),
-                plain=plain)
-    return torch.einsum("bsk,kd->bsd", y, params["out_proj"])
+    g = y.reshape(b, s, -1) * F.silu(z)
+    if tp is None:
+        g = rmsnorm({"scale": params["norm"]}, g, plain=plain)
+    else:
+        g = _split_norm(g, params["norm"], width, tp, plain)
+    return torch.einsum("bsk,kd->bsd", g, params["out_proj"])
 
 
-def mamba_mixer(params, x, *, chunk: int = 128, impl: str = "chunked"):
+def mamba_mixer(params, x, *, chunk: int = 128, impl: str = "chunked",
+                pad: bool = False):
     """Mamba2 mixer over a whole sequence, whose length must be a multiple
-    of min(chunk, S).  Returns ``(out, {"conv", "ssm"})``: the conv tail and
-    the final SSD state, which a prefill keeps as the layer's decode cache.
+    of min(chunk, S), or with ``pad`` is zero-padded at the end to one
+    (causal: pad positions cannot affect real outputs) and trimmed.
+    Returns ``(out, {"conv", "ssm"})``: the conv tail and the final SSD
+    state, which a prefill keeps as the layer's decode cache.  Under a
+    head split (:func:`head_split`) ``x`` may be this device's rows of a
+    split stream, and ``out`` is then its rows.
 
     ``impl``: "kernel" runs ``ops.mamba_scan`` (the kernel on the card, its
     plain version on the CPU), "chunked" runs ``ssd_chunked``, and
     "plain", the training forward's route, runs ``ssd_chunked`` and the
     plain gated norm, as the JAX package trains.
     """
+    tp = head_split(params)
+    x = heads_input(x, tp)
+    s0 = x.shape[1]
+    n = (-s0) % min(chunk, s0) if pad and s0 else 0
+    if n:
+        x = F.pad(x, (0, 0, 0, n))
+    width = _mamba_dims(params)[0]
+    params = _heads(params, tp)
     b, s, _ = x.shape
     z, xbc, dt, (d_inner, h, headdim, state) = _project(params, x)
     xbc, conv_tail = causal_conv(xbc, params["conv_w"], params["conv_b"])
@@ -175,8 +276,8 @@ def mamba_mixer(params, x, *, chunk: int = 128, impl: str = "chunked"):
         y, ssm = ssd_chunked(xh, dt, params["A_log"], bm, cm, chunk=chunk)
     else:
         raise ValueError(f"unknown SSD impl {impl!r}")
-    return _gate_out(params, y, xh, z, impl == "plain"), {"conv": conv_tail,
-                                                          "ssm": ssm}
+    out = _gate_out(params, y, xh, z, impl == "plain", tp, width)
+    return heads_output(out[:, :s0], tp), {"conv": conv_tail, "ssm": ssm}
 
 
 def mamba_layer(params, x, *, chunk: int = 128, impl: str = "chunked"):
@@ -185,12 +286,7 @@ def mamba_layer(params, x, *, chunk: int = 128, impl: str = "chunked"):
     Sequences not divisible by the chunk are zero-padded at the END
     (causal: pad positions cannot affect real outputs) and trimmed.
     """
-    s0 = x.shape[1]
-    pad = (-s0) % min(chunk, s0) if s0 else 0
-    if pad:
-        x = F.pad(x, (0, 0, 0, pad))
-    out, _ = mamba_mixer(params, x, chunk=chunk, impl=impl)
-    return out[:, :s0]
+    return mamba_mixer(params, x, chunk=chunk, impl=impl, pad=True)[0]
 
 
 def mamba_init_cache(params, batch: int, dtype=torch.float32):
@@ -209,10 +305,19 @@ def mamba_decode_layer(params, x, cache):
     """Single-token step. x:(B,1,D); cache {'conv','ssm'}.
 
     Returns ``(out, {"conv", "ssm"})`` with new state tensors; the caller
-    writes them into its cache.
+    writes them into its cache.  Under a head split (:func:`head_split`)
+    the cache is this device's (``transformer._mamba_cache_spec``), and a
+    cache of other heads raises.
     """
     b = x.shape[0]
+    tp = head_split(params)
+    x = heads_input(x, tp)
+    width = _mamba_dims(params)[0]
+    params = _heads(params, tp)
     z, xbc, dt, (d_inner, h, headdim, state) = _project(params, x)
+    if tuple(cache["ssm"].shape[1:]) != (h, state, headdim):
+        raise ValueError(f"a cache of SSD states {tuple(cache['ssm'].shape)}"
+                         f" for a layer that computes {h} heads")
     xbc, conv_state = causal_conv(xbc, params["conv_w"], params["conv_b"],
                                   init_state=cache["conv"])
     xbc = F.silu(xbc)
@@ -220,5 +325,5 @@ def mamba_decode_layer(params, x, cache):
     xh = xh.reshape(b, h, headdim)
     dt = F.softplus(dt[:, 0] + params["dt_bias"][None, :])
     new_ssm, y = ssd_step(cache["ssm"], xh, dt, params["A_log"], bm, cm)
-    return _gate_out(params, y[:, None], xh[:, None], z), \
-        {"conv": conv_state, "ssm": new_ssm}
+    out = _gate_out(params, y[:, None], xh[:, None], z, tp=tp, width=width)
+    return heads_output(out, tp), {"conv": conv_state, "ssm": new_ssm}

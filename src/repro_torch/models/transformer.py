@@ -249,11 +249,14 @@ def _mamba_block_spec(cfg) -> Dict:
                                 headdim=cfg.ssm_headdim, state=cfg.ssm_state)}
 
 
-def _mamba_cache_spec(cfg, batch: int) -> Dict:
+def _mamba_cache_spec(cfg, batch: int, heads: Optional[int] = None
+                      ) -> Dict:
     """One Mamba2 layer's decode cache: the conv tail in the activation
-    dtype and the SSD state in fp32."""
-    d_inner = cfg.ssm_expand * cfg.d_model
-    h = d_inner // cfg.ssm_headdim
+    dtype and the SSD state in fp32, of ``heads`` heads (every one where
+    not given): a tensor-parallel device's conv tail holds its heads' x
+    channels and the whole B and C (``ssm.mamba_decode_layer``)."""
+    h = heads or cfg.ssm_expand * cfg.d_model // cfg.ssm_headdim
+    d_inner = h * cfg.ssm_headdim
     return {
         "conv": ParamSpec((batch, 3, d_inner + 2 * cfg.ssm_state),
                           ("batch", None, "mlp"), cfg.torch_dtype,
@@ -392,10 +395,12 @@ def lm_spec(cfg) -> Dict:
 
 
 def decode_cache_spec(cfg, batch: int, cache_len: int,
-                      kv_heads: Optional[int] = None) -> Dict:
+                      kv_heads: Optional[int] = None,
+                      ssm_heads: Optional[int] = None) -> Dict:
     """The decode cache of ``batch`` rows; its attention layers' K/V hold
-    ``kv_heads`` heads (a tensor-parallel device's, ``parallel.steps``),
-    every KV head where not given."""
+    ``kv_heads`` heads and a hybrid's Mamba2 layers ``ssm_heads`` (a
+    tensor-parallel device's, ``parallel.steps``), every head where not
+    given."""
     if cfg.family in ("dense", "vlm", "moe"):
         return {ckey: stack_specs(_attn_cache_spec(cfg, batch, cache_len,
                                                    kv_heads), n)
@@ -418,7 +423,7 @@ def decode_cache_spec(cfg, batch: int, cache_len: int,
     if cfg.family != "hybrid":
         raise ValueError(cfg.family)
     n_groups, group, rest = _hybrid_layout(cfg)
-    mamba = _mamba_cache_spec(cfg, batch)
+    mamba = _mamba_cache_spec(cfg, batch, ssm_heads)
     cache = {"groups": stack_specs(stack_specs(mamba, group), n_groups),
              "attn": stack_specs(_attn_cache_spec(cfg, batch, cache_len,
                                                   kv_heads), n_groups)}
@@ -441,13 +446,12 @@ def _hybrid_trunk(cfg, params, x, positions, cache, plain, run):
     a multiple of min(ssm_chunk, S), as in the JAX prefill.  ``run`` calls
     each Mamba2 layer without a cache (``_remat``'s runner); the shared
     attention blocks run as they are, as in JAX's ``group_body``."""
-    s = x.shape[1]
     for kind, p, c in _hybrid_walk(cfg, params, cache):
         if kind == "attn":
             x, k, v = block_apply(cfg, p, x, positions, plain)
-            if c is not None:
-                c["k"][:, :s] = k
-                c["v"][:, :s] = v
+            if c is not None:       # the whole sequence's rows
+                c["k"][:, :k.shape[1]] = k
+                c["v"][:, :v.shape[1]] = v
             continue
         if c is None:
             x = run(_mamba_block, cfg, p, x, plain)
@@ -525,10 +529,12 @@ def lm_loss(cfg, params, batch):
 
 
 def lm_prefill(cfg, params, tokens, cache_len: int, img_embeds=None,
-               kv_heads: Optional[int] = None):
+               kv_heads: Optional[int] = None,
+               ssm_heads: Optional[int] = None):
     """Process the prompt (after the image patches, for a VLM given them);
     return (last-token logits (B,V), cache), the cache's K/V of
-    ``kv_heads`` heads (``decode_cache_spec``).
+    ``kv_heads`` heads and its Mamba2 states of ``ssm_heads``
+    (``decode_cache_spec``).
 
     Each layer's K/V (MLA's latent) is computed once, in the attention,
     and written into a zero cache of ``cache_len`` rows; in the hybrid,
@@ -543,8 +549,8 @@ def lm_prefill(cfg, params, tokens, cache_len: int, img_embeds=None,
     if s > cache_len:
         raise ValueError(f"prompt of {s} tokens over cache_len {cache_len}")
     x = _embed_inputs(cfg, params, tokens, img_embeds)
-    cache = init_cache(decode_cache_spec(cfg, b, cache_len, kv_heads),
-                       x.device)
+    cache = init_cache(decode_cache_spec(cfg, b, cache_len, kv_heads,
+                                         ssm_heads), x.device)
     x = _trunk(cfg, params, x, cache)
     sp = tensor.seq_split()
     x = x[:, -1:] if sp is None else tensor.last_row(x, sp)

@@ -514,17 +514,19 @@ def layer(tree):
     return tree
 
 
-def for_layers(blocks, layouts_tree, keep: Tuple[str, ...] = (),
-               live: Optional[list] = None):
+def for_layers(blocks, layouts_tree, keep=(), live: Optional[list] = None):
     """The parameter tree the layer code takes in a mesh step, from this
     device's ``blocks``: each stacked leaf a :class:`Stacked` of its
-    layers' blocks, every other leaf gathered (:func:`gather_leaf`).
-    With ``live`` (a list) the layers' blocks and the other leaves are
-    detached, made autograd inputs, and appended to it, one list a leaf:
-    each layer is its own input, so its gradient is its own tensor."""
+    layers' blocks, every other leaf gathered (:func:`gather_leaf`), each
+    cut along ``keep`` (a tuple of axes for every leaf, or a list of one
+    a leaf in flatten order).  With ``live`` (a list) the layers' blocks
+    and the other leaves are detached, made autograd inputs, and appended
+    to it, one list a leaf: each layer is its own input, so its gradient
+    is its own tensor."""
     from ..tree import leaves, unflatten
-    out = []
-    for x, lay in zip(leaves(blocks), leaves(layouts_tree), strict=True):
+    out, lays = [], leaves(layouts_tree)
+    keeps = keep if isinstance(keep, list) else [keep] * len(lays)
+    for x, lay, keep in zip(leaves(blocks), lays, keeps, strict=True):
         n = lay.stacked
         parts = list(x.flatten(0, n - 1).unbind(0)) if n else [x]
         if live is not None:

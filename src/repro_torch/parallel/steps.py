@@ -35,20 +35,22 @@ every mesh step of a MoE model the dispatch sees the step's row groups
 ``global_batch=`` rows over) and takes JAX's global capacity and
 positions.
 
-The dense, VLM and MoE decoders (GQA or MLA attention) compute tensor
-parallel over "model" where the rules do not cut the batch over it
-(``act_shard="seq"``; ``parallel.tensor``): a layer gathers each leaf
+The dense, VLM, MoE and hybrid decoders (GQA or MLA attention) compute
+tensor parallel over "model" where the rules do not cut the batch over
+it (``act_shard="seq"``; ``parallel.tensor``): a layer gathers each leaf
 over every other axis, the layers take each leaf's "model" block (query
-heads, MLA's decompression, MLP columns and rows, experts, vocab rows)
-and sum their partial results over the axis, the gradients stay those
-blocks (reduced over the other axes only), and the
+heads, MLA's decompression, MLP columns and rows, experts, vocab rows,
+Mamba2's heads) and sum their partial results over the axis, the
+gradients stay those blocks (reduced over the other axes only), and the
 label count and the reported loss sum over the other axes only, since
 the devices of a model axis are parts of one computation, not copies;
 the residual stream is split by rows over the axis where the rules put
-"model" on its sequence.  Everywhere else (the hybrid, xLSTM and
-encoder-decoder families, ``act_shard="batch2d"``, a model axis of one
-device) each layer is gathered whole.  The ``abstract_*`` helpers
-give a device's arguments without storage, for the dry run.
+"model" on its sequence.  Mamba2's fused in_proj and conv are gathered
+whole over "model" too (``tensor.keeps``), and the layer slices its
+heads' columns.  Everywhere else (the xLSTM and encoder-decoder
+families, ``act_shard="batch2d"``, a model axis of one device) each
+layer is gathered whole.  The ``abstract_*`` helpers give a device's
+arguments without storage, for the dry run.
 
 The train step updates the state in place, as the JAX trainer donates it
 (``donate_argnums=(0,)``), and returns it with its metrics as 0-d
@@ -117,8 +119,7 @@ def loss_and_grads(loss_fn: Callable, params, batch):
     return loss.detach(), unflatten(params, list(grads))
 
 
-def _block_grads(loss_fn: Callable, blocks, batch, layouts,
-                 keep: Tuple[str, ...] = ()):
+def _block_grads(loss_fn: Callable, blocks, batch, layouts, keep=()):
     """:func:`loss_and_grads` of a mesh step at this device's ``blocks``
     (``sharding.for_layers``): each stacked leaf reaches the layers one
     layer at a time, each layer's block its own autograd input, gathered
@@ -275,17 +276,19 @@ def _row_groups(cfg: ArchConfig, mesh, rules: shd.AxisRules,
 
 
 def _tensor_parallel(cfg, mesh, rules, lays, global_batch, accum: int = 1
-                     ) -> Optional[tensor.TensorParallel]:
-    """The tensor-parallel context of a mesh step (``parallel.tensor``),
-    or None where the step gathers whole weights: off the dense, VLM and
-    MoE families with GQA or MLA attention, on a "model" axis of one
-    device, and where the rules cut the batch (a microbatch of
+                     ) -> Tuple[Optional[tensor.TensorParallel], Any]:
+    """(the tensor-parallel context of a mesh step, ``parallel.tensor``,
+    or None where the step gathers whole weights: off the dense, VLM, MoE
+    and hybrid families with GQA or MLA attention, on a "model" axis of
+    one device, and where the rules cut the batch (a microbatch of
     ``global_batch // accum`` rows, the rules' table where not given)
-    over "model"."""
+    over "model"; the ``keep`` of ``sharding.for_layers``: () without the
+    context, else each leaf's, ``tensor.keeps``)."""
     rows = None if global_batch is None else global_batch // accum
     if not tensor.applies(cfg, mesh, rules, rows):
-        return None
-    return tensor.TensorParallel.of(mesh, lays)
+        return None, ()
+    keep = tensor.keeps(lays)
+    return tensor.TensorParallel.of(mesh, lays, keep), keep
 
 
 def _stream_shape(cfg: ArchConfig, batch) -> Tuple[int, int, int]:
@@ -312,11 +315,11 @@ def _sharded_train_step(cfg, loss_fn, mesh, rules, base_lr, warmup,
     rules = _rules(cfg, mesh, rules)
     lays = state_layouts(cfg, mesh, rules).params
     groups = _row_groups(cfg, mesh, rules, global_batch, accum)
-    tp = _tensor_parallel(cfg, mesh, rules, lays, global_batch, accum)
-    keep = () if tp is None else (tp.axis,)
+    tp, keep = _tensor_parallel(cfg, mesh, rules, lays, global_batch, accum)
     # the axes whose devices hold copies or other rows (those of "model"
     # under tensor parallelism are parts of one computation)
-    axes = tuple(a for a in mesh.mesh_dim_names if a not in keep)
+    axes = tuple(a for a in mesh.mesh_dim_names
+                 if tp is None or a != tp.axis)
 
     def grads_of(fn, blocks, batch):
         return _block_grads(fn, blocks, batch, lays, keep)
@@ -376,7 +379,7 @@ def make_prefill_step(cfg: ArchConfig, cache_len: int, mesh=None,
     this device's blocks and the batch its rows (``global_batch`` of them
     in all; needed for a MoE model)."""
     gather, groups, tp = _param_gather(cfg, mesh, rules, global_batch)
-    fn = api.prefill_fn(cfg, cache_len, _cache_kv_heads(cfg, tp))
+    fn = api.prefill_fn(cfg, cache_len, **_cache_heads(cfg, tp))
 
     def step(params, batch):
         with torch.no_grad(), shd.use_row_groups(groups), \
@@ -407,14 +410,23 @@ def make_serve_step(cfg: ArchConfig, mesh=None,
     return step
 
 
-def _cache_kv_heads(cfg, tp: Optional[tensor.TensorParallel]
-                    ) -> Optional[int]:
-    """The KV heads of a decode cache in a step of context ``tp``: those
-    this device's query heads read, or None (every one; MLA's latent
-    cache has no heads, and stays whole over "model")."""
-    if tp is None or cfg.attn == "mla":
-        return None
-    return attention.local_kv_heads(tp, cfg.n_heads, cfg.n_kv_heads)
+def _cache_heads(cfg, tp: Optional[tensor.TensorParallel]) -> Dict:
+    """The heads of a decode cache in a step of context ``tp``, as
+    ``api.cache_spec``'s keywords: ``kv_heads``, the KV heads this
+    device's query heads read (MLA's latent cache has no heads, and stays
+    whole over "model"), and in a hybrid ``ssm_heads``, the Mamba2 heads
+    it computes (``tensor.applies`` admits a hybrid only where they divide
+    the axis); none off tensor parallelism (every head)."""
+    if tp is None:
+        return {}
+    out = {}
+    if cfg.attn != "mla":
+        out["kv_heads"] = attention.local_kv_heads(tp, cfg.n_heads,
+                                                   cfg.n_kv_heads)
+    if cfg.family == "hybrid":
+        out["ssm_heads"] = \
+            cfg.ssm_expand * cfg.d_model // cfg.ssm_headdim // tp.size
+    return out
 
 
 def _param_gather(cfg, mesh, rules, global_batch
@@ -428,8 +440,7 @@ def _param_gather(cfg, mesh, rules, global_batch
         return (lambda params: params), None, None
     rules = _rules(cfg, mesh, rules)
     lays = state_layouts(cfg, mesh, rules).params
-    tp = _tensor_parallel(cfg, mesh, rules, lays, global_batch)
-    keep = () if tp is None else (tp.axis,)
+    tp, keep = _tensor_parallel(cfg, mesh, rules, lays, global_batch)
     return (lambda params: shd.for_layers(params, lays, keep)), \
         _row_groups(cfg, mesh, rules, global_batch), tp
 
@@ -476,15 +487,15 @@ def abstract_state(cfg: ArchConfig, mesh=None,
 def abstract_cache(cfg: ArchConfig, shape: InputShape, mesh=None,
                    rules: Optional[shd.AxisRules] = None, device="meta"):
     """This device's rows of the decode cache (under tensor parallelism,
-    of the KV heads its query heads read), made as the models make a
-    cache (``transformer.init_cache``: MLA's two leaves views of one
-    buffer)."""
+    of the KV heads its query heads read and of its Mamba2 heads), made
+    as the models make a cache (``transformer.init_cache``: MLA's two
+    leaves views of one buffer)."""
     tp = None
     if mesh is not None and rules is not None:
-        tp = _tensor_parallel(cfg, mesh, rules,
-                              state_layouts(cfg, mesh, rules).params,
-                              shape.global_batch)
-    spec = api.cache_spec(cfg, shape, _cache_kv_heads(cfg, tp))
+        tp, _ = _tensor_parallel(cfg, mesh, rules,
+                                 state_layouts(cfg, mesh, rules).params,
+                                 shape.global_batch)
+    spec = api.cache_spec(cfg, shape, **_cache_heads(cfg, tp))
     if mesh is not None and rules is not None:
         spec = tree_map(lambda s: ParamSpec(shd.Layout(
             mesh, rules, shd.rows_axes(s.axes), tuple(s.shape)).local_shape,

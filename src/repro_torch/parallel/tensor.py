@@ -4,19 +4,27 @@ place the leaves (``sharding.default_rules``: "heads", "mlp" and "vocab"
 on "model"), and the residual stream split by rows between them where
 the rules place "seq" on "model" (``act_shard="seq"``, Megatron-SP).
 
-A mesh step of the dense, VLM or MoE decoder (GQA or MLA attention)
-whose batch the rules do not cut over "model" (``steps``,
+A mesh step of the dense, VLM, MoE or hybrid decoder (GQA or MLA
+attention) whose batch the rules do not cut over "model" (``steps``,
 :func:`applies`) gathers each parameter over every other axis, a layer
 at a time (``sharding.layer``), and hands the layer code the leaf's
 "model" block: wq (D, H/m, dh), wo (H/m, dh, D), MLA's wq_b (q_lora,
 H/m, dq) or wq (D, H/m, dq) and wkv_b (kv_lora, H/m, dk + dv), w_gate
-and w_up (D, F/m), w_down (F/m, D), the embedding (V/m, D), and a MoE
+and w_up (D, F/m), w_down (F/m, D), the embedding (V/m, D), a MoE
 layer's routed experts (E/m, D, F) and (E/m, F, D), expert parallelism
-as the rules place "experts" (``models.moe``).  A leaf the spec leaves
-whole over "model" (a dimension that does not divide, wk, wv, MLA's
-wq_a and wkv_a, the norm scales, the router) stays whole.  The layer
-code asks :meth:`TensorParallel.split_dim` whether its leaf is split,
-which reads the leaf's spec and checks that the leaf is that block.
+as the rules place "experts" (``models.moe``), and a Mamba2 layer's
+gated-norm scale (d_inner/m,) and out_proj (d_inner/m, D), the channels
+of its h/m heads (``models.ssm``).  A leaf the spec leaves whole over
+"model" (a dimension that does not divide, wk, wv, MLA's wq_a and wkv_a,
+the norm scales, the router, Mamba2's A_log, D and dt_bias) stays whole.
+Mamba2's in_proj, conv_w and conv_b fuse z | x | B | C | dt (x | B | C
+in the conv) on one "mlp" axis whose blocks do not fall on the heads:
+the step gathers them whole over "model" too (their ``keep`` is ``()``,
+:data:`WHOLE_OVER_MODEL`, :func:`keeps`), their gradients
+reduce-scattered back into the blocks JAX's rules store, and the layer
+slices its heads' columns.  The layer code asks
+:meth:`TensorParallel.split_dim` whether its leaf is split, which reads
+the leaf's spec (and its keep) and checks that the leaf is that block.
 
 **The stream.**  The step decides once a call, from the rules' spec of
 the stream's (B, S, D) (:meth:`TensorParallel.for_stream`, the
@@ -74,6 +82,10 @@ from . import comm
 from . import sharding as shd
 
 AXIS = "model"
+# the leaves (by name) of a hybrid model that a tensor-parallel step
+# gathers whole over "model" as well: Mamba2's fused input projection and
+# conv, whose "mlp" blocks do not fall on the heads (``models.ssm``)
+WHOLE_OVER_MODEL = ("in_proj", "conv_w", "conv_b")
 # the logical axes of the residual stream (B, S, D), as JAX constrains it
 STREAM_AXES = ("batch", "seq", "act_embed")
 
@@ -103,17 +115,21 @@ class TensorParallel:
     seq: bool = False
 
     @classmethod
-    def of(cls, mesh, layouts) -> "TensorParallel":
+    def of(cls, mesh, layouts, keeps=None) -> "TensorParallel":
         """The context of a step whose parameters lie in ``layouts`` (a
         tree of ``sharding.Layout``), one entry a leaf's logical axes and
         whole shape: leaves with the same axes may differ in shape (a MoE
         model's dense and shared SwiGLUs), as long as their blocks do, so
-        that a block names its leaf (:meth:`split_dim`).  Raises where two
-        such blocks coincide, or where "model" shares a dimension with
-        another axis."""
+        that a block names its leaf (:meth:`split_dim`).  ``keeps`` (one
+        a leaf, in flatten order; :func:`keeps`) names the leaves the step
+        gathers whole over the axis too, which the layers get whole.
+        Raises where two such blocks coincide, or where "model" shares a
+        dimension with another axis."""
         from ..tree import leaves
         table, rules = {}, None
-        for lay in leaves(layouts):
+        lays = leaves(layouts)
+        for lay, keep in zip(lays, keeps or [(AXIS,)] * len(lays),
+                             strict=True):
             rules = lay.rules
             axes, shape = _unstacked(lay.axes, lay.shape)
             spec = lay.spec[len(lay.axes) - len(axes):]
@@ -122,7 +138,7 @@ class TensorParallel:
             if dims and spec[dims[0]] != AXIS:
                 raise ValueError(f"leaf {lay.axes}: {AXIS!r} shares a "
                                  f"dimension ({spec})")
-            table[axes, shape] = dims[0] if dims else None
+            table[axes, shape] = dims[0] if dims and AXIS in keep else None
         size = comm.axis_sizes(mesh)[AXIS]
         blocks = {}
         for (axes, shape), dim in table.items():
@@ -412,12 +428,14 @@ def gather_vocab(logits: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
 
 def applies(cfg, mesh, rules: shd.AxisRules, rows: Optional[int]) -> bool:
     """Whether a mesh step of ``cfg`` splits its layers over "model": the
-    dense, VLM and MoE decoders with GQA or MLA attention (a MoE model
-    where its routed experts and its shared experts' width divide the
-    axis, so each device holds a block of the experts), on a mesh with a
-    "model" axis of more than one device that the batch of ``rows`` rows
-    (the rules' "batch" entry where not given) is not cut over."""
-    if cfg.family not in ("dense", "vlm", "moe") \
+    dense, VLM, MoE and hybrid decoders with GQA or MLA attention (a MoE
+    model where its routed experts and its shared experts' width divide
+    the axis, so each device holds a block of the experts; a hybrid where
+    its Mamba2 heads do, so each device holds whole heads), on a mesh
+    with a "model" axis of more than one device that the batch of
+    ``rows`` rows (the rules' "batch" entry where not given) is not cut
+    over."""
+    if cfg.family not in ("dense", "vlm", "moe", "hybrid") \
             or cfg.attn not in ("gqa", "mla") \
             or mesh is None or AXIS not in mesh.mesh_dim_names:
         return False
@@ -425,6 +443,21 @@ def applies(cfg, mesh, rules: shd.AxisRules, rows: Optional[int]) -> bool:
     if size == 1 or cfg.family == "moe" and (
             cfg.n_experts % size or cfg.n_shared * cfg.d_ff_expert % size):
         return False
+    if cfg.family == "hybrid" and (
+            cfg.ssm_expand * cfg.d_model // cfg.ssm_headdim) % size:
+        return False
     batch = rules.get("batch") if rows is None \
         else rules.spec(("batch",), (rows,), mesh)[0]
     return AXIS not in shd._entries(batch)
+
+
+def keeps(layouts) -> list:
+    """The ``keep`` of each parameter leaf (flatten order) in a step of
+    context ``tp`` (``sharding.for_layers``): ``("model",)``, so the layers
+    get each leaf's "model" block, but ``()`` for the leaves named in
+    :data:`WHOLE_OVER_MODEL`, which they get whole."""
+    def walk(t, name):
+        if isinstance(t, dict):
+            return [k for key in sorted(t) for k in walk(t[key], key)]
+        return [() if name in WHOLE_OVER_MODEL else (AXIS,)]
+    return walk(layouts, None)

@@ -501,6 +501,9 @@ def test_flash_decode_replays_in_a_cuda_graph(cuda_device, dtype):
         _close(out[:, 0], want, dtype)
 
 
+# the split norm's entries, which no path off a tensor-parallel hybrid step
+# launches
+NO_SPLIT_NORM = {"rmsnorm_sumsq": 0, "rmsnorm_scaled": 0}
 # the widths with a vector instantiation in csrc/rmsnorm.cu: MLA's kv_norm
 # and q_norm, xlstm_125m, whisper_medium, deepseek_moe_16b, minicpm3_4b,
 # zamba2_7b, glm4_9b and llava, zamba2's gated norm, 12288
@@ -520,6 +523,33 @@ def test_rmsnorm_kernel(cuda_device, n, d, dtype):
     g = torch.Generator(device=cuda_device).manual_seed(2)
     x, s = _rnd(g, dtype, n, d), _rnd(g, torch.float32, d)
     _close(ops.fused_rmsnorm(x, s), ref.rmsnorm_ref(x, s), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,w", [(n, w) for n in (4, 512)
+                                 for w in (448, 3584, 7168)])
+def test_split_rmsnorm_entries(cuda_device, n, w, dtype):
+    """The split norm's two entries (zamba2_7b's gated norm on 16, 2 and
+    1 devices' blocks of its 7168 channels): each row's fp32 sum of
+    squares against ``ref.rmsnorm_sumsq_ref``, and the rows normalised by
+    a total over four times the width against ``ref.rmsnorm_scaled_ref``
+    and, with the block's own total, against ``ref.rmsnorm_ref``; one
+    launch a call."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    x, s = _rnd(g, dtype, n, w), _rnd(g, torch.float32, w)
+    before = ops.launch_counts()
+    ss = ops.rmsnorm_sumsq(x)
+    assert ss.dtype == torch.float32
+    torch.testing.assert_close(ss, ref.rmsnorm_sumsq_ref(x), rtol=1e-5,
+                               atol=1e-5)
+    total = ss * 4
+    _close(ops.rmsnorm_scaled(x, total, s, 4 * w),
+           ref.rmsnorm_scaled_ref(x, total, s, 4 * w), dtype)
+    _close(ops.rmsnorm_scaled(x, ss, s, w), ref.rmsnorm_ref(x, s), dtype)
+    after = ops.launch_counts()
+    assert after["rmsnorm_sumsq"] - before["rmsnorm_sumsq"] == 1
+    assert after["rmsnorm_scaled"] - before["rmsnorm_scaled"] == 2
 
 
 @pytest.mark.cuda
@@ -1126,7 +1156,7 @@ def test_model_path_counts_launches(cuda_device):
     assert ops.launch_counts() == {"flash_attention": n, "flash_decode": n,
                                    "mamba_scan": 0, "moe_gmm": 0,
                                    "rmsnorm": 2 * (2 * n + 1),
-                                   "slstm_seq": 0}
+                                   "slstm_seq": 0, **NO_SPLIT_NORM}
 
 
 def _to(tree, dev):
@@ -1175,10 +1205,11 @@ def test_hybrid_on_card_matches_cpu_and_counts_launches(cuda_device):
     norms = 2 * n_mamba + 2 * n_groups + 1
     assert pre == {"flash_attention": n_groups, "flash_decode": 0,
                    "mamba_scan": n_mamba, "moe_gmm": 0, "rmsnorm": norms,
-                   "slstm_seq": 0}
+                   "slstm_seq": 0, **NO_SPLIT_NORM}
     assert total == {"flash_attention": n_groups, "flash_decode": 4 * n_groups,
                      "mamba_scan": n_mamba, "moe_gmm": 0,
-                     "rmsnorm": 5 * norms, "slstm_seq": 0}
+                     "rmsnorm": 5 * norms, "slstm_seq": 0,
+                     **NO_SPLIT_NORM}
 
 
 @pytest.mark.cuda
@@ -1217,10 +1248,11 @@ def test_moe_on_card_matches_cpu_and_counts_launches(cuda_device):
     n, n_moe = cfg.n_layers, cfg.n_layers - cfg.first_dense
     assert pre == {"flash_attention": n, "flash_decode": 0, "mamba_scan": 0,
                    "moe_gmm": 3 * n_moe, "rmsnorm": 2 * n + 1,
-                   "slstm_seq": 0}
+                   "slstm_seq": 0, **NO_SPLIT_NORM}
     assert total == {"flash_attention": n, "flash_decode": 4 * n,
                      "mamba_scan": 0, "moe_gmm": 5 * 3 * n_moe,
-                     "rmsnorm": 5 * (2 * n + 1), "slstm_seq": 0}
+                     "rmsnorm": 5 * (2 * n + 1), "slstm_seq": 0,
+                     **NO_SPLIT_NORM}
 
 
 @pytest.mark.cuda
@@ -1262,10 +1294,12 @@ def test_xlstm_on_card_matches_cpu_and_counts_launches(cuda_device):
                                        atol=1e-4, rtol=1e-4)
     n, n_groups = cfg.n_layers, cfg.n_layers // cfg.slstm_every
     assert pre == {"flash_attention": 0, "flash_decode": 0, "mamba_scan": 0,
-                   "moe_gmm": 0, "rmsnorm": 2 * n + 1, "slstm_seq": n_groups}
+                   "moe_gmm": 0, "rmsnorm": 2 * n + 1, "slstm_seq": n_groups,
+                   **NO_SPLIT_NORM}
     assert total == {"flash_attention": 0, "flash_decode": 0,
                      "mamba_scan": 0, "moe_gmm": 0,
-                     "rmsnorm": 5 * (2 * n + 1), "slstm_seq": 5 * n_groups}
+                     "rmsnorm": 5 * (2 * n + 1), "slstm_seq": 5 * n_groups,
+                     **NO_SPLIT_NORM}
 
 
 @pytest.mark.cuda
@@ -1333,7 +1367,7 @@ def test_new_families_on_card_match_cpu_and_count_launches(cuda_device,
     for c, g in zip(cpu_out, gpu_out):
         torch.testing.assert_close(g, c, atol=1e-4, rtol=1e-4)
         assert np.array_equal(g.argmax(-1).numpy(), c.argmax(-1).numpy())
-    zero = {"mamba_scan": 0, "moe_gmm": 0, "slstm_seq": 0}
+    zero = {"mamba_scan": 0, "moe_gmm": 0, "slstm_seq": 0, **NO_SPLIT_NORM}
     if cfg.family == "encdec":
         n, nd = cfg.n_layers, cfg.n_dec_layers
         assert pre == {"flash_attention": n, "flash_decode": 2 * nd,
@@ -1821,7 +1855,7 @@ def test_train_steps_on_card_match_cpu_and_count_launches(cuda_device, arch):
         torch.cuda.synchronize()
         assert ops.launch_counts() == {
             "flash_attention": attn, "flash_decode": 0, "mamba_scan": 0,
-            "moe_gmm": 0, "rmsnorm": 0, "slstm_seq": 0}
+            "moe_gmm": 0, "rmsnorm": 0, "slstm_seq": 0, **NO_SPLIT_NORM}
         cpu, m_cpu = step(cpu, batch)
         lr_sum += float(m_cpu["lr"])
         torch.testing.assert_close(m_card["loss"].cpu(), m_cpu["loss"],
@@ -1881,7 +1915,8 @@ def test_sharded_step_on_nccl_matches_unsharded(nccl_mesh, arch):
     torch.cuda.synchronize()
     assert ops.launch_counts() == {
         "flash_attention": 2 * cfg.n_layers, "flash_decode": 0,
-        "mamba_scan": 0, "moe_gmm": 0, "rmsnorm": 0, "slstm_seq": 0}
+        "mamba_scan": 0, "moe_gmm": 0, "rmsnorm": 0, "slstm_seq": 0,
+        **NO_SPLIT_NORM}
     torch.testing.assert_close(m2["loss"], m1["loss"], rtol=1e-6, atol=0.0)
     for a, b in zip(leaves(got), leaves(plain), strict=True):
         if b.is_floating_point():

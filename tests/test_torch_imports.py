@@ -411,25 +411,39 @@ def test_chip_smoke_phase_21_rehearses_on_the_cpu(monkeypatch, capsys):
     grouped matmuls on half the experts; then 21(g) in two processes on
     the (1, 2) mesh: the MLA cuts of deepseek_v2_236b and minicpm3_4b
     served and trained on half the heads (and half the experts) against
-    the unsharded runs."""
+    the unsharded runs; then 21(h) in two processes on the (1, 2) mesh:
+    the hybrid served and trained on half the Mamba2 and attention heads
+    against the unsharded runs.  Every train step compared runs at the
+    base lr, moves every leaf, and is held in fp32 and in float64 (the
+    phase checks each leaf; here the largest gaps)."""
     import chip_smoke
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
     out = chip_smoke.phase_mesh(0, "CPU rehearsal", card_dev="cpu",
                                 smoke=True)
-    assert out["worst"] <= 1e-6 and out["dryrun_flops"] == out["flops"]
+
+    def held(rec):
+        """A step that moved every leaf at the base lr, its float64 first
+        moments within 1e-12 of each leaf's max of the unsharded step's."""
+        assert rec["lr"] > 0 and rec["moved_least"] > 0
+        assert rec["fp64"]["m"][0] <= 1e-12
+        assert abs(rec["loss"] - rec["loss_unsharded"]) \
+            <= 1e-6 * abs(rec["loss_unsharded"])
+    held(out)
+    assert out["dryrun_flops"] == out["flops"]
     assert max(out["collectives"].values()) <= 2e-5
     tp = out["tp"]
-    assert tp["worst"] <= 1e-6 and tp["logits_err"] <= 1e-4
+    held(tp)
+    assert tp["logits_err"] <= 1e-4
     assert tp["counts"]["collective_counts"]["reduce-scatter"] > 0
     printed = capsys.readouterr().out
     assert "= the card step's count" in printed
     assert "21(d)" in printed and "op counts = the dry run's" in printed
     fsdp = out["fsdp"]
-    assert fsdp["worst"] <= 1e-6
+    held(fsdp)
     assert fsdp["counts"]["collective_counts"]["reduce-scatter"] > 0
     assert "21(e)" in printed
     ep = out["ep"]
-    assert ep["worst"] <= 1e-6
+    held(ep)
     assert ep["logits_err"] <= 1e-5 * ep["logits_max"]
     # 3 grouped matmuls a prefill and a tick, each on 4 of the 8 experts
     assert ep["gmm_experts"] == [4] * 15
@@ -456,3 +470,12 @@ def test_chip_smoke_phase_21_rehearses_on_the_cpu(monkeypatch, capsys):
     # 3 grouped matmuls a prefill and a tick, each on 4 of the 8 experts
     assert mla["deepseek_v2_236b/serve"]["shapes"]["moe_gmm"] == [4] * 15
     assert "21(g)" in printed
+    hybrid = out["hybrid"]
+    held(hybrid)
+    assert hybrid["logits_err"] <= 1e-5 * hybrid["logits_max"]
+    # 8 of the 16 Mamba2 heads a rank in each of the 7 layers' scans, and
+    # the split norm's 128 of 256 channels a layer, a prefill and 4 ticks
+    assert hybrid["shapes"]["mamba_scan"] == [8] * 7
+    assert hybrid["shapes"]["rmsnorm_sumsq"] == [128] * 7 * 5
+    assert hybrid["counts"]["collective_counts"]["reduce-scatter"] > 0
+    assert "21(h)" in printed

@@ -205,6 +205,34 @@ def test_rmsnorm(n, d, dtype):
     _close(out, jops.fused_rmsnorm(xj, jnp.asarray(s), impl="xla"), dtype)
 
 
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("n,w,m", [(4, 64, 4), (7, 448, 16), (3, 96, 2)])
+def test_split_rmsnorm_entries_are_the_whole_norm(n, w, m, dtype):
+    """The two entries of a norm split over ``m`` devices' blocks of the
+    width (``ops.rmsnorm_sumsq`` on each block, the sums added, then
+    ``ops.rmsnorm_scaled`` on each block over the whole width) equal
+    ``ref.rmsnorm_ref`` over the whole rows, and their plain versions are
+    what the ops run on the CPU."""
+    rng = np.random.default_rng(5)
+    _, x = _both(rng.standard_normal((n, w), np.float32), dtype)
+    s = torch.from_numpy(rng.standard_normal(w).astype(np.float32))
+    blocks, scales = x.chunk(m, dim=-1), s.chunk(m)
+    total = sum(tops.rmsnorm_sumsq(b) for b in blocks)
+    assert total.dtype == torch.float32 and total.shape == (n,)
+    torch.testing.assert_close(
+        total, tref.rmsnorm_sumsq_ref(x), rtol=1e-6, atol=1e-6)
+    got = torch.cat([tops.rmsnorm_scaled(b, total, sb, w)
+                     for b, sb in zip(blocks, scales)], dim=-1)
+    assert got.dtype == x.dtype
+    tol = DTYPES[dtype][2]
+    torch.testing.assert_close(got.float(), tref.rmsnorm_ref(x, s).float(),
+                               rtol=tol, atol=tol)
+    np.testing.assert_array_equal(
+        got.float().numpy(), torch.cat([
+            tref.rmsnorm_scaled_ref(b, total, sb, w)
+            for b, sb in zip(blocks, scales)], dim=-1).float().numpy())
+
+
 def test_rmsnorm_keeps_leading_axes():
     x = torch.from_numpy(np.random.default_rng(4).standard_normal(
         (2, 3, 64), np.float32))

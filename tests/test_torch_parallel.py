@@ -230,15 +230,18 @@ def _tensor_parallel(tc, mesh, act_shard, rows) -> bool:
 def _split_leaves(tc, mesh, act_shard, rows) -> int:
     """The parameter leaves a mesh step of ``tc`` hands the layer code as
     their "model" blocks: those whose spec splits them over "model" where
-    the step is tensor parallel (``parallel.tensor.applies``), else 0."""
+    the step is tensor parallel (``parallel.tensor.applies``), but those
+    it gathers whole over "model" too (``tensor.keeps``), else 0."""
     from repro_torch.parallel import sharding as shd
     from repro_torch.parallel import tensor
     am = AbstractMesh(mesh, ("data", "model"))
     rules = shd.default_rules(act_shard=act_shard)
     if not tensor.applies(tc, am, rules, rows):
         return 0
-    return sum("model" in lay.spec for lay in leaves(
-        tst.state_layouts(tc, am, rules).params))
+    lays = tst.state_layouts(tc, am, rules).params
+    return sum("model" in lay.spec and "model" in keep
+               for lay, keep in zip(leaves(lays), tensor.keeps(lays),
+                                    strict=True))
 
 
 def _check_moe_blocks(tc, got, m: int, rows: int) -> None:
@@ -286,7 +289,8 @@ def test_sharded_train_step_matches_single_device(tmp_path, monkeypatch,
 
 def check_sharded_train(tmp_path, monkeypatch, mesh, act_shard, case):
     """Two steps of the mesh train step against JAX's single-device step
-    and the port's unsharded one, the state at 1e-6 of each leaf's
+    and the port's unsharded one (rank 0's record returned), the state at
+    1e-6 of each leaf's
     largest value.  Where the step is tensor parallel (dense, VLM and MoE
     families, "model" not a batch axis) its split sums round otherwise:
     the parameters (and, but for the VLM, the first moments) are held at
@@ -390,7 +394,7 @@ def check_sharded_train(tmp_path, monkeypatch, mesh, act_shard, case):
         assert g not in fp32 or np.abs(s - t.numpy()).max() <= 1e-6 * scale, \
             f"{g}: state vs the unsharded step"
     if not tp:
-        return
+        return info_out
     for i, t in enumerate(leaves(_first_grads(tc, _torch_state(js0, tc),
                                               batches[0], accum))):
         scale = max(float(t.abs().max()), 1e-30)
@@ -418,6 +422,7 @@ def check_sharded_train(tmp_path, monkeypatch, mesh, act_shard, case):
         scale = max(float(np.abs(t).max()), 1e-30)
         assert np.abs(s - t).max() <= 1e-12 * scale, \
             f"{group[i]}: float64 state vs the unsharded step"
+    return info_out
 
 
 @pytest.mark.parametrize("ticks,seq", [(0, 16), (4, 16), (0, 15)],

@@ -1,12 +1,14 @@
 """The tensor-parallel context of the port's mesh steps
 (``repro_torch.parallel.tensor``), in one process: where it applies, the
-leaves it splits, the KV heads a device's query heads read, the shapes a
-step gathers and the dry run's cache, the decode's check of its cache,
-and the vocab-split cross-entropy on a model axis of one device against
-``common.cross_entropy``; where a step splits its residual stream by
-sequence, and the shapes and recorded bytes of the sequence collectives
-on an abstract mesh.  The steps themselves, and the collectives' values,
-run on gloo ranks in ``tests/test_torch_parallel.py``.
+leaves it splits (and the hybrid's it gathers whole and slices: a
+device's columns against JAX's layout, the split gated norm against the
+whole one, a device's cache), the KV heads a device's query heads read,
+the shapes a step gathers and the dry run's cache, the decode's check of
+its cache, and the vocab-split cross-entropy on a model axis of one
+device against ``common.cross_entropy``; where a step splits its
+residual stream by sequence, and the shapes and recorded bytes of the
+sequence collectives on an abstract mesh.  The steps themselves, and the
+collectives' values, run on gloo ranks in ``tests/test_torch_parallel.py``.
 """
 import numpy as np
 import pytest
@@ -25,8 +27,8 @@ from repro_torch.parallel.comm import AbstractMesh
 
 def _tp(cfg, mesh, act_shard="seq"):
     rules = shd.default_rules(act_shard=act_shard)
-    return tensor.TensorParallel.of(
-        mesh, tst.state_layouts(cfg, mesh, rules).params)
+    lays = tst.state_layouts(cfg, mesh, rules).params
+    return tensor.TensorParallel.of(mesh, lays, tensor.keeps(lays))
 
 
 @pytest.mark.parametrize("arch,shape,act_shard,rows,want", [
@@ -47,7 +49,11 @@ def _tp(cfg, mesh, act_shard="seq"):
     # MLP and vocab split
     ("deepseek_v2_236b", (4, 2), "seq", 4, True),
     ("minicpm3_4b", (16, 16), "seq", 256, True),
-    ("zamba2_7b", (4, 2), "seq", 4, False),
+    # the hybrid: 112 Mamba2 heads of 64 and 32 attention heads split;
+    # on 32 the Mamba2 heads do not divide, and every layer is whole
+    ("zamba2_7b", (4, 2), "seq", 4, True),
+    ("zamba2_7b", (16, 16), "seq", 256, True),
+    ("zamba2_7b", (8, 32), "seq", 8, False),
     ("xlstm_125m", (4, 2), "seq", 4, False),
     ("minicpm3_4b", (4, 2), "seq", 4, True),
     ("whisper_medium", (4, 2), "seq", 4, False),
@@ -345,3 +351,197 @@ def test_mla_heads_split_where_they_divide_and_the_latent_cache_is_whole(
                                                    cfg.kv_lora)
     assert tuple(cache["layers"]["krope"].shape) == (n, 8, 32768,
                                                      cfg.qk_rope)
+
+
+def test_hybrid_leaves_split_or_gathered_whole_over_model():
+    """Reduced zamba2_7b on (2, 4): the Mamba2 gated norm's scale and
+    out_proj are split by rows (the channels of 4 of 16 heads), in_proj,
+    conv_w and conv_b are gathered whole over "model" too (their keep is
+    empty: their "mlp" blocks of 140 and 72 columns would straddle the
+    heads and the z | x | B | C | dt parts), A_log, D, dt_bias and the
+    norms stay whole; the shared attention blocks split as the dense
+    block does.  At full width on (16, 16) the context tells in_proj
+    (3584, 14576), taken whole, from the shared blocks' w_gate (3584,
+    14336), taken as its (3584, 896) block, which share their axes."""
+    from repro_torch.models import ssm
+    cfg = get_config("zamba2_7b").reduced()
+    mesh = AbstractMesh((2, 4), ("data", "model"))
+    rules = shd.default_rules()
+    lays = tst.state_layouts(cfg, mesh, rules).params
+    mixer = lays["groups"]["mixer"]
+    keep = dict(zip(sorted(mixer), tensor.keeps(mixer)))
+    assert keep == {"A_log": ("model",), "D": ("model",),
+                    "conv_b": (), "conv_w": (), "dt_bias": ("model",),
+                    "in_proj": (), "norm": ("model",),
+                    "out_proj": ("model",)}
+    for name in ("in_proj", "conv_w", "conv_b", "norm", "out_proj"):
+        assert "model" in mixer[name].spec, name
+    tp = _tp(cfg, mesh)
+    got = {(axes, shape): dim for axes, shape, dim in tp.leaves}
+    assert got[ssm.IN_AXES, (128, 560)] is None
+    assert got[ssm.IN_AXES, (128, 256)] == 1            # w_gate, w_up
+    assert got[ssm.CONV_W_AXES, (4, 288)] is None
+    assert got[ssm.CHANNEL_AXES, (288,)] is None         # conv_b
+    assert got[ssm.CHANNEL_AXES, (256,)] == 0            # norm
+    assert got[ssm.OUT_AXES, (256, 128)] == 0    # out_proj and w_down
+    assert got[(None,), (16,)] is None                   # A_log, D, dt_bias
+    assert got[("embed", "heads", None), (128, 4, 32)] == 1
+    assert got[("embed", "kv", None), (128, 4, 32)] is None
+    params = {"in_proj": torch.empty(128, 560), "conv_w": torch.empty(4, 288),
+              "conv_b": torch.empty(288), "norm": torch.empty(64),
+              "out_proj": torch.empty(64, 128)}
+    with tensor.use(tp):
+        assert ssm.head_split(params) is tp
+        with pytest.raises(ValueError, match="its block is"):
+            ssm.head_split({**params, "in_proj": torch.empty(128, 140)})
+    assert ssm.head_split(params) is None
+    full = get_config("zamba2_7b")
+    tp = _tp(full, AbstractMesh((16, 16), ("data", "model")))
+    assert tp.split_dim(torch.empty(3584, 14576), ssm.IN_AXES) is None
+    assert tp.split_dim(torch.empty(3584, 896), ssm.IN_AXES) == 1
+    assert tp.split_dim(torch.empty(448, 3584), ssm.OUT_AXES) == 0
+    with pytest.raises(ValueError, match="its block is"):
+        tp.split_dim(torch.empty(3584, 911), ssm.IN_AXES)
+
+
+@pytest.mark.parametrize("m", [2, 4, 8])
+def test_a_devices_columns_are_its_heads_in_the_jax_layout(m):
+    """Reduced zamba2_7b's Mamba2 layer (16 heads of 16, state 16): on
+    each device of an axis of ``m`` the port's projection and conv from
+    the columns it slices (``ssm._heads``) equal the columns of its heads
+    of JAX's whole projection and conv: z, x and dt of heads [i 16/m,
+    (i + 1) 16/m), and the whole B and C."""
+    import jax.numpy as jnp
+    from repro.models import ssm as jssm
+    from repro_torch.models import ssm
+    cfg = get_config("zamba2_7b").reduced()
+    spec = ssm.mamba_spec(cfg.d_model, expand=cfg.ssm_expand,
+                          headdim=cfg.ssm_headdim, state=cfg.ssm_state)
+    rng = np.random.default_rng(0)
+    whole = {k: rng.standard_normal(s.shape).astype(np.float32)
+             for k, s in spec.items()}
+    x = rng.standard_normal((2, 8, cfg.d_model)).astype(np.float32)
+    jz, jxbc, jdt, (di, h, p, n) = jssm._project(
+        {k: jnp.asarray(v) for k, v in whole.items()}, jnp.asarray(x))
+    jconv, _ = jssm.causal_conv(jxbc, jnp.asarray(whole["conv_w"]),
+                                jnp.asarray(whole["conv_b"]))
+    hl = h // m
+    for i in range(m):
+        tp = tensor.TensorParallel(None, "model", i, m, ())
+        local = ssm._heads({k: torch.from_numpy(v)
+                            for k, v in whole.items()}, tp)
+        z, xbc, dt, dims = ssm._project(local, torch.from_numpy(x))
+        assert dims == (hl * p, hl, p, n)
+        ch = slice(i * hl * p, (i + 1) * hl * p)
+        xs = np.r_[i * hl * p:(i + 1) * hl * p, di:di + 2 * n]
+        close = dict(rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(z.numpy(), np.asarray(jz)[..., ch],
+                                   **close)
+        np.testing.assert_allclose(xbc.numpy(), np.asarray(jxbc)[..., xs],
+                                   **close)
+        np.testing.assert_allclose(
+            dt.numpy(), np.asarray(jdt)[..., i * hl:(i + 1) * hl], **close)
+        conv, _ = ssm.causal_conv(xbc, local["conv_w"], local["conv_b"])
+        np.testing.assert_allclose(conv.numpy(), np.asarray(jconv)[..., xs],
+                                   **close)
+        for name in ("A_log", "D", "dt_bias"):
+            np.testing.assert_array_equal(
+                local[name].numpy(), whole[name][i * hl:(i + 1) * hl])
+
+
+def _device_sum(monkeypatch):
+    """Collectives over a leading "device" dimension in one process:
+    ``tensor``'s all-reduce sums over dimension 0 and gives every device
+    the sum, as over a real axis."""
+    monkeypatch.setattr(tensor, "_all_reduce", lambda x, tp, op="sum":
+                        x.sum(0, keepdim=True).expand_as(x).clone())
+
+
+@pytest.mark.parametrize("alone", [False, True],
+                         ids=["all-reduced", "out_of_split-alone"])
+def test_the_split_gated_norm_is_the_whole_norm(monkeypatch, alone):
+    """The gated RMSNorm over 4 devices' channels (``ssm._split_norm``: the
+    sums of squares all-reduced forward and backward), its forward and
+    its gradients in x and the scale, equal the whole norm's over all the
+    channels (the plain route, as training runs it, and the ops entries
+    forward).  With the sums passed on by ``out_of_split`` alone the
+    forward is the same, but each device then differentiates only its
+    channels' share of the sum, and the gradient of x is wrong."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import ssm
+    _device_sum(monkeypatch)
+    m, w = 4, 64
+    rng = np.random.default_rng(1)
+    x = torch.tensor(rng.standard_normal((3, 5, w)), dtype=torch.float32)
+    scale = torch.tensor(1 + 0.5 * rng.standard_normal(w),
+                         dtype=torch.float32)
+    seed = torch.tensor(rng.standard_normal((3, 5, w)), dtype=torch.float32)
+    tp = tensor.TensorParallel(None, "model", 0, m, ())
+
+    def parts(t):           # (..., w) -> (m, ..., w / m): a device a row
+        return torch.stack(t.chunk(m, dim=-1))
+    xw, sw = x.clone().requires_grad_(), scale.clone().requires_grad_()
+    want = ref.rmsnorm_ref(xw, sw)
+    (want * seed).sum().backward()
+    xs = parts(x).requires_grad_()
+    ss = parts(scale)[:, None, None].requires_grad_()
+    if alone:
+        total = tensor.out_of_split(ref.rmsnorm_sumsq_ref(xs), tp)
+        got = ref.rmsnorm_scaled_ref(xs, total, ss, w)
+    else:
+        got = ssm._split_norm(xs, ss, w, tp, plain=True)
+    (got * parts(seed)).sum().backward()
+    torch.testing.assert_close(got.detach(), parts(want.detach()),
+                               rtol=1e-6, atol=1e-6)
+    dx = torch.cat(list(xs.grad), dim=-1)
+    if alone:
+        assert (dx - xw.grad).abs().max() > 1e-2
+        return
+    torch.testing.assert_close(dx, xw.grad, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(torch.cat(list(ss.grad[:, 0, 0])), sw.grad,
+                               rtol=1e-5, atol=1e-6)
+    # the ops entries (the serving route), a device at a time
+    total = sum(ops.rmsnorm_sumsq(xd) for xd in parts(x))
+    fwd = torch.stack([ops.rmsnorm_scaled(xd, total, sd, w)
+                       for xd, sd in zip(parts(x), parts(scale))])
+    torch.testing.assert_close(fwd, parts(want.detach()), rtol=1e-6,
+                               atol=1e-6)
+
+
+def test_the_hybrid_cache_a_device_holds():
+    """A device's decode cache on (2, 4) and on the production mesh: each
+    Mamba2 layer's conv tail of its heads' x channels and the whole B and
+    C (3 rows of 4 x 16 + 2 x 16, of 7 x 64 + 2 x 64), its heads' SSD
+    states, and each shared block's K/V of the KV heads its query heads
+    read; under the head split a decode layer refuses a cache of every
+    head."""
+    from repro_torch.models import ssm
+    cfg = get_config("zamba2_7b").reduced()
+    mesh = AbstractMesh((2, 4), ("data", "model"))
+    rules = shd.default_rules()
+    cache = tst.abstract_cache(cfg, InputShape("t", 20, 4, "decode"), mesh,
+                               rules, device="cpu")
+    assert tuple(cache["groups"]["conv"].shape) == (2, 3, 2, 3, 96)
+    assert tuple(cache["groups"]["ssm"].shape) == (2, 3, 2, 4, 16, 16)
+    assert tuple(cache["rest"]["ssm"].shape) == (1, 2, 4, 16, 16)
+    assert tuple(cache["attn"]["k"].shape) == (2, 2, 20, 1, 32)
+    full = get_config("zamba2_7b")
+    big = tst.abstract_cache(full, SHAPES["long_500k"],
+                             AbstractMesh((16, 16), ("data", "model")), rules)
+    assert tuple(big["groups"]["conv"].shape) == (13, 6, 1, 3, 448 + 128)
+    assert tuple(big["groups"]["ssm"].shape) == (13, 6, 1, 7, 64, 64)
+    assert tuple(big["rest"]["conv"].shape) == (3, 1, 3, 576)
+    assert tuple(big["attn"]["v"].shape) == (13, 1, 524288, 2, 112)
+    tp = _tp(cfg, mesh)
+    spec = ssm.mamba_spec(cfg.d_model, expand=2, headdim=16, state=16)
+    params = {k: torch.zeros(s.shape) for k, s in spec.items()}
+    params["norm"], params["out_proj"] = torch.ones(64), torch.zeros(64, 128)
+    x = torch.zeros(2, 1, cfg.d_model)
+    with tensor.use(tp):
+        out, state = ssm.mamba_decode_layer(params, x, {
+            "conv": torch.zeros(2, 3, 96), "ssm": torch.zeros(2, 4, 16, 16)})
+        assert tuple(state["conv"].shape) == (2, 3, 96)
+        with pytest.raises(ValueError, match="computes 4 heads"):
+            ssm.mamba_decode_layer(params, x, {
+                "conv": torch.zeros(2, 3, 288),
+                "ssm": torch.zeros(2, 16, 16, 16)})

@@ -170,15 +170,37 @@ class _BlockSpy:
     stream the trunk (``transformer._trunk``) last ran on: this device's
     rows where the stream is split; ``moe`` the shapes a MoE layer
     (``transformer.moe_apply``) last got: its router, its routed experts
-    and its input stream ``x``."""
+    and its input stream ``x``.  The leaves a tensor-parallel step gathers
+    whole over "model" as well (``tensor.keeps``: Mamba2's in_proj and
+    conv) come whole.  ``heads`` collects, of every call, the heads of
+    the SSD (``ssm.ssd_chunked``, ``ops.mamba_scan``, ``ssm.ssd_step``:
+    "ssd") and the query and KV heads of attention
+    (``attention.attend_chunked``, ``ops.flash_decode``: "attn")."""
 
     def __init__(self, lay):
-        from repro_torch.models import transformer
+        from repro_torch.kernels import ops
+        from repro_torch.models import attention, ssm, transformer
         from repro_torch.parallel import tensor
         from repro_torch.tree import leaves
         self.split, self.rows, self.moe = 0, None, None
-        lays = leaves(lay)
+        self.heads = {"ssd": set(), "attn": set()}
+        lays, keeps = leaves(lay), tensor.keeps(lay)
         trunk, moe_apply = transformer._trunk, transformer.moe_apply
+
+        def recorder(mod, name, kind, heads):
+            fn = getattr(mod, name)
+
+            def recorded(*a, **k):
+                self.heads[kind].add(heads(*a))
+                return fn(*a, **k)
+            setattr(mod, name, recorded)
+        recorder(ssm, "ssd_chunked", "ssd", lambda xh, *a: xh.shape[2])
+        recorder(ops, "mamba_scan", "ssd", lambda xh, *a: xh.shape[2])
+        recorder(ssm, "ssd_step", "ssd", lambda st, xh, *a: xh.shape[1])
+        recorder(attention, "attend_chunked", "attn",
+                 lambda q, k, *a: (q.shape[2], k.shape[2]))
+        recorder(ops, "flash_decode", "attn",
+                 lambda q, k, *a: (q.shape[2], k.shape[2]))
 
         def rows(cfg, params, x, *a, **k):
             self.rows = int(x.shape[1])
@@ -196,7 +218,8 @@ class _BlockSpy:
             from repro_torch.parallel import sharding as shd
             tp = tensor.active()
             self.split = 0
-            for x, l in zip(leaves(params), lays, strict=True):
+            for x, l, keep in zip(leaves(params), lays, keeps,
+                                  strict=True):
                 if l.stacked:
                     assert isinstance(x, shd.Stacked), (l.axes, type(x))
                     block = l.local_shape[l.stacked:]
@@ -204,7 +227,7 @@ class _BlockSpy:
                         (l.axes, block)
                 want = list(l.shape)
                 for dim, e in enumerate(l.spec):
-                    if tp is not None and e == tp.axis:
+                    if tp is not None and e == tp.axis and e in keep:
                         want[dim] //= tp.size
                         self.split += 1
                 assert tuple(x.shape) == tuple(want), (l.axes, x.shape, want)
@@ -290,7 +313,8 @@ def sharded_train(rank, d):
     state, losses, counts = run(
         st.shard_state(_state_from(d, cfg), lay), batches, True)
     out = {"losses": losses, "counts": counts, "split_leaves": spy.split,
-           "stream_rows": spy.rows, "moe": spy.moe}
+           "stream_rows": spy.rows, "moe": spy.moe,
+           "heads": _heads_seen(spy)}
     first_grads = whole_grads()
     # every block is the layout's slice of the gathered state
     whole = st.gather_state(state, lay)
@@ -340,7 +364,8 @@ def sharded_prefill(rank, d):
     whole = shd.gather(logits, ("batch", None), mesh, rules,
                        (rows, logits.shape[-1]))
     out = {"counts": _counts(rep), "split_leaves": spy.split,
-           "stream_rows": spy.rows, "moe": spy.moe}
+           "stream_rows": spy.rows, "moe": spy.moe,
+           "heads": _heads_seen(spy)}
     arrays = {"logits": whole.numpy()}
     if ticks:
         serve = st.make_serve_step(cfg, mesh, rules, rows)
@@ -359,9 +384,25 @@ def sharded_prefill(rank, d):
         arrays["tokens"] = shd.gather(torch.cat(got, 1), ("batch", None),
                                       mesh, rules,
                                       (rows, ticks + 1)).numpy()
-        out["cache_shape"] = {k: list(v.shape)
-                              for k, v in cache["layers"].items()}
+        out["cache_shape"] = _shapes(cache.get("layers", cache))
+        out["tick_heads"] = _heads_seen(spy)
     _save(d, arrays, out)
+
+
+def _shapes(tree):
+    """Each leaf's shape (a list) in a nest of dicts."""
+    if isinstance(tree, dict):
+        return {k: _shapes(v) for k, v in tree.items()}
+    return list(tree.shape)
+
+
+def _heads_seen(spy):
+    """The heads ``spy`` collected (sorted lists), and a fresh start."""
+    got = {k: sorted(list(h) if isinstance(h, tuple) else h for h in v)
+           for k, v in spy.heads.items()}
+    for v in spy.heads.values():
+        v.clear()
+    return got
 
 
 def elastic(rank, d):

@@ -1,11 +1,12 @@
-"""Calls of the port's six CUDA kernel wrappers on small inputs whose
+"""Calls of the port's CUDA kernel wrappers (the six kernels and the
+split norm's two entries) on small inputs whose
 floating-point tensors require grad (the weights of a model in training),
 shared by the CPU tests (tests/test_torch_kernels.py) and the card tests
 (tests/test_torch_cuda.py).  Imports no JAX."""
 import torch
 
 WRAPPERS = ["flash_attention", "flash_decode", "mamba_scan", "moe_gmm",
-            "rmsnorm", "slstm_seq"]
+            "rmsnorm", "rmsnorm_sumsq", "rmsnorm_scaled", "slstm_seq"]
 
 
 def wrapper_call(name, dev):
@@ -32,6 +33,8 @@ def wrapper_call(name, dev):
             chunk=16),
         "moe_gmm": lambda: mg.moe_gmm(t(2, 4, 32), t(2, 32, 64)),
         "rmsnorm": lambda: rn.rmsnorm(t(4, 64), t(64)),
+        "rmsnorm_sumsq": lambda: rn.sumsq(t(4, 64)),
+        "rmsnorm_scaled": lambda: rn.scaled(t(4, 64), t(4), t(64), 256),
         "slstm_seq": lambda: sl.slstm_seq(t(1, 4, 4, 2, 8), t(4, 2, 8, 8),
                                           t(4, 2, 8)),
     }
