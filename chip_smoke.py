@@ -63,7 +63,11 @@ prints its seconds:
    160, the 1 x 128 prefill's and a one-slot tick's counts); the grouped
    matmul on one rank's block of 21(f)'s expert
    parallelism (experts 32-63 of 64, given that block's slice of the
-   counts: a one-slot tick and the 1 x 128 prefill); RMSNorm first fails unless one call runs exactly
+   counts: a one-slot tick and the 1 x 128 prefill); flash attention and
+   flash decode at a rank of 21(h)'s 16 heads of 112 and of 21(i)'s 8 of
+   whisper_medium's 16 heads of 64 (the encoder at S = T = 1500, the
+   training cross-attention at 448 against 1500, the cross decode over
+   1500 frames and the self decode over 448 rows); RMSNorm first fails unless one call runs exactly
    one device kernel, the port's, then runs the decode tick's 4 rows at
    every served width (256 to 12288) and a 512-token prefill at 4096 and
    7168, in both types, and glm4_9b's decode chain in fp32 (the residual
@@ -267,9 +271,19 @@ prints its seconds:
    D 192 / Dv 128; 20 heads, 96 / 64) and latent flash decodes (64 heads
    on 576 / 512; 20 on 288 / 256) on its heads and its grouped matmuls
    on 80 experts, its launches and its op counts equal to the dry run's,
-   each rank's peak memory beside the unsharded run's.  Axes of one
-   device issue no collective, so (a)'s step runs none and (d)-(g) none
-   over "data";
+   each rank's peak memory beside the unsharded run's; (h) the hybrid
+   tensor and sequence parallel on the (1, 2) mesh: full-width zamba2_7b
+   cut to 7 layers (56 of 112 Mamba2 heads, 16 of 32 attention heads a
+   rank) served and trained alike; (i) the encoder-decoder tensor and
+   sequence parallel on the (1, 2) mesh: full-width whisper_medium cut to
+   2 encoder and 2 decoder layers (8 of 16 heads of the self- and
+   cross-attention a rank, the cross cache of its 8 KV heads, 750 of the
+   1500 encoder rows and 224 of the 448 decoder rows) served (1 x 1500
+   frames, the first token and 4 greedy ticks) and trained alike, each
+   rank's peak memory below the unsharded run's.  (d)-(i) run one after
+   another in one pair of processes, then each is checked; the phase
+   prints each part's seconds.  Axes of one device run no collective,
+   so (a)'s step runs none and (d)-(i) none over "data";
 22. full-width deepseek_v2_236b (MLA: q_lora 1536, kv_lora 512, qk 128 +
    64, v 128, 128 heads; 160 routed top-6 experts of 1536 and 2 shared)
    cut to 2 layers, the dense first one and one MoE layer (4.834 B
@@ -285,7 +299,8 @@ prints its seconds:
    one, as the counts assert; the tick p50, busy ms, kernels a tick, the
    tick's floor and peak memory.
 
-Then a ``{"kernels": [...]}`` line and, last, the device line.  Exits
+Then the whole run's seconds, the card's name and power limit, a
+``{"kernels": [...]}`` line and, last, the device line.  Exits
 nonzero without a CUDA device or without the repository around it.
 """
 from __future__ import annotations
@@ -339,17 +354,35 @@ def bound(nbytes: float, flops: float, dtype, peak=None) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def device_events(fn) -> list:
+# profiler passes that recorded no device event at all and were taken again
+LOST_PASSES = [0]
+
+
+def device_events(fn, passes: int = 6) -> list:
     """Names of the device events (kernels, copies, sets) of one (warm)
-    call of ``fn``, one entry an event, from a torch.profiler pass."""
+    call of ``fn``, one entry an event, from a torch.profiler pass.
+
+    Every ``fn`` given here runs work on the card, so a pass that records
+    no device event at all lost its records (runs have lost every pass of
+    a check, three back to back): it is counted in ``LOST_PASSES`` and
+    taken again after a pause, up to ``passes`` passes.  A pass waits a
+    little before it stops, for records still being written."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
+    for i in range(passes):
         torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(0.01)
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        if names:
+            return names
+        LOST_PASSES[0] += 1
+        time.sleep(0.2 * (i + 1))
+    return []
 
 
 def device_kernels(fn) -> list:
@@ -607,12 +640,7 @@ def phase_kernels(gen):
             qt, kt, vt, attn_mask=mask, enable_gqa=True, scale=scale)
         err = compare(f"flash_decode T={t} D={d} Dv={dv} {tag}",
                       kern()[:, 0], plain(), dtype)
-        # a profiler pass now and then records no device event at all (as
-        # after the plain SSD loops, above); a pass that records none says
-        # nothing, so take up to three
-        events = []
-        for _ in range(3):
-            events = events or device_events(kern)
+        events = device_events(kern)
         check(len(events) == 1 and "flash_decode" in events[0],
               f"one flash_decode call ran {len(events)} device events: "
               f"{events}")
@@ -805,9 +833,7 @@ def phase_kernels(gen):
         x, s_ = rnd(4, 4096, dtype=dtype), rnd(4096, dtype=torch.float32)
         kern = functools.partial(ops.fused_rmsnorm, x, s_, eps=1e-5)
         kern()
-        events = []
-        for _ in range(3):
-            events = events or device_events(kern)
+        events = device_events(kern)
         check(len(events) == 1 and "rmsnorm" in events[0],
               f"one rmsnorm call ran {len(events)} device events: {events}")
         print(f"  rmsnorm N=4 D=4096 {dtype}: one device kernel a call, "
@@ -914,6 +940,24 @@ def phase_kernels(gen):
             16, 16, 112, dtype, tag)
     rows[("flash_decode", "float32", "T=132 H=16 D=112 MHA TP fill 128")] = \
         decode(16, 16, 112, torch.float32, "float32", (128,) * 4, t=132)
+    # a rank of 21(i)'s tensor-parallel whisper_medium: its 8 of the 16
+    # heads of 64 in the encoder (1500 frames, non-causal), the training
+    # decoder's causal self-attention (448 tokens) and cross-attention (448
+    # tokens against 1500 frames), and the cross and self decodes
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).replace("torch.", "")
+        rows[("flash_attention", tag, "S=T=1500 H=8 D=64 encoder TP")] = \
+            attention(1500, 8, 8, 64, dtype, tag, causal=False)
+        rows[("flash_decode", tag, "T=1500 H=8 D=64 cross TP")] = decode(
+            8, 8, 64, dtype, tag, (1500,) * 4, t=1500)
+    rows[("flash_attention", "float32", "S=T=448 H=8 D=64 self TP")] = \
+        attention(448, 8, 8, 64, torch.float32, "float32")
+    rows[("flash_attention", "float32", "S=448 T=1500 H=8 D=64 cross TP")] = \
+        attention(448, 8, 8, 64, torch.float32, "float32", t=1500,
+                  causal=False)
+    rows[("flash_decode", "float32", "T=448 H=8 D=64 self TP fill "
+                                     "448/300/65/1")] = decode(
+        8, 8, 64, torch.float32, "float32", (448, 300, 65, 1), t=448)
     rows[("flash_decode", "float32", "T=1500 H=16 D=64 cross")] = decode(
         16, 16, 64, torch.float32, "float32", (1500,) * 4, t=1500)
     rows[("flash_decode", "float32", "T=448 H=16 D=64 self fill "
@@ -1026,6 +1070,8 @@ def phase_kernels(gen):
         if r["library_kernels"] is not None:
             print(f"    SDPA kernels: " + (" | ".join(
                 n[:100] for n in r["library_kernels"]) or "none recorded"))
+    print(f"  profiler passes that recorded no device event and were taken "
+          f"again, so far: {LOST_PASSES[0]}")
     return rows
 
 
@@ -3238,7 +3284,7 @@ def _train_sharded(cfg, mesh, rules, lay, batch, gen, dev, sync,
     with Float64():
         state, m = st.make_train_step(wide, total_steps=10, warmup=0,
                                       mesh=mesh, rules=rules,
-                                      **step_kw)(state, batch)
+                                      **step_kw)(state, double(batch))
         sync()
         t3 = time.perf_counter()
         trained.append(_trained(state, lay, keep))
@@ -3543,11 +3589,12 @@ def _op_counts(rep) -> dict:
 
 
 def _tp_rank(rank: int, tmp: str, seed: int, card_dev: str,
-             smoke: bool, run=None) -> None:
-    """21(d) or 21(e) in one of the two processes: a gloo group on the
-    file store in ``tmp`` (both ranks on the card's device 0), the run of
-    ``run`` (:func:`_tp_run` unless given), its record written to
-    ``tmp/rank<r>.json``."""
+             smoke: bool, runs: tuple) -> None:
+    """21(d)-(i) in one of the two processes: a gloo group on the file
+    store in ``tmp`` (both ranks on the card's device 0), then each of
+    ``runs`` (:func:`_tp_run`, :func:`_fsdp_run`, ...) in turn, its record
+    and its seconds written to ``tmp/<run>.rank<r>.json`` and its tensors
+    freed before the next."""
     import datetime
     import torch.distributed as dist
     os.environ["LOCAL_RANK"] = "0"
@@ -3557,30 +3604,50 @@ def _tp_rank(rank: int, tmp: str, seed: int, card_dev: str,
                             rank=rank, world_size=2,
                             timeout=datetime.timedelta(seconds=120))
     try:
-        out = (run or _tp_run)(rank, seed, card_dev, smoke)
+        for run in runs:
+            t0 = time.perf_counter()
+            out = run(rank, seed, card_dev, smoke)
+            out["run_seconds"] = time.perf_counter() - t0
+            with open(os.path.join(tmp, f"{run.__name__}.rank{rank}.json"),
+                      "w") as f:
+                json.dump(out, f)
+            del out
+            _fresh(card_dev == "cuda")
     finally:
         dist.destroy_process_group()
-    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
-        json.dump(out, f)
 
 
-def _two_ranks(run, seed: int, card_dev: str, smoke: bool) -> tuple:
-    """(each rank's record, seconds): :func:`_tp_rank` of ``run`` in two
-    processes on the one card."""
+def _two_ranks(runs, seed: int, card_dev: str, smoke: bool) -> dict:
+    """{each run's name: (each rank's record, its seconds on rank 0)}:
+    ``runs`` one after another in two processes on the one card
+    (:func:`_tp_rank`), which start once for all of them."""
     import shutil
     import tempfile
     import torch.multiprocessing as mp
     tmp = tempfile.mkdtemp(prefix="mesh_two_")
-    t0 = time.perf_counter()
     try:
-        mp.spawn(_tp_rank, args=(tmp, seed, card_dev, smoke, run), nprocs=2)
-        ranks = []
-        for r in range(2):
-            with open(os.path.join(tmp, f"rank{r}.json")) as f:
-                ranks.append(json.load(f))
+        mp.spawn(_tp_rank, args=(tmp, seed, card_dev, smoke, tuple(runs)),
+                 nprocs=2)
+        parts = {}
+        for run in runs:
+            ranks = []
+            for r in range(2):
+                with open(os.path.join(
+                        tmp, f"{run.__name__}.rank{r}.json")) as f:
+                    ranks.append(json.load(f))
+            parts[run.__name__] = ranks, ranks[0]["run_seconds"]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    return ranks, time.perf_counter() - t0
+    return parts
+
+
+def _ranks_of(run, parts, seed: int, card_dev: str, smoke: bool) -> tuple:
+    """(each rank's record of ``run``, its seconds): from ``parts``
+    (:func:`_two_ranks` of every two-rank part of phase 21 at once) where
+    given, else from two processes of its own."""
+    if parts is None:
+        parts = _two_ranks((run,), seed, card_dev, smoke)
+    return parts[run.__name__]
 
 
 def _tp_run(rank: int, seed: int, card_dev: str, smoke: bool) -> dict:
@@ -3661,7 +3728,7 @@ def _tp_run(rank: int, seed: int, card_dev: str, smoke: bool) -> dict:
 
 
 def mesh_tp(seed: int, smi: str, card_dev: str = "cuda",
-            smoke: bool = False) -> dict:
+            smoke: bool = False, parts=None) -> dict:
     """21(d): :func:`_tp_rank` in two processes on the one card, each
     holding half of every split leaf and 64 of the 128 rows of the
     residual stream; its train step at the base lr held against the
@@ -3676,7 +3743,8 @@ def mesh_tp(seed: int, smi: str, card_dev: str = "cuda",
     from repro_torch.launch import dryrun
     from repro_torch.parallel.comm import AbstractMesh
     cfg = _mesh_cfg(smoke)
-    ranks, t_ranks = _two_ranks(_tp_run, seed, card_dev, smoke)
+    ranks, t_ranks = _ranks_of(_tp_run, parts, seed, card_dev,
+                              smoke)
     t0 = time.perf_counter()
     am = AbstractMesh(MESH_TP, ("data", "model"))
     for kind in ("train", "prefill"):
@@ -3714,7 +3782,7 @@ def mesh_tp(seed: int, smi: str, card_dev: str = "cuda",
           f"{ms} ms a rank (median of 3, host clock: a two-process gloo "
           f"step with host-staged collectives, not a speed of the design); "
           f"collectives of the step {r0['train_counts']['collective_counts']}"
-          f"; seconds: the two processes {t_ranks:.1f} (rank 0's parts "
+          f"; seconds: the part on rank 0 {t_ranks:.1f} (rank 0's parts "
           f"{r0['laps']}), the dry run's traces {t_trace:.1f}; card "
           f"{smi}")
     return {**_trained_record(r0), "logits_err": r0["logits_err"],
@@ -3780,7 +3848,7 @@ def _fsdp_run(rank: int, seed: int, card_dev: str, smoke: bool) -> dict:
 
 
 def mesh_fsdp(seed: int, smi: str, card_dev: str = "cuda",
-              smoke: bool = False) -> dict:
+              smoke: bool = False, parts=None) -> dict:
     """21(e): :func:`_fsdp_run` in two processes on the one card on a (2, 1)
     mesh, FSDP only: its step at the base lr held against the unsharded
     one in fp32 and float64 (``_hold_trained``); each rank's
@@ -3795,7 +3863,8 @@ def mesh_fsdp(seed: int, smi: str, card_dev: str = "cuda",
     from repro_torch.models.common import count_params
     from repro_torch.parallel.comm import AbstractMesh
     cfg = _fsdp_cfg(smoke)
-    ranks, t_ranks = _two_ranks(_fsdp_run, seed, card_dev, smoke)
+    ranks, t_ranks = _ranks_of(_fsdp_run, parts, seed, card_dev,
+                              smoke)
     t0 = time.perf_counter()
     cell = dryrun.trace_cell(cfg, InputShape("cut", MESH_SEQ, FSDP_ROWS,
                                              "train"),
@@ -3828,7 +3897,7 @@ def mesh_fsdp(seed: int, smi: str, card_dev: str = "cuda",
           f"gathering it at its top held beside them: {whole / 1e9:.3f} GB;"
           f" the step {[round(r['seconds'], 2) for r in ranks]} s a rank "
           f"(host clock, gloo's collectives staged through the host); "
-          f"seconds: the two processes {t_ranks:.1f}, the dry run's trace "
+          f"seconds: the part on rank 0 {t_ranks:.1f}, the dry run's trace "
           f"{t_trace:.1f}; card {smi}")
     return {**_trained_record(r0),
             "launches": {k: sum(r["train_launches"][k] for r in ranks)
@@ -3893,10 +3962,12 @@ class _OpShapes:
             setattr(self.ops, n, fn)
 
 
-def _mesh_serve(params, prefill, tick, prompt, dev, sync) -> dict:
+def _mesh_serve(params, prefill, tick, prompt, dev, sync,
+                kv0: int = MESH_SEQ) -> dict:
     """The prefill's logits, launches and op counts, then the ticks'
-    tokens, launches and the first tick's op counts, with the shapes the
-    attention and grouped-matmul wrappers got."""
+    tokens (from a cache fill of ``kv0``), launches and the first tick's
+    op counts, with the shapes the attention and grouped-matmul wrappers
+    got."""
     from repro_torch.analysis import hlo
     from repro_torch.kernels import ops
     got = {}
@@ -3907,7 +3978,7 @@ def _mesh_serve(params, prefill, tick, prompt, dev, sync) -> dict:
         got.update(prefill_launches=ops.launch_counts(),
                    prefill_counts=_op_counts(rep), logits=logits.cpu())
         tok = {"token": torch.argmax(logits, -1).to(torch.int32)[:, None],
-               "kv_len": torch.full((1,), MESH_SEQ, dtype=torch.int32,
+               "kv_len": torch.full((1,), kv0, dtype=torch.int32,
                                     device=dev)}
         tokens = [tok["token"]]
         ops.reset_launch_counts()
@@ -4028,7 +4099,7 @@ def _ep_tick_without_sync(cfg, seed: int) -> None:
 
 
 def mesh_ep(seed: int, smi: str, card_dev: str = "cuda",
-            smoke: bool = False) -> dict:
+            smoke: bool = False, parts=None) -> dict:
     """21(f): :func:`_ep_run` in two processes on the one card on the (1, 2)
     mesh, expert parallel: the prefill's logits within 1e-5 of max |logit|
     of the unsharded prefill's, the four ticks' tokens equal to the
@@ -4045,7 +4116,8 @@ def mesh_ep(seed: int, smi: str, card_dev: str = "cuda",
     from repro_torch.launch import dryrun
     from repro_torch.parallel.comm import AbstractMesh
     cfg = _ep_cfg(smoke)
-    ranks, t_ranks = _two_ranks(_ep_run, seed, card_dev, smoke)
+    ranks, t_ranks = _ranks_of(_ep_run, parts, seed, card_dev,
+                              smoke)
     t0 = time.perf_counter()
     am = AbstractMesh(MESH_TP, ("data", "model"))
     for kind, seq, key in (("train", MESH_SEQ, "train_counts"),
@@ -4109,7 +4181,7 @@ def mesh_ep(seed: int, smi: str, card_dev: str = "cuda",
           f"served {[round(r['serve_peak'] / 1e9, 3) for r in ranks]} GB "
           f"(unsharded {r0['serve_peak_unsharded'] / 1e9:.3f}), trained "
           f"{[round(r['peak'] / 1e9, 3) for r in ranks]} GB (unsharded "
-          f"{r0['peak_unsharded'] / 1e9:.3f}); seconds: the two processes "
+          f"{r0['peak_unsharded'] / 1e9:.3f}); seconds: the part on rank 0 "
           f"{t_ranks:.1f} (rank 0's sharded serving "
           f"{r0['serve_seconds']:.1f}, step {r0['seconds']:.1f}), the dry "
           f"run's traces {t_trace:.1f}; card {smi}")
@@ -4261,7 +4333,7 @@ def _mla_want_launches(cfg, part: str) -> dict:
 
 
 def mesh_mla(seed: int, smi: str, card_dev: str = "cuda",
-             smoke: bool = False) -> dict:
+             smoke: bool = False, parts=None) -> dict:
     """21(g): :func:`_mla_run` in two processes on the one card on the (1, 2)
     mesh, tensor parallel over MLA's heads: each served cut's prefill
     logits within 1e-5 of max |logit| of the unsharded prefill's and its
@@ -4276,7 +4348,8 @@ def mesh_mla(seed: int, smi: str, card_dev: str = "cuda",
     from repro_torch.configs import InputShape
     from repro_torch.launch import dryrun
     from repro_torch.parallel.comm import AbstractMesh
-    ranks, t_ranks = _two_ranks(_mla_run, seed, card_dev, smoke)
+    ranks, t_ranks = _ranks_of(_mla_run, parts, seed, card_dev,
+                              smoke)
     t0 = time.perf_counter()
     am = AbstractMesh(MESH_TP, ("data", "model"))
     m = MESH_TP[1]
@@ -4359,7 +4432,7 @@ def mesh_mla(seed: int, smi: str, card_dev: str = "cuda",
                   f" GB, unsharded {r0['peak_unsharded'] / 1e9:.3f} GB; rank "
                   f"0's sharded seconds {r0['seconds']:.1f}; card {smi}")
         result[key] = r0
-    print(f"  21(g) seconds: the two processes {t_ranks:.1f}, the dry "
+    print(f"  21(g) seconds: the part on rank 0 {t_ranks:.1f}, the dry "
           f"run's traces {time.perf_counter() - t0:.1f}")
     return {"cuts": result, "launches": launched}
 
@@ -4471,7 +4544,7 @@ def _hybrid_want_launches(cfg) -> dict:
 
 
 def mesh_hybrid(seed: int, smi: str, card_dev: str = "cuda",
-                smoke: bool = False) -> dict:
+                smoke: bool = False, parts=None) -> dict:
     """21(h): :func:`_hybrid_run` in two processes on the one card on the
     (1, 2) mesh, tensor parallel over the Mamba2 heads and the shared
     attention's: the prefill's logits within 1e-5 of max |logit| of the
@@ -4488,7 +4561,8 @@ def mesh_hybrid(seed: int, smi: str, card_dev: str = "cuda",
     from repro_torch.launch import dryrun
     from repro_torch.parallel.comm import AbstractMesh
     cfg = _hybrid_cfg(smoke)
-    ranks, t_ranks = _two_ranks(_hybrid_run, seed, card_dev, smoke)
+    ranks, t_ranks = _ranks_of(_hybrid_run, parts, seed, card_dev,
+                              smoke)
     t0 = time.perf_counter()
     am = AbstractMesh(MESH_TP, ("data", "model"))
     for kind, seq, key in (("train", MESH_SEQ, "train_counts"),
@@ -4556,7 +4630,7 @@ def mesh_hybrid(seed: int, smi: str, card_dev: str = "cuda",
           f"served {[round(rk['serve_peak'] / 1e9, 3) for rk in ranks]} GB "
           f"(unsharded {r0['serve_peak_unsharded'] / 1e9:.3f}), trained "
           f"{[round(rk['peak'] / 1e9, 3) for rk in ranks]} GB (unsharded "
-          f"{r0['peak_unsharded'] / 1e9:.3f}); seconds: the two processes "
+          f"{r0['peak_unsharded'] / 1e9:.3f}); seconds: the part on rank 0 "
           f"{t_ranks:.1f} (rank 0's sharded serving "
           f"{r0['serve_seconds']:.1f}, step {r0['seconds']:.1f}), the dry "
           f"run's traces {t_trace:.1f}; card {smi}")
@@ -4570,8 +4644,210 @@ def mesh_hybrid(seed: int, smi: str, card_dev: str = "cuda",
             "peak_unsharded_bytes": r0["peak_unsharded"]}
 
 
+# 21(i): the encoder-decoder tensor and sequence parallel, two processes
+# on the one card on the (1, 2) mesh: full-width whisper_medium cut to 2
+# encoder and 2 decoder layers (phase 19's cut), 8 of the 16 heads of the
+# self- and cross-attention, half the MLP and the vocab a rank, the
+# encoder's 1500 frames and the decoder's 448 tokens split by rows;
+# served (1 x 1500 frames) and trained
+
+
+def _encdec_cfg(smoke: bool):
+    """(phase 19's cut of whisper_medium, fp32, one microbatch, chunked
+    attention in the CPU rehearsal; its frames)."""
+    cfg, frames = whisper_cfg(smoke, n_layers=2, n_dec_layers=2, accum=1)
+    return cfg.replace(attn_impl="chunked" if smoke else "kernel"), frames
+
+
+def _encdec_batch(cfg, frames: int, seed: int, dev) -> dict:
+    """One row of ``frames`` frame embeddings, ``dec_len`` decoder tokens
+    and their labels, drawn from ``seed``."""
+    rng = np.random.default_rng(seed)
+    return to_dev({
+        "frames": rng.standard_normal(
+            (1, frames, cfg.d_model)).astype(np.float32),
+        "dec_tokens": rng.integers(0, cfg.vocab, (1, cfg.dec_len)).astype(
+            np.int32),
+        "labels": rng.integers(0, cfg.vocab, (1, cfg.dec_len)).astype(
+            np.int32)}, dev)
+
+
+def _encdec_run(rank: int, seed: int, card_dev: str, smoke: bool) -> dict:
+    """One rank of 21(i): the mesh prefill of the cut whisper_medium (the
+    encoder on this rank's 8 of the 16 heads and 750 of the 1500 rows of
+    its stream, every decoder layer's cross K/V of the KV heads its query
+    heads read, the first token) and four greedy ticks on this rank's
+    blocks: logits, tokens, launches, op counts, the wrappers' shapes,
+    this rank's peak memory; then one train step at the base lr in fp32
+    and float64 (part A, ``_train_sharded``; the decoder's 448 tokens
+    split to 224 rows a rank).  Then, on rank 0, the unsharded prefill,
+    ticks and step from the same seed (``_train_unsharded``)."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import api
+    from repro_torch.models.common import init_params
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel import steps as st
+    cuda = card_dev == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    cfg, frames = _encdec_cfg(smoke)
+    mesh = make_mesh(MESH_TP, ("data", "model"), card_dev)
+    rules = shd.default_rules()
+    lay = st.state_layouts(cfg, mesh, rules)
+    batch = _encdec_batch(cfg, frames, seed, card_dev)
+    prompt = {"frames": batch["frames"]}
+    gen = lambda: torch.Generator(device=card_dev).manual_seed(seed)
+    _fresh(cuda)
+    t0 = time.perf_counter()
+    params = _blocks_from_seed(api.param_spec(cfg), lay.params, gen(),
+                               card_dev)
+    out = _mesh_serve(params, st.make_prefill_step(cfg, frames, mesh, rules,
+                                                   1),
+                      st.make_serve_step(cfg, mesh, rules, 1), prompt,
+                      card_dev, sync, kv0=1)
+    del params
+    sync()
+    out.update(serve_seconds=time.perf_counter() - t0,
+               serve_peak=torch.cuda.max_memory_allocated() if cuda else 0)
+    got, trained = _train_sharded(cfg, mesh, rules, lay, batch, gen,
+                                  card_dev, sync, rank == 0, global_batch=1)
+    out.update(got)
+    if rank:
+        out.pop("logits")
+        return out
+    _fresh(cuda)
+    params = init_params(api.param_spec(cfg), gen(), card_dev)
+    with torch.no_grad():
+        want = _mesh_serve(params, api.prefill_fn(cfg, frames),
+                           st.make_serve_step(cfg), prompt, card_dev, sync,
+                           kv0=1)
+    out["serve_peak_unsharded"] = torch.cuda.max_memory_allocated() \
+        if cuda else 0
+    del params
+    logits = out.pop("logits")[..., :cfg.vocab]
+    plain = want["logits"][..., :cfg.vocab]
+    out.update(logits_err=(logits - plain).abs().max().item(),
+               logits_max=plain.abs().max().item(),
+               tokens_unsharded=want["tokens"])
+    out.update(_train_unsharded(cfg, gen, card_dev, batch, trained, sync))
+    return out
+
+
+def mesh_encdec(seed: int, smi: str, card_dev: str = "cuda",
+                smoke: bool = False, parts=None) -> dict:
+    """21(i): :func:`_encdec_run` in two processes on the one card on the
+    (1, 2) mesh, tensor parallel over the self- and cross-attention's
+    heads, the MLP and the vocab, each stream split by rows: the
+    prefill's logits within 1e-5 of max |logit| of the unsharded
+    prefill's and its four ticks' tokens equal to the unsharded ones;
+    each rank's flash attentions (the encoder's, at S = T = 1500) and
+    flash decodes (the self and the cross, over 1500 frames) on half the
+    heads, its launches those of its cut (``structure_launches``,
+    ``train_launches``: the kernels run at a rank's heads, their count
+    is the model's) and its op counts the dry run's trace of the same
+    cells on an abstract (1, 2) mesh; the train step at the base lr held
+    against the unsharded one in fp32 and float64 (``_hold_trained``).
+    Prints each rank's peak memory beside the unsharded run's."""
+    from repro_torch.configs import InputShape
+    from repro_torch.launch import dryrun
+    from repro_torch.parallel.comm import AbstractMesh
+    cfg, frames = _encdec_cfg(smoke)
+    ranks, t_ranks = _ranks_of(_encdec_run, parts, seed, card_dev, smoke)
+    t0 = time.perf_counter()
+    am = AbstractMesh(MESH_TP, ("data", "model"))
+    for kind, key in (("train", "train_counts"), ("prefill",
+                                                  "prefill_counts"),
+                      ("decode", "tick_counts")):
+        cell = dryrun.trace_cell(cfg, InputShape("cut", frames, 1, kind),
+                                 am)["hlo_analysis"]
+        want = json.loads(json.dumps({k: cell[k] for k in (
+            "flops", "collective_bytes", "collective_counts")}))
+        for r, got in enumerate(ranks):
+            check(got[key] == want, f"21(i): rank {r}'s {kind} op counts "
+                  f"{got[key]} differ from the dry run's {want}")
+    t_trace = time.perf_counter() - t0
+    m = MESH_TP[1]
+    heads = [cfg.n_heads // m, cfg.dh, cfg.dh]
+    nd = cfg.n_dec_layers
+    for r, rk in enumerate(ranks):
+        sh = rk["shapes"]
+        # the CPU rehearsal's encoder attention is the plain one
+        check(sh["flash_attention"] == [heads] * cfg.n_layers or smoke,
+              f"21(i): rank {r}'s flash attentions took "
+              f"{sh['flash_attention']}, not {heads}")
+        check(sh["flash_decode"] == [heads] * 2 * nd * (1 + MESH_TICKS),
+              f"21(i): rank {r}'s flash decodes took {sh['flash_decode']}")
+    want = {"prefill": structure_launches(cfg, 1, 0),
+            "tick": structure_launches(cfg, 0, MESH_TICKS),
+            "train": train_launches(cfg, 1)}
+    if card_dev == "cuda":
+        for p, w in want.items():
+            for r, rk in enumerate(ranks):
+                check(rk[f"{p}_launches"] == w, f"21(i): rank {r}'s {p} "
+                      f"launched {rk[f'{p}_launches']}, not {w}")
+    r0 = ranks[0]
+    check(r0["logits_err"] <= 1e-5 * r0["logits_max"],
+          f"21(i): prefill logits off by {r0['logits_err']} (max |logit| "
+          f"{r0['logits_max']})")
+    check(r0["tokens"] == r0["tokens_unsharded"] == ranks[1]["tokens"],
+          f"21(i): tokens {r0['tokens']} against the unsharded "
+          f"{r0['tokens_unsharded']}")
+    for r, rk in enumerate(ranks):
+        check(card_dev != "cuda" or rk["serve_peak"]
+              < r0["serve_peak_unsharded"] and rk["peak"]
+              < r0["peak_unsharded"], f"21(i): rank {r}'s peak memory, served "
+              f"{rk['serve_peak']} and trained {rk['peak']}, not below the "
+              f"unsharded run's {r0['serve_peak_unsharded']} and "
+              f"{r0['peak_unsharded']}")
+    held = _hold_trained("21(i)", r0)
+    launched = {k: sum(rk[f"{p}_launches"][k] for rk in ranks
+                       for p in ("prefill", "tick", "train"))
+                for k in r0["train_launches"]}
+    print(f"  21(i) {cfg.name} {cfg.n_layers} + {nd} layers, 1 x {frames} "
+          f"frames and {cfg.dec_len} decoder tokens on a {MESH_TP} mesh, "
+          f"two processes on one card over gloo: {heads[0]} of "
+          f"{cfg.n_heads} heads of the self- and cross-attention a rank "
+          f"(flash attention {heads}, flash decode "
+          f"{sorted(set(map(tuple, r0['shapes']['flash_decode'])))}), "
+          f"{frames // m} of {frames} encoder rows and {cfg.dec_len // m} of "
+          f"{cfg.dec_len} decoder rows; prefill logits |diff| "
+          f"{r0['logits_err']:.3e} of max {r0['logits_max']:.3f}; "
+          f"{MESH_TICKS} ticks' tokens equal {r0['tokens']}; {held}; "
+          f"launches a rank: prefill {r0['prefill_launches']}, ticks "
+          f"{r0['tick_launches']}, step {r0['train_launches']}; op counts = "
+          f"the dry run's (prefill "
+          f"{r0['prefill_counts']['collective_counts']}, tick "
+          f"{r0['tick_counts']['collective_counts']}, step "
+          f"{r0['train_counts']['collective_counts']}); peak memory a rank "
+          f"served {[round(rk['serve_peak'] / 1e9, 3) for rk in ranks]} GB "
+          f"(unsharded {r0['serve_peak_unsharded'] / 1e9:.3f}), trained "
+          f"{[round(rk['peak'] / 1e9, 3) for rk in ranks]} GB (unsharded "
+          f"{r0['peak_unsharded'] / 1e9:.3f}); seconds: the part on rank 0 "
+          f"{t_ranks:.1f} (rank 0's sharded serving "
+          f"{r0['serve_seconds']:.1f}, step {r0['seconds']:.1f}), the dry "
+          f"run's traces {t_trace:.1f}; card {smi}")
+    return {**_trained_record(r0), "logits_err": r0["logits_err"],
+            "logits_max": r0["logits_max"], "tokens": r0["tokens"],
+            "tokens_unsharded": r0["tokens_unsharded"],
+            "shapes": r0["shapes"], "launches": launched,
+            "counts": r0["train_counts"],
+            "serve_peak_bytes": [rk["serve_peak"] for rk in ranks],
+            "serve_peak_unsharded_bytes": r0["serve_peak_unsharded"],
+            "peak_bytes": [rk["peak"] for rk in ranks],
+            "peak_unsharded_bytes": r0["peak_unsharded"]}
+
+
+# phase 21's two-rank parts, in the order they run in one pair of
+# processes: (the key of the phase's record, the rank's run, the checks
+# in this process)
+MESH_PARTS = (("tp", _tp_run, mesh_tp), ("fsdp", _fsdp_run, mesh_fsdp),
+              ("ep", _ep_run, mesh_ep), ("mla", _mla_run, mesh_mla),
+              ("hybrid", _hybrid_run, mesh_hybrid),
+              ("encdec", _encdec_run, mesh_encdec))
+
+
 def phase_mesh(seed: int, smi: str, card_dev: str = "cuda",
-               smoke: bool = False) -> dict:
+               smoke: bool = False,
+               parts: tuple = tuple(k for k, _, _ in MESH_PARTS)) -> dict:
     """Phase 21: the mesh layer (``parallel.sharding``, ``comm``,
     ``collectives``, ``pipeline``, the sharded ``parallel.steps``) on a
     one-rank (1, 1) ("data", "model") mesh over NCCL, started on a file
@@ -4580,8 +4856,11 @@ def phase_mesh(seed: int, smi: str, card_dev: str = "cuda",
     the tensor- and sequence-parallel step (21(d), :func:`mesh_tp`), the
     FSDP step that gathers a layer at a time (21(e), :func:`mesh_fsdp`),
     the expert-parallel MoE steps (21(f), :func:`mesh_ep`), the
-    tensor-parallel MLA steps (21(g), :func:`mesh_mla`) and the tensor-
-    and sequence-parallel hybrid (21(h), :func:`mesh_hybrid`).
+    tensor-parallel MLA steps (21(g), :func:`mesh_mla`), the tensor- and
+    sequence-parallel hybrid (21(h), :func:`mesh_hybrid`) and
+    encoder-decoder (21(i), :func:`mesh_encdec`): those of ``parts``
+    (keys of :data:`MESH_PARTS`), run one after another in one pair of
+    processes, then each checked here.  Prints the seconds of each part.
     ``card_dev="cpu"`` with ``smoke`` rehearses it on gloo with the
     reduced config and chunked attention (the CPU's attention is the
     oracle's, whose backward the card's does not share)."""
@@ -4598,6 +4877,7 @@ def phase_mesh(seed: int, smi: str, card_dev: str = "cuda",
     gc.collect()
     _release_host_memory()
     print(f"  the main process's host memory: {_rss_gb():.2f} GB")
+    t_one = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="mesh_store_")
     dist.init_process_group("nccl" if card_dev == "cuda" else "gloo",
                             init_method=f"file://{tmp}/store", rank=0,
@@ -4646,19 +4926,23 @@ def phase_mesh(seed: int, smi: str, card_dev: str = "cuda",
         shutil.rmtree(tmp, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
-    out["tp"] = mesh_tp(seed, smi, card_dev, smoke)
-    gc.collect()
-    torch.cuda.empty_cache()
-    out["fsdp"] = mesh_fsdp(seed, smi, card_dev, smoke)
-    gc.collect()
-    torch.cuda.empty_cache()
-    out["ep"] = mesh_ep(seed, smi, card_dev, smoke)
-    gc.collect()
-    torch.cuda.empty_cache()
-    out["mla"] = mesh_mla(seed, smi, card_dev, smoke)
-    gc.collect()
-    torch.cuda.empty_cache()
-    out["hybrid"] = mesh_hybrid(seed, smi, card_dev, smoke)
+    seconds = {"21(a)-(c)": time.perf_counter() - t_one}
+    chosen = [p for p in MESH_PARTS if p[0] in parts]
+    t0 = time.perf_counter()
+    ranks = _two_ranks([run for _, run, _ in chosen], seed, card_dev, smoke)
+    seconds["two processes"] = time.perf_counter() - t0
+    for key, run, checks in chosen:
+        t0 = time.perf_counter()
+        out[key] = checks(seed, smi, card_dev, smoke, ranks)
+        seconds[key] = {"rank 0": ranks[run.__name__][1],
+                        "checks": time.perf_counter() - t0}
+    print(f"  phase 21's seconds: the one-rank parts "
+          f"{seconds['21(a)-(c)']:.1f}, the two processes "
+          f"{seconds['two processes']:.1f} (each part "
+          f"on rank 0, then its checks here: " + ", ".join(
+              f"{k} {v['rank 0']:.1f} + {v['checks']:.1f}"
+              for k, v in seconds.items() if isinstance(v, dict)) + ")")
+    out["seconds"] = seconds
     print("[21] " + json.dumps({"mesh": {**{k: v for k, v in out.items()
                                             if k != "events_added"},
                                          "card": smi}}))
@@ -4666,6 +4950,7 @@ def phase_mesh(seed: int, smi: str, card_dev: str = "cuda",
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
@@ -4764,8 +5049,8 @@ def main() -> int:
     torch.cuda.empty_cache()        # whisper's tensors are gone
     mesh = phase(21, "the mesh layer on a one-rank NCCL mesh, the dry "
                      "run's counter, two-rank tensor- and sequence-"
-                     "parallel, FSDP, expert-parallel, MLA and hybrid "
-                     "steps",
+                     "parallel, FSDP, expert-parallel, MLA, hybrid and "
+                     "encoder-decoder steps",
                  phase_mesh,
                  seed, smi)
     by_path["mesh"] = mesh["launches"]
@@ -4774,6 +5059,7 @@ def main() -> int:
     by_path["mesh_ep"] = mesh["ep"]["launches"]
     by_path["mesh_mla"] = mesh["mla"]["launches"]
     by_path["mesh_hybrid"] = mesh["hybrid"]["launches"]
+    by_path["mesh_encdec"] = mesh["encdec"]["launches"]
     del mesh
     gc.collect()
     torch.cuda.empty_cache()        # the mesh's tensors are gone
@@ -4828,6 +5114,8 @@ def main() -> int:
                       "bound_ms": x["bound"][0], "bound_by": x["bound"][1],
                       "library_ms": x["library_ms"]}
                      for (n, t, sz), x in rows.items() if n == name]})
+    print(f"[total] {time.perf_counter() - t_start:.1f} s, the kernels' "
+          f"build included; profiler passes taken again: {LOST_PASSES[0]}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

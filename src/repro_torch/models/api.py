@@ -40,12 +40,14 @@ def prefill_fn(cfg: ArchConfig, cache_len: int,
                ssm_heads: Optional[int] = None) -> Callable:
     """cache_len: the KV cache capacity to allocate (the encoder-decoder's
     self cache is ``dec_len`` rows, its cross cache the frames given);
-    kv_heads, ssm_heads: the KV heads of a decoder's cache and the Mamba2
-    heads of a hybrid's (every one where not given; a tensor-parallel
-    device's, ``parallel.steps``)."""
+    kv_heads, ssm_heads: the KV heads of a decoder's cache (the
+    encoder-decoder's self and cross caches) and the Mamba2 heads of a
+    hybrid's (every one where not given; a tensor-parallel device's,
+    ``parallel.steps``)."""
     if cfg.family == "encdec":
         def _encdec_prefill(params, batch):
-            cache = ed.encdec_prefill(cfg, params, batch["frames"])
+            cache = ed.encdec_prefill(cfg, params, batch["frames"],
+                                      kv_heads)
             b = batch["frames"].shape[0]
             dev = batch["frames"].device
             bos = torch.zeros((b, 1), dtype=torch.long, device=dev)
@@ -73,7 +75,8 @@ def cache_spec(cfg: ArchConfig, shape: InputShape,
                kv_heads: Optional[int] = None,
                ssm_heads: Optional[int] = None):
     if cfg.family == "encdec":
-        return ed.encdec_cache_spec(cfg, shape.global_batch, shape.seq_len)
+        return ed.encdec_cache_spec(cfg, shape.global_batch, shape.seq_len,
+                                    kv_heads)
     return tf.decode_cache_spec(cfg, shape.global_batch, shape.seq_len,
                                 kv_heads, ssm_heads)
 

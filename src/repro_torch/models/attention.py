@@ -172,20 +172,28 @@ def heads_output(y, tp: Optional[tensor.TensorParallel]):
         else tensor.scatter_seq(y, sp)
 
 
+def kv_weights(params, tp: Optional[tensor.TensorParallel]):
+    """A layer's (wk, wv): whole, or under a head split ``tp``
+    (:func:`head_split`) the KV heads this device's query heads read
+    (``TensorParallel.kv_heads``), sliced from the whole leaves, whose
+    gradients are summed over the axis."""
+    wk, wv = params["wk"], params["wv"]
+    if tp is None:
+        return wk, wv
+    heads = tp.kv_heads(params["wq"].shape[1] * tp.size, wk.shape[1])
+    return tuple(tensor.into_split(w, tp).narrow(1, heads.start, len(heads))
+                 for w in (wk, wv))
+
+
 def _project(params, x):
     """Unrotated (q, k, v) of ``x``: every head, or under a head split
     (:func:`head_split`) this device's query heads and the KV heads they
-    read (``TensorParallel.kv_heads``); of the whole sequence where ``x``
-    is this device's rows of a split stream."""
-    wq, wk, wv = params["wq"], params["wk"], params["wv"]
+    read (:func:`kv_weights`); of the whole sequence where ``x`` is this
+    device's rows of a split stream."""
     tp = head_split(params)
     x = heads_input(x, tp)
-    if tp is not None:
-        heads = tp.kv_heads(wq.shape[1] * tp.size, wk.shape[1])
-        wk, wv = (tensor.into_split(w, tp).narrow(1, heads.start,
-                                                  len(heads))
-                  for w in (wk, wv))
-    q = torch.einsum("bsd,dhk->bshk", x, wq)
+    wk, wv = kv_weights(params, tp)
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
     k = torch.einsum("bsd,dnk->bsnk", x, wk)
     v = torch.einsum("bsd,dnk->bsnk", x, wv)
     return q, k, v

@@ -29,10 +29,11 @@ the dense decoder with precomputed image-patch embeddings before the
 text (``img_embeds``); its image positions take no loss.  The
 encoder-decoder family is ``encdec.py``.
 
-Inside a tensor-parallel mesh step (``parallel.tensor``; the dense, VLM
-and MoE families, GQA or MLA) the embedding, the attention, the SwiGLU
-and the experts take their "model" blocks of the weights and sum over
-the axis, the logits stay cut by vocab through the loss
+Inside a tensor-parallel mesh step (``parallel.tensor``; the dense, VLM,
+MoE and hybrid families, GQA or MLA, and the encoder-decoder, whose
+``encdec.py`` uses the same pieces) the embedding, the attention, the
+SwiGLU and the experts take their "model" blocks of the weights and sum
+over the axis, the logits stay cut by vocab through the loss
 (``cross_entropy(split=...)``), and the prefill's and the decode's
 logits are gathered whole.  The step passes the cache's KV-head count
 (``kv_heads=``: those this device's query heads read; MLA's latent

@@ -35,21 +35,22 @@ every mesh step of a MoE model the dispatch sees the step's row groups
 ``global_batch=`` rows over) and takes JAX's global capacity and
 positions.
 
-The dense, VLM, MoE and hybrid decoders (GQA or MLA attention) compute
-tensor parallel over "model" where the rules do not cut the batch over
-it (``act_shard="seq"``; ``parallel.tensor``): a layer gathers each leaf
-over every other axis, the layers take each leaf's "model" block (query
-heads, MLA's decompression, MLP columns and rows, experts, vocab rows,
-Mamba2's heads) and sum their partial results over the axis, the
-gradients stay those blocks (reduced over the other axes only), and the
-label count and the reported loss sum over the other axes only, since
-the devices of a model axis are parts of one computation, not copies;
-the residual stream is split by rows over the axis where the rules put
-"model" on its sequence.  Mamba2's fused in_proj and conv are gathered
-whole over "model" too (``tensor.keeps``), and the layer slices its
-heads' columns.  Everywhere else (the xLSTM and encoder-decoder
-families, ``act_shard="batch2d"``, a model axis of one device) each
-layer is gathered whole.  The ``abstract_*`` helpers give a device's
+The dense, VLM, MoE and hybrid decoders (GQA or MLA attention) and the
+encoder-decoder compute tensor parallel over "model" where the rules do
+not cut the batch over it (``act_shard="seq"``; ``parallel.tensor``): a
+layer gathers each leaf over every other axis, the layers take each
+leaf's "model" block (query heads, MLA's decompression, MLP columns and
+rows, experts, vocab rows, Mamba2's heads) and sum their partial results
+over the axis, the gradients stay those blocks (reduced over the other
+axes only), and the label count and the reported loss sum over the
+other axes only, since the devices of a model axis are parts of one
+computation, not copies; the residual stream is split by rows over the
+axis where the rules put "model" on its sequence (the encoder-decoder's
+encoder and decoder streams each by its own length).  Mamba2's fused
+in_proj and conv are gathered whole over "model" too (``tensor.keeps``),
+and the layer slices its heads' columns.  Everywhere else (the xLSTM
+family, ``act_shard="batch2d"``, a model axis of one device) each layer
+is gathered whole.  The ``abstract_*`` helpers give a device's
 arguments without storage, for the dry run.
 
 The train step updates the state in place, as the JAX trainer donates it
@@ -279,7 +280,8 @@ def _tensor_parallel(cfg, mesh, rules, lays, global_batch, accum: int = 1
                      ) -> Tuple[Optional[tensor.TensorParallel], Any]:
     """(the tensor-parallel context of a mesh step, ``parallel.tensor``,
     or None where the step gathers whole weights: off the dense, VLM, MoE
-    and hybrid families with GQA or MLA attention, on a "model" axis of
+    and hybrid families with GQA or MLA attention and the encoder-decoder
+    (``tensor.applies``), on a "model" axis of
     one device, and where the rules cut the batch (a microbatch of
     ``global_batch // accum`` rows, the rules' table where not given)
     over "model"; the ``keep`` of ``sharding.for_layers``: () without the
@@ -303,8 +305,12 @@ def _stream_shape(cfg: ArchConfig, batch) -> Tuple[int, int, int]:
 def _for_batch(tp: Optional[tensor.TensorParallel], cfg, batch
                ) -> Optional[tensor.TensorParallel]:
     """The context of one call of a step: ``tp`` with its stream split
-    where the rules split a stream of this batch's shape."""
-    return None if tp is None else tp.for_stream(_stream_shape(cfg, batch))
+    where the rules split a stream of this batch's shape; ``tp`` as it is
+    for the encoder-decoder, whose encoder and decoder streams each
+    decide (``models.encdec``)."""
+    if tp is None or cfg.family == "encdec":
+        return tp
+    return tp.for_stream(_stream_shape(cfg, batch))
 
 
 def _sharded_train_step(cfg, loss_fn, mesh, rules, base_lr, warmup,
@@ -413,8 +419,9 @@ def make_serve_step(cfg: ArchConfig, mesh=None,
 def _cache_heads(cfg, tp: Optional[tensor.TensorParallel]) -> Dict:
     """The heads of a decode cache in a step of context ``tp``, as
     ``api.cache_spec``'s keywords: ``kv_heads``, the KV heads this
-    device's query heads read (MLA's latent cache has no heads, and stays
-    whole over "model"), and in a hybrid ``ssm_heads``, the Mamba2 heads
+    device's query heads read (of the encoder-decoder's self and cross
+    caches both; MLA's latent cache has no heads, and stays whole over
+    "model"), and in a hybrid ``ssm_heads``, the Mamba2 heads
     it computes (``tensor.applies`` admits a hybrid only where they divide
     the axis); none off tensor parallelism (every head)."""
     if tp is None:

@@ -5,16 +5,18 @@ on "model"), and the residual stream split by rows between them where
 the rules place "seq" on "model" (``act_shard="seq"``, Megatron-SP).
 
 A mesh step of the dense, VLM, MoE or hybrid decoder (GQA or MLA
-attention) whose batch the rules do not cut over "model" (``steps``,
-:func:`applies`) gathers each parameter over every other axis, a layer
-at a time (``sharding.layer``), and hands the layer code the leaf's
-"model" block: wq (D, H/m, dh), wo (H/m, dh, D), MLA's wq_b (q_lora,
-H/m, dq) or wq (D, H/m, dq) and wkv_b (kv_lora, H/m, dk + dv), w_gate
-and w_up (D, F/m), w_down (F/m, D), the embedding (V/m, D), a MoE
-layer's routed experts (E/m, D, F) and (E/m, F, D), expert parallelism
-as the rules place "experts" (``models.moe``), and a Mamba2 layer's
-gated-norm scale (d_inner/m,) and out_proj (d_inner/m, D), the channels
-of its h/m heads (``models.ssm``).  A leaf the spec leaves whole over
+attention) or of the encoder-decoder whose batch the rules do not cut
+over "model" (``steps``, :func:`applies`) gathers each parameter over
+every other axis, a layer at a time (``sharding.layer``), and hands the
+layer code the leaf's "model" block: wq (D, H/m, dh), wo (H/m, dh, D),
+MLA's wq_b (q_lora, H/m, dq) or wq (D, H/m, dq) and wkv_b (kv_lora, H/m,
+dk + dv), w_gate and w_up (D, F/m), w_down (F/m, D), the embedding (V/m,
+D), a MoE layer's routed experts (E/m, D, F) and (E/m, F, D), expert
+parallelism as the rules place "experts" (``models.moe``), and a Mamba2
+layer's gated-norm scale (d_inner/m,) and out_proj (d_inner/m, D), the
+channels of its h/m heads (``models.ssm``); the encoder-decoder's
+cross-attention takes wq and wo as its self-attention does
+(``models.encdec``).  A leaf the spec leaves whole over
 "model" (a dimension that does not divide, wk, wv, MLA's wq_a and wkv_a,
 the norm scales, the router, Mamba2's A_log, D and dt_bias) stays whole.
 Mamba2's in_proj, conv_w and conv_b fuse z | x | B | C | dt (x | B | C
@@ -32,7 +34,10 @@ counterpart of JAX's constraint to ``("batch", "seq", "act_embed")``),
 whether a device holds rows [i S/m, (i + 1) S/m) of it between the
 sublayers (:func:`seq_split`).  Where S does not divide the axis (a
 decode's one row, an odd prompt) the spec drops "model" and the stream
-stays whole on every device of the axis.  The collectives between the
+stays whole on every device of the axis.  The encoder-decoder has two
+streams of their own lengths, its encoder's frames and its decoder's
+tokens: each decides for itself (``models.encdec``), as JAX's spec does
+for each of its constraints.  The collectives between the
 split and the stream are autograd functions over ``comm``, so the op
 counter counts them:
 
@@ -428,14 +433,15 @@ def gather_vocab(logits: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
 
 def applies(cfg, mesh, rules: shd.AxisRules, rows: Optional[int]) -> bool:
     """Whether a mesh step of ``cfg`` splits its layers over "model": the
-    dense, VLM, MoE and hybrid decoders with GQA or MLA attention (a MoE
-    model where its routed experts and its shared experts' width divide
-    the axis, so each device holds a block of the experts; a hybrid where
-    its Mamba2 heads do, so each device holds whole heads), on a mesh
-    with a "model" axis of more than one device that the batch of
-    ``rows`` rows (the rules' "batch" entry where not given) is not cut
-    over."""
-    if cfg.family not in ("dense", "vlm", "moe", "hybrid") \
+    dense, VLM, MoE and hybrid decoders with GQA or MLA attention and the
+    encoder-decoder (a MoE model where its routed experts and its shared
+    experts' width divide the axis, so each device holds a block of the
+    experts; a hybrid where its Mamba2 heads do, so each device holds
+    whole heads; an encoder-decoder where its heads do, as its
+    cross-attention needs), on a mesh with a "model" axis of more than
+    one device that the batch of ``rows`` rows (the rules' "batch" entry
+    where not given) is not cut over."""
+    if cfg.family not in ("dense", "vlm", "moe", "hybrid", "encdec") \
             or cfg.attn not in ("gqa", "mla") \
             or mesh is None or AXIS not in mesh.mesh_dim_names:
         return False
@@ -445,6 +451,8 @@ def applies(cfg, mesh, rules: shd.AxisRules, rows: Optional[int]) -> bool:
         return False
     if cfg.family == "hybrid" and (
             cfg.ssm_expand * cfg.d_model // cfg.ssm_headdim) % size:
+        return False
+    if cfg.family == "encdec" and cfg.n_heads % size:
         return False
     batch = rules.get("batch") if rows is None \
         else rules.spec(("batch",), (rows,), mesh)[0]

@@ -413,13 +413,16 @@ def test_chip_smoke_phase_21_rehearses_on_the_cpu(monkeypatch, capsys):
     served and trained on half the heads (and half the experts) against
     the unsharded runs; then 21(h) in two processes on the (1, 2) mesh:
     the hybrid served and trained on half the Mamba2 and attention heads
-    against the unsharded runs.  Every train step compared runs at the
+    against the unsharded runs; 21(d)-(h) in one pair of processes, as
+    the phase runs them.  Every train step compared runs at the
     base lr, moves every leaf, and is held in fp32 and in float64 (the
     phase checks each leaf; here the largest gaps)."""
     import chip_smoke
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    # 21(i) is rehearsed in tests/test_torch_encdec_parallel.py
     out = chip_smoke.phase_mesh(0, "CPU rehearsal", card_dev="cpu",
-                                smoke=True)
+                                smoke=True, parts=("tp", "fsdp", "ep", "mla",
+                                                   "hybrid"))
 
     def held(rec):
         """A step that moved every leaf at the base lr, its float64 first
@@ -479,3 +482,4 @@ def test_chip_smoke_phase_21_rehearses_on_the_cpu(monkeypatch, capsys):
     assert hybrid["shapes"]["rmsnorm_sumsq"] == [128] * 7 * 5
     assert hybrid["counts"]["collective_counts"]["reduce-scatter"] > 0
     assert "21(h)" in printed
+    assert "phase 21's seconds" in printed

@@ -104,7 +104,10 @@ def _batches(jc, accum: int, steps: int):
     # are gathered whole (their tensor-parallel steps are
     # tests/test_torch_mla_parallel.py's)
     pytest.param("minicpm3_4b", dict(act_shard="batch2d"), id="mla"),
-    pytest.param("whisper_medium", {}, id="encdec"),
+    # batch2d: the rules cut the 4 rows over "model", so the encoder and
+    # decoder layers are gathered whole (their tensor-parallel steps are
+    # tests/test_torch_encdec_parallel.py's)
+    pytest.param("whisper_medium", dict(act_shard="batch2d"), id="encdec"),
     # remat "dots" keeps the layers' matmul outputs and recomputes the
     # rest, the gather among them; accum 2 adds each microbatch's
     # reduced blocks into the fp32 accumulator

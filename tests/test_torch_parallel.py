@@ -210,6 +210,19 @@ def _perturbed_norms(js, seed: int = 7):
     return js._replace(params=params, opt=js.opt._replace(master=master))
 
 
+def encdec_batch(jc, rows: int, frames: int, seed: int) -> dict:
+    """An encoder-decoder's batch of ``rows`` rows: ``frames`` frame
+    embeddings, ``dec_len`` decoder tokens and their labels, drawn from
+    ``seed``."""
+    rng = np.random.default_rng(10 + seed)
+    return {"frames": rng.standard_normal(
+                (rows, frames, jc.d_model)).astype(np.float32),
+            "dec_tokens": rng.integers(0, jc.vocab, (rows, jc.dec_len),
+                                       dtype=np.int32),
+            "labels": rng.integers(0, jc.vocab, (rows, jc.dec_len),
+                                   dtype=np.int32)}
+
+
 def _first_grads(tc, state, batch, accum):
     """The port's unsharded gradients of ``batch`` at ``state``'s
     parameters, as its train step computes them before AdamW."""
@@ -303,7 +316,9 @@ def check_sharded_train(tmp_path, monkeypatch, mesh, act_shard, case):
     gradients (every leaf, the norm scales among them) equal the
     unsharded step's: at 1e-5 of a leaf's largest value in fp32 and
     1e-12 in float64.  A MoE layer gets its block of the experts and the
-    router whole (``_check_moe_blocks``)."""
+    router whole (``_check_moe_blocks``).  An encoder-decoder's batches
+    are :func:`encdec_batch`'s, ``seq`` frames a row, and its decoder's
+    stream is the one held to S/m rows."""
     arch = case.get("arch", "deepseek_7b")
     accum, steps, kw = case.get("accum", 1), 2, dict(total_steps=5,
                                                      warmup=2)
@@ -317,7 +332,8 @@ def check_sharded_train(tmp_path, monkeypatch, mesh, act_shard, case):
     # a VLM cell of 16 positions is 8 image patches and 8 tokens
     text = seq // 2 if jc.family == "vlm" else seq
     dc = DataConfig(seq_len=text, global_batch=4 * accum, vocab=jc.vocab)
-    batches = [synthetic_batch(dc, s) for s in range(steps)]
+    batches = [encdec_batch(jc, 4 * accum, seq, s) if jc.family == "encdec"
+               else synthetic_batch(dc, s) for s in range(steps)]
     if jc.family == "vlm":
         rng = np.random.default_rng(5)
         for b in batches:
@@ -360,8 +376,10 @@ def check_sharded_train(tmp_path, monkeypatch, mesh, act_shard, case):
     assert info_out["split_leaves"] == split
     assert tp == (act_shard == "seq")
     assert (split > 0) == tp or mesh == (1, 3)
-    # a tensor-parallel device held S/m rows of the residual stream
-    assert info_out["stream_rows"] == (seq // mesh[1] if tp else seq)
+    # a tensor-parallel device held S/m rows of the residual stream (an
+    # encoder-decoder's decoder stream: its dec_len tokens)
+    rows = jc.dec_len if jc.family == "encdec" else seq
+    assert info_out["stream_rows"] == (rows // mesh[1] if tp else rows)
     if tc.family == "moe":
         _check_moe_blocks(tc, info_out["moe"], mesh[1] if tp else 1,
                           seq // mesh[1] if tp else seq)

@@ -56,7 +56,10 @@ def _tp(cfg, mesh, act_shard="seq"):
     ("zamba2_7b", (8, 32), "seq", 8, False),
     ("xlstm_125m", (4, 2), "seq", 4, False),
     ("minicpm3_4b", (4, 2), "seq", 4, True),
-    ("whisper_medium", (4, 2), "seq", 4, False),
+    # the encoder-decoder: 16 heads split on 2 and 16, not on 32
+    ("whisper_medium", (4, 2), "seq", 4, True),
+    ("whisper_medium", (16, 16), "seq", 256, True),
+    ("whisper_medium", (8, 32), "seq", 8, False),
 ])
 def test_tensor_parallel_applies_where_the_rules_leave_model_free(
         arch, shape, act_shard, rows, want):

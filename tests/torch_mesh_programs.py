@@ -175,14 +175,18 @@ class _BlockSpy:
     conv) come whole.  ``heads`` collects, of every call, the heads of
     the SSD (``ssm.ssd_chunked``, ``ops.mamba_scan``, ``ssm.ssd_step``:
     "ssd") and the query and KV heads of attention
-    (``attention.attend_chunked``, ``ops.flash_decode``: "attn")."""
+    (``attention.attend_chunked``, ``ops.flash_decode``: "attn").  Of an
+    encoder-decoder (``encdec.encdec_loss``, ``encdec_prefill``,
+    ``encdec_decode``) ``rows`` is the decoder's stream's and
+    ``enc_rows`` the encoder's, as their layers last got them, and
+    ``encdec.attend_chunked`` counts as attention."""
 
     def __init__(self, lay):
         from repro_torch.kernels import ops
-        from repro_torch.models import attention, ssm, transformer
+        from repro_torch.models import attention, encdec, ssm, transformer
         from repro_torch.parallel import tensor
         from repro_torch.tree import leaves
-        self.split, self.rows, self.moe = 0, None, None
+        self.split, self.rows, self.moe, self.enc_rows = 0, None, None, None
         self.heads = {"ssd": set(), "attn": set()}
         lays, keeps = leaves(lay), tensor.keeps(lay)
         trunk, moe_apply = transformer._trunk, transformer.moe_apply
@@ -201,6 +205,18 @@ class _BlockSpy:
                  lambda q, k, *a: (q.shape[2], k.shape[2]))
         recorder(ops, "flash_decode", "attn",
                  lambda q, k, *a: (q.shape[2], k.shape[2]))
+        recorder(encdec, "attend_chunked", "attn",
+                 lambda q, k, *a: (q.shape[2], k.shape[2]))
+
+        def stream(name, key):
+            fn = getattr(encdec, name)
+
+            def block(cfg, p, h, *a, **k):
+                setattr(self, key, int(h.shape[1]))
+                return fn(cfg, p, h, *a, **k)
+            setattr(encdec, name, block)
+        stream("_enc_block", "enc_rows")
+        stream("_dec_block", "rows")
 
         def rows(cfg, params, x, *a, **k):
             self.rows = int(x.shape[1])
@@ -232,13 +248,18 @@ class _BlockSpy:
                         self.split += 1
                 assert tuple(x.shape) == tuple(want), (l.axes, x.shape, want)
 
-        for name in ("lm_loss", "lm_prefill", "lm_decode"):
-            fn = getattr(transformer, name)
+        for mod, name in ((transformer, "lm_loss"),
+                          (transformer, "lm_prefill"),
+                          (transformer, "lm_decode"),
+                          (encdec, "encdec_loss"),
+                          (encdec, "encdec_prefill"),
+                          (encdec, "encdec_decode")):
+            fn = getattr(mod, name)
 
             def spied(cfg, params, *a, _fn=fn, **k):
                 check(params)
                 return _fn(cfg, params, *a, **k)
-            setattr(transformer, name, spied)
+            setattr(mod, name, spied)
 
 
 class _GradSpy:
@@ -313,8 +334,8 @@ def sharded_train(rank, d):
     state, losses, counts = run(
         st.shard_state(_state_from(d, cfg), lay), batches, True)
     out = {"losses": losses, "counts": counts, "split_leaves": spy.split,
-           "stream_rows": spy.rows, "moe": spy.moe,
-           "heads": _heads_seen(spy)}
+           "stream_rows": spy.rows, "enc_rows": spy.enc_rows,
+           "moe": spy.moe, "heads": _heads_seen(spy)}
     first_grads = whole_grads()
     # every block is the layout's slice of the gathered state
     whole = st.gather_state(state, lay)
@@ -339,12 +360,14 @@ def sharded_train(rank, d):
 
 def sharded_prefill(rank, d):
     """The mesh prefill step from the parameters in ``d`` on this rank's
-    rows of ``d/tokens.npy``; rank 0 writes the gathered last logits, the
-    step's op counts and the leaves the layer code got as their "model"
-    blocks.  With ``ticks`` in ``info.json``, that many greedy serve
-    steps follow from the prefill's cache, and rank 0 also writes the
-    gathered tokens (the prefill's argmax first) and the first tick's op
-    counts."""
+    rows of ``d/tokens.npy`` (an encoder-decoder's: of ``d/frames.npy``,
+    its prefill the decoder's first token); rank 0 writes the gathered
+    last logits, the step's op counts and the leaves the layer code got
+    as their "model" blocks.  With ``ticks`` in ``info.json``, that many
+    greedy serve steps follow from the prefill's cache (from the fill
+    ``kv0`` there, the prompt's length where not given), and rank 0 also
+    writes the gathered tokens (the prefill's argmax first) and the first
+    tick's op counts."""
     from repro_torch.analysis import hlo
     from repro_torch.parallel import sharding as shd
     from repro_torch.parallel import steps as st
@@ -355,23 +378,24 @@ def sharded_prefill(rank, d):
     lay = st.state_layouts(cfg, mesh, rules)
     spy = _BlockSpy(lay.params)
     params = st.shard_state(_state_from(d, cfg), lay).params
-    tokens = torch.from_numpy(np.load(Path(d) / "tokens.npy"))
-    rows, s = tokens.shape
+    name = "frames" if cfg.family == "encdec" else "tokens"
+    prompt = torch.from_numpy(np.load(Path(d) / f"{name}.npy"))
+    rows, s = prompt.shape[:2]
     ticks = info.get("ticks", 0)
     step = st.make_prefill_step(cfg, s + ticks, mesh, rules, rows)
-    batch = st.batch_rows({"tokens": tokens}, mesh, rules)
+    batch = st.batch_rows({name: prompt}, mesh, rules)
     (logits, cache), rep = hlo.count(step, params, batch)
     whole = shd.gather(logits, ("batch", None), mesh, rules,
                        (rows, logits.shape[-1]))
     out = {"counts": _counts(rep), "split_leaves": spy.split,
-           "stream_rows": spy.rows, "moe": spy.moe,
-           "heads": _heads_seen(spy)}
+           "stream_rows": spy.rows, "enc_rows": spy.enc_rows,
+           "moe": spy.moe, "heads": _heads_seen(spy)}
     arrays = {"logits": whole.numpy()}
     if ticks:
         serve = st.make_serve_step(cfg, mesh, rules, rows)
         tok = {"token": torch.argmax(logits, -1).to(torch.int32)[:, None],
-               "kv_len": torch.full((logits.shape[0],), s,
-                                    dtype=torch.int32)}
+               "kv_len": torch.full((logits.shape[0],),
+                                    info.get("kv0", s), dtype=torch.int32)}
         got = [tok["token"]]
         for i in range(ticks):
             if i == 0:

@@ -14,7 +14,8 @@ the first step's gradients ("grads") it prints the largest gap, each
 leaf's as a share of that leaf's largest value: mesh against unsharded
 in fp32 and in float64, and each fp32 step against the float64
 unsharded step.  ``--norms`` draws the norm scales away from 1 as the
-``norms-mesh2`` case does; ``--seq`` sets the positions a row;
+``norms-mesh2`` case does; ``--seq`` sets the positions a row (an
+encoder-decoder's frames, ``test_torch_parallel.encdec_batch``);
 ``--set`` a field of both reduced configs, as a case's ``replace``.
 """
 import argparse
@@ -60,7 +61,9 @@ def main(argv=None) -> int:
     text = a.seq // 2 if jc.family == "vlm" else a.seq
     dc = tp.DataConfig(seq_len=text, global_batch=4 * a.accum,
                        vocab=jc.vocab)
-    batches = [tp.synthetic_batch(dc, s) for s in range(2)]
+    batches = [tp.encdec_batch(jc, 4 * a.accum, a.seq, s)
+               if jc.family == "encdec" else tp.synthetic_batch(dc, s)
+               for s in range(2)]
     if jc.family == "vlm":
         rng = np.random.default_rng(5)
         for b in batches:
